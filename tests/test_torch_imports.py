@@ -1,0 +1,107 @@
+"""rap_tpu_torch stands alone: no jax, no flax, no rap_tpu; CUDA by default.
+
+The port runs on a machine that has torch and numpy but no jax and no flax,
+so importing every module of the package must pull in neither (checked in a
+fresh interpreter), and no source may import rap_tpu, even its modules that
+import without jax. chip_smoke.py imports only torch, numpy, the standard
+library and rap_tpu_torch. The entry points default to device="cuda" and
+raise where there is no card instead of running on the CPU.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "rap_tpu_torch"
+MODULES = sorted(
+    ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+    for p in PKG.rglob("*.py")
+)
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_importing_the_port_loads_no_jax_flax_or_rap_tpu():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'rap_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len(" + repr(MODULES) + "))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) == len(MODULES) > 10
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: p.name)
+def test_no_source_imports_jax_or_rap_tpu(path):
+    assert not _imported_roots(path) & {"jax", "jaxlib", "flax", "rap_tpu"}
+
+
+def test_chip_smoke_imports_only_torch_numpy_stdlib_and_the_port():
+    allowed = {"torch", "numpy", "rap_tpu_torch", "__future__"} | set(sys.stdlib_module_names)
+    roots = _imported_roots(REPO / "chip_smoke.py")
+    assert roots <= allowed, roots - allowed
+
+
+def test_cuda_sources_include_no_pytorch_header():
+    sources = sorted((PKG / "csrc").glob("*.cu*"))
+    assert {p.name for p in sources} >= {"proj.cu", "attention.cu", "out_proj.cu", "ff.cu"}
+    for p in sources:
+        text = p.read_text()
+        assert "torch/" not in text and "ATen" not in text and "c10/" not in text, p.name
+        assert "Replaces the TPU kernel" in text or "replaces rap_tpu" in text or p.suffix == ".cuh"
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default device works here")
+
+
+def test_batch_defaults_to_cuda():
+    from rap_tpu_torch.core.batch import make_regular_synthetic_batch
+
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_regular_synthetic_batch(0, [[8, 8]], N=8, P=2)
+
+
+def test_init_params_defaults_to_cuda():
+    from rap_tpu_torch.models.config import DiTConfig
+    from rap_tpu_torch.models.dit import init_dit_params
+
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_dit_params(0, DiTConfig(embed_dim=64, num_layers=1, num_heads=1))
+
+
+def test_load_params_defaults_to_cuda():
+    from rap_tpu_torch.weights import load_params_npz
+
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_params_npz(REPO / "demo_data" / "ckpts" / "teacher3_last.npz")
+
+
+def test_chip_smoke_fails_without_a_card():
+    _no_card()
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
