@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Drive rap_tpu_torch's serving path once on one CUDA card and check it.
+"""Drive rap_tpu_torch's serving and training paths on one CUDA card, check them.
 
     python3 chip_smoke.py              # every phase, as the check runs it
     python3 chip_smoke.py --phases build,kernels
+    python3 chip_smoke.py --phases build,kernels,train
 
 Phases, each printed on its own flushed line with its wall time:
 
 1. build    one nvcc call over rap_tpu_torch/csrc/*.cu into
             rap_tpu_torch/build/ (first use builds, an unchanged tree loads).
-2. kernels  each of the five kernels against its plain PyTorch version on the
-            card, at the main path's shapes (S=4 pairs x P=2 parts x N=4096
-            points, D=512, H=8, dh=64, FF hidden 2048, bf16): max abs and
-            relative error beside the stated tolerance. Attention is checked
-            at the part and the global shape, both variants, and the online
-            variant once more with a random key mask.
+2. kernels  each of the eight kernels against its plain PyTorch version on
+            the card, at the main path's shapes (S=4 pairs x P=2 parts x
+            N=4096 points, D=512, H=8, dh=64, FF hidden 2048, bf16): max abs
+            and relative error beside the stated tolerance. Attention is
+            checked at the part and the global shape, both variants, and the
+            online variant once more with a random key mask; the attention
+            backward at both shapes behind each forward variant, the proj
+            backward in both layouts, the ff backward at 32768 tokens.
 3. main     registration.sample + predict_poses at S=4 x 2 x 4096, 2 Euler
             steps, rigidity forcing, bf16, with random weights from a seed at
             the width and depth of teacher3_last (6 layers, D=512). The qk
@@ -22,9 +25,21 @@ Phases, each printed on its own flushed line with its wall time:
             the 12 attention calls per forward take the online kernel. Checks:
             finite output of the right shape, the launch counts of one sample,
             and agreement with the same call through the plain versions.
-4. timing   median ms per batch and pairs/s; each kernel's median time beside
-            its plain version, its bound and one PyTorch library call where
-            one computes the same function (scaled_dot_product_attention).
+4. train    one Muon step of the same model (fp32 random masters from a
+            seed, the same raised gains, so 6 online and 6 fixed attention
+            calls per forward) on 4 x 2 x 4096 points, remat on. Checks: at
+            the step's draws, the loss and every gradient leaf through the
+            kernels against the plain versions (and the plain fp32 path for
+            the bf16 noise floor); one step through the kernels and one
+            through the plain versions from the same state (loss, grad norm,
+            each updated leaf's first-order loss change); the launch counts
+            of one step; five more steps, finite and never skipped; the loss
+            at the fixed (t, x_1) falls over those six steps.
+5. timing   median ms per batch and pairs/s; median ms per train step and
+            tokens/s; each kernel's median time beside its plain version, its
+            bound and one PyTorch library call where one computes the same
+            function (scaled_dot_product_attention forward, and its backward
+            as forward+backward minus forward).
 
 Then it prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. Any failed
@@ -48,7 +63,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "main", "timing")
+PHASES = ("build", "kernels", "main", "train", "timing")
 
 # main path (bench.py:151-157 of the JAX package: 4 pairs of 2 x 4096 points)
 S, P, N = 4, 2, 4096
@@ -76,6 +91,21 @@ TOL_LSE_ABS = 2e-2  # base-2 log-sum-exp: l differs by ~2^-9 relative
 TOL_VELOCITY = 5e-2
 TOL_POINTS = 2e-2
 TOL_ROTATION_ABS = 2e-2
+# Training, kernels against plain versions from the same state. The loss
+# and the global gradient norm are sums over every token: 2e-2 relative.
+# Each gradient leaf: 5e-2 relative L2, or, where bf16 alone moves a leaf
+# further from the fp32 gradient (the qk gains' gradients are sums over all
+# tokens that nearly cancel), twice the distance of the plain bf16 path from
+# the plain fp32 path on that leaf: the kernels may be no worse than bf16
+# itself, with room for their own rounding order. That floored tolerance is
+# capped at TOL_TRAIN_LEAF_CAP, and a leaf whose bf16 floor exceeds the cap
+# fails: the check cannot see a kernel fault there. Updated parameters: each
+# leaf's first-order loss change within 5e-2 of the plain path's, relative
+# (the reason is stated in run_train).
+TOL_TRAIN_SCALAR = 2e-2
+TOL_TRAIN_LEAF = 5e-2
+TOL_TRAIN_LEAF_CAP = 0.1
+TRAIN_STEPS = 5  # further kernel steps after the first
 
 
 def log(msg: str) -> None:
@@ -197,7 +227,8 @@ def run_kernels(report, fails, state):
     state["inputs"] = inp
     state["attn"] = {}
     errs = state["max_abs_err"] = dict.fromkeys(("proj", "flash_fixed", "flash_online",
-                                                 "out_proj", "ff"), 0.0)
+                                                 "out_proj", "ff", "flash_bwd", "proj_bwd",
+                                                 "ff_bwd"), 0.0)
 
     def compare(kernel, label, got, ref, **kw):
         err = fails.compare(label, got, ref, **kw)
@@ -254,6 +285,47 @@ def run_kernels(report, fails, state):
                inp["bo"])
     compare("ff", "ff", ff.geglu_ff(*ff_args), ff.ff_plain(*ff_args))
 
+    # ---- backward kernels, at the training shapes --------------------------
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(torch.bfloat16)
+
+    state["attn_bwd"] = {}
+    for tag in ("part", "global"):
+        qh, kh, vah, _, b2 = state["attn"][tag]
+        dout = randn(*qh.shape)
+        for variant in ("fixed", "online"):
+            if variant == "fixed":
+                out, lse = fa.flash_fixed_kernel(qh, kh, vah, b2)
+            else:
+                out, lse = fa.flash_online_kernel(qh, kh, vah)
+            got = fa.flash_bwd(qh, kh, vah, out, lse, dout)
+            ref = fa.flash_bwd_plain(qh, kh, vah, out, lse, dout)
+            for nm, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
+                compare("flash_bwd", f"flash_bwd[{tag},{variant}].{nm}", g_, r_)
+            state["attn_bwd"][tag, variant] = (out, lse, dout)
+
+    gq_eff, gk_eff = fp.fold_gains(inp["gq"], inp["gk"])
+    state["proj_bwd_args"] = {}
+    for is_global in (False, True):
+        tag = "global" if is_global else "part"
+        lead = (S, H, P, N) if is_global else (S * P, H, N)
+        dva = randn(*lead, DH + 1)
+        dva[..., DH] = 0  # the attention backward's cotangent of the ones column
+        args = (inp["x"], inp["ada"], inp["w_qkv"], gq_eff, gk_eff, randn(*lead, DH),
+                randn(*lead, DH), dva, P, is_global)
+        got = fp.proj_bwd_kernel(*args)
+        for nm, g_, r_ in zip(("dx", "dada", "dw", "dgq", "dgk"), got, fp.proj_bwd_plain(*args)):
+            compare("proj_bwd", f"proj_bwd[{tag}].{nm}", g_, r_)
+        state["proj_bwd_args"][tag] = args
+
+    ffb_args = (inp["x"].reshape(-1, D), randn(inp["tokens"], D, scale=0.1), inp["ln_s"],
+                inp["ln_b"], inp["wi"], inp["bi"].float(), inp["wo"])
+    got = ff.ff_bwd_kernel(*ffb_args)
+    for nm, g_, r_ in zip(("dx", "dws", "dwb", "dwi", "dbi", "dwo", "dbo"), got,
+                          ff.ff_bwd_plain(*ffb_args)):
+        compare("ff_bwd", f"ff_bwd.{nm}", g_, r_)
+    state["ff_bwd_args"] = ffb_args
+
 
 def build_main_params(cfg):
     from rap_tpu_torch.models.dit import attach_bounds, init_dit_params
@@ -301,7 +373,7 @@ def run_main(report, fails, state):
     expected = {
         "proj": 2 * LAYERS * STEPS, "out_proj": 2 * LAYERS * STEPS,
         "ff": LAYERS * STEPS, "flash_fixed": (2 * LAYERS - n_online) * STEPS,
-        "flash_online": n_online * STEPS,
+        "flash_online": n_online * STEPS, "flash_bwd": 0, "proj_bwd": 0, "ff_bwd": 0,
     }
     log(f"  launches in one sample: {counts}")
     fails.check("launch counts", counts == expected, f"expected {expected}")
@@ -341,6 +413,163 @@ def run_main(report, fails, state):
                  plain_cfg=plain)
 
 
+def build_train_params(cfg):
+    """fp32 random masters at the main path's width and depth, with the
+    same raised gains as ``build_main_params``."""
+    from rap_tpu_torch.models.dit import init_dit_params
+
+    params = init_dit_params(0, cfg, device="cuda", masters=True)
+    for i, prefix in ONLINE_LAYERS:
+        lp = params["layers"][i]
+        lp[f"{prefix}_q_gamma"] = lp[f"{prefix}_q_gamma"] * ONLINE_GAIN
+        lp[f"{prefix}_k_gamma"] = lp[f"{prefix}_k_gamma"] * ONLINE_GAIN
+    return params
+
+
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm()) / max(float(b.float().norm()), 1e-30)
+
+
+def run_train(report, fails, state):
+    from rap_tpu_torch.core.batch import make_regular_synthetic_batch
+    from rap_tpu_torch.models.config import DiTConfig
+    from rap_tpu_torch.models.dit import attention_bounds
+    from rap_tpu_torch.ops import launch_counts, reset_launches
+    from rap_tpu_torch.ops.flash_attention import SAFE_BOUND2
+    from rap_tpu_torch.registration import RPFConfig, training_forward
+    from rap_tpu_torch.train.optim import Optimizer, OptimizerConfig, tree_paths, tree_replace
+    from rap_tpu_torch.train.step import TrainState, make_eval_step, make_train_step
+
+    cfg = DiTConfig(num_layers=LAYERS)  # bf16, kernels on
+    rcfg = RPFConfig(model=cfg)
+    plain = RPFConfig(model=dataclasses.replace(cfg, use_kernels=False))
+    fp32 = RPFConfig(model=dataclasses.replace(cfg, use_kernels=False,
+                                               compute_dtype=torch.float32))
+    params = build_train_params(cfg)
+    n_online = sum(b > SAFE_BOUND2 for pair in attention_bounds(params) for b in pair)
+    batch = make_regular_synthetic_batch(
+        3, [[N] * P for _ in range(S)], N=N, P=P, S=S, feat_dim=cfg.local_feat_dim,
+        device="cuda",
+    )
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x_1 = torch.randn((S * P, N, 3), generator=gen, device="cuda")
+    t_fix = torch.tensor([0.2, 0.45, 0.7, 0.95], device="cuda")  # every t bin
+
+    # 1. loss and gradients at the draws of the step below (generator seed 7):
+    #    kernels, plain, plain fp32
+    def grads(c):
+        leaves = {k: p.detach().requires_grad_(True) for k, p in tree_paths(params)}
+        loss, _ = training_forward(tree_replace(params, leaves), c, batch,
+                                   torch.Generator(device="cuda").manual_seed(7))
+        g = torch.autograd.grad(loss, list(leaves.values()))
+        return float(loss.detach()), dict(zip(leaves, g))
+
+    def check_leaves(what, got, ref, ref32):
+        """Each leaf within TOL_TRAIN_LEAF of the plain path, or within twice
+        the plain bf16 path's distance from the plain fp32 one, at most
+        TOL_TRAIN_LEAF_CAP."""
+        worst, floored = (-1.0, ""), []
+        for k, r in ref.items():
+            err, floor = rel_l2(got[k], r), rel_l2(r, ref32[k])
+            tol = min(max(TOL_TRAIN_LEAF, 2 * floor), TOL_TRAIN_LEAF_CAP)
+            if floor > TOL_TRAIN_LEAF_CAP:
+                fails.check(f"{what} {k} bf16 floor", False,
+                            f"plain bf16 vs fp32 {floor:.4f} > cap {TOL_TRAIN_LEAF_CAP}")
+            if tol > TOL_TRAIN_LEAF:
+                floored.append(f"{k} {err:.3f} (floor {floor:.3f})")
+            if err / tol > worst[0]:
+                worst = (err / tol, f"{k}: {err:.4f} of tol {tol:.4f}")
+            if err > tol:
+                fails.check(f"{what} {k} vs plain", False, f"rel L2 {err:.4f} > {tol:.4f}")
+        log(f"  {len(ref)} {what} leaves vs plain: worst {worst[1]}; {len(floored)} held "
+            f"to the bf16 floor: {'; '.join(floored) or 'none'}")
+
+    (lk, gk), (lp, gp), (_, g32) = grads(rcfg), grads(plain), grads(fp32)
+    fails.check("train loss vs plain", abs(lk - lp) <= TOL_TRAIN_SCALAR * abs(lp),
+                f"kernels {lk:.6f} plain {lp:.6f} (tol {TOL_TRAIN_SCALAR} rel)")
+    check_leaves("gradient", gk, gp, g32)
+
+    # 2. one step through the kernels and one through the plain versions from
+    #    the same parameters and generator state
+    opt_cfg = OptimizerConfig()
+    step_k, step_p = make_train_step(rcfg, opt_cfg), make_train_step(plain, opt_cfg)
+    evaluate = make_eval_step(rcfg)
+    loss_before = float(evaluate(params, batch, None, x_1=x_1, t=t_fix)["loss"])
+    reset_launches()
+    sk, mk = step_k(TrainState.create(params, opt_cfg, seed=7), batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    sp, mp = step_p(TrainState.create(params, opt_cfg, seed=7), batch)
+    for name in ("loss", "grad_norm"):
+        a, b = float(mk[name]), float(mp[name])
+        fails.check(f"step {name} vs plain", abs(a - b) <= TOL_TRAIN_SCALAR * abs(b),
+                    f"kernels {a:.6f} plain {b:.6f}")
+    # Updated parameters. The update itself, d = new - old, is not fixed at
+    # bf16 on every leaf, the plain path's included: Muon's Newton-Schulz
+    # (bf16 on the card) lifts the rounding noise of a low-rank gradient to
+    # singular values near 1 (the time-MLP and AdaLN matrices see S=4
+    # timesteps, so their gradients have rank <= 4), and AdamW's first step
+    # is ~ -lr * sign(g), so an element whose gradient is within noise of 0
+    # steps either way. What the update does to the loss is fixed: its
+    # first-order loss change <g32, d>, g32 the plain fp32 gradient at the
+    # same draws, sees only the update's component along the gradient. Each
+    # leaf's <g32, d> through the kernels is held within TOL_TRAIN_LEAF of
+    # the plain path's, relative: a reversed update flips its sign, a scaled
+    # one scales it.
+    p0, pk, pp = (dict(tree_paths(x)) for x in (params, sk.params, sp.params))
+
+    def loss_change(p1, k):
+        return float((g32[k].double() * (p1[k] - p0[k]).double()).sum())
+
+    worst = (-1.0, "")
+    for k in pp:
+        dk, dp = loss_change(pk, k), loss_change(pp, k)
+        err = abs(dk - dp) / abs(dp) if dp else (0.0 if dk == 0.0 else float("inf"))
+        if err > worst[0]:
+            worst = (err, f"{k}: {dk:.4e} vs {dp:.4e}")
+        if err > TOL_TRAIN_LEAF:
+            fails.check(f"updated parameter {k} vs plain", False,
+                        f"first-order loss change {dk:.4e} vs {dp:.4e}, rel {err:.4f}")
+    log(f"  {len(pp)} updated parameter leaves, first-order loss change <g32, d> vs plain: "
+        f"worst {worst[1]}, rel {worst[0]:.2e} (tol {TOL_TRAIN_LEAF})")
+    # the raw update, for the record only (not held, as said above): its worst
+    # leaf, and how far the plain bf16 update is from the update the same
+    # optimizer makes from the plain fp32 gradient
+    u32, _ = Optimizer(opt_cfg).update(tree_replace(params, g32),
+                                       Optimizer(opt_cfg).init(params), params)
+    err_u, k_u = max((rel_l2(pk[k] - p0[k], pp[k] - p0[k]), k) for k in pp)
+    log(f"  raw update d, worst leaf {k_u}: kernels vs plain rel L2 {err_u:.3f}; "
+        f"plain vs fp32 gradient {rel_l2(pp[k_u] - p0[k_u], u32[k_u]):.3f}")
+    expected = {
+        "proj": 4 * LAYERS, "out_proj": 4 * LAYERS, "ff": 2 * LAYERS,
+        "flash_fixed": 2 * (2 * LAYERS - n_online), "flash_online": 2 * n_online,
+        "flash_bwd": 2 * LAYERS, "proj_bwd": 2 * LAYERS, "ff_bwd": LAYERS,
+    }
+    log(f"  launches in one train step: {counts}")
+    fails.check("train launch counts", counts == expected, f"expected {expected}")
+
+    # 3. five more steps through the kernels
+    s, losses = sk, [float(mk["loss"])]
+    for _ in range(TRAIN_STEPS):
+        s, m = step_k(s, batch)
+        vals = {k: float(m[k]) for k in ("loss", "grad_norm", "skipped_nonfinite")}
+        losses.append(vals["loss"])
+        fails.check(f"step {int(s.step)} finite, not skipped",
+                    np.isfinite(vals["loss"]) and np.isfinite(vals["grad_norm"])
+                    and vals["skipped_nonfinite"] == 0.0, str(vals))
+    # 4. the loss at the fixed couple falls
+    loss_after = float(evaluate(s.params, batch, None, x_1=x_1, t=t_fix)["loss"])
+    fails.check("loss at fixed (t, x_1) falls", loss_after < loss_before,
+                f"{loss_before:.6f} -> {loss_after:.6f} over {TRAIN_STEPS + 1} steps")
+    log(f"  step losses: {[round(x, 5) for x in losses]}")
+    report["train"] = {"loss_kernels": lk, "loss_plain": lp, "launches": counts,
+                       "loss_before": loss_before, "loss_after": loss_after,
+                       "step_losses": losses, "update_loss_change_rel_worst": worst[0],
+                       "update_rel_l2_worst": err_u}
+    state.update(train_counts=counts, train_step=step_k, train_state=s, train_batch=batch,
+                 train_plain=(step_p, params, opt_cfg))
+
+
 def kernel_rows(state, counts):
     """Time each kernel, its plain version and a library call; bounds."""
     import torch.nn.functional as F
@@ -353,15 +582,23 @@ def kernel_rows(state, counts):
     T = inp["tokens"]
     G = S * P
     gq_eff, gk_eff = fp.fold_gains(inp["gq"], inp["gk"])
+    train_counts = state.get("train_counts", {})
     rows = []
 
-    def row(name, source, replaces, fn_k, fn_p, fn_lib, flops, nbytes, shape, reps=10):
+    def row(name, source, replaces, fn_k, fn_p, fn_lib, flops, nbytes, shape, reps=10,
+            lib_ms=None):
         ms = cuda_time_ms(fn_k, reps)
         plain_ms = cuda_time_ms(fn_p, 3)
-        lib_ms = None if fn_lib is None else cuda_time_ms(fn_lib, reps)
+        if fn_lib is not None:
+            lib_ms = cuda_time_ms(fn_lib, reps)
         b_ms, b_by = bound(flops, nbytes)
+        # launches: on the serving path for the forward kernels, on the train
+        # step for the backward ones (train_launches: every kernel's on the
+        # train step)
+        main = train_counts if name.endswith("_bwd") else counts
         r = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-             "launches": counts.get(name, 0), "max_abs_err": state["max_abs_err"][name],
+             "launches": main.get(name, 0), "train_launches": train_counts.get(name, 0),
+             "max_abs_err": state["max_abs_err"][name],
              "ms": ms, "plain_ms": plain_ms,
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "shape": shape}
         log(f"  {name} [{shape}]: {ms:.4f} ms (plain {plain_ms:.4f}, library "
@@ -419,6 +656,55 @@ def kernel_rows(state, counts):
                     2 * T * D * 2 + D * 2 * FH * 2 + 2 * FH * 2 + FH * D * 2 + D * 2
                     + 2 * D * 4,
                     f"tokens {T}, D={D}, hidden {FH} bf16"))
+
+    # ---- backward kernels, at the training shapes --------------------------
+    for tag in ("part", "global"):
+        qh, kh, vah, _, _ = state["attn"][tag]
+        out, lse, dout = state["attn_bwd"][tag, "fixed"]
+        BH, Tn, _ = qh.shape
+        q_, k_, v_ = (a[None].detach().clone().requires_grad_(True)
+                      for a in (qh, kh, vah[..., :DH].contiguous()))
+
+        def sdpa_fwd(q_=q_, k_=k_, v_=v_):
+            with torch.no_grad():
+                F.scaled_dot_product_attention(q_, k_, v_, scale=float(np.log(2.0)))
+
+        def sdpa_fwd_bwd(q_=q_, k_=k_, v_=v_, dout=dout):
+            o = F.scaled_dot_product_attention(q_, k_, v_, scale=float(np.log(2.0)))
+            torch.autograd.grad(o, (q_, k_, v_), dout[None])
+
+        lib = cuda_time_ms(sdpa_fwd_bwd, 10) - cuda_time_ms(sdpa_fwd, 10)
+        r = row("flash_bwd", "rap_tpu_torch/csrc/attention_bwd.cu",
+                "rap_tpu/ops/pallas_attention.py:506",
+                lambda: fa.flash_bwd_kernel(qh, kh, vah, out, lse, dout),
+                lambda: fa.flash_bwd_plain(qh, kh, vah, out, lse, dout), None,
+                10 * BH * Tn * Tn * DH,
+                BH * Tn * (4 * DH * 2 + (DH + 1) * 2 + 4) + 3 * BH * Tn * DH * 2,
+                f"{tag}: BH={BH}, T={Tn}, d={DH} bf16", lib_ms=lib)
+        if tag == "global":
+            rows.append(r)
+
+    for tag in ("part", "global"):
+        args = state["proj_bwd_args"][tag]
+        r = row("proj_bwd", "rap_tpu_torch/csrc/proj_bwd.cu", "rap_tpu/ops/fused_proj.py:184",
+                lambda: fp.proj_bwd_kernel(*args), lambda: fp.proj_bwd_plain(*args), None,
+                # q and k recomputed (v's cotangent is given), dW, dh
+                16 * T * D * D,
+                T * D * 2 + G * 2 * D * 4 + D * 3 * D * 2 + 2 * D * 4 + 2 * T * D * 2
+                + T * H * (DH + 1) * 2 + T * D * 2 + G * 2 * D * 4 + D * 3 * D * 4
+                + 2 * D * 4,
+                f"{tag}: x ({G},{N},{D}) bf16")
+        if tag == "global":
+            rows.append(r)
+
+    ffb = state["ff_bwd_args"]
+    rows.append(row("ff_bwd", "rap_tpu_torch/csrc/ff_bwd.cu", "rap_tpu/ops/fused_ff.py:121",
+                    lambda: ff.ff_bwd_kernel(*ffb), lambda: ff.ff_bwd_plain(*ffb), None,
+                    # recompute 4 + dact 2 + dwo 2 + dwi 4 + dyln 4 (x T*D*FH)
+                    16 * T * D * FH,
+                    2 * T * D * 2 + 2 * D * 4 + D * 2 * FH * 2 + 2 * FH * 4 + FH * D * 2
+                    + T * D * 2 + 3 * D * 4 + D * 2 * FH * 4 + 2 * FH * 4 + FH * D * 4,
+                    f"tokens {T}, D={D}, hidden {FH} bf16"))
     return rows
 
 
@@ -445,6 +731,33 @@ def run_timing(report, fails, state):
     report["batch_ms"] = per_batch * 1e3
     report["pairs_per_s"] = S / per_batch
     report["plain_batch_ms"] = plain_batch * 1e3
+
+    step, s, batch = state["train_step"], state["train_state"], state["train_batch"]
+    s, _ = step(s, batch)  # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        s, m = step(s, batch)
+        float(m["loss"])  # the step's metrics reach the host
+        times.append(time.perf_counter() - t0)
+    per_step = float(np.median(times))
+    step_p, params, opt_cfg = state["train_plain"]
+    from rap_tpu_torch.train.step import TrainState
+
+    s_p = TrainState.create(params, opt_cfg, seed=7)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, m = step_p(s_p, batch)
+    float(m["loss"])
+    plain_step = time.perf_counter() - t0
+    tokens = S * P * N
+    log(f"  train step ({S} x {P} x {N} points, {LAYERS} layers, Muon, remat): median "
+        f"{per_step * 1e3:.2f} ms over 5 -> {tokens / per_step:.1f} tokens/s "
+        f"(plain versions: {plain_step * 1e3:.2f} ms, one run)")
+    report["train_step_ms"] = per_step * 1e3
+    report["train_tokens_per_s"] = tokens / per_step
+    report["plain_train_step_ms"] = plain_step * 1e3
     counts = report.get("launches", {})
     reset_launches()
     report["kernels"] = kernel_rows(state, counts)
@@ -462,8 +775,8 @@ def main(argv=None) -> int:
     if phases - set(PHASES):
         ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
     phases.add("build")  # every other phase runs the kernels
-    if "timing" in phases:  # times the inputs and the path of the two before
-        phases |= {"kernels", "main"}
+    if "timing" in phases:  # times the inputs and the paths of the phases before
+        phases |= {"kernels", "main", "train"}
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on the card",
@@ -484,6 +797,7 @@ def main(argv=None) -> int:
     steps = {"build": lambda: run_build(report),
              "kernels": lambda: run_kernels(report, fails, state),
              "main": lambda: run_main(report, fails, state),
+             "train": lambda: run_train(report, fails, state),
              "timing": lambda: run_timing(report, fails, state)}
     for name in PHASES:
         if name in phases:

@@ -71,6 +71,17 @@ __device__ __forceinline__ void load_b_nk(uint32_t& b0, uint32_t& b1,
   b1 = *reinterpret_cast<const uint32_t*>(p + 8);
 }
 
+// A fragment from a tile stored [k][m] (m contiguous): A[m][k] = s[k*ld + m].
+__device__ __forceinline__ void load_a_km(uint32_t* a, const bf16* s, int ld,
+                                          int row0, int k0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const bf16* p = s + (k0 + 2 * t) * ld + row0 + g;
+  a[0] = pack_raw(p[0], p[ld]);
+  a[1] = pack_raw(p[8], p[ld + 8]);
+  a[2] = pack_raw(p[8 * ld], p[9 * ld]);
+  a[3] = pack_raw(p[8 * ld + 8], p[9 * ld + 8]);
+}
+
 // Copy a rows x cols tile (cols % 8 == 0, 16-byte aligned rows) of a
 // row-major global matrix into shared memory, 16 bytes per thread and step.
 template <int NTHREADS>

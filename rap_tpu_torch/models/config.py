@@ -27,6 +27,7 @@ class DiTConfig:
     local_feat_concat_on: bool = True
     qk_norm: bool = True
     softcap: float = 0.0
+    dropout_rate: float = 0.0      # FF dropout in training; not ported (> 0 raises there)
     time_embed_channels: int = 256  # sinusoidal timestep channels
     compute_dtype: torch.dtype = torch.bfloat16
     use_kernels: bool = True

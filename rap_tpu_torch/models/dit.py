@@ -10,13 +10,27 @@ The encoding (NeRF PE, anchor embedding) runs in fp32 and is cast to the
 compute dtype; the per-part timestep sinusoid and the AdaLN MLPs are fp32;
 the head is fp32.
 
+Training: the same forward is differentiable (every kernel sits in a
+``torch.autograd.Function`` whose backward is a kernel too, or the plain
+vjp where the JAX package has none). With ``remat=True`` each layer runs
+under ``torch.utils.checkpoint`` (non-reentrant), the counterpart of
+``jax.checkpoint`` at dit.py:391-392, so its forward kernels run again in
+the backward. Trained parameters are fp32 masters (``master_params``), cast
+to the compute dtype inside the differentiated graph; the attention guard
+bounds move with the trained gains, so the caller passes ``bounds``
+computed from the current gains (``attention_bounds``: one stacked amax and
+one host read for all layers) before the forward, and the recompute sees
+the same fixed/online choice as the first forward.
+
 Not ported yet (each raises or is absent): the masked branch for padded
-batches (dit.py:228-268), ring attention, ``return_features``, ``latent``.
+batches (dit.py:228-268), ring attention, ``return_features``, ``latent``,
+FF dropout.
 
 Parameters are a nested dict like the JAX pytree, except that ``layers`` is
-a list of per-layer dicts (the stacked ``layers/*`` arrays split along L)
-and each layer carries the host-side guard inputs ``self_bound2`` and
-``global_bound2`` (see ``attention_bound2``).
+a list of per-layer dicts (the stacked ``layers/*`` arrays split along L).
+For serving each layer also carries the host-side guard inputs
+``self_bound2`` and ``global_bound2`` (see ``attach_bounds``); training
+parameters carry none.
 """
 
 from __future__ import annotations
@@ -26,6 +40,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..core.batch import PartBatch
@@ -46,19 +61,30 @@ KERNEL_WEIGHTS = (
 
 def attention_bound2(gamma_q: torch.Tensor, gamma_k: torch.Tensor) -> float:
     """Upper bound on the base-2 logits q·k of one attention call, from the
-    qk-norm gains (dit.py:214-217): log2(e)*sqrt(dh)*max|gq|*max|gk|. Computed
-    on the host once per layer, so the forward never syncs for the guard."""
+    qk-norm gains (dit.py:214-217): log2(e)*sqrt(dh)*max|gq|*max|gk|."""
     dh = gamma_q.shape[-1]
     return (math.log2(math.e) * math.sqrt(dh)
             * float(gamma_q.abs().max()) * float(gamma_k.abs().max()))
 
 
+def attention_bounds(params: Params) -> list[tuple[float, float]]:
+    """(self, global) guard bound of every layer from the current gains: one
+    stacked amax on the gains' device and one host read for all layers."""
+    layers = params["layers"]
+    gains = [lp[f"{prefix}_{qk}_gamma"] for lp in layers
+             for prefix in ("self", "global") for qk in ("q", "k")]
+    dh = gains[0].shape[-1]
+    with torch.no_grad():
+        m = torch.stack([g.float() for g in gains]).abs().amax(dim=(1, 2))
+        b = (m[0::2] * m[1::2]).cpu().double().tolist()
+    scale = math.log2(math.e) * math.sqrt(dh)
+    return [(scale * b[2 * i], scale * b[2 * i + 1]) for i in range(len(layers))]
+
+
 def attach_bounds(params: Params) -> Params:
-    for lp in params["layers"]:
-        for prefix in ("self", "global"):
-            lp[f"{prefix}_bound2"] = attention_bound2(
-                lp[f"{prefix}_q_gamma"], lp[f"{prefix}_k_gamma"]
-            )
+    """Attach each layer's guard bounds for serving (computed once here)."""
+    for lp, (b_self, b_global) in zip(params["layers"], attention_bounds(params)):
+        lp["self_bound2"], lp["global_bound2"] = b_self, b_global
     return params
 
 
@@ -78,9 +104,12 @@ def _linear_init(gen, fan_in, fan_out, bias=True):
     return p
 
 
-def init_dit_params(seed: int, cfg: DiTConfig, device="cuda") -> Params:
+def init_dit_params(seed: int, cfg: DiTConfig, device="cuda",
+                    masters: bool = False) -> Params:
     """Random parameters with the shapes of rap_tpu's init_dit_params, made
-    on the host from ``seed`` and moved to ``device``."""
+    on the host from ``seed`` and moved to ``device``: for serving (kernel
+    matrices in the compute dtype, bounds attached) or, with ``masters``,
+    as fp32 training masters."""
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     D, H, dh, C = cfg.embed_dim, cfg.num_heads, cfg.head_dim, cfg.time_embed_channels
@@ -119,7 +148,25 @@ def init_dit_params(seed: int, cfg: DiTConfig, device="cuda") -> Params:
             "fc3": _linear_init(gen, D // 2, cfg.out_dim, bias=False),
         },
     }
+    if masters:
+        return master_params(params, device)
     return to_device(attach_bounds(params), device, cfg.compute_dtype)
+
+
+def master_params(params: Params, device) -> Params:
+    """fp32 training masters on ``device``: every tensor copied, nothing cast
+    to the compute dtype, and no host-side guard bound (training recomputes
+    the bounds from the current gains every step)."""
+    device = torch.device(device)
+
+    def move(tree):
+        if isinstance(tree, dict):
+            return {k: move(v) for k, v in tree.items() if not k.endswith("_bound2")}
+        if isinstance(tree, list):
+            return [move(v) for v in tree]
+        return tree.detach().to(device=device, dtype=torch.float32, copy=True).contiguous()
+
+    return move(params)
 
 
 def to_device(params: Params, device, compute_dtype: torch.dtype) -> Params:
@@ -159,41 +206,40 @@ def _adaln_mlp(p, t_emb_sin):
 
 
 def _attention_block(lp, prefix, x, t_emb, cfg: DiTConfig, S: int, P: int,
-                     is_global: bool):
+                     is_global: bool, bound2: float):
     """x + AdaLN-prenorm attention sub-block (the fused branch, dit.py:183-226)."""
     G, N, D = x.shape
     H, dh = cfg.num_heads, cfg.head_dim
-    if cfg.use_kernels:
-        qkv, attend, out = (fused_proj.adaln_qkv,
-                            flash_attention.flash_attention_headmajor,
-                            fused_proj.attn_out)
-    else:
-        qkv, attend, out = (fused_proj.adaln_qkv_plain,
-                            flash_attention.flash_attention_headmajor_plain,
-                            fused_proj.out_plain)
+    kernels = cfg.use_kernels
     ada = _adaln_mlp(lp[f"{prefix}_prenorm"], t_emb)  # (G, 2D)
-    qh5, kh5, vah5 = qkv(
+    qh5, kh5, vah5 = fused_proj.adaln_qkv(
         x, ada, lp[f"{prefix}_qkv"]["kernel"], lp[f"{prefix}_q_gamma"],
-        lp[f"{prefix}_k_gamma"], P=P, is_global=is_global,
+        lp[f"{prefix}_k_gamma"], P=P, is_global=is_global, kernels=kernels,
     )
     seq = P * N if is_global else N
     B = S if is_global else G
-    out_hm = attend(
+    out_hm = flash_attention.flash_attention_headmajor(
         qh5.reshape(B * H, seq, dh), kh5.reshape(B * H, seq, dh),
-        vah5.reshape(B * H, seq, dh + 1), lp[f"{prefix}_bound2"],
+        vah5.reshape(B * H, seq, dh + 1), bound2, kernels=kernels,
     )
-    return out(
+    return fused_proj.attn_out(
         out_hm.reshape(qh5.shape), x, lp[f"{prefix}_out"]["kernel"],
-        lp[f"{prefix}_out"]["bias"], P=P, is_global=is_global,
+        lp[f"{prefix}_out"]["bias"], P=P, is_global=is_global, kernels=kernels,
     )
 
 
 def _geglu_ff(lp, x, cfg: DiTConfig):
-    ff = fused_ff.geglu_ff if cfg.use_kernels else fused_ff.ff_plain
-    return ff(
+    return fused_ff.geglu_ff(
         x, lp["ff_norm"]["scale"], lp["ff_norm"]["bias"], lp["ff_in"]["kernel"],
         lp["ff_in"]["bias"], lp["ff_out"]["kernel"], lp["ff_out"]["bias"],
+        kernels=cfg.use_kernels,
     )
+
+
+def _layer(h, lp, t_emb, cfg: DiTConfig, S: int, P: int, bounds):
+    h = _attention_block(lp, "self", h, t_emb, cfg, S, P, False, bounds[0])
+    h = _attention_block(lp, "global", h, t_emb, cfg, S, P, True, bounds[1])
+    return _geglu_ff(lp, h, cfg)
 
 
 def dit_forward(
@@ -203,10 +249,15 @@ def dit_forward(
     timesteps: torch.Tensor,  # (S,) per-sample t in [0, 1]
     batch: PartBatch,
     parts_per_sample: int,
+    remat: bool = False,
+    bounds: list[tuple[float, float]] | None = None,
 ) -> torch.Tensor:
     """Predict the velocity field: (G, N, out_dim) fp32.
 
     Requires the regular layout (G == S * P) and a batch without padding.
+    ``bounds``: (self, global) guard bound per layer; None takes the ones
+    attached at load (serving). ``remat``: recompute each layer's forward in
+    the backward instead of keeping its activations.
     """
     G, N, _ = x.shape
     S, P = timesteps.shape[0], parts_per_sample
@@ -242,10 +293,13 @@ def dit_forward(
         batch.per_sample_to_part(timesteps), cfg.time_embed_channels
     )
 
-    for lp in params["layers"]:
-        h = _attention_block(lp, "self", h, t_emb, cfg, S, P, False)
-        h = _attention_block(lp, "global", h, t_emb, cfg, S, P, True)
-        h = _geglu_ff(lp, h, cfg)
+    if bounds is None:
+        bounds = [(lp["self_bound2"], lp["global_bound2"]) for lp in params["layers"]]
+    for lp, b in zip(params["layers"], bounds, strict=True):
+        if remat and torch.is_grad_enabled():
+            h = checkpoint(_layer, h, lp, t_emb, cfg, S, P, b, use_reentrant=False)
+        else:
+            h = _layer(h, lp, t_emb, cfg, S, P, b)
 
     # ---- fp32 head ----------------------------------------------------------
     out = F.silu(_linear(params["final_mlp"]["fc1"], h.float()))

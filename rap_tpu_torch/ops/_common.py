@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-KERNELS = ("proj", "flash_fixed", "flash_online", "out_proj", "ff")
+KERNELS = ("proj", "flash_fixed", "flash_online", "out_proj", "ff",
+           "flash_bwd", "proj_bwd", "ff_bwd")
 
 # one plain integer per kernel, incremented only where the kernel launches
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)

@@ -7,6 +7,12 @@ csrc/ff.cu (TPU ``_ff_kernel``, fused_ff.py:55); ``ff_plain`` repeats its
 arithmetic and cast points in plain PyTorch (the role of ``_xla_reference``
 :71, exact GELU): products sum bf16 inputs in fp32, act is rounded to the
 compute dtype before the second product, the output is x + y in that dtype.
+
+``geglu_ff`` is a ``torch.autograd.Function``; its backward is csrc/ff_bwd.cu
+(TPU ``_ff_bwd_kernel``, fused_ff.py:121), twin ``ff_bwd_plain``: it
+recomputes the forward with the exact-erf GELU and its derivative
+(``_gelu_grad_terms`` :114), with the in-projection bias in fp32 as the TPU
+backward takes it (:251), and returns every weight gradient in fp32.
 """
 
 from __future__ import annotations
@@ -20,14 +26,17 @@ from ._common import LAUNCHES, check_input, on_cpu, require, stream_of
 _FF_TOKENS = 32  # csrc/ff.cu BM
 
 
+def _ln_stats(xf):
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    rstd = torch.rsqrt(var + 1e-5)
+    return (xf - mu) * rstd, rstd
+
+
 def ff_plain(x, ln_scale, ln_bias, wi, bi, wo, bo):
     dt = x.dtype
     fh = wo.shape[0]
-    xf = x.float()
-    mu = xf.mean(-1, keepdim=True)
-    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
-    h = ((xf - mu) * torch.rsqrt(var + 1e-5) * ln_scale.float()
-         + ln_bias.float()).to(dt)
+    h = (_ln_stats(x.float())[0] * ln_scale.float() + ln_bias.float()).to(dt)
     proj = h.float() @ wi.float() + bi.to(dt).float()
     act = proj[..., :fh] * F.gelu(proj[..., fh:], approximate="none")
     y = act.to(dt).float() @ wo.float() + bo.to(dt).float()
@@ -59,18 +68,112 @@ def ff_kernel(x2, ln_scale, ln_bias, wi, bi, wo, bo):
     return out
 
 
-def geglu_ff(x, ln_scale, ln_bias, wi, bi, wo, bo):
+def ff_bwd_plain(x, g, ln_scale, ln_bias, wi, bi, wo):
+    """Plain version of the ff backward kernel on x, g (..., D): (dx in x's
+    dtype, dws, dwb, dwi, dbi, dwo, dbo in fp32)."""
+    dt = x.dtype
+    D, fh = x.shape[-1], wo.shape[0]
+    gf = g.reshape(-1, D).to(dt).float()
+    xhat, rstd = _ln_stats(x.reshape(-1, D).float())
+    yln = (xhat * ln_scale.float() + ln_bias.float()).to(dt).float()
+    proj = yln @ wi.to(dt).float() + bi.float()
+    hidden, gate = proj[:, :fh], proj[:, fh:]
+    Phi = 0.5 * (1.0 + torch.erf(gate * 0.7071067811865476))
+    gelu = gate * Phi
+    dgelu = Phi + gate * torch.exp(-0.5 * gate * gate) * 0.3989422804014327
+    dact = gf @ wo.to(dt).float().transpose(0, 1)
+    dwo = (hidden * gelu).to(dt).float().transpose(0, 1) @ gf
+    dproj = torch.cat([dact * gelu, dact * hidden * dgelu], dim=-1)
+    dproj_dt = dproj.to(dt).float()
+    dwi = yln.transpose(0, 1) @ dproj_dt
+    dyln = dproj_dt @ wi.to(dt).float().transpose(0, 1)
+    dxhat = dyln * ln_scale.float()
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    dx = (gf + rstd * (dxhat - m1 - xhat * m2)).to(dt).reshape(x.shape)
+    return (dx, (dyln * xhat).sum(0), dyln.sum(0), dwi, dproj.sum(0), dwo,
+            gf.sum(0))
+
+
+def ff_bwd_kernel(x2, g2, ln_scale, ln_bias, wi, bi, wo):
+    """Launch csrc/ff_bwd.cu on CUDA tensors; x2, g2 are (T, D) tokens.
+    Returns what ``ff_bwd_plain`` returns."""
+    T, D = x2.shape
+    fh = wo.shape[0]
+    require(D % 64 == 0 and D <= 1024, f"ff backward takes D % 64 == 0, D <= 1024; got {D}")
+    require(fh % 64 == 0, f"ff backward takes a hidden width that is a multiple of 64, got {fh}")
+    require(T % 64 == 0, f"ff backward takes a token count that is a multiple of 64, got {T}")
+    check_input("x", x2, torch.bfloat16, (T, D))
+    check_input("g", g2, torch.bfloat16, (T, D))
+    check_input("ln_scale", ln_scale, torch.float32, (D,))
+    check_input("ln_bias", ln_bias, torch.float32, (D,))
+    check_input("wi", wi, torch.bfloat16, (D, 2 * fh))
+    check_input("bi", bi, torch.float32, (2 * fh,))
+    check_input("wo", wo, torch.bfloat16, (fh, D))
+    bf = dict(dtype=torch.bfloat16, device=x2.device)
+    f32 = dict(dtype=torch.float32, device=x2.device)
+    yln, act = torch.empty((T, D), **bf), torch.empty((T, fh), **bf)
+    dproj = torch.empty((T, 2 * fh), **bf)
+    dact, dyln = torch.empty((T, fh), **f32), torch.empty((T, D), **f32)
+    dx = torch.empty_like(x2)
+    dws, dwb, dbo = (torch.zeros((D,), **f32) for _ in range(3))
+    dwi, dbi = torch.zeros((D, 2 * fh), **f32), torch.zeros((2 * fh,), **f32)
+    dwo = torch.zeros((fh, D), **f32)
+    err = _build.load().lib.rtt_ff_bwd(
+        x2.data_ptr(), g2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+        wi.data_ptr(), bi.data_ptr(), wo.data_ptr(), yln.data_ptr(),
+        dact.data_ptr(), act.data_ptr(), dproj.data_ptr(), dyln.data_ptr(),
+        dx.data_ptr(), dws.data_ptr(), dwb.data_ptr(), dwi.data_ptr(),
+        dbi.data_ptr(), dwo.data_ptr(), dbo.data_ptr(), T, D, fh, stream_of(x2),
+    )
+    _build.check(err, "ff_bwd kernel")
+    LAUNCHES["ff_bwd"] += 1
+    return dx, dws, dwb, dwi, dbi, dwo, dbo
+
+
+class _GegluFF(torch.autograd.Function):
+    """Counterpart of ``_fused`` (fused_ff.py:258-285)."""
+
+    @staticmethod
+    def forward(ctx, x, ln_scale, ln_bias, wi, bi, wo, bo, kernels: bool):
+        args = (x, ln_scale, ln_bias, wi, bi, wo, bo)
+        ctx.save_for_backward(*args)
+        ctx.use_kernel = kernels and not on_cpu(*args)
+        if not ctx.use_kernel:
+            return ff_plain(*args)
+        dt = x.dtype
+        D = x.shape[-1]
+        out = ff_kernel(
+            x.reshape(-1, D), ln_scale.float().contiguous(),
+            ln_bias.float().contiguous(), wi.to(dt).contiguous(),
+            bi.to(dt).contiguous(), wo.to(dt).contiguous(), bo.to(dt).contiguous(),
+        )
+        return out.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ln_scale, ln_bias, wi, bi, wo, bo = ctx.saved_tensors
+        if ctx.use_kernel:
+            dt = x.dtype
+            D = x.shape[-1]
+            grads = ff_bwd_kernel(
+                x.reshape(-1, D), g.to(dt).reshape(-1, D).contiguous(),
+                ln_scale.float().contiguous(), ln_bias.float().contiguous(),
+                wi.to(dt).contiguous(), bi.float().contiguous(),
+                wo.to(dt).contiguous(),
+            )
+        else:
+            grads = ff_bwd_plain(x, g, ln_scale, ln_bias, wi, bi, wo)
+        dx, dws, dwb, dwi, dbi, dwo, dbo = grads
+        return (dx.reshape(x.shape), dws.to(ln_scale.dtype), dwb.to(ln_bias.dtype),
+                dwi.to(wi.dtype), dbi.to(bi.dtype), dwo.to(wo.dtype), dbo.to(bo.dtype),
+                None)
+
+
+def geglu_ff(x, ln_scale, ln_bias, wi, bi, wo, bo, kernels: bool = True):
     """x (..., D) + FF(LN(x)); wi (D, 2*FH) = (hidden | gate), wo (FH, D).
 
-    CPU tensors take ``ff_plain``; CUDA tensors launch the kernel.
+    Differentiable. CUDA tensors launch the kernels forward and backward;
+    CPU tensors, or ``kernels=False``, take the plain versions.
     """
-    if on_cpu(x, ln_scale, ln_bias, wi, bi, wo, bo):
-        return ff_plain(x, ln_scale, ln_bias, wi, bi, wo, bo)
-    dt = x.dtype
-    D = x.shape[-1]
-    out = ff_kernel(
-        x.reshape(-1, D), ln_scale.float().contiguous(),
-        ln_bias.float().contiguous(), wi.to(dt).contiguous(),
-        bi.to(dt).contiguous(), wo.to(dt).contiguous(), bo.to(dt).contiguous(),
-    )
-    return out.reshape(x.shape)
+    return _GegluFF.apply(x, ln_scale, ln_bias, wi, bi, wo, bo, kernels)

@@ -12,6 +12,14 @@ csrc/out_proj.cu (TPU ``_out_kernel``, fused_proj.py:458). ``proj_plain`` and
 ``out_plain`` repeat the kernels' arithmetic and cast points in plain PyTorch
 (the role of ``xla_reference`` :152 and ``out_xla_reference`` :501): the
 product sums bf16 inputs in fp32, as the kernels do.
+
+Both are ``torch.autograd.Function``s. The backward of ``adaln_qkv`` is
+csrc/proj_bwd.cu (TPU ``_proj_bwd_kernel``, fused_proj.py:184), twin
+``proj_bwd_plain``; its dW comes back in the caller's weight dtype straight
+from the fp32 sums (fp32 masters in training, :375-381). The backward of
+``attn_out`` is the plain vjp of the reference composition in the
+residual's dtype (``_fused_out_bwd`` :525 has no kernel either), so its dW is
+rounded to that dtype before it reaches an fp32 master.
 """
 
 from __future__ import annotations
@@ -24,10 +32,15 @@ from . import _build
 from ._common import LAUNCHES, check_input, on_cpu, require, stream_of
 
 
-def _ln(xf: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+def _ln_stats(xf: torch.Tensor, eps: float = 1e-5):
     mu = xf.mean(-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
-    return (xf - mu) * torch.rsqrt(var + eps)
+    rstd = torch.rsqrt(var + eps)
+    return (xf - mu) * rstd, rstd
+
+
+def _ln(xf: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    return _ln_stats(xf, eps)[0]
 
 
 def _to_head_major(a: torch.Tensor, P: int, is_global: bool) -> torch.Tensor:
@@ -94,6 +107,81 @@ def proj_kernel(x, ada, w, gq_eff, gk_eff, P: int, is_global: bool):
     return q, k, va
 
 
+def proj_bwd_plain(x, ada, w, gq_eff, gk_eff, dq, dk, dva, P: int,
+                   is_global: bool):
+    """Plain version of the proj backward kernel: (dx, d(ada) (G, 2D),
+    dW (D, 3D), d(gq_eff), d(gk_eff)); dx in x's dtype, the rest fp32."""
+    G, N, D = x.shape
+    H, dh = gq_eff.shape
+    dt = x.dtype
+    scale, shift = ada.float().chunk(2, dim=-1)
+    xhat, rstd = _ln_stats(x.float())
+    h = (xhat * (1.0 + scale[:, None, :]) + shift[:, None, :]).to(dt)
+    y = (h.float() @ w.to(dt).float()).reshape(G, N, 3, H, dh)
+
+    def rms_vjp(sec, d, gain):
+        r = torch.rsqrt((sec * sec).sum(-1, keepdim=True) + 1e-12)
+        dg = d * gain.float()
+        c = (dg * sec).sum(-1, keepdim=True) * r**3
+        return r * dg - sec * c, (d * sec * r).sum((0, 1))
+
+    def tokens(a5):
+        return _to_tokens(a5, G, P, is_global).float().reshape(G, N, H, dh)
+
+    dsec_q, dgq = rms_vjp(y[:, :, 0], tokens(dq), gq_eff)
+    dsec_k, dgk = rms_vjp(y[:, :, 1], tokens(dk), gk_eff)
+    dy = torch.stack([dsec_q, dsec_k, tokens(dva[..., :dh])], dim=2)
+    dy = dy.reshape(G, N, 3 * D).to(dt).float()
+    dw = h.float().reshape(-1, D).transpose(0, 1) @ dy.reshape(-1, 3 * D)
+    dhid = dy @ w.to(dt).float().transpose(0, 1)
+    dxhat = dhid * (1.0 + scale[:, None, :])
+    m1 = dxhat.mean(-1, keepdim=True)
+    m2 = (dxhat * xhat).mean(-1, keepdim=True)
+    dx = (rstd * (dxhat - m1 - xhat * m2)).to(dt)
+    dada = torch.cat([(dhid * xhat).sum(1), dhid.sum(1)], dim=-1)
+    return dx, dada, dw, dgq, dgk
+
+
+def proj_bwd_kernel(x, ada, w, gq_eff, gk_eff, dq, dk, dva, P: int,
+                    is_global: bool):
+    """Launch csrc/proj_bwd.cu on CUDA tensors; returns what
+    ``proj_bwd_plain`` returns."""
+    G, N, D = x.shape
+    H, dh = gq_eff.shape
+    require(dh == 64 and D == H * dh, f"proj backward takes dh=64, D=H*dh; got D={D}, H={H}")
+    require(N % 64 == 0, f"proj backward takes N % 64 == 0; got N={N}")
+    require(G % P == 0, f"G={G} is not a multiple of P={P}")
+    check_input("x", x, torch.bfloat16, (G, N, D))
+    check_input("ada", ada, torch.float32, (G, 2 * D))
+    check_input("w", w, torch.bfloat16, (D, 3 * D))
+    check_input("gq_eff", gq_eff, torch.float32, (H, dh))
+    check_input("gk_eff", gk_eff, torch.float32, (H, dh))
+    lead = (G // P, H, P, N) if is_global else (G, H, N)
+    check_input("dq", dq, torch.bfloat16, lead + (dh,))
+    check_input("dk", dk, torch.bfloat16, lead + (dh,))
+    check_input("dva", dva, torch.bfloat16, lead + (dh + 1,))
+    T = G * N
+    f32 = dict(dtype=torch.float32, device=x.device)
+    hbuf = torch.empty((T, D), dtype=x.dtype, device=x.device)
+    dybuf = torch.empty((T, 3 * D), dtype=x.dtype, device=x.device)
+    dhid = torch.empty((T, D), **f32)
+    dx = torch.empty_like(x)
+    dsc, dsh = torch.zeros((G, D), **f32), torch.zeros((G, D), **f32)
+    dw = torch.zeros((D, 3 * D), **f32)
+    dgain = torch.zeros((2 * D,), **f32)
+    err = _build.load().lib.rtt_proj_bwd(
+        x.data_ptr(), ada.data_ptr(), w.data_ptr(), gq_eff.data_ptr(),
+        gk_eff.data_ptr(), dq.data_ptr(), dk.data_ptr(), dva.data_ptr(),
+        hbuf.data_ptr(), dybuf.data_ptr(), dhid.data_ptr(), dx.data_ptr(),
+        dsc.data_ptr(), dsh.data_ptr(), dw.data_ptr(), dgain.data_ptr(),
+        G, N, D, H, P if is_global else 1, stream_of(x),
+    )
+    _build.check(err, "proj_bwd kernel")
+    LAUNCHES["proj_bwd"] += 1
+    return (dx, torch.cat([dsc, dsh], dim=-1), dw, dgain[:D].reshape(H, dh),
+            dgain[D:].reshape(H, dh))
+
+
 def fold_gains(gamma_q, gamma_k):
     """qk-norm gains folded with the softmax scale (fused_proj.py:436-437)."""
     dh = gamma_q.shape[-1]
@@ -101,23 +189,50 @@ def fold_gains(gamma_q, gamma_k):
             gamma_k.float() * math.sqrt(dh))
 
 
-def adaln_qkv(x, ada, w, gamma_q, gamma_k, P: int, is_global: bool):
+class _AdalnQKV(torch.autograd.Function):
+    """Counterpart of ``_fused`` (fused_proj.py:386-419)."""
+
+    @staticmethod
+    def forward(ctx, x, ada, w, gq_eff, gk_eff, P: int, is_global: bool,
+                kernels: bool):
+        ctx.save_for_backward(x, ada, w, gq_eff, gk_eff)
+        ctx.args = (P, is_global)
+        ctx.use_kernel = kernels and not on_cpu(x, ada, w, gq_eff, gk_eff)
+        if ctx.use_kernel:
+            return proj_kernel(x, ada.float().contiguous(), w.to(x.dtype).contiguous(),
+                               gq_eff.contiguous(), gk_eff.contiguous(), P, is_global)
+        return proj_plain(x, ada, w, gq_eff, gk_eff, P, is_global)
+
+    @staticmethod
+    def backward(ctx, dq, dk, dva):
+        x, ada, w, gq_eff, gk_eff = ctx.saved_tensors
+        if ctx.use_kernel:
+            grads = proj_bwd_kernel(
+                x, ada.float().contiguous(), w.to(x.dtype).contiguous(),
+                gq_eff.float().contiguous(), gk_eff.float().contiguous(),
+                dq.contiguous(), dk.contiguous(), dva.contiguous(), *ctx.args)
+        else:
+            grads = proj_bwd_plain(x, ada, w, gq_eff, gk_eff, dq, dk, dva, *ctx.args)
+        dx, dada, dw, dgq, dgk = grads
+        return (dx, dada.to(ada.dtype), dw.to(w.dtype), dgq.to(gq_eff.dtype),
+                dgk.to(gk_eff.dtype), None, None, None)
+
+
+def adaln_qkv(x, ada, w, gamma_q, gamma_k, P: int, is_global: bool,
+              kernels: bool = True):
     """Head-major (q, k, va) from tokens x (G, N, D), AdaLN (G, 2D) = (scale |
     shift), fused QKV weight w (D, 3D) and unfolded qk-norm gains (H, dh).
 
-    CPU tensors take ``proj_plain``; CUDA tensors launch the kernel.
+    Differentiable. CUDA tensors launch the kernels forward and backward;
+    CPU tensors, or ``kernels=False``, take the plain versions.
     """
     gq_eff, gk_eff = fold_gains(gamma_q, gamma_k)
-    if on_cpu(x, ada, w, gq_eff, gk_eff):
-        return proj_plain(x, ada, w, gq_eff, gk_eff, P, is_global)
-    return proj_kernel(x, ada.float().contiguous(), w.to(x.dtype).contiguous(),
-                       gq_eff.contiguous(), gk_eff.contiguous(), P, is_global)
+    return _AdalnQKV.apply(x, ada, w, gq_eff, gk_eff, P, is_global, kernels)
 
 
 def adaln_qkv_plain(x, ada, w, gamma_q, gamma_k, P: int, is_global: bool):
-    """``adaln_qkv`` through the plain version on any device."""
-    gq_eff, gk_eff = fold_gains(gamma_q, gamma_k)
-    return proj_plain(x, ada, w, gq_eff, gk_eff, P, is_global)
+    """``adaln_qkv`` through the plain versions on any device."""
+    return adaln_qkv(x, ada, w, gamma_q, gamma_k, P, is_global, kernels=False)
 
 
 def out_plain(a5, res, w, b, P: int, is_global: bool):
@@ -126,6 +241,20 @@ def out_plain(a5, res, w, b, P: int, is_global: bool):
     xt = _to_tokens(a5, G, P, is_global)
     y = xt.float() @ w.float() + b.to(res.dtype).float()
     return res + y.to(res.dtype)
+
+
+def out_bwd_plain(a5, w, g, P: int, is_global: bool):
+    """vjp of res + tokens(a5) @ w + b in the residual's dtype (that of g),
+    as ``out_xla_reference`` (:501) is differentiated: (d a5, d res, dW, db),
+    dW and db in g's dtype."""
+    G, N, D = g.shape
+    H, dh = a5.shape[1], a5.shape[-1]
+    dt = g.dtype
+    g2 = g.reshape(-1, D)
+    xt = _to_tokens(a5, G, P, is_global).to(dt).reshape(-1, H * dh)
+    da = (g2 @ w.to(dt).transpose(0, 1)).reshape(G, N, H, dh)
+    return (_to_head_major(da, P, is_global), g, xt.transpose(0, 1) @ g2,
+            g2.sum(0))
 
 
 def out_kernel(a5, res, w, b, P: int, is_global: bool):
@@ -150,14 +279,31 @@ def out_kernel(a5, res, w, b, P: int, is_global: bool):
     return out
 
 
-def attn_out(a5, res, w, b, P: int, is_global: bool):
+class _AttnOut(torch.autograd.Function):
+    """Counterpart of ``_fused_out`` (fused_proj.py:514-531)."""
+
+    @staticmethod
+    def forward(ctx, a5, res, w, b, P: int, is_global: bool, kernels: bool):
+        ctx.save_for_backward(a5, w, b)
+        ctx.args = (P, is_global)
+        if kernels and not on_cpu(a5, res, w, b):
+            dt = res.dtype
+            return out_kernel(a5, res, w.to(dt).contiguous(), b.to(dt).contiguous(),
+                              P, is_global)
+        return out_plain(a5, res, w, b, P, is_global)
+
+    @staticmethod
+    def backward(ctx, g):
+        a5, w, b = ctx.saved_tensors
+        da5, dres, dw, db = out_bwd_plain(a5, w, g.contiguous(), *ctx.args)
+        return da5.to(a5.dtype), dres, dw.to(w.dtype), db.to(b.dtype), None, None, None
+
+
+def attn_out(a5, res, w, b, P: int, is_global: bool, kernels: bool = True):
     """res + tokens(a5) @ w + b, with a5 head-major: part (G,H,N,dh), global
     (S,H,P,N,dh); res (G, N, D); w (H*dh, D); b (D,).
 
-    CPU tensors take ``out_plain``; CUDA tensors launch the kernel.
+    Differentiable. CUDA tensors launch the kernel; CPU tensors, or
+    ``kernels=False``, take ``out_plain``.
     """
-    if on_cpu(a5, res, w, b):
-        return out_plain(a5, res, w, b, P, is_global)
-    dt = res.dtype
-    return out_kernel(a5, res, w.to(dt).contiguous(), b.to(dt).contiguous(),
-                      P, is_global)
+    return _AttnOut.apply(a5, res, w, b, P, is_global, kernels)

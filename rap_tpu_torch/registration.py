@@ -1,12 +1,15 @@
-"""Rectified Point Flow sampling and pose fitting (counterpart of
-rap_tpu/registration.py:34-91, :167-287).
+"""Rectified Point Flow training forward, sampling and pose fitting
+(counterpart of rap_tpu/registration.py:34-287).
 
-Ported: ``RPFConfig``, ``velocity_fn``, ``sample`` (euler/rk2/rk4, any
-schedule, rigidity forcing, trajectories) and ``predict_poses``. The caller
-may pass the noise ``x_1``, so the same noise can drive both packages.
-Not ported yet: the pruned coarse-then-fine sampler (registration.py:193-245;
-``sample`` raises when ``prune_coarse_steps > 0``), transformer features and
-ring attention.
+Ported: ``RPFConfig``, ``training_forward`` (velocity loss, norms and the
+t-binned losses), ``velocity_fn``, ``sample`` (euler/rk2/rk4, any schedule,
+rigidity forcing, trajectories) and ``predict_poses``. The caller may pass
+the noise ``x_1`` (and, to training, the timesteps ``t``), so the same draws
+can drive both packages.
+Not ported yet: the pose loss (``pose_loss_weight > 0`` raises: it needs the
+gradient of the batched 3x3 SVD), FF dropout in training, the pruned
+coarse-then-fine sampler (registration.py:193-245; ``sample`` raises when
+``prune_coarse_steps > 0``), transformer features and ring attention.
 """
 
 from __future__ import annotations
@@ -16,18 +19,22 @@ from typing import Any
 
 import torch
 
-from .core import procrustes
+from .core import flow, procrustes
 from .core.batch import PartBatch
 from .core.sampler import flow_sampler
 from .models.config import DiTConfig
-from .models.dit import dit_forward
+from .models.dit import attention_bounds, dit_forward
 
 
 @dataclasses.dataclass(frozen=True)
 class RPFConfig:
-    """Pipeline configuration (the inference fields of rap_tpu's RPFConfig)."""
+    """Pipeline configuration (rap_tpu's RPFConfig without n_generations and
+    prune_factor)."""
 
     model: DiTConfig = dataclasses.field(default_factory=DiTConfig)
+    loss_type: str = "mse"
+    timestep_sampling: str = "u_shaped"
+    pose_loss_weight: float = 0.0  # the pose loss is not ported: > 0 raises
     inference_sampling_steps: int = 10
     inference_sampler: str = "euler"
     inference_schedule: str = "uniform"
@@ -41,6 +48,61 @@ def parts_per_sample(batch: PartBatch) -> int:
     if batch.G % batch.S:
         raise ValueError("batch is not in regular layout")
     return batch.G // batch.S
+
+
+def training_forward(
+    params,
+    cfg: RPFConfig,
+    batch: PartBatch,
+    generator: torch.Generator,
+    remat: bool = True,
+    x_1: torch.Tensor | None = None,
+    t: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """One training forward (registration.py:92-164): sample t, build the
+    flow target, predict v, loss. Returns (loss with its graph, metrics
+    detached): loss, norm_v_pred, norm_v_t and the t-binned losses.
+
+    ``t`` (S,) and ``x_1`` (G, N, 3) override the draws from ``generator``
+    (t first, then the noise, as rap_tpu splits its key). The attention
+    guard bounds are computed here from the current gains, once per call.
+    """
+    if cfg.model.dropout_rate > 0.0:
+        raise NotImplementedError(
+            "FF dropout in training takes the unfused FF (rap_tpu/models/dit.py:"
+            "281), which is not ported yet (ROADMAP section A2)")
+    if cfg.pose_loss_weight > 0.0:
+        raise NotImplementedError(
+            "the pose loss needs the gradient of the batched 3x3 SVD, which is "
+            "not ported yet (ROADMAP section A, training)")
+    if t is None:
+        t = flow.sample_timesteps(generator, batch.S, cfg.timestep_sampling)
+    x_0 = batch.points_gt
+    if x_1 is None:
+        x_1 = torch.randn(x_0.shape, generator=generator, dtype=x_0.dtype,
+                          device=x_0.device)
+    P = parts_per_sample(batch)
+    t_point = batch.per_sample_to_point(t)[..., None]  # (G, N, 1)
+    x_t, v_t = flow.flow_interpolate(x_0, x_1, t_point)
+    v_pred = dit_forward(params, cfg.model, x_t, t, batch, parts_per_sample=P,
+                         remat=remat, bounds=attention_bounds(params))
+    loss = flow.velocity_loss(v_pred, v_t, batch.point_mask, cfg.loss_type)
+    with torch.no_grad():
+        v_pred = v_pred.detach()
+        n_pred, n_t = flow.velocity_norms(v_pred, v_t, batch.point_mask)
+        metrics = {"loss": loss.detach(), "norm_v_pred": n_pred, "norm_v_t": n_t}
+        mask = batch.point_mask.float()
+        se = ((v_pred - v_t) ** 2 * mask[..., None]).sum((1, 2))        # (G,)
+        cnt = 3.0 * mask.sum(1)
+        se_s = se.reshape(batch.S, P).sum(1)                            # (S,)
+        cnt_s = cnt.reshape(batch.S, P).sum(1).clamp_min(1.0)
+        loss_s = se_s / cnt_s
+        valid = batch.sample_valid.float()
+        for lo, hi, name in ((0.0, 0.5, "loss_t<0.5"), (0.5, 0.9, "loss_t0.5-0.9"),
+                             (0.9, 1.01, "loss_t>0.9")):
+            w = ((t >= lo) & (t < hi)).float() * valid
+            metrics[name] = (loss_s * w).sum() / w.sum().clamp_min(1.0)
+    return loss, metrics
 
 
 def velocity_fn(params, cfg: RPFConfig, batch: PartBatch):

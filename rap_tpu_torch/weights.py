@@ -4,7 +4,10 @@
 nested dict whose ``layers/*`` leaves are stacked along a leading axis L)
 and returns the port's parameters: the same nested dict with ``layers``
 split into a list of L per-layer dicts, plus the per-layer attention guard
-bounds (models/dit.py ``attention_bound2``), computed once here on the host.
+bounds (models/dit.py ``attention_bounds``), computed once here on the host.
+The same fp32 parameters serve training: ``models.dit.master_params`` moves
+them to the device as uncast fp32 masters and drops the bounds, which
+training recomputes from the current gains every step.
 
 ``load_params_npz`` reads the committed ``.npz`` exports of
 rap_tpu/train/checkpoint.py:save_params_npz (:111-128): flat "a/b/c" keys,

@@ -68,7 +68,8 @@ def test_proj_attention_out_kernels(gen, is_global):
     _close(fused_proj.out_kernel(a5, x, w_out, b_out, P, is_global),
            fused_proj.out_plain(a5, x, w_out, b_out, P, is_global))
     assert launch_counts() == {"proj": 1, "flash_fixed": 1, "flash_online": 1,
-                               "out_proj": 1, "ff": 0}
+                               "out_proj": 1, "ff": 0, "flash_bwd": 0, "proj_bwd": 0,
+                               "ff_bwd": 0}
 
 
 def test_online_kernel_masked_rows(gen):
@@ -123,6 +124,111 @@ def test_dit_forward_kernels_match_plain(gen):
     v_k = dit_forward(params, cfg, x, ts, batch, P)
     counts = launch_counts()
     v_p = dit_forward(params, dataclasses.replace(cfg, use_kernels=False), x, ts, batch, P)
-    assert counts == {"proj": 4, "flash_fixed": 3, "flash_online": 1, "out_proj": 4, "ff": 2}
+    assert counts == {"proj": 4, "flash_fixed": 3, "flash_online": 1, "out_proj": 4, "ff": 2,
+                      "flash_bwd": 0, "proj_bwd": 0, "ff_bwd": 0}
     err = float((v_k - v_p).abs().max())
     assert err <= 5e-2 * float(v_p.abs().max()), err
+
+
+# --------------------------------------------------------------------------
+# backward kernels (tolerance: 1/64 of the largest output, as above)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("variant", ["fixed", "online"])
+def test_flash_bwd_kernel(gen, variant):
+    BH, T = 8, 256
+    q, k = (_randn(gen, BH, T, DH, scale=0.6) for _ in range(2))
+    va = torch.cat([_randn(gen, BH, T, DH), torch.ones(BH, T, 1, device="cuda",
+                                                       dtype=torch.bfloat16)], -1)
+    if variant == "fixed":
+        out, lse = fa.flash_fixed_kernel(q, k, va, 40.0)
+    else:
+        out, lse = fa.flash_online_kernel(q, k, va)
+    dout = _randn(gen, BH, T, DH)
+    reset_launches()
+    got = fa.flash_bwd_kernel(q, k, va, out, lse, dout)
+    assert launch_counts()["flash_bwd"] == 1
+    for g_, r_ in zip(got, fa.flash_bwd_plain(q, k, va, out, lse, dout)):
+        _close(g_, r_)
+
+
+@pytest.mark.parametrize("is_global", [False, True], ids=["part", "global"])
+def test_proj_bwd_kernel(gen, is_global):
+    G = S * P
+    x = _randn(gen, G, N, D)
+    ada = _randn(gen, G, 2 * D, dtype=torch.float32, scale=0.1)
+    w = _randn(gen, D, 3 * D, scale=D ** -0.5)
+    gq, gk = fused_proj.fold_gains(1 + _randn(gen, H, DH, dtype=torch.float32, scale=0.1),
+                                   1 + _randn(gen, H, DH, dtype=torch.float32, scale=0.1))
+    lead = (S, H, P, N) if is_global else (G, H, N)
+    dq, dk = _randn(gen, *lead, DH), _randn(gen, *lead, DH)
+    dva = _randn(gen, *lead, DH + 1)
+    args = (x, ada, w, gq, gk, dq, dk, dva, P, is_global)
+    got = fused_proj.proj_bwd_kernel(*args)
+    for g_, r_ in zip(got, fused_proj.proj_bwd_plain(*args)):
+        assert g_.dtype == r_.dtype and g_.shape == r_.shape
+        _close(g_, r_)
+
+
+def test_ff_bwd_kernel(gen):
+    T = S * P * N
+    x, g = _randn(gen, T, D), _randn(gen, T, D, scale=0.1)
+    args = (x, g, 1 + _randn(gen, D, dtype=torch.float32, scale=0.1),
+            _randn(gen, D, dtype=torch.float32, scale=0.1),
+            _randn(gen, D, 2 * FH, scale=D ** -0.5),
+            _randn(gen, 2 * FH, dtype=torch.float32, scale=0.1),
+            _randn(gen, FH, D, scale=FH ** -0.5))
+    got = fused_ff.ff_bwd_kernel(*args)
+    for g_, r_ in zip(got, fused_ff.ff_bwd_plain(*args)):
+        assert g_.dtype == r_.dtype and g_.shape == r_.shape
+        _close(g_, r_)
+
+
+def test_training_gradients_kernels_match_plain(gen):
+    """training_forward + autograd of a 2-layer D=512 model through the
+    kernels and through the plain versions, same parameters and draws: loss
+    within 2e-2 relative; every gradient leaf within 5e-2 relative L2 of the
+    plain path's, or within twice the distance of the plain bf16 path from
+    the plain fp32 one where bf16 alone moves a leaf further (the qk gains'
+    gradients, sums over all tokens that nearly cancel); then one Muon step
+    through the kernels stays finite."""
+    import dataclasses
+
+    from rap_tpu_torch.core.batch import make_regular_synthetic_batch
+    from rap_tpu_torch.models.config import DiTConfig
+    from rap_tpu_torch.models.dit import init_dit_params
+    from rap_tpu_torch.registration import RPFConfig, training_forward
+    from rap_tpu_torch.train.optim import OptimizerConfig, tree_paths, tree_replace
+    from rap_tpu_torch.train.step import TrainState, make_train_step
+
+    cfg = DiTConfig(num_layers=2)
+    params = init_dit_params(0, cfg, masters=True)
+    params["layers"][0]["global_q_gamma"] *= 3  # one online attention per forward
+    params["layers"][0]["global_k_gamma"] *= 3
+    batch = make_regular_synthetic_batch(1, [[N] * P] * S, N=N, P=P)
+    x_1 = torch.randn((S * P, N, 3), generator=gen, device="cuda")
+    t = torch.tensor([0.3, 0.95], device="cuda")
+    out = {}
+    for name, c in (("kernels", cfg), ("plain", dataclasses.replace(cfg, use_kernels=False)),
+                    ("fp32", dataclasses.replace(cfg, use_kernels=False,
+                                                 compute_dtype=torch.float32))):
+        leaves = {k: p.detach().requires_grad_(True) for k, p in tree_paths(params)}
+        reset_launches()
+        loss, _ = training_forward(tree_replace(params, leaves), RPFConfig(model=c), batch,
+                                   None, x_1=x_1, t=t)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        out[name] = (float(loss.detach()), dict(zip(leaves, grads)), launch_counts())
+    (lk, gk, ck), (lp, gp, cp), (_, g32, _) = out["kernels"], out["plain"], out["fp32"]
+    assert ck == {"proj": 8, "flash_fixed": 6, "flash_online": 2, "out_proj": 8, "ff": 4,
+                  "flash_bwd": 4, "proj_bwd": 4, "ff_bwd": 2}
+    assert sum(cp.values()) == 0
+    assert abs(lk - lp) <= 2e-2 * abs(lp)
+
+    def rel(a, b):
+        return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+    for k, ref in gp.items():
+        assert rel(gk[k], ref) <= max(5e-2, 2 * rel(ref, g32[k])), k
+    state = TrainState.create(params, OptimizerConfig(), seed=0)
+    state, m = make_train_step(RPFConfig(model=cfg), OptimizerConfig())(state, batch)
+    assert float(m["skipped_nonfinite"]) == 0.0 and torch.isfinite(m["loss"])

@@ -105,3 +105,22 @@ def test_chip_smoke_fails_without_a_card():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_training_slice_modules_and_sources_are_covered():
+    assert {"rap_tpu_torch.core.flow", "rap_tpu_torch.train.optim",
+            "rap_tpu_torch.train.step"} <= set(MODULES)
+    sources = {p.name for p in (PKG / "csrc").glob("*.cu")}
+    assert {"attention_bwd.cu", "proj_bwd.cu", "ff_bwd.cu"} <= sources
+
+
+def test_train_step_defaults_to_cuda():
+    from rap_tpu_torch.registration import RPFConfig
+    from rap_tpu_torch.train.optim import OptimizerConfig
+    from rap_tpu_torch.train.step import TrainState, make_train_step
+
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(RPFConfig(), OptimizerConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TrainState.create({"anchor_emb": torch.zeros(2, 4)}, OptimizerConfig(), seed=0)

@@ -1,0 +1,216 @@
+"""The port's backward twins against rap_tpu's Pallas backward kernels (CPU).
+
+Each rap_tpu op is differentiated with ``jax.vjp`` through its custom_vjp,
+whose backward runs the Pallas kernel in interpret mode (impl="pallas",
+interpret=True); the port's op is differentiated with torch.autograd
+through its autograd.Function, whose backward takes the plain twin for CPU
+tensors. Same inputs and cotangents, made with numpy from a seed. Tiny
+shapes (D=128, H=2, dh=64, N=128), fp32: tolerance 2e-5 of the largest
+gradient element, fp32 sums in another order.
+
+Each twin is also held against torch.autograd of the port's own plain
+forward: at fp32 within 2e-5, and once in bf16 within 3e-2 of the largest
+element (the twins round p, ds, dy and dproj to bf16 where the TPU kernels
+do; autograd of the plain forward rounds elsewhere).
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rap_tpu.ops import fused_ff as jff
+from rap_tpu.ops import fused_proj as jfp
+from rap_tpu.ops import pallas_attention as jpa
+from rap_tpu_torch.ops import flash_attention as fa
+from rap_tpu_torch.ops import fused_ff, fused_proj
+from torch_parity import max_err, t
+
+D, H, DH, N, S, P = 128, 2, 64, 128, 2, 2
+G = S * P
+RTOL = 2e-5
+RTOL_BF16 = 3e-2
+
+
+def _close(got, ref, rtol=RTOL, what=""):
+    ref = np.asarray(ref, np.float64)
+    scale = max(float(np.abs(ref).max()), 1e-30)
+    err = max_err(np.asarray(got.detach().float() if torch.is_tensor(got) else got), ref)
+    assert err <= rtol * scale, f"{what}: max err {err:.3e} > {rtol:.0e} * {scale:.3e}"
+
+
+def _rng_f32(seed):
+    rng = np.random.default_rng(seed)
+    return lambda *s, sc=1.0: (rng.standard_normal(s) * sc).astype(np.float32)  # noqa: E731
+
+
+def _grads(fn, inputs, cot):
+    """torch.autograd of fn(*inputs) against the cotangent(s) ``cot``."""
+    leaves = [t(a).requires_grad_(True) for a in inputs]
+    out = fn(*leaves)
+    outs = out if isinstance(out, tuple) else (out,)
+    cots = cot if isinstance(cot, tuple) else (cot,)
+    return torch.autograd.grad(outs, leaves, [t(c) for c in cots])
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+
+def _attention_inputs(gain, seed=0, BH=4, T=256):
+    f = _rng_f32(seed)
+    q, k = f(BH, T, DH), f(BH, T, DH)
+    # rows of norm gain*log2(e) and gain*sqrt(dh), as the proj kernel emits
+    q = q / np.linalg.norm(q, axis=-1, keepdims=True) * gain * math.log2(math.e)
+    k = k / np.linalg.norm(k, axis=-1, keepdims=True) * gain * math.sqrt(DH)
+    va = np.concatenate([f(BH, T, DH), np.ones((BH, T, 1), np.float32)], -1)
+    bound2 = math.log2(math.e) * math.sqrt(DH) * gain * gain
+    return q, k, va, bound2, f(BH, T, DH)
+
+
+@pytest.mark.parametrize("gain", [1.0, 3.0], ids=["fixed_bound", "online"])
+def test_attention_backward_matches_pallas(gain):
+    """Behind the fixed-bound forward (bound2 ~ 11.5) and the online one
+    (bound2 ~ 104 > SAFE_BOUND2): the shared backward reads either lse2."""
+    q, k, va, bound2, dout = _attention_inputs(gain)
+    assert (bound2 > fa.SAFE_BOUND2) == (gain > 1.0)
+    _, vjp = jax.vjp(lambda a, b, c: jpa.flash_attention_headmajor(
+        a, b, c, jnp.float32(bound2), interpret=True), *map(jnp.asarray, (q, k, va)))
+    ref = vjp(jnp.asarray(dout))
+    got = _grads(lambda a, b, c: fa.flash_attention_headmajor(a, b, c, bound2),
+                 (q, k, va), dout)
+    for name, g_, r_ in zip(("dq", "dk", "dva"), got, ref):
+        _close(g_, r_, what=name)
+    assert float(got[2][..., DH].abs().max()) == 0.0  # ones column: zero cotangent
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("gain", [1.0, 3.0], ids=["fixed_bound", "online"])
+def test_attention_twin_matches_autograd(gain, dtype):
+    """flash_bwd_plain against autograd of the plain softmax attention (the
+    base-2 logits q.k times ln2 in natural units)."""
+    q, k, va, bound2, dout = _attention_inputs(gain, seed=1)
+    fwd = fa.flash_fixed_plain if bound2 <= fa.SAFE_BOUND2 else fa.flash_online_plain
+    tq, tk, tva, tdo = (t(a).to(dtype) for a in (q, k, va, dout))
+    out, lse = fwd(tq, tk, tva, bound2) if fwd is fa.flash_fixed_plain else fwd(tq, tk, tva)
+    got = fa.flash_bwd_plain(tq, tk, tva, out, lse, tdo)
+    ref = _grads(lambda a, b, c: torch.softmax(a @ b.transpose(-1, -2) * math.log(2.0), -1) @ c,
+                 (tq.float().numpy(), tk.float().numpy(), tva[..., :DH].float().numpy()),
+                 tdo.float().numpy())
+    rtol = RTOL if dtype == torch.float32 else RTOL_BF16
+    for name, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
+        assert g_.dtype == dtype
+        _close(g_, r_.numpy(), rtol, name)
+
+
+def test_attention_backward_raises_beyond_the_dq_slab():
+    """Where rap_tpu's dispatch takes the split backward (dQ partials slab
+    over 2 GiB), the port raises and names the rows still to port."""
+    assert fa.fused_backward_slab_bytes(32, 8192, 8192, 64) == 512 * 2**20
+    assert fa.fused_backward_slab_bytes(64, 4096, 4096, 64) == 256 * 2**20
+    fa.check_fused_backward(32, 8192, 8192, 64)
+    with pytest.raises(NotImplementedError, match="rows 7-8"):
+        fa.check_fused_backward(32, 32768, 32768, 64)  # S=2 x 8 parts x 4096
+
+
+# --------------------------------------------------------------------------
+# AdaLN + QKV projection, attention out-projection
+# --------------------------------------------------------------------------
+
+def _proj_inputs(seed=0):
+    f = _rng_f32(seed)
+    return (f(G, N, D), f(G, 2 * D, sc=0.2), f(D, 3 * D, sc=D ** -0.5),
+            1 + f(H, DH, sc=0.1), 1 + f(H, DH, sc=0.1))
+
+
+def _proj_cotangents(is_global, seed=5):
+    f = _rng_f32(seed)
+    lead = (S, H, P, N) if is_global else (G, H, N)
+    dva = f(*lead, DH + 1)
+    dva[..., DH] = 0.0  # what the attention backward gives the ones column
+    return f(*lead, DH), f(*lead, DH), dva
+
+
+@pytest.mark.parametrize("is_global", [False, True], ids=["part", "global"])
+def test_proj_backward_matches_pallas(is_global):
+    inputs, cots = _proj_inputs(), _proj_cotangents(is_global)
+    _, vjp = jax.vjp(lambda *a: jfp.adaln_qkv(*a, P=P, is_global=is_global, impl="pallas",
+                                              interpret=True), *map(jnp.asarray, inputs))
+    ref = vjp(tuple(map(jnp.asarray, cots)))
+    got = _grads(lambda *a: fused_proj.adaln_qkv(*a, P=P, is_global=is_global), inputs,
+                 cots)
+    for name, g_, r_ in zip(("dx", "dada", "dw", "dgamma_q", "dgamma_k"), got, ref):
+        assert tuple(g_.shape) == r_.shape, name
+        _close(g_, r_, what=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("is_global", [False, True], ids=["part", "global"])
+def test_proj_twin_matches_autograd(is_global, dtype):
+    x, ada, w, gq, gk = _proj_inputs(1)
+    gq_eff, gk_eff = (a.numpy() for a in fused_proj.fold_gains(t(gq), t(gk)))
+    cots = _proj_cotangents(is_global, seed=6)
+    got = fused_proj.proj_bwd_plain(t(x).to(dtype), t(ada), t(w), t(gq_eff), t(gk_eff),
+                                    *(t(c).to(dtype) for c in cots), P, is_global)
+    ref = _grads(lambda *a: fused_proj.proj_plain(*a, P, is_global),
+                 (t(x).to(dtype).float().numpy(), ada, t(w).to(dtype).float().numpy(),
+                  gq_eff, gk_eff),
+                 tuple(t(c).to(dtype).float().numpy() for c in cots))
+    rtol = RTOL if dtype == torch.float32 else RTOL_BF16
+    for name, g_, r_ in zip(("dx", "dada", "dw", "dgq", "dgk"), got, ref):
+        _close(g_, r_.numpy(), rtol, name)
+
+
+@pytest.mark.parametrize("is_global", [False, True], ids=["part", "global"])
+def test_attn_out_backward_matches_jax(is_global):
+    f = _rng_f32(2)
+    shape = (S, H, P, N, DH) if is_global else (G, H, N, DH)
+    inputs = (f(*shape), f(G, N, D), f(D, D, sc=D ** -0.5), f(D, sc=0.1))
+    cot = f(G, N, D)
+    _, vjp = jax.vjp(lambda *a: jfp.attn_out(*a, P=P, is_global=is_global, impl="pallas",
+                                             interpret=True), *map(jnp.asarray, inputs))
+    ref = vjp(jnp.asarray(cot))
+    got = _grads(lambda *a: fused_proj.attn_out(*a, P=P, is_global=is_global), inputs, cot)
+    for name, g_, r_ in zip(("da5", "dres", "dw", "db"), got, ref):
+        _close(g_, r_, what=name)
+
+
+# --------------------------------------------------------------------------
+# GEGLU feed-forward
+# --------------------------------------------------------------------------
+
+def _ff_inputs(seed=0, lead=(G, N)):
+    f = _rng_f32(seed)
+    return (f(*lead, D), 1 + f(D, sc=0.1), f(D, sc=0.1), f(D, 8 * D, sc=D ** -0.5),
+            f(8 * D, sc=0.1), f(4 * D, D, sc=(4 * D) ** -0.5), f(D, sc=0.1))
+
+
+def test_ff_backward_matches_pallas():
+    inputs = _ff_inputs()
+    cot = _rng_f32(7)(G, N, D)
+    _, vjp = jax.vjp(lambda *a: jff.geglu_ff(*a, impl="pallas", interpret=True),
+                     *map(jnp.asarray, inputs))
+    ref = vjp(jnp.asarray(cot))
+    got = _grads(fused_ff.geglu_ff, inputs, cot)
+    for name, g_, r_ in zip(("dx", "dws", "dwb", "dwi", "dbi", "dwo", "dbo"), got, ref):
+        assert tuple(g_.shape) == r_.shape, name
+        _close(g_, r_, what=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_ff_twin_matches_autograd(dtype):
+    x, ws, wb, wi, bi, wo, bo = _ff_inputs(1, lead=(256,))
+    g = _rng_f32(8)(256, D)
+    xd, gd, wid, wod = (t(a).to(dtype) for a in (x, g, wi, wo))
+    # the twin's in-projection bias is fp32 (as the TPU backward takes it)
+    got = fused_ff.ff_bwd_plain(xd, gd, t(ws), t(wb), wid, t(bi), wod)
+    ref = _grads(fused_ff.ff_plain,
+                 (xd.float().numpy(), ws, wb, wid.float().numpy(), bi,
+                  wod.float().numpy(), bo), gd.float().numpy())
+    rtol = RTOL if dtype == torch.float32 else RTOL_BF16
+    for name, g_, r_ in zip(("dx", "dws", "dwb", "dwi", "dbi", "dwo", "dbo"), got, ref):
+        assert g_.dtype == (dtype if name == "dx" else torch.float32), name
+        _close(g_, r_.numpy(), rtol, name)

@@ -32,3 +32,50 @@ def t(a) -> torch.Tensor:
 
 def max_err(a, b) -> float:
     return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
+def tiny_pallas_models(seed: int = 1):
+    """(jax cfg, port cfg, jax params, port params): D=128, 2 layers, 2 heads,
+    fp32, rap_tpu's fused Pallas path (interpret mode on the CPU), qk gains
+    near 1 except layer 0's global attention, raised past the guard bound so
+    that both attention variants run."""
+    import jax.numpy as jnp
+
+    from rap_tpu.models import DiTConfig as JaxDiTConfig
+    from rap_tpu.models.dit import init_dit_params
+    from rap_tpu_torch.models.config import DiTConfig
+
+    jcfg = JaxDiTConfig(embed_dim=128, num_layers=2, num_heads=2,
+                        compute_dtype=jnp.float32, attn_impl="pallas", ff_impl="pallas")
+    tcfg = DiTConfig(embed_dim=128, num_layers=2, num_heads=2, compute_dtype=torch.float32)
+    jp = init_dit_params(jax.random.key(seed), jcfg)
+    rng = np.random.default_rng(0)
+    layers = dict(jp["layers"])
+    for name in ("self_q_gamma", "self_k_gamma", "global_q_gamma", "global_k_gamma"):
+        layers[name] = jnp.asarray(1 + 0.1 * rng.standard_normal((2, 2, 64)), jnp.float32)
+    layers["global_q_gamma"] = layers["global_q_gamma"].at[0].multiply(3.0)
+    layers["global_k_gamma"] = layers["global_k_gamma"].at[0].multiply(3.0)
+    jp = {**jp, "layers": layers}
+    return jcfg, tcfg, jp, params_to_torch(jp)
+
+
+def jax_flat(tree) -> dict[str, np.ndarray]:
+    """A rap_tpu parameter-shaped tree (stacked ``layers``) as {port path:
+    numpy array}, with the port's per-layer paths ("layers/<i>/...")."""
+    out = {}
+
+    def walk(node, prefix, layer=None):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{prefix}{k}/", layer)
+            return
+        a = np.asarray(node)
+        if layer is None:
+            out[prefix[:-1]] = a
+        else:
+            for i in range(a.shape[0]):
+                out[f"layers/{i}/{prefix[len('layers/'):-1]}"] = a[i]
+
+    for k, v in tree.items():
+        walk(v, f"{k}/", layer=(k == "layers") or None)
+    return out
