@@ -4,42 +4,72 @@
     python3 chip_smoke.py              # every phase, as the check runs it
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,kernels,train
+    python3 chip_smoke.py --phases build,kernels,multiview
 
 Phases, each printed on its own flushed line with its wall time:
 
-1. build    one nvcc call over rap_tpu_torch/csrc/*.cu into
-            rap_tpu_torch/build/ (first use builds, an unchanged tree loads).
-2. kernels  each of the eight kernels against its plain PyTorch version on
-            the card, at the main path's shapes (S=4 pairs x P=2 parts x
-            N=4096 points, D=512, H=8, dh=64, FF hidden 2048, bf16): max abs
-            and relative error beside the stated tolerance. Attention is
-            checked at the part and the global shape, both variants, and the
-            online variant once more with a random key mask; the attention
-            backward at both shapes behind each forward variant, the proj
-            backward in both layouts, the ff backward at 32768 tokens.
-3. main     registration.sample + predict_poses at S=4 x 2 x 4096, 2 Euler
-            steps, rigidity forcing, bf16, with random weights from a seed at
-            the width and depth of teacher3_last (6 layers, D=512). The qk
-            gains of self layers 0-2 and global layers 0, 1 and 4 are raised
-            so that their guard bound exceeds 60, as teacher3's do, so 6 of
-            the 12 attention calls per forward take the online kernel. Checks:
-            finite output of the right shape, the launch counts of one sample,
-            and agreement with the same call through the plain versions.
-4. train    one Muon step of the same model (fp32 random masters from a
-            seed, the same raised gains, so 6 online and 6 fixed attention
-            calls per forward) on 4 x 2 x 4096 points, remat on. Checks: at
-            the step's draws, the loss and every gradient leaf through the
-            kernels against the plain versions (and the plain fp32 path for
-            the bf16 noise floor); one step through the kernels and one
-            through the plain versions from the same state (loss, grad norm,
-            each updated leaf's first-order loss change); the launch counts
-            of one step; five more steps, finite and never skipped; the loss
-            at the fixed (t, x_1) falls over those six steps.
-5. timing   median ms per batch and pairs/s; median ms per train step and
-            tokens/s; each kernel's median time beside its plain version, its
-            bound and one PyTorch library call where one computes the same
-            function (scaled_dot_product_attention forward, and its backward
-            as forward+backward minus forward).
+1. build      one nvcc call over rap_tpu_torch/csrc/*.cu into
+              rap_tpu_torch/build/ (first use builds, an unchanged tree loads).
+2. kernels    each of the ten kernels against its plain PyTorch version on
+              the card, at the shapes of the paths below (D=512, H=8, dh=64,
+              FF hidden 2048, bf16): max abs and relative error beside the
+              stated tolerance. Dense main-path shapes (S=4 pairs x P=2 parts
+              x N=4096 points): attention at the part and the global shape,
+              both forward variants, the online one once more with a random
+              key mask; the fused attention backward behind each forward
+              variant, the proj backward in both layouts, the ff backward at
+              32768 tokens. Multi-view shapes (2 samples x 8 part slots x 4096
+              points, the multiview phase's batch): the split backward (dKV
+              and dQ passes) at the global shape (BH=16, T=32768) with the
+              batch's key mask and without one, run twice and required to be
+              bit-identical, with the fused backward on the same inputs as a
+              second witness; the fused backward with the batch's part mask at
+              the part shape (BH=128, T=4096), whose two empty part slots must
+              get exactly zero gradient.
+3. main       registration.sample + predict_poses at S=4 x 2 x 4096, 2 Euler
+              steps, rigidity forcing, bf16, with random weights from a seed at
+              the width and depth of teacher3_last (6 layers, D=512). The qk
+              gains of self layers 0-2 and global layers 0, 1 and 4 are raised
+              so that their guard bound exceeds 60, as teacher3's do, so 6 of
+              the 12 attention calls per forward take the online kernel.
+              Checks: finite output of the right shape, the launch counts of
+              one sample, and agreement with the same call through the plain
+              versions.
+4. train      one Muon step of the same model (fp32 random masters from a
+              seed, the same raised gains, so 6 online and 6 fixed attention
+              calls per forward) on 4 x 2 x 4096 points, remat on. Checks: at
+              the step's draws, the loss and every gradient leaf through the
+              kernels against the plain versions (and the plain fp32 path for
+              the bf16 noise floor); one step through the kernels and one
+              through the plain versions from the same state (loss, grad norm,
+              each updated leaf's first-order loss change); the launch counts
+              of one step; five more steps, finite and never skipped; the loss
+              at the fixed (t, x_1) falls over those six steps.
+5. multiview  training on a padded multi-view batch, the shape the packer
+              makes of 5-8-scan samples under configs/rap_train.yaml's
+              80 000-point budget: S=2 x P=8 x N=4096, sample 0 with 8 parts,
+              sample 1 with 6 (two empty slots), part sizes uniform in
+              [2500, 4096] from a seed. The model has rap_12's width and depth
+              (12 layers, D=512, H=8), bf16, fp32 random masters, Muon, remat,
+              u-shaped timesteps. The batch takes the masked branch: online
+              attention with the key mask, the fused backward with the mask
+              for part attention and, past the 2 GiB dQ slab, the split
+              backward for global attention. Checks: the launch counts of one
+              12-layer step; at 2 layers of the same width and shape, the loss
+              and every gradient leaf through the kernels against the plain
+              versions (the train phase's rule), and sample + predict_poses
+              through the kernels against the plain versions; five more
+              12-layer steps, finite and never skipped, with the loss at a
+              fixed (t, x_1) falling.
+6. timing     median ms per batch and pairs/s; median ms per train step and
+              tokens/s; median ms per multi-view step with valid points/s and
+              padded slots/s, and one more multi-view step under
+              torch.profiler (each device kernel's total time, the device's
+              busy share); each kernel's median time beside its plain
+              version, its bound and one PyTorch library call where one
+              computes the same function (scaled_dot_product_attention forward,
+              and its backward as forward+backward minus forward, with a
+              boolean key mask for the masked shapes).
 
 Then it prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. Any failed
@@ -63,7 +93,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "main", "train", "timing")
+PHASES = ("build", "kernels", "main", "train", "multiview", "timing")
 
 # main path (bench.py:151-157 of the JAX package: 4 pairs of 2 x 4096 points)
 S, P, N = 4, 2, 4096
@@ -106,6 +136,17 @@ TOL_TRAIN_SCALAR = 2e-2
 TOL_TRAIN_LEAF = 5e-2
 TOL_TRAIN_LEAF_CAP = 0.1
 TRAIN_STEPS = 5  # further kernel steps after the first
+
+# multiview phase: the packer's shape for 5-8-scan samples under
+# configs/rap_train.yaml (max_points_per_batch 80000: parts round up to 8
+# slots of 4096 points, so two samples fill 65536 slots and a third would
+# make 98304), rap_12's depth for the steps and 2 layers for the comparison
+# with the plain fp32 path
+MV_S, MV_P, MV_N = 2, 8, 4096
+MV_PARTS = (8, 6)              # parts of sample 0 and sample 1
+MV_PART_POINTS = (2500, 4096)  # part sizes, uniform, from MV_SEED
+MV_SEED = 21
+MV_LAYERS, MV_CHECK_LAYERS = 12, 2
 
 
 def log(msg: str) -> None:
@@ -163,6 +204,40 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops = flops / PEAK_BF16_FLOPS
     t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+# device kernel name fragments -> what a profiled step spends the time on
+PROFILE_GROUPS = (
+    (("flash_fwd_kernel<false>",), "row 3: online attention forward"),
+    (("flash_fwd_kernel<true>",), "row 2: fixed-bound attention forward"),
+    (("dkv_kernel<true>",), "row 6: fused attention backward"),
+    (("dkv_kernel<false>",), "row 7: dK, dV pass"),
+    (("dq_kernel",), "row 8: dQ pass"),
+    (("ff_kernel",), "row 5: ff forward"),
+    (("proj_kernel",), "row 1: proj forward"),
+    (("out_kernel",), "row 4: out_proj forward"),
+    (("geglu_bwd_kernel", "proj_dy_kernel", "wgrad_kernel", "gemm_nt_f32", "ln_affine_rows",
+      "ln_bwd_rows"), "rows 9-10: proj and ff backward"),
+    (("gemm", "nvjet", "cutlass", "xmma"), "cuBLAS matrix products"),
+)
+
+
+def multiview_parts(seed: int = MV_SEED) -> list[list[int]]:
+    """Part sizes of the multi-view batch, drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    lo, hi = MV_PART_POINTS
+    return [rng.integers(lo, hi, n, endpoint=True).tolist() for n in MV_PARTS]
+
+
+def multiview_masks(parts) -> tuple[torch.Tensor, torch.Tensor]:
+    """The batch's key masks on the card, int32: part attention (S*P, N) and
+    global attention (S, P*N)."""
+    mask = np.zeros((MV_S * MV_P, MV_N), bool)
+    for s, counts in enumerate(parts):
+        for p, n in enumerate(counts):
+            mask[s * MV_P + p, :n] = True
+    part = torch.from_numpy(mask).to(device="cuda", dtype=torch.int32)
+    return part, part.reshape(MV_S, MV_P * MV_N).contiguous()
 
 
 def nvidia_smi() -> str:
@@ -228,7 +303,9 @@ def run_kernels(report, fails, state):
     state["attn"] = {}
     errs = state["max_abs_err"] = dict.fromkeys(("proj", "flash_fixed", "flash_online",
                                                  "out_proj", "ff", "flash_bwd", "proj_bwd",
-                                                 "ff_bwd"), 0.0)
+                                                 "ff_bwd", "flash_bwd_dkv", "flash_bwd_dq",
+                                                 "flash_bwd_masked", "flash_online_masked"),
+                                                0.0)
 
     def compare(kernel, label, got, ref, **kw):
         err = fails.compare(label, got, ref, **kw)
@@ -325,6 +402,81 @@ def run_kernels(report, fails, state):
                           ff.ff_bwd_plain(*ffb_args)):
         compare("ff_bwd", f"ff_bwd.{nm}", g_, r_)
     state["ff_bwd_args"] = ffb_args
+    run_kernels_multiview(fails, state, gen, compare)
+
+
+def multiview_attention_inputs(gen, BH: int, T: int):
+    """q, k, va as the masked branch hands them to the kernels: rows of norm
+    sqrt(dh) (qk-norm at unit gains), q pre-scaled by log2(e)/sqrt(dh)."""
+    def rows(scale):
+        x = torch.randn((BH, T, DH), generator=gen, device="cuda")
+        return (x / x.norm(dim=-1, keepdim=True) * scale).to(torch.bfloat16)
+
+    v = torch.randn((BH, T, DH), generator=gen, device="cuda").to(torch.bfloat16)
+    va = torch.cat([v, torch.ones((BH, T, 1), dtype=torch.bfloat16, device="cuda")], -1)
+    return rows(np.log2(np.e)), rows(np.sqrt(DH)), va.contiguous()
+
+
+def run_kernels_multiview(fails, state, gen, compare):
+    """Rows 7-8 (split backward) and masked row 6 at the multi-view shapes."""
+    from rap_tpu_torch.ops import flash_attention as fa
+
+    part_mask, global_mask = multiview_masks(multiview_parts())
+    state["mv_attn"] = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    # global attention: BH = 2 x 8, T = 8 x 4096; past the 2 GiB slab
+    BH, T = MV_S * H, MV_P * MV_N
+    qh, kh, vah = multiview_attention_inputs(gen, BH, T)
+    dout = randn(BH, T, DH)
+    for tag, mask in (("masked", global_mask), ("unmasked", None)):
+        out, lse = fa.flash_online(qh, kh, vah, mask, heads=H)
+        if mask is not None:
+            compare("flash_online_masked", "flash_online[multiview global,masked].out", out,
+                    fa.flash_online_plain(qh, kh, vah, mask, H)[0])
+        doa = fa.augment_do(dout, out).contiguous()
+        args = (qh, kh, vah, doa, lse, mask, H)
+        dk, dv = fa.flash_bwd_dkv(*args)
+        dq = fa.flash_bwd_dq(*args)
+        rk, rv = fa.flash_bwd_dkv_plain(*args)
+        compare("flash_bwd_dkv", f"flash_bwd_dkv[global,{tag}].dk", dk, rk)
+        compare("flash_bwd_dkv", f"flash_bwd_dkv[global,{tag}].dv", dv, rv)
+        compare("flash_bwd_dq", f"flash_bwd_dq[global,{tag}].dq", dq, fa.flash_bwd_dq_plain(*args))
+        dk2, dv2 = fa.flash_bwd_dkv(*args)
+        dq2 = fa.flash_bwd_dq(*args)
+        fails.check(f"flash_bwd_dkv/dq[global,{tag}] bitwise repeatable",
+                    torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2))
+        # the fused backward needs no slab here: a second witness
+        for nm, g_, r_ in zip(("dq", "dk", "dv"),
+                              fa.flash_bwd(qh, kh, vah, out, lse, dout, mask, H),
+                              (dq, dk, dv)):
+            compare("flash_bwd_masked" if mask is not None else "flash_bwd",
+                    f"flash_bwd[global,{tag}].{nm} vs split", g_, r_)
+        if mask is not None:
+            state["mv_attn"]["global"] = (qh, kh, vah, mask, out, lse, dout, doa)
+
+    # part attention: BH = 16 x 8, T = 4096, two empty part slots
+    BH, T = MV_S * MV_P * H, MV_N
+    qh, kh, vah = multiview_attention_inputs(gen, BH, T)
+    dout = randn(BH, T, DH)
+    out, lse = fa.flash_online(qh, kh, vah, part_mask, heads=H)
+    compare("flash_online_masked", "flash_online[multiview part,masked].out", out,
+            fa.flash_online_plain(qh, kh, vah, part_mask, H)[0])
+    got = fa.flash_bwd(qh, kh, vah, out, lse, dout, part_mask, H)
+    ref = fa.flash_bwd_plain(qh, kh, vah, out, lse, dout, part_mask, H)
+    for nm, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
+        compare("flash_bwd_masked", f"flash_bwd[part,masked].{nm}", g_, r_)
+    empty = (part_mask.sum(1) == 0).repeat_interleave(H)
+    masked_keys = (part_mask == 0).repeat_interleave(H, dim=0)
+    fails.check("flash_bwd[part,masked] empty part slots: zero gradient",
+                int(empty.sum()) == 2 * H
+                and all(not bool(g[empty].any()) for g in got),
+                f"{int(empty.sum()) // H} empty slots")
+    fails.check("flash_bwd[part,masked] masked keys: zero dk, dv",
+                not bool(got[1][masked_keys].any()) and not bool(got[2][masked_keys].any()))
+    state["mv_attn"]["part"] = (qh, kh, vah, part_mask, out, lse, dout)
 
 
 def build_main_params(cfg):
@@ -374,6 +526,7 @@ def run_main(report, fails, state):
         "proj": 2 * LAYERS * STEPS, "out_proj": 2 * LAYERS * STEPS,
         "ff": LAYERS * STEPS, "flash_fixed": (2 * LAYERS - n_online) * STEPS,
         "flash_online": n_online * STEPS, "flash_bwd": 0, "proj_bwd": 0, "ff_bwd": 0,
+        "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
     }
     log(f"  launches in one sample: {counts}")
     fails.check("launch counts", counts == expected, f"expected {expected}")
@@ -430,21 +583,63 @@ def rel_l2(a, b) -> float:
     return float((a.float() - b.float()).norm()) / max(float(b.float().norm()), 1e-30)
 
 
+def train_grads(params, rcfg, batch, seed: int = 7):
+    """(loss, {leaf path: gradient}) of training_forward at the draws of a
+    generator seeded with ``seed``."""
+    from rap_tpu_torch.registration import training_forward
+    from rap_tpu_torch.train.optim import tree_paths, tree_replace
+
+    leaves = {k: p.detach().requires_grad_(True) for k, p in tree_paths(params)}
+    loss, _ = training_forward(tree_replace(params, leaves), rcfg, batch,
+                               torch.Generator(device="cuda").manual_seed(seed))
+    g = torch.autograd.grad(loss, list(leaves.values()))
+    return float(loss.detach()), dict(zip(leaves, g))
+
+
+def check_train_gradients(fails, what, params, batch, rcfg):
+    """The loss and every gradient leaf through the kernels against the plain
+    versions at the same draws: the loss within TOL_TRAIN_SCALAR, each leaf
+    within TOL_TRAIN_LEAF, or within twice the plain bf16 path's distance from
+    the plain fp32 one, at most TOL_TRAIN_LEAF_CAP. Returns (kernel loss,
+    plain loss, plain fp32 gradients)."""
+    plain = dataclasses.replace(rcfg, model=dataclasses.replace(rcfg.model, use_kernels=False))
+    fp32 = dataclasses.replace(plain, model=dataclasses.replace(
+        plain.model, compute_dtype=torch.float32))
+    (lk, got), (lp, ref), (_, ref32) = (train_grads(params, c, batch)
+                                        for c in (rcfg, plain, fp32))
+    fails.check(f"{what} loss vs plain", abs(lk - lp) <= TOL_TRAIN_SCALAR * abs(lp),
+                f"kernels {lk:.6f} plain {lp:.6f} (tol {TOL_TRAIN_SCALAR} rel)")
+    worst, floored = (-1.0, ""), []
+    for k, r in ref.items():
+        err, floor = rel_l2(got[k], r), rel_l2(r, ref32[k])
+        tol = min(max(TOL_TRAIN_LEAF, 2 * floor), TOL_TRAIN_LEAF_CAP)
+        if floor > TOL_TRAIN_LEAF_CAP:
+            fails.check(f"{what} gradient {k} bf16 floor", False,
+                        f"plain bf16 vs fp32 {floor:.4f} > cap {TOL_TRAIN_LEAF_CAP}")
+        if tol > TOL_TRAIN_LEAF:
+            floored.append(f"{k} {err:.3f} (floor {floor:.3f})")
+        if err / tol > worst[0]:
+            worst = (err / tol, f"{k}: {err:.4f} of tol {tol:.4f}")
+        if err > tol:
+            fails.check(f"{what} gradient {k} vs plain", False, f"rel L2 {err:.4f} > {tol:.4f}")
+    log(f"  {len(ref)} {what} gradient leaves vs plain: worst {worst[1]}; {len(floored)} "
+        f"held to the bf16 floor: {'; '.join(floored) or 'none'}")
+    return lk, lp, ref32
+
+
 def run_train(report, fails, state):
     from rap_tpu_torch.core.batch import make_regular_synthetic_batch
     from rap_tpu_torch.models.config import DiTConfig
     from rap_tpu_torch.models.dit import attention_bounds
     from rap_tpu_torch.ops import launch_counts, reset_launches
     from rap_tpu_torch.ops.flash_attention import SAFE_BOUND2
-    from rap_tpu_torch.registration import RPFConfig, training_forward
+    from rap_tpu_torch.registration import RPFConfig
     from rap_tpu_torch.train.optim import Optimizer, OptimizerConfig, tree_paths, tree_replace
     from rap_tpu_torch.train.step import TrainState, make_eval_step, make_train_step
 
     cfg = DiTConfig(num_layers=LAYERS)  # bf16, kernels on
     rcfg = RPFConfig(model=cfg)
     plain = RPFConfig(model=dataclasses.replace(cfg, use_kernels=False))
-    fp32 = RPFConfig(model=dataclasses.replace(cfg, use_kernels=False,
-                                               compute_dtype=torch.float32))
     params = build_train_params(cfg)
     n_online = sum(b > SAFE_BOUND2 for pair in attention_bounds(params) for b in pair)
     batch = make_regular_synthetic_batch(
@@ -457,37 +652,7 @@ def run_train(report, fails, state):
 
     # 1. loss and gradients at the draws of the step below (generator seed 7):
     #    kernels, plain, plain fp32
-    def grads(c):
-        leaves = {k: p.detach().requires_grad_(True) for k, p in tree_paths(params)}
-        loss, _ = training_forward(tree_replace(params, leaves), c, batch,
-                                   torch.Generator(device="cuda").manual_seed(7))
-        g = torch.autograd.grad(loss, list(leaves.values()))
-        return float(loss.detach()), dict(zip(leaves, g))
-
-    def check_leaves(what, got, ref, ref32):
-        """Each leaf within TOL_TRAIN_LEAF of the plain path, or within twice
-        the plain bf16 path's distance from the plain fp32 one, at most
-        TOL_TRAIN_LEAF_CAP."""
-        worst, floored = (-1.0, ""), []
-        for k, r in ref.items():
-            err, floor = rel_l2(got[k], r), rel_l2(r, ref32[k])
-            tol = min(max(TOL_TRAIN_LEAF, 2 * floor), TOL_TRAIN_LEAF_CAP)
-            if floor > TOL_TRAIN_LEAF_CAP:
-                fails.check(f"{what} {k} bf16 floor", False,
-                            f"plain bf16 vs fp32 {floor:.4f} > cap {TOL_TRAIN_LEAF_CAP}")
-            if tol > TOL_TRAIN_LEAF:
-                floored.append(f"{k} {err:.3f} (floor {floor:.3f})")
-            if err / tol > worst[0]:
-                worst = (err / tol, f"{k}: {err:.4f} of tol {tol:.4f}")
-            if err > tol:
-                fails.check(f"{what} {k} vs plain", False, f"rel L2 {err:.4f} > {tol:.4f}")
-        log(f"  {len(ref)} {what} leaves vs plain: worst {worst[1]}; {len(floored)} held "
-            f"to the bf16 floor: {'; '.join(floored) or 'none'}")
-
-    (lk, gk), (lp, gp), (_, g32) = grads(rcfg), grads(plain), grads(fp32)
-    fails.check("train loss vs plain", abs(lk - lp) <= TOL_TRAIN_SCALAR * abs(lp),
-                f"kernels {lk:.6f} plain {lp:.6f} (tol {TOL_TRAIN_SCALAR} rel)")
-    check_leaves("gradient", gk, gp, g32)
+    lk, lp, g32 = check_train_gradients(fails, "train", params, batch, rcfg)
 
     # 2. one step through the kernels and one through the plain versions from
     #    the same parameters and generator state
@@ -544,6 +709,7 @@ def run_train(report, fails, state):
         "proj": 4 * LAYERS, "out_proj": 4 * LAYERS, "ff": 2 * LAYERS,
         "flash_fixed": 2 * (2 * LAYERS - n_online), "flash_online": 2 * n_online,
         "flash_bwd": 2 * LAYERS, "proj_bwd": 2 * LAYERS, "ff_bwd": LAYERS,
+        "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
     }
     log(f"  launches in one train step: {counts}")
     fails.check("train launch counts", counts == expected, f"expected {expected}")
@@ -570,6 +736,88 @@ def run_train(report, fails, state):
                  train_plain=(step_p, params, opt_cfg))
 
 
+def run_multiview(report, fails, state):
+    from rap_tpu_torch.core.batch import make_regular_synthetic_batch, validate
+    from rap_tpu_torch.models.config import MODEL_ZOO
+    from rap_tpu_torch.models.dit import init_dit_params
+    from rap_tpu_torch.ops import launch_counts, reset_launches
+    from rap_tpu_torch.registration import RPFConfig, predict_poses, sample
+    from rap_tpu_torch.train.optim import OptimizerConfig
+    from rap_tpu_torch.train.step import TrainState, make_eval_step, make_train_step
+
+    cfg = MODEL_ZOO["rap_12"]  # 12 layers, D=512, H=8, bf16, kernels on
+    parts = multiview_parts()
+    batch = make_regular_synthetic_batch(
+        MV_SEED, parts, N=MV_N, P=MV_P, S=MV_S, feat_dim=cfg.local_feat_dim, device="cuda")
+    validate(batch)
+    n_valid = int(batch.point_mask.sum())
+    log(f"  batch {MV_S} x {MV_P} x {MV_N}: parts {parts}, {n_valid} valid points of "
+        f"{MV_S * MV_P * MV_N} slots, no_padding={batch.no_padding}")
+    fails.check("multiview batch is padded", not batch.no_padding
+                and int((~batch.part_valid).sum()) == MV_P * MV_S - sum(MV_PARTS))
+
+    # 1. at 2 layers of the same width: gradients and sampling vs plain
+    small = RPFConfig(model=dataclasses.replace(cfg, num_layers=MV_CHECK_LAYERS))
+    check_train_gradients(fails, f"multiview ({MV_CHECK_LAYERS} layers)",
+                          init_dit_params(0, small.model, device="cuda", masters=True),
+                          batch, small)
+    serve_params = init_dit_params(0, small.model, device="cuda")
+    x_1 = torch.randn((MV_S * MV_P, MV_N, 3),
+                      generator=torch.Generator(device="cuda").manual_seed(23), device="cuda")
+    outs = []
+    for c in (small, dataclasses.replace(small, model=dataclasses.replace(
+            small.model, use_kernels=False))):
+        c = dataclasses.replace(c, inference_sampling_steps=STEPS, rigidity_forcing=True)
+        pts = sample(serve_params, c, batch, x_1=x_1, return_trajectory=False)["points"]
+        outs.append((pts,) + tuple(predict_poses(batch, pts)))
+    (pts, R, t), (pts_p, R_p, _) = outs
+    valid = batch.point_mask[..., None]
+    fails.check("multiview sample finite",
+                all(bool(torch.isfinite(a).all()) for a in (pts, R, t)))
+    fails.compare("multiview points vs plain (valid points)", pts * valid, pts_p * valid,
+                  tol_rel=TOL_POINTS)
+    err_r = float((R - R_p).abs().max())
+    fails.check("multiview rotations vs plain", err_r <= TOL_ROTATION_ABS,
+                f"max_abs_err={err_r:.4e} (tol {TOL_ROTATION_ABS})")
+
+    # 2. rap_12's depth: the launch counts of one step, five more steps
+    rcfg = RPFConfig(model=cfg)
+    opt_cfg = OptimizerConfig()
+    step = make_train_step(rcfg, opt_cfg)
+    evaluate = make_eval_step(rcfg)
+    params = init_dit_params(0, cfg, device="cuda", masters=True)
+    t_fix = torch.tensor([0.3, 0.8], device="cuda")
+    loss_before = float(evaluate(params, batch, None, x_1=x_1, t=t_fix)["loss"])
+    s = TrainState.create(params, opt_cfg, seed=29)
+    reset_launches()
+    s, m = step(s, batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    L = MV_LAYERS
+    expected = {"proj": 0, "flash_fixed": 0, "flash_online": 4 * L, "out_proj": 0,
+                "ff": 2 * L, "flash_bwd": L, "proj_bwd": 0, "ff_bwd": L,
+                "flash_bwd_dkv": L, "flash_bwd_dq": L}
+    log(f"  launches in one {L}-layer multiview step: {counts}")
+    fails.check("multiview launch counts", counts == expected, f"expected {expected}")
+    losses = []
+    for _ in range(1 + TRAIN_STEPS):
+        vals = {k: float(m[k]) for k in ("loss", "grad_norm", "skipped_nonfinite")}
+        losses.append(vals["loss"])
+        fails.check(f"multiview step {int(s.step)} finite, not skipped",
+                    np.isfinite(vals["loss"]) and np.isfinite(vals["grad_norm"])
+                    and vals["skipped_nonfinite"] == 0.0, str(vals))
+        if len(losses) <= TRAIN_STEPS:
+            s, m = step(s, batch)
+    loss_after = float(evaluate(s.params, batch, None, x_1=x_1, t=t_fix)["loss"])
+    fails.check("multiview loss at fixed (t, x_1) falls", loss_after < loss_before,
+                f"{loss_before:.6f} -> {loss_after:.6f} over {TRAIN_STEPS + 1} steps")
+    log(f"  step losses: {[round(x, 5) for x in losses]}")
+    report["multiview"] = {"parts": parts, "valid_points": n_valid, "launches": counts,
+                           "loss_before": loss_before, "loss_after": loss_after,
+                           "step_losses": losses}
+    state.update(mv_counts=counts, mv_step=step, mv_state=s, mv_batch=batch)
+
+
 def kernel_rows(state, counts):
     """Time each kernel, its plain version and a library call; bounds."""
     import torch.nn.functional as F
@@ -585,24 +833,30 @@ def kernel_rows(state, counts):
     train_counts = state.get("train_counts", {})
     rows = []
 
+    mv_counts = state.get("mv_counts", {})
+
     def row(name, source, replaces, fn_k, fn_p, fn_lib, flops, nbytes, shape, reps=10,
-            lib_ms=None):
+            lib_ms=None, launches=None, err_key=None, **extra):
         ms = cuda_time_ms(fn_k, reps)
         plain_ms = cuda_time_ms(fn_p, 3)
         if fn_lib is not None:
             lib_ms = cuda_time_ms(fn_lib, reps)
         b_ms, b_by = bound(flops, nbytes)
         # launches: on the serving path for the forward kernels, on the train
-        # step for the backward ones (train_launches: every kernel's on the
-        # train step)
-        main = train_counts if name.endswith("_bwd") else counts
+        # step for the backward ones, unless given (train_launches and
+        # multiview_launches: every kernel's on those steps)
+        if launches is None:
+            launches = (train_counts if name.endswith("_bwd") else counts).get(name, 0)
         r = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-             "launches": main.get(name, 0), "train_launches": train_counts.get(name, 0),
-             "max_abs_err": state["max_abs_err"][name],
+             "launches": launches, "train_launches": train_counts.get(name, 0),
+             "multiview_launches": mv_counts.get(name, 0),
+             "max_abs_err": state["max_abs_err"][err_key or name],
              "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "shape": shape}
+             "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "shape": shape,
+             **extra}
         log(f"  {name} [{shape}]: {ms:.4f} ms (plain {plain_ms:.4f}, library "
-            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'}, bound {b_ms:.4f} by {b_by})")
+            f"{'n/a' if lib_ms is None else f'{lib_ms:.4f}'}, bound {b_ms:.4f} by {b_by})"
+            + "".join(f", {k} {v}" for k, v in extra.items()))
         return r
 
     for is_global in (False, True):
@@ -705,6 +959,106 @@ def kernel_rows(state, counts):
                     2 * T * D * 2 + 2 * D * 4 + D * 2 * FH * 2 + 2 * FH * 4 + FH * D * 2
                     + T * D * 2 + 3 * D * 4 + D * 2 * FH * 4 + 2 * FH * 4 + FH * D * 4,
                     f"tokens {T}, D={D}, hidden {FH} bf16"))
+    if "mv_attn" in state:
+        rows += multiview_kernel_rows(state, row)
+    return rows
+
+
+def sdpa_masked_ms(qh, kh, vah, dout, mask, heads: int):
+    """(forward, backward) ms of scaled_dot_product_attention on the same
+    head-major q, k, v, dO and boolean key mask, the backward as
+    forward+backward minus forward, with the memory-efficient backend (the
+    one that takes a mask); (None, None) if that backend refuses the call."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    BH, T, _ = qh.shape
+    B = BH // heads
+    q_, k_, v_ = (a.reshape(B, heads, T, DH).detach().clone().requires_grad_(True)
+                  for a in (qh, kh, vah[..., :DH].contiguous()))
+    bias = mask.bool()[:, None, None, :]
+    do = dout.reshape(B, heads, T, DH)
+
+    def fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(q_, k_, v_, attn_mask=bias, scale=float(np.log(2.0)))
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(q_, k_, v_, attn_mask=bias, scale=float(np.log(2.0)))
+        torch.autograd.grad(o, (q_, k_, v_), do)
+
+    try:
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            f = cuda_time_ms(fwd, 5)
+            return f, cuda_time_ms(fwd_bwd, 5) - f
+    except RuntimeError as e:  # the library's refusal, recorded as "none"
+        log(f"  scaled_dot_product_attention (memory-efficient, key mask) refused: {e}")
+        return None, None
+
+
+def multiview_kernel_rows(state, row):
+    """The masked online forward (row 3) at both multi-view shapes, and rows 6
+    (masked, part attention), 7 and 8 (global attention); their launches are
+    those of one multi-view step. The bound counts the products this run's
+    keys need (the kernels skip key blocks with no valid key;
+    ``bound_all_tiles_ms`` counts every tile)."""
+    from rap_tpu_torch.ops import flash_attention as fa
+
+    mv_counts = state.get("mv_counts", {})
+    rows = []
+    sdpa = {}
+    for tag in ("part", "global"):
+        qh, kh, vah, mask, out, lse, dout = state["mv_attn"][tag][:7]
+        BH, T, _ = qh.shape
+        valid = float(mask.sum()) * H  # valid keys over every (batch, head) row
+        sdpa[tag] = sdpa_masked_ms(qh, kh, vah, dout, mask, H)
+        rows.append(row(
+            "flash_online", "rap_tpu_torch/csrc/attention.cu",
+            "rap_tpu/ops/pallas_attention.py:91",
+            lambda: fa.flash_online_kernel(qh, kh, vah, mask, H),
+            lambda: fa.flash_online_plain(qh, kh, vah, mask, H), None,
+            4 * T * DH * valid,
+            BH * T * (DH * 2 + (DH + 1) * 2 + DH * 2 + DH * 2 + 4) + mask.numel() * 4,
+            f"multiview {tag}: BH={BH}, T={T}, d={DH} bf16, key mask", lib_ms=sdpa[tag][0],
+            reps=5, launches=mv_counts.get("flash_online", 0), err_key="flash_online_masked",
+            variant="masked", bound_all_tiles_ms=bound(4 * T * T * DH * BH, 0)[0]))
+
+    qh, kh, vah, mask, out, lse, dout = state["mv_attn"]["part"]
+    BH, T, _ = qh.shape
+    valid = float(mask.sum()) * H
+    reads = BH * T * (2 * DH * 2 + 2 * (DH + 1) * 2 + 4) + mask.numel() * 4
+    rows.append(row(
+        "flash_bwd", "rap_tpu_torch/csrc/attention_bwd.cu",
+        "rap_tpu/ops/pallas_attention.py:506",
+        lambda: fa.flash_bwd_kernel(qh, kh, vah, out, lse, dout, mask, H),
+        lambda: fa.flash_bwd_plain(qh, kh, vah, out, lse, dout, mask, H), None,
+        10 * T * DH * valid, reads + 3 * BH * T * DH * 2,
+        f"multiview part: BH={BH}, T={T}, d={DH} bf16, key mask", lib_ms=sdpa["part"][1],
+        launches=mv_counts.get("flash_bwd", 0), err_key="flash_bwd_masked",
+        variant="masked", bound_all_tiles_ms=bound(10 * T * T * DH * BH, 0)[0]))
+
+    qh, kh, vah, mask, out, lse, dout, doa = state["mv_attn"]["global"]
+    BH, T, _ = qh.shape
+    valid = float(mask.sum()) * H
+    reads = BH * T * (2 * DH * 2 + 2 * (DH + 1) * 2 + 4) + mask.numel() * 4
+    args = (qh, kh, vah, doa, lse, mask, H)
+    shape = f"multiview global: BH={BH}, T={T}, d={DH} bf16, key mask"
+    rows.append(row(
+        "flash_bwd_dkv", "rap_tpu_torch/csrc/attention_bwd_split.cu",
+        "rap_tpu/ops/pallas_attention.py:426",
+        lambda: fa.flash_bwd_dkv_kernel(*args), lambda: fa.flash_bwd_dkv_plain(*args), None,
+        8 * T * DH * valid, reads + 2 * BH * T * DH * 2, shape, reps=5,
+        launches=mv_counts.get("flash_bwd_dkv", 0),
+        bound_all_tiles_ms=bound(8 * T * T * DH * BH, 0)[0],
+        library_backward_ms=sdpa["global"][1]))
+    rows.append(row(
+        "flash_bwd_dq", "rap_tpu_torch/csrc/attention_bwd_split.cu",
+        "rap_tpu/ops/pallas_attention.py:471",
+        lambda: fa.flash_bwd_dq_kernel(*args), lambda: fa.flash_bwd_dq_plain(*args), None,
+        6 * T * DH * valid, reads + BH * T * DH * 2, shape, reps=5,
+        launches=mv_counts.get("flash_bwd_dq", 0),
+        bound_all_tiles_ms=bound(6 * T * T * DH * BH, 0)[0],
+        library_backward_ms=sdpa["global"][1]))
     return rows
 
 
@@ -758,10 +1112,67 @@ def run_timing(report, fails, state):
     report["train_step_ms"] = per_step * 1e3
     report["train_tokens_per_s"] = tokens / per_step
     report["plain_train_step_ms"] = plain_step * 1e3
+
+    step, s, batch = state["mv_step"], state["mv_state"], state["mv_batch"]
+    s, _ = step(s, batch)  # warm-up
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        s, m = step(s, batch)
+        float(m["loss"])
+        times.append(time.perf_counter() - t0)
+    per_step = float(np.median(times))
+    n_valid, slots = int(batch.point_mask.sum()), MV_S * MV_P * MV_N
+    log(f"  multiview step ({MV_S} x {MV_P} x {MV_N} slots, {n_valid} valid points, "
+        f"{MV_LAYERS} layers, Muon, remat): median {per_step * 1e3:.2f} ms over 5 "
+        f"(all: {', '.join(f'{x * 1e3:.2f}' for x in times)}) -> "
+        f"{n_valid / per_step:.1f} valid points/s, {slots / per_step:.1f} padded slots/s")
+    report["multiview_step_ms"] = per_step * 1e3
+    report["multiview_step_ms_all"] = [x * 1e3 for x in times]
+    report["multiview_valid_points_per_s"] = n_valid / per_step
+    report["multiview_slots_per_s"] = slots / per_step
+    profile_multiview(report, state)
     counts = report.get("launches", {})
     reset_launches()
     report["kernels"] = kernel_rows(state, counts)
     reset_launches()  # timing launches are not main-path launches
+
+
+def profile_multiview(report, state) -> None:
+    """torch.profiler over one multi-view step: each device kernel's total
+    time and the device's busy share of the step's wall time (the kernels
+    run on one stream, so their times add up without overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step, s, batch = state["mv_step"], state["mv_state"], state["mv_batch"]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s, m = step(s, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = []
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue  # host ops; their kernels are listed as device events
+        ms = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0)) / 1e3
+        kernels.append({"name": e.key, "ms": ms, "count": e.count})
+    kernels.sort(key=lambda k: -k["ms"])
+    busy_ms = sum(k["ms"] for k in kernels)
+    groups: dict[str, float] = {}
+    for k in kernels:
+        group = next((g for frags, g in PROFILE_GROUPS if any(f in k["name"] for f in frags)),
+                     "PyTorch elementwise, reductions, copies")
+        groups[group] = groups.get(group, 0.0) + k["ms"]
+    log(f"  profile of one multiview step: wall {wall_ms:.2f} ms, device kernels "
+        f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}% busy, {len(kernels)} kernel names)")
+    for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"    {ms:10.3f} ms {100 * ms / wall_ms:5.1f}%  {group}")
+    for k in kernels[:12]:
+        log(f"    {k['ms']:10.3f} ms x{k['count']:6d}  {k['name'][:100]}")
+    report["multiview_profile"] = {"wall_ms": wall_ms, "device_ms": busy_ms,
+                                   "groups": groups, "kernels": kernels}
 
 
 def main(argv=None) -> int:
@@ -776,7 +1187,7 @@ def main(argv=None) -> int:
         ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
     phases.add("build")  # every other phase runs the kernels
     if "timing" in phases:  # times the inputs and the paths of the phases before
-        phases |= {"kernels", "main", "train"}
+        phases |= {"kernels", "main", "train", "multiview"}
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on the card",
@@ -798,6 +1209,7 @@ def main(argv=None) -> int:
              "kernels": lambda: run_kernels(report, fails, state),
              "main": lambda: run_main(report, fails, state),
              "train": lambda: run_train(report, fails, state),
+             "multiview": lambda: run_multiview(report, fails, state),
              "timing": lambda: run_timing(report, fails, state)}
     for name in PHASES:
         if name in phases:

@@ -1,0 +1,153 @@
+// The split flash attention backward: dK, dV in one pass, dQ in another.
+//
+// Replaces the TPU kernels rap_tpu/ops/pallas_attention.py:426
+// `_flash_bwd_dkv_kernel` (row 7) and :471 `_flash_bwd_dq_kernel` (row 8),
+// launched by `_bwd_split_impl` (:655, at :673 and :703). rap_tpu takes them
+// when the fused kernel's fp32 dQ partials slab would exceed 2 GiB
+// (`_bwd_impl`, :639-652): masked behind the online forward of a padded
+// batch (`_flash_hm_bwd`), unmasked behind the no-padding forward. The tile
+// math is attention_bwd_common.cuh's, shared with the fused backward (row 6).
+//
+// dKV (`rtt_flash_bwd_dkv`): the grid of `_bwd_split_impl`, one block per key
+// block of one head, walking every query block; dV += P^T dO and dK += dS^T Q
+// in fp32 registers, written once as bf16 (dK x ln2). No atomics, no slab.
+// dQ (`rtt_flash_bwd_dq`): one block per 64 queries of one head, dQ in fp32
+// registers over every key block, written once as dQ x ln2 in bf16: no
+// zero-fill, no atomics, no post-scale, so rows 7-8 are bitwise repeatable.
+// Both skip key blocks with no valid key (the kernels' pl.when(any(mask)),
+// :441 and :485): dKV writes zeros there, dQ adds nothing.
+//
+// Bound on the H100 (d=64; global attention of the 2 x 8 x 4096 multi-view
+// batch, BH=16, T=32768; 2 T^2 d per product and head at 989 TFLOP/s): dKV
+// computes 4 products (S, dP, dV, dK), 8.80 TFLOP, 8.89 ms; dQ 3 (S, dP,
+// dQ), 6.60 TFLOP, 6.67 ms; masked key blocks lower both in proportion. The
+// tensor cores bound them, exp2 on the FP32 pipes next; the split recomputes
+// S and dP twice, which is its price for needing no dQ slab. Simple first
+// design: warp-level mma.sync; no TMA, no wgmma, no pipelining.
+#include "attention_bwd_common.cuh"
+
+namespace {
+
+using rtt::bf16;
+using rtt::attn_bwd::D;
+using rtt::attn_bwd::LDS;
+using rtt::attn_bwd::LN2;
+using rtt::attn_bwd::ds_q;
+using rtt::attn_bwd::s_dp;
+using rtt::attn_bwd::zero_tiles;
+
+constexpr int BQ = 64;         // queries per block (16 per warp)
+constexpr int BK = 64;         // keys per step
+constexpr int NTHREADS = 128;  // 4 warps
+
+__global__ void __launch_bounds__(NTHREADS)
+dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+          const bf16* __restrict__ va, const int* __restrict__ mask,
+          const bf16* __restrict__ doa, const float* __restrict__ lse,
+          bf16* __restrict__ dq, int Tq, int Tk, int heads) {
+  __shared__ __align__(16) bf16 sQ[BQ * LDS];
+  __shared__ __align__(16) bf16 sDO[BQ * LDS];
+  __shared__ __align__(16) bf16 sK[BK * LDS];
+  __shared__ __align__(16) bf16 sV[BK * LDS];
+  __shared__ float sOne[BK];
+  __shared__ int sValid[BK];
+
+  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gg = lane >> 2, t = lane & 3;
+  const long qrow0 = (long)bh * Tq + q0;
+  const bf16* dob = doa + qrow0 * (D + 1);
+  const bf16* kb = k + (long)bh * Tk * D;
+  const bf16* vb = va + (long)bh * Tk * (D + 1);
+  const int* mrow = mask == nullptr ? nullptr : mask + (long)(bh / heads) * Tk;
+
+  rtt::stage_tile<NTHREADS>(sQ, LDS, q + qrow0 * D, D, BQ, D);
+  for (int i = threadIdx.x; i < BQ * D; i += NTHREADS) {
+    const int r = i / D, c = i % D;
+    sDO[r * LDS + c] = dob[(long)r * (D + 1) + c];
+  }
+  __syncthreads();
+  const int qr = warp * 16;  // this warp's first query row in the block
+  uint32_t qa[D / 16][4], da[D / 16][4];
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    rtt::load_a(qa[kc], sQ, LDS, qr, kc * 16, lane);
+    rtt::load_a(da[kc], sDO, LDS, qr, kc * 16, lane);
+  }
+  const long rowA = qrow0 + qr + gg, rowB = rowA + 8;
+  const float lA = lse[rowA], lB = lse[rowB];
+  const float nA = __bfloat162float(doa[rowA * (D + 1) + D]);
+  const float nB = __bfloat162float(doa[rowB * (D + 1) + D]);
+
+  float dqacc[D / 8][4];
+  zero_tiles<D / 8>(dqacc);
+  for (int k0 = 0; k0 < Tk; k0 += BK) {
+    __syncthreads();  // the previous step's reads of sK, sV, sOne, sValid are done
+    int any = 0;
+    for (int i = threadIdx.x; i < BK; i += NTHREADS) {
+      const int m = mrow == nullptr ? 1 : (mrow[k0 + i] != 0);
+      sValid[i] = m;
+      any |= m;
+    }
+    if (!__syncthreads_or(any)) continue;  // no valid key in this block
+    rtt::stage_tile<NTHREADS>(sK, LDS, kb + (long)k0 * D, D, BK, D);
+    for (int i = threadIdx.x; i < BK * D; i += NTHREADS) {
+      const int r = i / D, c = i % D;
+      sV[r * LDS + c] = vb[(long)(k0 + r) * (D + 1) + c];
+    }
+    for (int i = threadIdx.x; i < BK; i += NTHREADS)
+      sOne[i] = __bfloat162float(vb[(long)(k0 + i) * (D + 1) + D]);
+    __syncthreads();
+
+    float s[BK / 8][4], dp[BK / 8][4];
+    s_dp<BK>(s, dp, qa, da, sK, sV, lane);
+    uint32_t dsa[BK / 16][4];
+    ds_q<BK>(dsa, s, dp, lA, lB, nA, nB, sOne, sValid, lane);
+    // ---- dQ += dS K (M = queries, K = keys, N = dims) ----------------------
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        uint32_t b0, b1;
+        rtt::load_b_kn(b0, b1, sK, LDS, kc * 16, j * 8, lane);
+        rtt::mma16816(dqacc[j], dsa[kc], b0, b1);
+      }
+    }
+  }
+
+  // ---- dQ x ln2, bf16 ---------------------------------------------------------
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = j * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(dq + rowA * D + c) =
+        rtt::pack_f2(dqacc[j][0] * LN2, dqacc[j][1] * LN2);
+    *reinterpret_cast<uint32_t*>(dq + rowB * D + c) =
+        rtt::pack_f2(dqacc[j][2] * LN2, dqacc[j][3] * LN2);
+  }
+}
+
+}  // namespace
+
+// Both: q, k (BH, T, 64) bf16; va (BH, Tk, 65) bf16 with its ones column;
+// mask (BH / heads, Tk) int32, nonzero = valid key, or null (masked=False:
+// every key valid); doa (BH, Tq, 65) bf16 = [dO | -delta]; lse (BH, Tq) fp32.
+// dKV writes dk (x ln2), dv (BH, Tk, 64) bf16; Tq % 64 == 0, Tk % 128 == 0.
+extern "C" int rtt_flash_bwd_dkv(const void* q, const void* k, const void* va,
+                                 const void* mask, const void* doa,
+                                 const void* lse, void* dk, void* dv, int BH,
+                                 int Tq, int Tk, int heads, void* stream) {
+  return rtt::attn_bwd::launch_dkv<false>(q, k, va, mask, doa, lse, nullptr, dk,
+                                          dv, BH, Tq, Tk, heads, stream);
+}
+
+// dQ writes dq (x ln2) (BH, Tq, 64) bf16; Tq % 64 == 0, Tk % 64 == 0.
+extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* va,
+                                const void* mask, const void* doa,
+                                const void* lse, void* dq, int BH, int Tq,
+                                int Tk, int heads, void* stream) {
+  dim3 grid(Tq / BQ, BH);
+  dq_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)va, (const int*)mask,
+      (const bf16*)doa, (const float*)lse, (bf16*)dq, Tq, Tk, heads);
+  return (int)cudaGetLastError();
+}

@@ -1,10 +1,12 @@
 """Model configurations (counterpart of rap_tpu/models/config.py:16-80).
 
 The reference model zoo rap_10/12/16 (embed_dim 512, 8 heads) and the 6-layer
-variant of the committed checkpoints, with torch dtypes. ``use_kernels``
-selects the hand-written CUDA kernels (True) or their plain PyTorch versions
-(False) for the DiT's fused branch; on CPU tensors both run the plain
-versions.
+variant of the committed checkpoints, with torch dtypes. ``attn_impl`` and
+``ff_impl`` select routes as rap_tpu's do on its accelerator (auto, or a
+forced dense | chunked | pallas attention and xla | pallas feed-forward).
+``use_kernels`` selects the hand-written CUDA kernels (True) or their plain
+PyTorch versions (False) on the kernel routes; on CPU tensors both run the
+plain versions.
 """
 
 from __future__ import annotations
@@ -30,9 +32,13 @@ class DiTConfig:
     dropout_rate: float = 0.0      # FF dropout in training; not ported (> 0 raises there)
     time_embed_channels: int = 256  # sinusoidal timestep channels
     compute_dtype: torch.dtype = torch.bfloat16
+    attn_impl: str = "auto"        # dense | chunked | pallas | auto
+    ff_impl: str = "auto"          # xla | pallas | auto (fused GEGLU kernel)
     use_kernels: bool = True
 
     def __post_init__(self):
+        if not 0.0 <= self.dropout_rate < 1.0:
+            raise ValueError(f"dropout_rate must be in [0, 1): {self.dropout_rate}")
         if self.embed_dim % self.num_heads:
             raise ValueError(
                 f"embed_dim {self.embed_dim} is not a multiple of num_heads "

@@ -1,14 +1,22 @@
 """PointCloudDiT forward (counterpart of rap_tpu/models/dit.py:313-409).
 
-Ported: the dense, mask-free fused branch of ``_attention_block``
-(dit.py:177-226) and the dropout-free ``_geglu_ff``. Per layer: AdaLN part
-attention -> AdaLN global attention -> LayerNorm + GEGLU feed-forward, each
-with its residual, through five kernels: proj (AdaLN + QKV + qk-norm),
-attention (fixed-bound or online softmax, chosen per layer on the host from
-the qk-norm gains at weight load), out_proj (+ residual), ff (+ residual).
-The encoding (NeRF PE, anchor embedding) runs in fp32 and is cast to the
-compute dtype; the per-part timestep sinusoid and the AdaLN MLPs are fp32;
-the head is fp32.
+Per layer: AdaLN part attention -> AdaLN global attention -> LayerNorm +
+GEGLU feed-forward, each with its residual. ``_attention_block`` has rap_tpu's
+two branches, chosen by its guard (dit.py:183-195) as on its accelerator:
+- the fused branch, for a dense batch (no mask) whose sequence is a multiple
+  of 128 and at least 1024 long (or ``attn_impl="pallas"``): five kernels,
+  proj (AdaLN + QKV + qk-norm), attention (fixed-bound or online softmax,
+  chosen per layer on the host from the qk-norm gains), out_proj
+  (+ residual) and ff (+ residual);
+- the unfused branch (dit.py:228-268) for everything else, padded batches
+  above all: AdaLN, plain linears, per-head RMS qk-norm and
+  ``ops.attention.batched_attention`` with the point mask (flash kernels for
+  sequences of 1024 keys or more, dense or chunked attention below). A
+  dense batch there passes the exact logit bound of its gains.
+The feed-forward takes its kernel where rap_tpu's ``legal`` rule holds. The
+encoding (NeRF PE, anchor embedding, optional latent) runs in fp32 and is
+cast to the compute dtype; the per-part timestep sinusoid and the AdaLN MLPs
+are fp32; the head is fp32.
 
 Training: the same forward is differentiable (every kernel sits in a
 ``torch.autograd.Function`` whose backward is a kernel too, or the plain
@@ -17,14 +25,14 @@ under ``torch.utils.checkpoint`` (non-reentrant), the counterpart of
 ``jax.checkpoint`` at dit.py:391-392, so its forward kernels run again in
 the backward. Trained parameters are fp32 masters (``master_params``), cast
 to the compute dtype inside the differentiated graph; the attention guard
-bounds move with the trained gains, so the caller passes ``bounds``
-computed from the current gains (``attention_bounds``: one stacked amax and
-one host read for all layers) before the forward, and the recompute sees
-the same fixed/online choice as the first forward.
+bounds move with the trained gains, so for a dense batch the caller passes
+``bounds`` computed from the current gains (``attention_bounds``: one stacked
+amax and one host read for all layers) before the forward, and the
+recompute sees the same fixed/online choice as the first forward. A padded
+batch needs no bound.
 
-Not ported yet (each raises or is absent): the masked branch for padded
-batches (dit.py:228-268), ring attention, ``return_features``, ``latent``,
-FF dropout.
+Not ported yet (each raises or is absent): ring attention, FF dropout,
+the softcap variants of the attention kernels.
 
 Parameters are a nested dict like the JAX pytree, except that ``layers`` is
 a list of per-layer dicts (the stacked ``layers/*`` arrays split along L).
@@ -44,7 +52,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..core.batch import PartBatch
-from ..ops import flash_attention, fused_ff, fused_proj
+from ..ops import attention, flash_attention, fused_ff, fused_proj
 from .config import DiTConfig
 from .embedding import nerf_positional_encoding, sinusoidal_timestep_embedding
 
@@ -198,6 +206,17 @@ def _linear(p, x):
     return y
 
 
+def _layer_norm(x, scale=None, bias=None, eps: float = 1e-5):
+    """LayerNorm with fp32 statistics, returned in x's dtype (dit.py:116)."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.float() + bias.float()
+    return y.to(x.dtype)
+
+
 def _adaln_mlp(p, t_emb_sin):
     """Timestep MLP of AdaLN (dit.py:127-135): (G, C) -> (G, 2D), fp32."""
     e = F.silu(_linear(p["time_mlp1"], t_emb_sin.float()))
@@ -205,40 +224,85 @@ def _adaln_mlp(p, t_emb_sin):
     return _linear(p["ada_linear"], e)
 
 
-def _attention_block(lp, prefix, x, t_emb, cfg: DiTConfig, S: int, P: int,
-                     is_global: bool, bound2: float):
-    """x + AdaLN-prenorm attention sub-block (the fused branch, dit.py:183-226)."""
+def _adaln(p, x, t_emb_sin):
+    """Adaptive LayerNorm (dit.py:136): LN(x) in x's dtype, then
+    y * (1 + scale) + shift with the modulation cast to that dtype."""
+    scale, shift = _adaln_mlp(p, t_emb_sin).chunk(2, dim=-1)
+    y = _layer_norm(x)
+    return y * (1.0 + scale[:, None, :]).to(y.dtype) + shift[:, None, :].to(y.dtype)
+
+
+def _rms_qk(x, gamma):
+    """Per-head RMS norm in fp32, back to x's dtype (dit.py:151):
+    normalize(x) * gamma * sqrt(dh)."""
+    xf = x.float()
+    n = xf * torch.rsqrt((xf * xf).sum(-1, keepdim=True) + 1e-12)
+    return (n * gamma.float() * math.sqrt(x.shape[-1])).to(x.dtype)
+
+
+def _fused_ok(cfg: DiTConfig, mask, seq_len: int) -> bool:
+    """rap_tpu's guard of the fused branch (dit.py:183-195) on its
+    accelerator: a dense batch, qk-norm, no softcap, 128-aligned sequences."""
+    D, dh = cfg.embed_dim, cfg.head_dim
+    return (mask is None and cfg.qk_norm and cfg.softcap == 0.0
+            and cfg.attn_impl in ("auto", "pallas")
+            and (seq_len >= 1024 or cfg.attn_impl == "pallas")
+            and seq_len % 128 == 0 and D % 128 == 0 and dh % 8 == 0 and dh < 128)
+
+
+def _attention_block(lp, prefix, x, t_emb, mask, cfg: DiTConfig, S: int, P: int,
+                     is_global: bool, bound2):
+    """x + AdaLN-prenorm attention sub-block (dit.py:177-268). ``bound2``:
+    the host guard bound of a dense batch, None for a padded one."""
     G, N, D = x.shape
     H, dh = cfg.num_heads, cfg.head_dim
     kernels = cfg.use_kernels
-    ada = _adaln_mlp(lp[f"{prefix}_prenorm"], t_emb)  # (G, 2D)
-    qh5, kh5, vah5 = fused_proj.adaln_qkv(
-        x, ada, lp[f"{prefix}_qkv"]["kernel"], lp[f"{prefix}_q_gamma"],
-        lp[f"{prefix}_k_gamma"], P=P, is_global=is_global, kernels=kernels,
-    )
     seq = P * N if is_global else N
-    B = S if is_global else G
-    out_hm = flash_attention.flash_attention_headmajor(
-        qh5.reshape(B * H, seq, dh), kh5.reshape(B * H, seq, dh),
-        vah5.reshape(B * H, seq, dh + 1), bound2, kernels=kernels,
+    if _fused_ok(cfg, mask, seq):
+        ada = _adaln_mlp(lp[f"{prefix}_prenorm"], t_emb)  # (G, 2D)
+        qh5, kh5, vah5 = fused_proj.adaln_qkv(
+            x, ada, lp[f"{prefix}_qkv"]["kernel"], lp[f"{prefix}_q_gamma"],
+            lp[f"{prefix}_k_gamma"], P=P, is_global=is_global, kernels=kernels,
+        )
+        B = S if is_global else G
+        out_hm = flash_attention.flash_attention_headmajor(
+            qh5.reshape(B * H, seq, dh), kh5.reshape(B * H, seq, dh),
+            vah5.reshape(B * H, seq, dh + 1), bound2, kernels=kernels,
+        )
+        return fused_proj.attn_out(
+            out_hm.reshape(qh5.shape), x, lp[f"{prefix}_out"]["kernel"],
+            lp[f"{prefix}_out"]["bias"], P=P, is_global=is_global, kernels=kernels,
+        )
+
+    # the unfused branch (dit.py:228-268): XLA linears and batched_attention
+    h = _adaln(lp[f"{prefix}_prenorm"], x, t_emb)
+    q, k, v = _linear(lp[f"{prefix}_qkv"], h).reshape(G, N, 3, H, dh).unbind(2)
+    q = _rms_qk(q, lp[f"{prefix}_q_gamma"])
+    k = _rms_qk(k, lp[f"{prefix}_k_gamma"])
+    # a dense batch's exact bound on |q.k|, dh max|gq| max|gk| (:236-244)
+    logit_bound = None if mask is not None else bound2 * math.sqrt(dh) / math.log2(math.e)
+    kv_mask = mask
+    if is_global:  # (S, P*N, H, dh): all parts of a sample form one sequence
+        q, k, v = (a.reshape(S, P * N, H, dh) for a in (q, k, v))
+        kv_mask = None if mask is None else mask.reshape(S, P * N)
+    out = attention.batched_attention(
+        q, k, v, kv_mask, impl=cfg.attn_impl, softcap=cfg.softcap,
+        logit_bound=logit_bound, kernels=kernels,
     )
-    return fused_proj.attn_out(
-        out_hm.reshape(qh5.shape), x, lp[f"{prefix}_out"]["kernel"],
-        lp[f"{prefix}_out"]["bias"], P=P, is_global=is_global, kernels=kernels,
-    )
+    return x + _linear(lp[f"{prefix}_out"], out.reshape(G, N, D))
 
 
 def _geglu_ff(lp, x, cfg: DiTConfig):
     return fused_ff.geglu_ff(
         x, lp["ff_norm"]["scale"], lp["ff_norm"]["bias"], lp["ff_in"]["kernel"],
         lp["ff_in"]["bias"], lp["ff_out"]["kernel"], lp["ff_out"]["bias"],
-        kernels=cfg.use_kernels,
+        impl=cfg.ff_impl, kernels=cfg.use_kernels,
     )
 
 
-def _layer(h, lp, t_emb, cfg: DiTConfig, S: int, P: int, bounds):
-    h = _attention_block(lp, "self", h, t_emb, cfg, S, P, False, bounds[0])
-    h = _attention_block(lp, "global", h, t_emb, cfg, S, P, True, bounds[1])
+def _layer(h, lp, t_emb, mask, cfg: DiTConfig, S: int, P: int, bounds):
+    h = _attention_block(lp, "self", h, t_emb, mask, cfg, S, P, False, bounds[0])
+    h = _attention_block(lp, "global", h, t_emb, mask, cfg, S, P, True, bounds[1])
     return _geglu_ff(lp, h, cfg)
 
 
@@ -251,28 +315,30 @@ def dit_forward(
     parts_per_sample: int,
     remat: bool = False,
     bounds: list[tuple[float, float]] | None = None,
-) -> torch.Tensor:
-    """Predict the velocity field: (G, N, out_dim) fp32.
+    return_features: bool = False,
+    latent: torch.Tensor | None = None,
+):
+    """Predict the velocity field: (G, N, out_dim) fp32 [, features (G, N, D)
+    fp32 with ``return_features``].
 
-    Requires the regular layout (G == S * P) and a batch without padding.
-    ``bounds``: (self, global) guard bound per layer; None takes the ones
-    attached at load (serving). ``remat``: recompute each layer's forward in
-    the backward instead of keeping its activations.
+    Requires the regular layout (G == S * P). A batch with padding runs with
+    its point mask (the unfused branch); a dense one without a mask.
+    ``bounds``: (self, global) guard bound per layer of a dense batch; None
+    takes the ones attached at load (serving); a padded batch needs none.
+    ``remat``: recompute each layer's forward in the backward instead of
+    keeping its activations. ``latent``: (G, N, in_dim) encoder features
+    when ``cfg.in_dim > 0``; None gives zeros (dit.py:359-365).
     """
     G, N, _ = x.shape
     S, P = timesteps.shape[0], parts_per_sample
     if G != S * P:
         raise ValueError(f"regular layout required: G={G} != S*P={S * P}")
-    if not batch.no_padding:
-        raise NotImplementedError(
-            "padded batches take the masked branch (rap_tpu/models/dit.py:"
-            "228-268), which is not ported yet"
-        )
     if not cfg.qk_norm or cfg.softcap != 0.0:
-        raise NotImplementedError("the port's fused branch needs qk_norm and no softcap")
-    if cfg.in_dim > 0:
-        raise NotImplementedError("latent encoder features are not ported yet")
+        raise NotImplementedError(
+            "the port needs qk_norm; the softcap variants of the attention "
+            "kernels are not ported yet (ROADMAP section B3)")
     dtype = cfg.compute_dtype
+    mask = None if batch.no_padding else batch.point_mask
 
     # ---- encoding (fp32, then cast) --------------------------------------
     feats = [
@@ -284,6 +350,9 @@ def dit_forward(
         feats.append(nerf_positional_encoding(scales_pt, cfg.multires))
     if cfg.local_feat_concat_on:
         feats.append(batch.local_feats.float())
+    if cfg.in_dim > 0:
+        lat = latent if latent is not None else x.new_zeros((G, N, cfg.in_dim))
+        feats.append(lat.float())
     h = _linear(params["emb_proj"], torch.cat(feats, dim=-1))        # (G,N,D)
     anchor_vec = params["anchor_emb"][batch.anchor_part.long()]      # (G,D)
     h = (h + anchor_vec[:, None, :]).to(dtype)
@@ -293,15 +362,21 @@ def dit_forward(
         batch.per_sample_to_part(timesteps), cfg.time_embed_channels
     )
 
-    if bounds is None:
+    if mask is not None:
+        bounds = [(None, None)] * len(params["layers"])
+    elif bounds is None:
         bounds = [(lp["self_bound2"], lp["global_bound2"]) for lp in params["layers"]]
     for lp, b in zip(params["layers"], bounds, strict=True):
         if remat and torch.is_grad_enabled():
-            h = checkpoint(_layer, h, lp, t_emb, cfg, S, P, b, use_reentrant=False)
+            h = checkpoint(_layer, h, lp, t_emb, mask, cfg, S, P, b, use_reentrant=False)
         else:
-            h = _layer(h, lp, t_emb, cfg, S, P, b)
+            h = _layer(h, lp, t_emb, mask, cfg, S, P, b)
 
     # ---- fp32 head ----------------------------------------------------------
-    out = F.silu(_linear(params["final_mlp"]["fc1"], h.float()))
+    hf = h.float()
+    out = F.silu(_linear(params["final_mlp"]["fc1"], hf))
     out = F.silu(_linear(params["final_mlp"]["fc2"], out))
-    return _linear(params["final_mlp"]["fc3"], out)
+    out = _linear(params["final_mlp"]["fc3"], out)
+    if return_features:
+        return out, hf
+    return out

@@ -39,7 +39,9 @@ SIGNATURES = {
     "rtt_ff": [_P] * 8 + [_I] * 3 + [_P],
     "rtt_flash_fixed": [_P] * 3 + [_F] + [_P] * 2 + [_I] * 3 + [_P],
     "rtt_flash_online": [_P] * 6 + [_I] * 4 + [_P],
-    "rtt_flash_bwd": [_P] * 8 + [_I] * 3 + [_P],
+    "rtt_flash_bwd": [_P] * 9 + [_I] * 4 + [_P],
+    "rtt_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_P],
+    "rtt_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [_P],
     "rtt_proj_bwd": [_P] * 16 + [_I] * 5 + [_P],
     "rtt_ff_bwd": [_P] * 19 + [_I] * 3 + [_P],
 }

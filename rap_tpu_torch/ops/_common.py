@@ -2,15 +2,21 @@
 
 A wrapper takes its plain PyTorch version only when its tensors lie on the
 CPU (the tests); for CUDA tensors it launches its kernel or raises. There is
-no fallback from one to the other.
+no fallback from one to the other. Every launch goes through ``launch``,
+which makes the tensors' device current around the C call (the launchers
+take the device from the calling thread, the stream from the tensor), checks
+the error code and counts the launch. ``flash_bwd`` counts the fused
+attention backward with and without a key mask.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import _build
+
 KERNELS = ("proj", "flash_fixed", "flash_online", "out_proj", "ff",
-           "flash_bwd", "proj_bwd", "ff_bwd")
+           "flash_bwd", "proj_bwd", "ff_bwd", "flash_bwd_dkv", "flash_bwd_dq")
 
 # one plain integer per kernel, incremented only where the kernel launches
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
@@ -55,5 +61,12 @@ def require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def stream_of(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def launch(kernel: str, like: torch.Tensor, *args) -> None:
+    """Call the C entry point ``rtt_<kernel>`` with ``args`` and the current
+    stream of ``like``'s device, with that device current; raise on a CUDA
+    error, else count one launch of ``kernel``."""
+    fn = getattr(_build.load().lib, f"rtt_{kernel}")
+    with torch.cuda.device(like.device):
+        err = fn(*args, torch.cuda.current_stream(like.device).cuda_stream)
+    _build.check(err, f"{kernel} kernel")
+    LAUNCHES[kernel] += 1

@@ -1,25 +1,29 @@
-"""Flash attention forward on head-major, pre-scaled tensors.
+"""Flash attention on pre-scaled tensors, forward and backward.
 
-Counterpart of rap_tpu/ops/pallas_attention.py's no-padding entry point
-``flash_attention_headmajor`` (:338) and its guard ``_fwd_full_or_online``
-(:272): q arrives pre-scaled into base 2 (q·k is the base-2 logit), va is v
-with a ones column. The fixed-bound variant computes p = exp2(s - bound)
-with no running max; it is exact while every logit lies within the fp32
-exp2 range of the bound, which the guard proves from the qk-norm gains:
-bound2 <= SAFE_BOUND2 (:269). Above it the online-softmax variant runs.
+Counterpart of rap_tpu/ops/pallas_attention.py. Two entry points:
 
-Both variants are csrc/attention.cu (TPU ``_flash_fwd_full_kernel`` :188 and
-``_flash_fwd_kernel`` :91). The plain versions compute the same softmax on
-the whole row at once, chunked over (batch*head) rows to bound memory.
+- ``flash_attention_headmajor`` (:338), the no-padding path of the fused DiT
+  branch, and its guard ``_fwd_full_or_online`` (:272): q arrives pre-scaled
+  into base 2 (q·k is the base-2 logit), va is v with a ones column. The
+  fixed-bound variant computes p = exp2(s - bound) with no running max; it
+  is exact while every logit lies within the fp32 exp2 range of the bound,
+  which the guard proves from the qk-norm gains: bound2 <= SAFE_BOUND2
+  (:269). Above it the online-softmax variant runs.
+- ``flash_attention`` (:785), the (B, T, H, d) entry of ``batched_attention``
+  with an optional (B, Tk) key mask. Without a mask, and with block-aligned
+  lengths, it takes the no-padding path above; otherwise it pre-scales q,
+  pads queries and keys to rap_tpu's blocks (padded keys masked) and runs
+  the online variant with the key mask (``_flash_hm``, :722-768).
 
-The backward is csrc/attention_bwd.cu (TPU ``_flash_bwd_fused_kernel`` :506,
-the single-pass backward that ``_bwd_impl`` :639 takes while its fp32 dQ
-partials slab stays within 2 GiB); ``flash_bwd_plain`` is its twin. It reads
-lse2 from either forward variant. ``flash_attention_headmajor`` is a
-``torch.autograd.Function``: the gradient of the bound is 0 and the ones
-column of va gets a zero cotangent (:321-323). Where the JAX dispatch would
-take the split backward (``_flash_bwd_dkv_kernel`` :426 and
-``_flash_bwd_dq_kernel`` :471, not ported) the backward raises.
+Forward kernels: csrc/attention.cu (TPU ``_flash_fwd_full_kernel`` :188 and
+``_flash_fwd_kernel`` :91). Backward kernels, dispatched as ``_bwd_impl``
+(:639) dispatches: csrc/attention_bwd.cu (TPU ``_flash_bwd_fused_kernel``
+:506, with or without a key mask) while the fused kernel's fp32 dQ partials
+slab stays within 2 GiB, else csrc/attention_bwd_split.cu (TPU
+``_flash_bwd_dkv_kernel`` :426 and ``_flash_bwd_dq_kernel`` :471). Each has
+a plain twin here with the same arithmetic and cast points (``*_plain``),
+chunked over (batch*head, query) tiles to bound memory. The gradient of the
+bound is 0 and the ones column of va gets a zero cotangent (:321-323).
 """
 
 from __future__ import annotations
@@ -29,24 +33,46 @@ import math
 import torch
 import torch.nn.functional as F
 
-from . import _build
-from ._common import LAUNCHES, check_input, on_cpu, require, stream_of
+from ._common import check_input, launch, on_cpu, require
 
 SAFE_BOUND2 = 60.0
 NEG_INF = -1e30
 LSE_EMPTY = 1e30
+LOG2E = math.log2(math.e)
+LN2 = math.log(2.0)
 _KEY_BLOCK = 64    # csrc/attention.cu BK: keys are never padded
 _QUERY_BLOCK = 64  # csrc/attention.cu BQ
 _PLAIN_LOGITS = 2**28  # fp32 logits per chunk of the plain versions (1 GiB)
-LN2 = math.log(2.0)
-_BWD_KEY_BLOCK = 128  # csrc/attention_bwd.cu BK
+_BWD_KEY_BLOCK = 128  # csrc/attention_bwd.cu and the dKV pass: keys per block
 _FUSED_DQ_PARTIALS_CAP = 2 * 2**30  # pallas_attention.py:636
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _divisor_cap(block: int, cap: int) -> int:
+    """Largest multiple-of-128 divisor of ``block`` that is <= cap
+    (pallas_attention.py:733)."""
+    if block <= cap:
+        return block
+    for cand in range(cap - cap % 128, 127, -128):
+        if block % cand == 0:
+            return cand
+    raise ValueError(f"no 128-multiple divisor of block={block} within {cap}")
 
 
 def _chunks(BH: int, Tq: int, Tk: int, budget: int = _PLAIN_LOGITS):
     step = max(1, budget // (Tq * Tk))
     for i in range(0, BH, step):
         yield slice(i, min(BH, i + step))
+
+
+def _valid_keys(mask, heads: int, sl: slice):
+    """(rows, 1, Tk) bool of the (batch*head) rows ``sl``, or None."""
+    if mask is None:
+        return None
+    return mask.bool().repeat_interleave(heads, dim=0)[sl][:, None, :]
 
 
 def flash_fixed_plain(qh, kh, vah, bound: float):
@@ -72,12 +98,12 @@ def flash_online_plain(qh, kh, vah, mask=None, heads: int = 1):
     lse = torch.empty((BH, Tq), dtype=torch.float32, device=qh.device)
     for sl in _chunks(BH, Tq, kh.shape[1]):
         s = qh[sl].float() @ kh[sl].float().transpose(-1, -2)
-        if mask is not None:
-            valid = mask.bool().repeat_interleave(heads, dim=0)[sl][:, None, :]
+        valid = _valid_keys(mask, heads, sl)
+        if valid is not None:
             s = torch.where(valid, s, NEG_INF)
         m = s.amax(-1, keepdim=True)
         p = torch.exp2(s - m)
-        if mask is not None:
+        if valid is not None:
             p = p * valid
         p = p.to(qh.dtype).float()
         l = p.sum(-1, keepdim=True)
@@ -101,40 +127,43 @@ def _check_attention_inputs(qh, kh, vah):
     check_input("vah", vah, torch.bfloat16, (BH, Tk, d + 1))
 
 
+def _mask_arg(mask, qh, Tk: int, heads: int):
+    """The key mask as the kernels take it: a pointer to (BH/heads, Tk)
+    int32, or None (every key valid)."""
+    if mask is None:
+        return None
+    BH = qh.shape[0]
+    require(BH % heads == 0, f"BH={BH} is not a multiple of heads={heads}")
+    check_input("mask", mask, torch.int32, (BH // heads, Tk))
+    require(mask.device == qh.device, "mask on another device")
+    return mask.data_ptr()
+
+
+def _as_kernel_mask(mask):
+    return None if mask is None else mask.to(torch.int32).contiguous()
+
+
 def flash_fixed_kernel(qh, kh, vah, bound: float):
     """Launch the fixed-bound variant of csrc/attention.cu."""
     _check_attention_inputs(qh, kh, vah)
-    BH, Tq, d = qh.shape
+    BH, Tq, _ = qh.shape
     out = torch.empty_like(qh)
     lse = torch.empty((BH, Tq), dtype=torch.float32, device=qh.device)
-    err = _build.load().lib.rtt_flash_fixed(
-        qh.data_ptr(), kh.data_ptr(), vah.data_ptr(), float(bound),
-        out.data_ptr(), lse.data_ptr(), BH, Tq, kh.shape[1], stream_of(qh),
-    )
-    _build.check(err, "flash_fixed kernel")
-    LAUNCHES["flash_fixed"] += 1
+    launch("flash_fixed", qh, qh.data_ptr(), kh.data_ptr(), vah.data_ptr(),
+           float(bound), out.data_ptr(), lse.data_ptr(), BH, Tq, kh.shape[1])
     return out, lse
 
 
 def flash_online_kernel(qh, kh, vah, mask=None, heads: int = 1):
     """Launch the online-softmax variant of csrc/attention.cu."""
     _check_attention_inputs(qh, kh, vah)
-    BH, Tq, d = qh.shape
+    BH, Tq, _ = qh.shape
     Tk = kh.shape[1]
-    mask_ptr = None
-    if mask is not None:
-        require(BH % heads == 0, f"BH={BH} is not a multiple of heads={heads}")
-        check_input("mask", mask, torch.int32, (BH // heads, Tk))
-        require(mask.device == qh.device, "mask on another device")
-        mask_ptr = mask.data_ptr()
+    mask_ptr = _mask_arg(mask, qh, Tk, heads)
     out = torch.empty_like(qh)
     lse = torch.empty((BH, Tq), dtype=torch.float32, device=qh.device)
-    err = _build.load().lib.rtt_flash_online(
-        qh.data_ptr(), kh.data_ptr(), vah.data_ptr(), mask_ptr,
-        out.data_ptr(), lse.data_ptr(), BH, Tq, Tk, heads, stream_of(qh),
-    )
-    _build.check(err, "flash_online kernel")
-    LAUNCHES["flash_online"] += 1
+    launch("flash_online", qh, qh.data_ptr(), kh.data_ptr(), vah.data_ptr(),
+           mask_ptr, out.data_ptr(), lse.data_ptr(), BH, Tq, Tk, heads)
     return out, lse
 
 
@@ -148,9 +177,7 @@ def flash_online(qh, kh, vah, mask=None, heads: int = 1):
     """mask: (BH/heads, Tk), nonzero = valid key; None = every key valid."""
     if on_cpu(qh, kh, vah):
         return flash_online_plain(qh, kh, vah, mask, heads)
-    if mask is not None:
-        mask = mask.to(torch.int32).contiguous()
-    return flash_online_kernel(qh, kh, vah, mask, heads)
+    return flash_online_kernel(qh, kh, vah, _as_kernel_mask(mask), heads)
 
 
 # --------------------------------------------------------------------------
@@ -159,23 +186,24 @@ def flash_online(qh, kh, vah, mask=None, heads: int = 1):
 
 def fused_backward_slab_bytes(BH: int, Tq: int, Tk: int, d: int) -> int:
     """Bytes of the fp32 dQ partials slab (BH, nk, Tq, d) that the JAX
-    backward would write (pallas_attention.py:639-652): its kv block is the
-    largest of 1024/512/256/128 that divides Tk (``_full_block_sizes``)."""
+    no-padding backward would write (``_flash_hm_full_va_bwd`` :312 ->
+    ``_bwd_impl`` :639): its kv block is the largest of 1024/512/256/128
+    that divides Tk (``_full_block_sizes``)."""
     bk = next((c for c in (1024, 512, 256, 128) if Tk % c == 0), Tk)
     return BH * (Tk // bk) * Tq * d * 4
 
 
-def check_fused_backward(BH: int, Tq: int, Tk: int, d: int) -> None:
-    """Raise where the JAX dispatch leaves the fused backward for the split
-    one, which the port does not have yet."""
-    slab = fused_backward_slab_bytes(BH, Tq, Tk, d)
-    if slab > _FUSED_DQ_PARTIALS_CAP:
-        raise NotImplementedError(
-            f"attention backward at BH={BH}, T={Tq}: the dQ partials slab "
-            f"({slab / 2**30:.1f} GiB) exceeds 2 GiB, where rap_tpu takes the "
-            "split backward (_flash_bwd_dkv_kernel, _flash_bwd_dq_kernel): "
-            "ROADMAP section B rows 7-8, not ported yet"
-        )
+def masked_backward_slab_bytes(BH: int, Tq: int, Tk: int, d: int) -> int:
+    """The same slab for the masked path (``flash_attention`` :855-876 ->
+    ``_flash_hm_bwd`` :747): blocks min(1024, Tq) and min(2048, Tk) rounded up
+    to 128, the sequences padded to them, and a kv block of the largest
+    128-multiple divisor of the key block within 1024. The padded lengths
+    give the same blocks, so Tq, Tk may be either."""
+    block_q = min(1024, _round_up(Tq, 128))
+    block_k = min(2048, _round_up(Tk, 128))
+    bk = _divisor_cap(block_k, 1024)
+    Tqp, Tkp = _round_up(Tq, block_q), _round_up(Tk, block_k)
+    return BH * (Tkp // bk) * Tqp * d * 4
 
 
 def augment_do(dout, out):
@@ -185,54 +213,143 @@ def augment_do(dout, out):
     return torch.cat([dout, (-delta).to(dout.dtype)], dim=-1)
 
 
-def flash_bwd_plain(qh, kh, vah, out, lse2, dout):
-    """Plain version of the backward kernel: (dq, dk, dv), each (BH, T, d) in
-    q's dtype. Recomputes p from lse2; the -delta column, p and ds are
-    rounded to the storage dtype where ``_recompute_p_ds`` (:369) rounds
-    them; ln2 is applied per output element."""
+def _p_ds_tiles(qh, kh, vah, doa, lse2, mask, heads):
+    """The recomputed tiles of the plain backward twins, over (batch*head
+    rows, query rows) chunks: (rows, queries, p, ds), with p and ds rounded
+    to the storage dtype where ``_recompute_p_ds`` (:369) rounds them."""
     BH, Tq, d = qh.shape
+    Tk = kh.shape[1]
     dt = qh.dtype
-    doa = augment_do(dout.to(dt), out)
-    dq, dk, dv = (torch.empty_like(a) for a in (qh, kh, kh))
-    for sl in _chunks(BH, Tq, kh.shape[1], _PLAIN_LOGITS // 4):
-        q, k = qh[sl].float(), kh[sl].float()
-        p = torch.exp2(q @ k.transpose(-1, -2) - lse2[sl, :, None])
-        dpd = doa[sl].float() @ vah[sl].to(dt).float().transpose(-1, -2)
-        ds = (p * dpd).to(dt).float()
-        p = p.to(dt).float()
-        dv[sl] = (p.transpose(-1, -2) @ doa[sl, :, :d].float()).to(dt)
-        dk[sl] = ((ds.transpose(-1, -2) @ q) * LN2).to(dt)
-        dq[sl] = ((ds @ k) * LN2).to(dt)
-    return dq, dk, dv
+    budget = _PLAIN_LOGITS // 4
+    qstep = max(1, min(Tq, budget // Tk))
+    for sl in _chunks(BH, min(Tq, qstep), Tk, budget):
+        valid = _valid_keys(mask, heads, sl)
+        for i in range(0, Tq, qstep):
+            qs = slice(i, min(Tq, i + qstep))
+            s = qh[sl, qs].float() @ kh[sl].float().transpose(-1, -2)
+            if valid is not None:
+                s = torch.where(valid, s, NEG_INF)
+            p = torch.exp2(s - lse2[sl, qs, None])
+            dpd = doa[sl, qs].float() @ vah[sl].to(dt).float().transpose(-1, -2)
+            ds = (p * dpd).to(dt).float()
+            yield sl, qs, p.to(dt).float(), ds
 
 
-def flash_bwd_kernel(qh, kh, vah, out, lse2, dout):
-    """Launch csrc/attention_bwd.cu on CUDA tensors: (dq, dk, dv)."""
+def flash_bwd_dkv_plain(qh, kh, vah, doa, lse2, mask=None, heads: int = 1):
+    """Plain version of the dKV pass: (dk, dv), each (BH, Tk, d) in q's
+    dtype; dk carries the ln2 of the base-2 domain. doa = [dO | -delta]."""
+    d = qh.shape[-1]
+    dk = torch.zeros(kh.shape, dtype=torch.float32, device=qh.device)
+    dv = torch.zeros_like(dk)
+    for sl, qs, p, ds in _p_ds_tiles(qh, kh, vah, doa, lse2, mask, heads):
+        dv[sl] += p.transpose(-1, -2) @ doa[sl, qs, :d].float()
+        dk[sl] += ds.transpose(-1, -2) @ qh[sl, qs].float()
+    return (dk * LN2).to(qh.dtype), dv.to(qh.dtype)
+
+
+def flash_bwd_dq_plain(qh, kh, vah, doa, lse2, mask=None, heads: int = 1):
+    """Plain version of the dQ pass: dq (BH, Tq, d) in q's dtype, x ln2."""
+    dq = torch.empty_like(qh)
+    for sl, qs, _, ds in _p_ds_tiles(qh, kh, vah, doa, lse2, mask, heads):
+        dq[sl, qs] = ((ds @ kh[sl].float()) * LN2).to(qh.dtype)
+    return dq
+
+
+def flash_bwd_plain(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1):
+    """Plain version of the fused backward kernel: (dq, dk, dv), each
+    (BH, T, d) in q's dtype, from one recompute per tile."""
+    d = qh.shape[-1]
+    doa = augment_do(dout.to(qh.dtype), out)
+    dq = torch.empty_like(qh)
+    dk = torch.zeros(kh.shape, dtype=torch.float32, device=qh.device)
+    dv = torch.zeros_like(dk)
+    for sl, qs, p, ds in _p_ds_tiles(qh, kh, vah, doa, lse2, mask, heads):
+        dv[sl] += p.transpose(-1, -2) @ doa[sl, qs, :d].float()
+        dk[sl] += ds.transpose(-1, -2) @ qh[sl, qs].float()
+        dq[sl, qs] = ((ds @ kh[sl].float()) * LN2).to(qh.dtype)
+    return dq, (dk * LN2).to(qh.dtype), dv.to(qh.dtype)
+
+
+def _check_bwd_inputs(qh, kh, vah, doa, lse2, mask, heads, key_block: int):
     _check_attention_inputs(qh, kh, vah)
     BH, Tq, d = qh.shape
     Tk = kh.shape[1]
-    require(Tk % _BWD_KEY_BLOCK == 0,
-            f"attention backward kernel takes Tk % {_BWD_KEY_BLOCK} == 0, got {Tk}")
-    check_input("out", out, torch.bfloat16, (BH, Tq, d))
+    require(Tk % key_block == 0,
+            f"attention backward kernel takes Tk % {key_block} == 0, got {Tk}")
+    check_input("doa", doa, torch.bfloat16, (BH, Tq, d + 1))
     check_input("lse2", lse2, torch.float32, (BH, Tq))
+    return _mask_arg(mask, qh, Tk, heads)
+
+
+def flash_bwd_kernel(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1):
+    """Launch csrc/attention_bwd.cu on CUDA tensors: (dq, dk, dv)."""
+    check_input("out", out, torch.bfloat16, qh.shape)
     doa = augment_do(dout.to(qh.dtype), out).contiguous()
+    mask_ptr = _check_bwd_inputs(qh, kh, vah, doa, lse2, mask, heads, _BWD_KEY_BLOCK)
+    BH, Tq, d = qh.shape
     dq_acc = torch.zeros((BH, Tq, d), dtype=torch.float32, device=qh.device)
     dk = torch.empty_like(kh)
     dv = torch.empty_like(kh)
-    err = _build.load().lib.rtt_flash_bwd(
-        qh.data_ptr(), kh.data_ptr(), vah.data_ptr(), doa.data_ptr(),
-        lse2.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        BH, Tq, Tk, stream_of(qh),
-    )
-    _build.check(err, "flash_bwd kernel")
-    LAUNCHES["flash_bwd"] += 1
+    launch("flash_bwd", qh, qh.data_ptr(), kh.data_ptr(), vah.data_ptr(), mask_ptr,
+           doa.data_ptr(), lse2.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
+           dv.data_ptr(), BH, Tq, kh.shape[1], heads)
     return (dq_acc * LN2).to(qh.dtype), dk, dv
 
 
-def flash_bwd(qh, kh, vah, out, lse2, dout):
+def flash_bwd_dkv_kernel(qh, kh, vah, doa, lse2, mask=None, heads: int = 1):
+    """Launch the dKV pass of csrc/attention_bwd_split.cu: (dk, dv)."""
+    mask_ptr = _check_bwd_inputs(qh, kh, vah, doa, lse2, mask, heads, _BWD_KEY_BLOCK)
+    BH, Tq, _ = qh.shape
+    dk = torch.empty_like(kh)
+    dv = torch.empty_like(kh)
+    launch("flash_bwd_dkv", qh, qh.data_ptr(), kh.data_ptr(), vah.data_ptr(),
+           mask_ptr, doa.data_ptr(), lse2.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+           BH, Tq, kh.shape[1], heads)
+    return dk, dv
+
+
+def flash_bwd_dq_kernel(qh, kh, vah, doa, lse2, mask=None, heads: int = 1):
+    """Launch the dQ pass of csrc/attention_bwd_split.cu: dq."""
+    mask_ptr = _check_bwd_inputs(qh, kh, vah, doa, lse2, mask, heads, _KEY_BLOCK)
+    BH, Tq, _ = qh.shape
+    dq = torch.empty_like(qh)
+    launch("flash_bwd_dq", qh, qh.data_ptr(), kh.data_ptr(), vah.data_ptr(),
+           mask_ptr, doa.data_ptr(), lse2.data_ptr(), dq.data_ptr(), BH, Tq,
+           kh.shape[1], heads)
+    return dq
+
+
+def flash_bwd(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1):
     if on_cpu(qh, kh, vah, out, lse2, dout):
-        return flash_bwd_plain(qh, kh, vah, out, lse2, dout)
-    return flash_bwd_kernel(qh, kh, vah, out, lse2, dout)
+        return flash_bwd_plain(qh, kh, vah, out, lse2, dout, mask, heads)
+    return flash_bwd_kernel(qh, kh, vah, out, lse2, dout, _as_kernel_mask(mask), heads)
+
+
+def flash_bwd_dkv(qh, kh, vah, doa, lse2, mask=None, heads: int = 1):
+    if on_cpu(qh, kh, vah, doa, lse2):
+        return flash_bwd_dkv_plain(qh, kh, vah, doa, lse2, mask, heads)
+    return flash_bwd_dkv_kernel(qh, kh, vah, doa, lse2, _as_kernel_mask(mask), heads)
+
+
+def flash_bwd_dq(qh, kh, vah, doa, lse2, mask=None, heads: int = 1):
+    if on_cpu(qh, kh, vah, doa, lse2):
+        return flash_bwd_dq_plain(qh, kh, vah, doa, lse2, mask, heads)
+    return flash_bwd_dq_kernel(qh, kh, vah, doa, lse2, _as_kernel_mask(mask), heads)
+
+
+def attention_backward(qh, kh, vah, out, lse2, dout, mask, heads: int, split: bool,
+                       kernels: bool):
+    """(dq, dk, dv) as ``_bwd_impl`` (:639) computes them: the fused pass, or
+    with ``split`` the dKV and dQ passes on one [dO | -delta]."""
+    dout = dout.contiguous()
+    if not split:
+        bwd = flash_bwd if kernels else flash_bwd_plain
+        return bwd(qh, kh, vah, out, lse2, dout, mask, heads)
+    doa = augment_do(dout.to(qh.dtype), out).contiguous()
+    dkv, dq_pass = ((flash_bwd_dkv, flash_bwd_dq) if kernels
+                    else (flash_bwd_dkv_plain, flash_bwd_dq_plain))
+    dk, dv = dkv(qh, kh, vah, doa, lse2, mask, heads)
+    return dq_pass(qh, kh, vah, doa, lse2, mask, heads), dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -253,9 +370,10 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         qh, kh, vah, out, lse = ctx.saved_tensors
-        check_fused_backward(qh.shape[0], qh.shape[1], kh.shape[1], qh.shape[2])
-        bwd = flash_bwd if ctx.kernels else flash_bwd_plain
-        dq, dk, dv = bwd(qh, kh, vah, out, lse, dout.contiguous())
+        BH, Tq, d = qh.shape
+        split = fused_backward_slab_bytes(BH, Tq, kh.shape[1], d) > _FUSED_DQ_PARTIALS_CAP
+        dq, dk, dv = attention_backward(qh, kh, vah, out, lse, dout, None, 1, split,
+                                        ctx.kernels)
         return dq, dk, F.pad(dv, (0, 1)), None, None
 
 
@@ -267,3 +385,79 @@ def flash_attention_headmajor(qh, kh, vah, bound2: float, kernels: bool = True):
     Differentiable. ``kernels=False`` takes the plain versions forward and
     backward on any device; CPU tensors take them either way."""
     return _FlashAttention.apply(qh, kh, vah, float(bound2), kernels)
+
+
+class _MaskedFlashAttention(torch.autograd.Function):
+    """Counterpart of ``_flash_hm`` (pallas_attention.py:722-768): the online
+    forward with a (B, Tk) key mask shared by ``heads`` heads; the backward
+    on the ones-augmented v that the forward reads."""
+
+    @staticmethod
+    def forward(ctx, qh, kh, vah, mask, heads: int, kernels: bool):
+        fwd = flash_online if kernels else flash_online_plain
+        out, lse = fwd(qh, kh, vah, mask, heads)
+        ctx.save_for_backward(qh, kh, vah, mask, out, lse)
+        ctx.heads, ctx.kernels = heads, kernels
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qh, kh, vah, mask, out, lse = ctx.saved_tensors
+        BH, Tq, d = qh.shape
+        split = masked_backward_slab_bytes(BH, Tq, kh.shape[1], d) > _FUSED_DQ_PARTIALS_CAP
+        dq, dk, dv = attention_backward(qh, kh, vah, out, lse, dout, mask, ctx.heads,
+                                        split, ctx.kernels)
+        return dq, dk, F.pad(dv, (0, 1)), None, None, None
+
+
+def _head_major(a, B: int, H: int, T: int, d: int):
+    return a.transpose(1, 2).reshape(B * H, T, d).contiguous()
+
+
+def flash_attention(q, k, v, kv_mask=None, scale: float | None = None,
+                    softcap: float = 0.0, logit_bound: float | None = None,
+                    kernels: bool = True):
+    """Masked flash attention on (B, T, H, d) q, k, v; returns (B, Tq, H, d)
+    in q's dtype. ``kv_mask`` (B, Tk) bool, or None: every key valid, which
+    takes the no-padding path where Tq and Tk are multiples of 128.
+    ``logit_bound``: a host bound on the unscaled logits max|q·k| for that
+    path (from the qk-norm gains); without one it is computed from the row
+    norms (one host read). Differentiable."""
+    if softcap > 0.0:
+        raise NotImplementedError(
+            "the softcap variants of the attention kernels are not ported yet "
+            "(ROADMAP section B3)")
+    B, Tq, H, d = q.shape
+    Tk = k.shape[1]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    # q * jnp.asarray(scale * LOG2E, q.dtype) (:829-832): the constant itself
+    # is rounded to q's dtype; bf16 x bf16 is exact in fp32, then rounded
+    q = q * float(torch.tensor(scale * LOG2E, dtype=q.dtype))
+    qh = _head_major(q, B, H, Tq, d)
+    kh = _head_major(k, B, H, Tk, d)
+    vh = _head_major(v, B, H, Tk, d)
+
+    if kv_mask is None and Tq % 128 == 0 and Tk % 128 == 0 and d < 128:
+        if logit_bound is not None:
+            bound2 = float(logit_bound) * scale * LOG2E
+        else:
+            with torch.no_grad():
+                qn = qh.float().square().sum(-1).sqrt().max()
+                kn = kh.float().square().sum(-1).sqrt().max()
+                bound2 = float(qn * kn)
+        out = flash_attention_headmajor(qh, kh, F.pad(vh, (0, 1), value=1.0), bound2,
+                                        kernels)
+        return out.reshape(B, H, Tq, d).transpose(1, 2)
+
+    if kv_mask is None:
+        kv_mask = torch.ones((B, Tk), dtype=torch.bool, device=q.device)
+    block_q = min(1024, _round_up(Tq, 128))
+    block_k = min(2048, _round_up(Tk, 128))
+    pq, pk = (-Tq) % block_q, (-Tk) % block_k
+    qh = F.pad(qh, (0, 0, 0, pq))
+    kh = F.pad(kh, (0, 0, 0, pk))
+    vah = F.pad(F.pad(vh, (0, 0, 0, pk)), (0, 1), value=1.0)
+    mask = F.pad(kv_mask.to(torch.int32), (0, pk))
+    out = _MaskedFlashAttention.apply(qh, kh, vah, mask, H, kernels)
+    return out[:, :Tq].reshape(B, H, Tq, d).transpose(1, 2)

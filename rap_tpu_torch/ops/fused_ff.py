@@ -4,11 +4,13 @@ Counterpart of rap_tpu/ops/fused_ff.py ``geglu_ff`` (:288): x + FF(LN(x))
 with LN(scale, bias), proj = h @ wi + bi split into (hidden | gate), act =
 hidden * gelu(gate) with the exact erf, y = act @ wo + bo. The kernel is
 csrc/ff.cu (TPU ``_ff_kernel``, fused_ff.py:55); ``ff_plain`` repeats its
-arithmetic and cast points in plain PyTorch (the role of ``_xla_reference``
-:71, exact GELU): products sum bf16 inputs in fp32, act is rounded to the
-compute dtype before the second product, the output is x + y in that dtype.
+arithmetic and cast points in plain PyTorch (exact GELU): products sum bf16
+inputs in fp32, act is rounded to the compute dtype before the second
+product, the output is x + y in that dtype.
 
-``geglu_ff`` is a ``torch.autograd.Function``; its backward is csrc/ff_bwd.cu
+``geglu_ff`` dispatches as rap_tpu does between the kernel and the plain
+composition ``ff_reference`` (``_xla_reference``). The kernel route is a
+``torch.autograd.Function``; its backward is csrc/ff_bwd.cu
 (TPU ``_ff_bwd_kernel``, fused_ff.py:121), twin ``ff_bwd_plain``: it
 recomputes the forward with the exact-erf GELU and its derivative
 (``_gelu_grad_terms`` :114), with the in-projection bias in fp32 as the TPU
@@ -20,8 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import _build
-from ._common import LAUNCHES, check_input, on_cpu, require, stream_of
+from ._common import check_input, launch, on_cpu, require
 
 _FF_TOKENS = 32  # csrc/ff.cu BM
 
@@ -58,13 +59,12 @@ def ff_kernel(x2, ln_scale, ln_bias, wi, bi, wo, bo):
     check_input("wo", wo, torch.bfloat16, (fh, D))
     check_input("bo", bo, torch.bfloat16, (D,))
     out = torch.empty_like(x2)
-    err = _build.load().lib.rtt_ff(
+    launch(
+        "ff", x2,
         x2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), wi.data_ptr(),
         bi.data_ptr(), wo.data_ptr(), bo.data_ptr(), out.data_ptr(),
-        T, D, fh, stream_of(x2),
+        T, D, fh,
     )
-    _build.check(err, "ff kernel")
-    LAUNCHES["ff"] += 1
     return out
 
 
@@ -119,15 +119,14 @@ def ff_bwd_kernel(x2, g2, ln_scale, ln_bias, wi, bi, wo):
     dws, dwb, dbo = (torch.zeros((D,), **f32) for _ in range(3))
     dwi, dbi = torch.zeros((D, 2 * fh), **f32), torch.zeros((2 * fh,), **f32)
     dwo = torch.zeros((fh, D), **f32)
-    err = _build.load().lib.rtt_ff_bwd(
+    launch(
+        "ff_bwd", x2,
         x2.data_ptr(), g2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
         wi.data_ptr(), bi.data_ptr(), wo.data_ptr(), yln.data_ptr(),
         dact.data_ptr(), act.data_ptr(), dproj.data_ptr(), dyln.data_ptr(),
         dx.data_ptr(), dws.data_ptr(), dwb.data_ptr(), dwi.data_ptr(),
-        dbi.data_ptr(), dwo.data_ptr(), dbo.data_ptr(), T, D, fh, stream_of(x2),
+        dbi.data_ptr(), dwo.data_ptr(), dbo.data_ptr(), T, D, fh,
     )
-    _build.check(err, "ff_bwd kernel")
-    LAUNCHES["ff_bwd"] += 1
     return dx, dws, dwb, dwi, dbi, dwo, dbo
 
 
@@ -170,10 +169,34 @@ class _GegluFF(torch.autograd.Function):
                 None)
 
 
-def geglu_ff(x, ln_scale, ln_bias, wi, bi, wo, bo, kernels: bool = True):
+def ff_reference(x, ln_scale, ln_bias, wi, bi, wo, bo):
+    """x + FF(LN(x)) as the composition rap_tpu runs where its fused kernel
+    does not apply (``_xla_reference``, fused_ff.py:71), cast points
+    included: h, proj and act in x's dtype, GELU in fp32. Differentiated by
+    autograd."""
+    dt = x.dtype
+    fh = wo.shape[0]
+    h = (_ln_stats(x.float())[0] * ln_scale.float() + ln_bias.float()).to(dt)
+    proj = h @ wi.to(dt) + bi.to(dt)
+    act = proj[..., :fh] * F.gelu(proj[..., fh:].float(), approximate="none").to(dt)
+    return x + (act @ wo.to(dt) + bo.to(dt))
+
+
+def geglu_ff(x, ln_scale, ln_bias, wi, bi, wo, bo, impl: str = "auto",
+             kernels: bool = True):
     """x (..., D) + FF(LN(x)); wi (D, 2*FH) = (hidden | gate), wo (FH, D).
 
-    Differentiable. CUDA tensors launch the kernels forward and backward;
-    CPU tensors, or ``kernels=False``, take the plain versions.
+    Dispatch as rap_tpu's ``geglu_ff`` (:305-320) on its accelerator: the
+    fused kernel where its ``legal`` rule holds (D and 2*FH multiples of 128,
+    the token count a multiple of a block of 128-1024) or ``impl="pallas"``,
+    else ``ff_reference``. Differentiable. On the kernel route CUDA tensors
+    launch the kernels forward and backward; CPU tensors, or
+    ``kernels=False``, take the plain versions.
     """
+    D, fh = x.shape[-1], wo.shape[0]
+    T = x.numel() // D
+    legal = (D % 128 == 0 and (2 * fh) % 128 == 0
+             and any(T % b == 0 for b in (512, 1024, 256, 128)))
+    if not (impl == "pallas" or (impl == "auto" and legal)):
+        return ff_reference(x, ln_scale, ln_bias, wi, bi, wo, bo)
     return _GegluFF.apply(x, ln_scale, ln_bias, wi, bi, wo, bo, kernels)

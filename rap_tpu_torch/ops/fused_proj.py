@@ -28,8 +28,7 @@ import math
 
 import torch
 
-from . import _build
-from ._common import LAUNCHES, check_input, on_cpu, require, stream_of
+from ._common import check_input, launch, on_cpu, require
 
 
 def _ln_stats(xf: torch.Tensor, eps: float = 1e-5):
@@ -97,13 +96,12 @@ def proj_kernel(x, ada, w, gq_eff, gk_eff, P: int, is_global: bool):
     q = torch.empty(lead + (dh,), dtype=x.dtype, device=x.device)
     k = torch.empty_like(q)
     va = torch.empty(lead + (dh + 1,), dtype=x.dtype, device=x.device)
-    err = _build.load().lib.rtt_proj(
+    launch(
+        "proj", x,
         x.data_ptr(), ada.data_ptr(), w.data_ptr(), gq_eff.data_ptr(),
         gk_eff.data_ptr(), q.data_ptr(), k.data_ptr(), va.data_ptr(),
-        G, N, D, H, P if is_global else 1, stream_of(x),
+        G, N, D, H, P if is_global else 1,
     )
-    _build.check(err, "proj kernel")
-    LAUNCHES["proj"] += 1
     return q, k, va
 
 
@@ -169,15 +167,14 @@ def proj_bwd_kernel(x, ada, w, gq_eff, gk_eff, dq, dk, dva, P: int,
     dsc, dsh = torch.zeros((G, D), **f32), torch.zeros((G, D), **f32)
     dw = torch.zeros((D, 3 * D), **f32)
     dgain = torch.zeros((2 * D,), **f32)
-    err = _build.load().lib.rtt_proj_bwd(
+    launch(
+        "proj_bwd", x,
         x.data_ptr(), ada.data_ptr(), w.data_ptr(), gq_eff.data_ptr(),
         gk_eff.data_ptr(), dq.data_ptr(), dk.data_ptr(), dva.data_ptr(),
         hbuf.data_ptr(), dybuf.data_ptr(), dhid.data_ptr(), dx.data_ptr(),
         dsc.data_ptr(), dsh.data_ptr(), dw.data_ptr(), dgain.data_ptr(),
-        G, N, D, H, P if is_global else 1, stream_of(x),
+        G, N, D, H, P if is_global else 1,
     )
-    _build.check(err, "proj_bwd kernel")
-    LAUNCHES["proj_bwd"] += 1
     return (dx, torch.cat([dsc, dsh], dim=-1), dw, dgain[:D].reshape(H, dh),
             dgain[D:].reshape(H, dh))
 
@@ -270,12 +267,11 @@ def out_kernel(a5, res, w, b, P: int, is_global: bool):
     check_input("w", w, torch.bfloat16, (D, D))
     check_input("b", b, torch.bfloat16, (D,))
     out = torch.empty_like(res)
-    err = _build.load().lib.rtt_out_proj(
+    launch(
+        "out_proj", res,
         a5.data_ptr(), res.data_ptr(), w.data_ptr(), b.data_ptr(),
-        out.data_ptr(), G, N, D, H, P if is_global else 1, stream_of(res),
+        out.data_ptr(), G, N, D, H, P if is_global else 1,
     )
-    _build.check(err, "out_proj kernel")
-    LAUNCHES["out_proj"] += 1
     return out
 
 

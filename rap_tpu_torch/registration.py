@@ -6,10 +6,12 @@ t-binned losses), ``velocity_fn``, ``sample`` (euler/rk2/rk4, any schedule,
 rigidity forcing, trajectories) and ``predict_poses``. The caller may pass
 the noise ``x_1`` (and, to training, the timesteps ``t``), so the same draws
 can drive both packages.
-Not ported yet: the pose loss (``pose_loss_weight > 0`` raises: it needs the
-gradient of the batched 3x3 SVD), FF dropout in training, the pruned
-coarse-then-fine sampler (registration.py:193-245; ``sample`` raises when
-``prune_coarse_steps > 0``), transformer features and ring attention.
+Dense and padded batches both run (the DiT takes its masked branch for the
+latter). Not ported yet: the pose loss (``pose_loss_weight > 0`` raises: it
+needs the gradient of the batched 3x3 SVD), FF dropout in training, the
+pruned coarse-then-fine sampler (registration.py:193-245: ``sample`` raises
+only where rap_tpu would prune, and otherwise runs the plain sampler as
+rap_tpu does), transformer features and ring attention.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ class RPFConfig:
     inference_schedule: str = "uniform"
     rigidity_forcing: bool = True
     return_end_point_trajectory: bool = True
-    prune_coarse_steps: int = 0  # the pruned sampler is not ported: > 0 raises
+    prune_coarse_steps: int = 0  # the pruned sampler is not ported: raises where it would run
 
 
 def parts_per_sample(batch: PartBatch) -> int:
@@ -64,8 +66,9 @@ def training_forward(
     detached): loss, norm_v_pred, norm_v_t and the t-binned losses.
 
     ``t`` (S,) and ``x_1`` (G, N, 3) override the draws from ``generator``
-    (t first, then the noise, as rap_tpu splits its key). The attention
-    guard bounds are computed here from the current gains, once per call.
+    (t first, then the noise, as rap_tpu splits its key). For a dense batch
+    the attention guard bounds are computed here from the current gains,
+    once per call; a padded batch needs none.
     """
     if cfg.model.dropout_rate > 0.0:
         raise NotImplementedError(
@@ -84,8 +87,9 @@ def training_forward(
     P = parts_per_sample(batch)
     t_point = batch.per_sample_to_point(t)[..., None]  # (G, N, 1)
     x_t, v_t = flow.flow_interpolate(x_0, x_1, t_point)
+    bounds = attention_bounds(params) if batch.no_padding else None
     v_pred = dit_forward(params, cfg.model, x_t, t, batch, parts_per_sample=P,
-                         remat=remat, bounds=attention_bounds(params))
+                         remat=remat, bounds=bounds)
     loss = flow.velocity_loss(v_pred, v_t, batch.point_mask, cfg.loss_type)
     with torch.no_grad():
         v_pred = v_pred.detach()
@@ -133,16 +137,17 @@ def sample(
     ``generator`` on the batch's device. Returns a dict with 'points' and,
     with trajectories, 'end_point_trajectory' and 'trajectory'.
     """
-    if cfg.prune_coarse_steps > 0:
-        raise NotImplementedError(
-            "the pruned coarse-then-fine sampler (rap_tpu/registration.py:"
-            "193-245) is not ported yet; set prune_coarse_steps=0"
-        )
     if x_1 is None:
         x_1 = torch.randn(batch.points.shape, generator=generator,
                           dtype=torch.float32, device=batch.device)
     steps = num_steps or cfg.inference_sampling_steps
     return_trajectory = return_trajectory and cfg.return_end_point_trajectory
+    if (min(cfg.prune_coarse_steps, steps - 1) > 0 and cfg.rigidity_forcing
+            and not return_trajectory):
+        raise NotImplementedError(
+            "the pruned coarse-then-fine sampler (rap_tpu/registration.py:"
+            "193-245) is not ported yet; set prune_coarse_steps=0"
+        )
     res = flow_sampler(
         velocity_fn(params, cfg, batch),
         x_1=x_1,

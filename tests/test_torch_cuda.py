@@ -69,7 +69,7 @@ def test_proj_attention_out_kernels(gen, is_global):
            fused_proj.out_plain(a5, x, w_out, b_out, P, is_global))
     assert launch_counts() == {"proj": 1, "flash_fixed": 1, "flash_online": 1,
                                "out_proj": 1, "ff": 0, "flash_bwd": 0, "proj_bwd": 0,
-                               "ff_bwd": 0}
+                               "ff_bwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
 
 
 def test_online_kernel_masked_rows(gen):
@@ -97,7 +97,7 @@ def test_ff_kernel(gen):
 def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     x = torch.zeros(4, 100, D, device="cuda", dtype=torch.bfloat16)  # N % 64 != 0
     with pytest.raises(ValueError):
-        fused_ff.geglu_ff(x.float(), *(torch.zeros(1, device="cuda"),) * 6)
+        fused_ff.geglu_ff(x.float(), *(torch.zeros(1, device="cuda"),) * 6, impl="pallas")
     with pytest.raises(ValueError, match="multiples of 64"):
         q = torch.zeros(8, 100, DH, device="cuda", dtype=torch.bfloat16)
         fa.flash_fixed(q, q, torch.zeros(8, 100, DH + 1, device="cuda", dtype=torch.bfloat16),
@@ -111,7 +111,7 @@ def test_dit_forward_kernels_match_plain(gen):
     from rap_tpu_torch.models.config import DiTConfig
     from rap_tpu_torch.models.dit import attach_bounds, dit_forward, init_dit_params
 
-    cfg = DiTConfig(num_layers=2)
+    cfg = DiTConfig(num_layers=2, attn_impl="pallas")  # the fused branch at N=128
     params = init_dit_params(0, cfg)
     lp = params["layers"][0]
     lp["global_q_gamma"] = lp["global_q_gamma"] * 3
@@ -125,7 +125,8 @@ def test_dit_forward_kernels_match_plain(gen):
     counts = launch_counts()
     v_p = dit_forward(params, dataclasses.replace(cfg, use_kernels=False), x, ts, batch, P)
     assert counts == {"proj": 4, "flash_fixed": 3, "flash_online": 1, "out_proj": 4, "ff": 2,
-                      "flash_bwd": 0, "proj_bwd": 0, "ff_bwd": 0}
+                      "flash_bwd": 0, "proj_bwd": 0, "ff_bwd": 0, "flash_bwd_dkv": 0,
+                      "flash_bwd_dq": 0}
     err = float((v_k - v_p).abs().max())
     assert err <= 5e-2 * float(v_p.abs().max()), err
 
@@ -201,7 +202,7 @@ def test_training_gradients_kernels_match_plain(gen):
     from rap_tpu_torch.train.optim import OptimizerConfig, tree_paths, tree_replace
     from rap_tpu_torch.train.step import TrainState, make_train_step
 
-    cfg = DiTConfig(num_layers=2)
+    cfg = DiTConfig(num_layers=2, attn_impl="pallas")  # the fused branch at N=128
     params = init_dit_params(0, cfg, masters=True)
     params["layers"][0]["global_q_gamma"] *= 3  # one online attention per forward
     params["layers"][0]["global_k_gamma"] *= 3
@@ -220,7 +221,8 @@ def test_training_gradients_kernels_match_plain(gen):
         out[name] = (float(loss.detach()), dict(zip(leaves, grads)), launch_counts())
     (lk, gk, ck), (lp, gp, cp), (_, g32, _) = out["kernels"], out["plain"], out["fp32"]
     assert ck == {"proj": 8, "flash_fixed": 6, "flash_online": 2, "out_proj": 8, "ff": 4,
-                  "flash_bwd": 4, "proj_bwd": 4, "ff_bwd": 2}
+                  "flash_bwd": 4, "proj_bwd": 4, "ff_bwd": 2, "flash_bwd_dkv": 0,
+                  "flash_bwd_dq": 0}
     assert sum(cp.values()) == 0
     assert abs(lk - lp) <= 2e-2 * abs(lp)
 
@@ -232,3 +234,90 @@ def test_training_gradients_kernels_match_plain(gen):
     state = TrainState.create(params, OptimizerConfig(), seed=0)
     state, m = make_train_step(RPFConfig(model=cfg), OptimizerConfig())(state, batch)
     assert float(m["skipped_nonfinite"]) == 0.0 and torch.isfinite(m["loss"])
+
+
+# --------------------------------------------------------------------------
+# the split backward (rows 7-8) and the masked fused backward (row 6)
+# --------------------------------------------------------------------------
+
+def _bwd_inputs(gen, BH, T):
+    q, k = (_randn(gen, BH, T, DH, scale=0.6) for _ in range(2))
+    va = torch.cat([_randn(gen, BH, T, DH), torch.ones(BH, T, 1, device="cuda",
+                                                       dtype=torch.bfloat16)], -1)
+    return q, k, va.contiguous()
+
+
+def _key_mask(gen, B, T):
+    """Random keys, the first 256 of row 0 masked (whole key blocks of every
+    backward pass) and the last row fully masked."""
+    mask = (torch.rand((B, T), generator=gen, device="cuda") > 0.3).to(torch.int32)
+    mask[0, :256] = 0
+    mask[-1] = 0
+    return mask
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
+def test_split_backward_kernels(gen, masked):
+    heads, B, T = 2, 4, 512
+    q, k, va = _bwd_inputs(gen, B * heads, T)
+    mask = _key_mask(gen, B, T) if masked else None
+    out, lse = fa.flash_online_kernel(q, k, va, mask, heads)
+    doa = fa.augment_do(_randn(gen, B * heads, T, DH), out).contiguous()
+    args = (q, k, va, doa, lse, mask, heads)
+    reset_launches()
+    dk, dv = fa.flash_bwd_dkv_kernel(*args)
+    dq = fa.flash_bwd_dq_kernel(*args)
+    counts = launch_counts()
+    assert counts["flash_bwd_dkv"] == counts["flash_bwd_dq"] == 1
+    rk, rv = fa.flash_bwd_dkv_plain(*args)
+    for g_, r_ in ((dq, fa.flash_bwd_dq_plain(*args)), (dk, rk), (dv, rv)):
+        _close(g_, r_)
+    dk2, dv2 = fa.flash_bwd_dkv_kernel(*args)
+    assert torch.equal(dq, fa.flash_bwd_dq_kernel(*args))  # no atomics: bitwise
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    if masked:
+        empty = slice((B - 1) * heads, B * heads)
+        assert not dq[empty].any() and not dk[empty].any() and not dv[empty].any()
+        dead = (mask == 0).repeat_interleave(heads, dim=0)
+        assert not dk[dead].any() and not dv[dead].any()
+
+
+def test_masked_fused_backward_kernel(gen):
+    heads, B, T = 2, 4, 512
+    q, k, va = _bwd_inputs(gen, B * heads, T)
+    mask = _key_mask(gen, B, T)
+    out, lse = fa.flash_online_kernel(q, k, va, mask, heads)
+    dout = _randn(gen, B * heads, T, DH)
+    reset_launches()
+    got = fa.flash_bwd_kernel(q, k, va, out, lse, dout, mask, heads)
+    assert launch_counts()["flash_bwd"] == 1
+    for g_, r_ in zip(got, fa.flash_bwd_plain(q, k, va, out, lse, dout, mask, heads)):
+        _close(g_, r_)
+    empty = slice((B - 1) * heads, B * heads)
+    assert all(not g[empty].any() for g in got)
+
+
+def test_kernels_launch_on_their_tensors_device():
+    """Tensors on cuda:1 while cuda:0 is current: every launch runs on the
+    tensors' device and stream (the wrappers make it current)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    gen = torch.Generator().manual_seed(3)
+    dev = torch.device("cuda", 1)
+    heads, B, T = 2, 2, 256
+    q, k = ((torch.randn((B * heads, T, DH), generator=gen) * 0.6).to(dev, torch.bfloat16)
+            for _ in range(2))
+    va = torch.cat([torch.randn((B * heads, T, DH), generator=gen),
+                    torch.ones(B * heads, T, 1)], -1).to(dev, torch.bfloat16)
+    mask = (torch.rand((B, T), generator=gen) > 0.3).to(dev, torch.int32)
+    dout = torch.randn((B * heads, T, DH), generator=gen).to(dev, torch.bfloat16)
+    with torch.cuda.device(0):
+        out, lse = fa.flash_online_kernel(q, k, va, mask, heads)
+        doa = fa.augment_do(dout, out).contiguous()
+        dq = fa.flash_bwd_dq_kernel(q, k, va, doa, lse, mask, heads)
+        fused = fa.flash_bwd_kernel(q, k, va, out, lse, dout, mask, heads)
+        torch.cuda.synchronize(dev)
+    assert out.device == dq.device == dev
+    _close(out, fa.flash_online_plain(q, k, va, mask, heads)[0])
+    _close(dq, fa.flash_bwd_dq_plain(q, k, va, doa, lse, mask, heads))
+    _close(fused[0], dq)

@@ -43,7 +43,7 @@ def _tiny():
                         compute_dtype=jnp.float32, attn_impl="pallas",
                         ff_impl="pallas")
     tcfg = DiTConfig(embed_dim=128, num_layers=2, num_heads=2,
-                     compute_dtype=torch.float32)
+                     compute_dtype=torch.float32, attn_impl="pallas", ff_impl="pallas")
     jp = init_dit_params(jax.random.key(1), jcfg)
     rng = np.random.default_rng(0)
     layers = dict(jp["layers"])
@@ -119,21 +119,54 @@ def test_sample_and_poses_match_jax(case):
 
 
 def test_padded_batch_is_refused():
-    _, tcfg, _, tp = _tiny()
-    b = make_regular_synthetic_batch(0, [[128, 100], [128, 128]], N=128, P=P,
-                                     feat_dim=tcfg.local_feat_dim, device="cpu")
-    assert not b.no_padding
-    with pytest.raises(NotImplementedError, match="masked branch"):
-        dit_forward(tp, tcfg, torch.zeros(4, 128, 3), torch.zeros(2), b, P)
+    """Padded batches were refused until the masked branch was ported; now
+    such a batch (one part of 100 of 128 points) runs the masked branch and
+    agrees with rap_tpu's (fp32, 1e-5 of the largest velocity)."""
+    jcfg, tcfg, jp, tp = _tiny()
+    jb = jax_batch(jax.random.key(2), [[128, 100], [128, 128]], N=128, P=P, S=S,
+                   feat_dim=jcfg.local_feat_dim)
+    tb = batch_to_torch(jb)
+    assert not tb.no_padding
+    x = np.random.default_rng(4).standard_normal((S * P, 128, 3)).astype(np.float32)
+    ts = np.array([0.4, 0.8], np.float32)
+    ref = np.asarray(jax_dit_forward(jp, jcfg, jnp.asarray(x), jnp.asarray(ts), jb,
+                                     parts_per_sample=P))
+    got = dit_forward(tp, tcfg, t(x), t(ts), tb, P)
+    assert max_err(got.numpy(), ref) <= 1e-5 * np.abs(ref).max()
 
 
 def test_pruned_sampler_is_refused():
+    """The port refuses the pruned sampler only where rap_tpu would run it:
+    prune_coarse_steps > 0 with rigidity forcing and no trajectory."""
     _, tcfg, _, tp = _tiny()
     b = make_regular_synthetic_batch(0, [[128, 128]], N=128, P=P,
                                      feat_dim=tcfg.local_feat_dim, device="cpu")
-    cfg = RPFConfig(model=tcfg, prune_coarse_steps=1)
+    cfg = RPFConfig(model=tcfg, prune_coarse_steps=1, inference_sampling_steps=2)
     with pytest.raises(NotImplementedError, match="pruned"):
-        sample(tp, cfg, b)
+        sample(tp, cfg, b, generator=torch.Generator().manual_seed(0),
+               return_trajectory=False)
+
+
+@pytest.mark.parametrize("why", ["trajectory", "one_step", "no_forcing"])
+def test_unpruned_sampler_fallback_matches_jax(why):
+    """Where rap_tpu does not prune despite prune_coarse_steps > 0 (a
+    trajectory is returned, a single step, or no rigidity forcing), it runs
+    the plain sampler; so does the port, on the same noise (1e-4 abs)."""
+    jcfg, tcfg, jp, tp = _tiny()
+    steps, forcing, traj = {"trajectory": (2, True, True), "one_step": (1, True, False),
+                            "no_forcing": (2, False, False)}[why]
+    jb = jax_batch(jax.random.key(0), [[128] * P], N=128, P=P, S=1,
+                   feat_dim=jcfg.local_feat_dim)
+    x_1 = np.random.default_rng(13).standard_normal((P, 128, 3)).astype(np.float32)
+    jr = JaxRPFConfig(model=jcfg, inference_sampling_steps=steps, rigidity_forcing=forcing,
+                      prune_coarse_steps=1)
+    tr = RPFConfig(model=tcfg, inference_sampling_steps=steps, rigidity_forcing=forcing,
+                   prune_coarse_steps=1)
+    jo = jax_sample(jp, jr, jb, jax.random.key(3), x_1=jnp.asarray(x_1),
+                    return_trajectory=traj)
+    to = sample(tp, tr, batch_to_torch(jb), x_1=t(x_1), return_trajectory=traj)
+    assert max_err(to["points"].numpy(), jo["points"]) <= 1e-4
+    assert ("trajectory" in to) == ("trajectory" in jo) == traj
 
 
 def test_port_batch_generator_is_regular_and_valid():

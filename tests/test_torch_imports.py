@@ -114,6 +114,17 @@ def test_training_slice_modules_and_sources_are_covered():
     assert {"attention_bwd.cu", "proj_bwd.cu", "ff_bwd.cu"} <= sources
 
 
+def test_multiview_slice_modules_and_sources_are_covered():
+    from rap_tpu_torch.ops import KERNELS
+    from rap_tpu_torch.ops._build import SIGNATURES
+
+    assert {"rap_tpu_torch.ops.attention", "rap_tpu_torch.core.segments"} <= set(MODULES)
+    sources = {p.name for p in (PKG / "csrc").iterdir()}
+    assert {"attention_bwd_split.cu", "attention_bwd_common.cuh"} <= sources
+    # every counted kernel launches through the C entry point rtt_<name>
+    assert {f"rtt_{k}" for k in KERNELS} == set(SIGNATURES)
+
+
 def test_train_step_defaults_to_cuda():
     from rap_tpu_torch.registration import RPFConfig
     from rap_tpu_torch.train.optim import OptimizerConfig

@@ -106,14 +106,31 @@ def test_attention_twin_matches_autograd(gain, dtype):
         _close(g_, r_.numpy(), rtol, name)
 
 
-def test_attention_backward_raises_beyond_the_dq_slab():
-    """Where rap_tpu's dispatch takes the split backward (dQ partials slab
-    over 2 GiB), the port raises and names the rows still to port."""
+def test_attention_backward_raises_beyond_the_dq_slab(monkeypatch):
+    """The port used to raise where rap_tpu's dispatch takes the split
+    backward (dQ partials slab over 2 GiB); now it takes the split passes
+    there, rows 7-8, and they agree with rap_tpu's split backward (cap
+    lowered on both sides so that the tiny shape is past it)."""
     assert fa.fused_backward_slab_bytes(32, 8192, 8192, 64) == 512 * 2**20
     assert fa.fused_backward_slab_bytes(64, 4096, 4096, 64) == 256 * 2**20
-    fa.check_fused_backward(32, 8192, 8192, 64)
-    with pytest.raises(NotImplementedError, match="rows 7-8"):
-        fa.check_fused_backward(32, 32768, 32768, 64)  # S=2 x 8 parts x 4096
+    assert fa.fused_backward_slab_bytes(16, 32768, 32768, 64) == 4 * 2**30  # S=2 x 8 x 4096
+    calls = []
+    for name in ("flash_bwd_plain", "flash_bwd_dkv_plain", "flash_bwd_dq_plain"):
+        real = getattr(fa, name)
+        monkeypatch.setattr(fa, name, lambda *a, _r=real, _n=name: calls.append(_n) or _r(*a))
+    monkeypatch.setattr(fa, "_FUSED_DQ_PARTIALS_CAP", 0)
+    monkeypatch.setattr(jpa, "_FUSED_DQ_PARTIALS_CAP", 0)
+    jax.clear_caches()
+    q, k, va, bound2, dout = _attention_inputs(3.0, seed=3)
+    _, vjp = jax.vjp(lambda a, b, c: jpa.flash_attention_headmajor(
+        a, b, c, jnp.float32(bound2), interpret=True), *map(jnp.asarray, (q, k, va)))
+    ref = vjp(jnp.asarray(dout))
+    jax.clear_caches()
+    got = _grads(lambda a, b, c: fa.flash_attention_headmajor(a, b, c, bound2),
+                 (q, k, va), dout)
+    assert calls == ["flash_bwd_dkv_plain", "flash_bwd_dq_plain"]
+    for name, g_, r_ in zip(("dq", "dk", "dva"), got, ref):
+        _close(g_, r_, what=name)
 
 
 # --------------------------------------------------------------------------

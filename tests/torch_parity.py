@@ -36,7 +36,8 @@ def max_err(a, b) -> float:
 
 def tiny_pallas_models(seed: int = 1):
     """(jax cfg, port cfg, jax params, port params): D=128, 2 layers, 2 heads,
-    fp32, rap_tpu's fused Pallas path (interpret mode on the CPU), qk gains
+    fp32, the fused branch on both sides (``attn_impl="pallas"``: rap_tpu's
+    Pallas kernels in interpret mode, the port's plain twins), qk gains
     near 1 except layer 0's global attention, raised past the guard bound so
     that both attention variants run."""
     import jax.numpy as jnp
@@ -47,7 +48,8 @@ def tiny_pallas_models(seed: int = 1):
 
     jcfg = JaxDiTConfig(embed_dim=128, num_layers=2, num_heads=2,
                         compute_dtype=jnp.float32, attn_impl="pallas", ff_impl="pallas")
-    tcfg = DiTConfig(embed_dim=128, num_layers=2, num_heads=2, compute_dtype=torch.float32)
+    tcfg = DiTConfig(embed_dim=128, num_layers=2, num_heads=2, compute_dtype=torch.float32,
+                     attn_impl="pallas", ff_impl="pallas")
     jp = init_dit_params(jax.random.key(seed), jcfg)
     rng = np.random.default_rng(0)
     layers = dict(jp["layers"])
