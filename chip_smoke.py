@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive rap_tpu_torch's serving and training paths on one CUDA card, check them.
+"""Drive rap_tpu_torch's serving, evaluation and training paths on one CUDA card, check them.
 
     python3 chip_smoke.py              # every phase, as the check runs it
     python3 chip_smoke.py --phases build,kernels
+    python3 chip_smoke.py --phases build,kernels,sample
     python3 chip_smoke.py --phases build,kernels,train
     python3 chip_smoke.py --phases build,kernels,multiview
 
@@ -25,7 +26,15 @@ Phases, each printed on its own flushed line with its wall time:
               bit-identical, with the fused backward on the same inputs as a
               second witness; the fused backward with the batch's part mask at
               the part shape (BH=128, T=4096), whose two empty part slots must
-              get exactly zero gradient.
+              get exactly zero gradient. The softcap variants of rows 2, 3, 6,
+              7 and 8 against their softcap twins at c = 5 and c = 50: the
+              forward at the sample phase's shapes (the first batch the
+              port's loader makes of demo_data/synth: S=8 x P=2 x N=2048, so
+              part BH=128, T=2048 and global BH=64, T=4096; c = 5 takes the
+              fixed-bound variant, c = 50 the online one, as the guard
+              does), the masked forward and the backward at the multi-view
+              shapes (row 6 at the part shape, rows 7-8 at the global one,
+              bitwise repeatable).
 3. main       registration.sample + predict_poses at S=4 x 2 x 4096, 2 Euler
               steps, rigidity forcing, bf16, with random weights from a seed at
               the width and depth of teacher3_last (6 layers, D=512). The qk
@@ -35,7 +44,20 @@ Phases, each printed on its own flushed line with its wall time:
               Checks: finite output of the right shape, the launch counts of
               one sample, and agreement with the same call through the plain
               versions.
-4. train      one Muon step of the same model (fp32 random masters from a
+4. sample     rap_tpu_torch.apps.sample.main, the batch-evaluation entry
+              point, on configs/synth_student.yaml and demo_data/synth (one
+              dense batch of 8 pairs, 6 layers, 4 Euler steps, rigidity
+              forcing, trajectories for the rigidity selection), with random
+              weights from a seed at the checkpoint's shape written as an
+              .npz (the gains of the same 6 attention calls raised past the
+              guard as reflow_student.npz's are), at softcap 0 (the fused
+              branch), 5 and 50 (the unfused branch with the fixed-bound and
+              the online softcap kernel). Each run through the kernels and
+              through the plain versions: the launch counts, the metric
+              table, every metric finite, points and rotations against the
+              plain run, generation ms per batch and the loader's wait; at
+              softcap 5 the output must move away from softcap 0's.
+5. train      one Muon step of the same model (fp32 random masters from a
               seed, the same raised gains, so 6 online and 6 fixed attention
               calls per forward) on 4 x 2 x 4096 points, remat on. Checks: at
               the step's draws, the loss and every gradient leaf through the
@@ -45,7 +67,7 @@ Phases, each printed on its own flushed line with its wall time:
               each updated leaf's first-order loss change); the launch counts
               of one step; five more steps, finite and never skipped; the loss
               at the fixed (t, x_1) falls over those six steps.
-5. multiview  training on a padded multi-view batch, the shape the packer
+6. multiview  training on a padded multi-view batch, the shape the packer
               makes of 5-8-scan samples under configs/rap_train.yaml's
               80 000-point budget: S=2 x P=8 x N=4096, sample 0 with 8 parts,
               sample 1 with 6 (two empty slots), part sizes uniform in
@@ -58,10 +80,14 @@ Phases, each printed on its own flushed line with its wall time:
               12-layer step; at 2 layers of the same width and shape, the loss
               and every gradient leaf through the kernels against the plain
               versions (the train phase's rule), and sample + predict_poses
-              through the kernels against the plain versions; five more
-              12-layer steps, finite and never skipped, with the loss at a
-              fixed (t, x_1) falling.
-6. timing     median ms per batch and pairs/s; median ms per train step and
+              through the kernels against the plain versions, and the same
+              gradient check with softcap 5 (the softcap variants of the
+              masked forward, row 6 and rows 7-8, with their launch counts);
+              five more 12-layer steps, finite and never skipped, with the
+              loss at a fixed (t, x_1) falling.
+7. timing     median ms per batch and pairs/s; the sample path's median
+              generation ms per batch and pairs/s at each softcap over three
+              more runs; median ms per train step and
               tokens/s; median ms per multi-view step with valid points/s and
               padded slots/s, and one more multi-view step under
               torch.profiler (each device kernel's total time, the device's
@@ -69,13 +95,17 @@ Phases, each printed on its own flushed line with its wall time:
               version, its bound and one PyTorch library call where one
               computes the same function (scaled_dot_product_attention forward,
               and its backward as forward+backward minus forward, with a
-              boolean key mask for the masked shapes).
+              boolean key mask for the masked shapes; for the softcap
+              variants torch.compile(flex_attention) with the score_mod
+              c·tanh(s) and a block mask from the key mask, timed here and
+              used nowhere in the port).
 
 Then it prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. Any failed
 check exits non-zero. The script imports torch, numpy, the standard library
 and rap_tpu_torch only, resolves every path from this file, needs no
-checkpoint and no network, and needs one CUDA card.
+checkpoint and no network, and needs one CUDA card. It writes its random
+checkpoint and the kernel library under rap_tpu_torch/build/.
 """
 
 from __future__ import annotations
@@ -93,7 +123,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "main", "train", "multiview", "timing")
+PHASES = ("build", "kernels", "main", "sample", "train", "multiview", "timing")
 
 # main path (bench.py:151-157 of the JAX package: 4 pairs of 2 x 4096 points)
 S, P, N = 4, 2, 4096
@@ -107,6 +137,11 @@ ONLINE_GAIN = 3.0  # gq = gk = 3 -> bound2 = log2(e)*8*9 = 103.9 > 60
 # H100 SXM published dense peaks (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# the special-function unit (exp2, tanh): 16 results per clock per SM (CUDA
+# C++ Programming Guide, arithmetic instruction throughput, compute
+# capability 9.0) against the tensor cores' 4096 dense bf16 FLOP per clock
+# per SM, so at the data sheet's clock one 256th of the bf16 peak
+PEAK_MUFU_OPS = PEAK_BF16_FLOPS / 256
 
 # Tolerances, relative to max|reference|. Kernel and plain version round to
 # bf16 at the same points but sum in different orders, so an output element
@@ -147,6 +182,19 @@ MV_PARTS = (8, 6)              # parts of sample 0 and sample 1
 MV_PART_POINTS = (2500, 4096)  # part sizes, uniform, from MV_SEED
 MV_SEED = 21
 MV_LAYERS, MV_CHECK_LAYERS = 12, 2
+
+# sample phase: the batch-evaluation entry point on the shipped config and
+# data, random weights from a seed at its checkpoint's shape (6 layers,
+# D=512), the gains of ONLINE_LAYERS raised as reflow_student.npz's are (the
+# same 6 of 12 attention calls past the guard), at softcap 0 (the fused
+# branch), 5 (unfused, fixed-bound softcap kernel: 5 log2(e) = 7.2 <= 60)
+# and 50 (unfused, online softcap kernel: 72.1 > 60)
+SAMPLE_CONFIG = "configs/synth_student.yaml"
+SAMPLE_DATA = "demo_data/synth"
+SAMPLE_SEED = 42
+SOFTCAPS = (0.0, 5.0, 50.0)
+MV_SOFTCAP = 5.0  # the multi-view softcap training check
+SAMPLE_TIMING_RUNS = 3
 
 
 def log(msg: str) -> None:
@@ -199,20 +247,31 @@ def cuda_time_ms(fn, reps: int, warmup: int = 1) -> float:
     return float(np.median(times))
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """Least time on the card (ms) and what bounds it."""
-    t_ops = flops / PEAK_BF16_FLOPS
+def bound(flops: float, nbytes: float, mufu: float = 0.0) -> tuple[float, str]:
+    """Least time on the card (ms) and what bounds it: the tensor cores'
+    products or the special-function unit's ``mufu`` ops ("operations"), or
+    the bytes."""
+    t_ops = max(flops / PEAK_BF16_FLOPS, mufu / PEAK_MUFU_OPS)
     t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
+def ops_limiter(flops: float, mufu: float) -> str:
+    """Which unit bounds the operations: at d = 64 one exp2 per logit ties
+    the 4·d FLOP of the forward's two products, and a softcap's tanh tips
+    the forward and the dQ pass to the special-function unit."""
+    return "MUFU" if mufu / PEAK_MUFU_OPS > flops / PEAK_BF16_FLOPS else "tensor cores"
+
+
 # device kernel name fragments -> what a profiled step spends the time on
 PROFILE_GROUPS = (
-    (("flash_fwd_kernel<false>",), "row 3: online attention forward"),
-    (("flash_fwd_kernel<true>",), "row 2: fixed-bound attention forward"),
-    (("dkv_kernel<true>",), "row 6: fused attention backward"),
-    (("dkv_kernel<false>",), "row 7: dK, dV pass"),
-    (("dq_kernel",), "row 8: dQ pass"),
+    (("flash_fwd_kernel<false, false>",), "row 3: online attention forward"),
+    (("flash_fwd_kernel<true, false>",), "row 2: fixed-bound attention forward"),
+    (("dkv_kernel<true, false>",), "row 6: fused attention backward"),
+    (("dkv_kernel<false, false>",), "row 7: dK, dV pass"),
+    (("dq_kernel<false>",), "row 8: dQ pass"),
+    (("flash_fwd_kernel<false, true>", "flash_fwd_kernel<true, true>", "dkv_kernel<true, true>",
+      "dkv_kernel<false, true>", "dq_kernel<true>"), "rows 2, 3, 6-8: softcap variants"),
     (("ff_kernel",), "row 5: ff forward"),
     (("proj_kernel",), "row 1: proj forward"),
     (("out_kernel",), "row 4: out_proj forward"),
@@ -259,7 +318,8 @@ def run_build(report):
     log(f"  library {lib.path.relative_to(ROOT)}; nvcc took {lib.build_seconds:.1f} s"
         + ("" if lib.build_seconds else " (cached build loaded)"))
     for line in lib.compiler_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
+        if any(w in line for w in ("entry function", "registers", "spill")) \
+                or "error" in line.lower():
             log(f"  ptxas: {line.strip()}")
     report["build_seconds"] = lib.build_seconds
 
@@ -309,7 +369,7 @@ def run_kernels(report, fails, state):
 
     def compare(kernel, label, got, ref, **kw):
         err = fails.compare(label, got, ref, **kw)
-        errs[kernel] = max(errs[kernel], err)
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
 
     def compare_lse(label, got, ref):
         fails.compare(label, got, ref,
@@ -403,6 +463,7 @@ def run_kernels(report, fails, state):
         compare("ff_bwd", f"ff_bwd.{nm}", g_, r_)
     state["ff_bwd_args"] = ffb_args
     run_kernels_multiview(fails, state, gen, compare)
+    run_kernels_softcap(fails, state, gen, compare, compare_lse)
 
 
 def multiview_attention_inputs(gen, BH: int, T: int):
@@ -479,6 +540,217 @@ def run_kernels_multiview(fails, state, gen, compare):
     state["mv_attn"]["part"] = (qh, kh, vah, part_mask, out, lse, dout)
 
 
+def sample_overrides(ckpt, softcap: float, kernels: bool = True) -> list[str]:
+    """The ``-o`` overrides of the sample runs, the data path resolved from
+    this file."""
+    return [f"checkpoint={ckpt}", f"data.datasets.0.data_path={ROOT / SAMPLE_DATA}",
+            f"model.softcap={softcap}", f"model.use_kernels={'true' if kernels else 'false'}"]
+
+
+def sample_argv(ckpt, softcap: float, kernels: bool = True) -> list[str]:
+    """The command line of ``rap_tpu_torch.apps.sample`` on the shipped config
+    and data."""
+    argv = ["--config", str(ROOT / SAMPLE_CONFIG)]
+    for ov in sample_overrides(ckpt, softcap, kernels):
+        argv += ["-o", ov]
+    return argv
+
+
+def sample_attention_shapes() -> dict[str, tuple[int, int]]:
+    """(BH, T) of part and global attention on the first batch the port's
+    loader makes of the shipped data under the shipped config."""
+    from rap_tpu_torch.config import load_config
+    from rap_tpu_torch.data import BatchLoader, LoaderConfig, PointCloudDataset
+
+    cfg = load_config(ROOT / SAMPLE_CONFIG, sample_overrides("", 0.0))
+    loader = BatchLoader([PointCloudDataset(cfg.data.datasets[0])], LoaderConfig(
+        max_points_per_batch=cfg.data.max_points_per_batch), device="cuda")
+    batches = loader.epoch(0)
+    batch, _, _ = next(batches)
+    batches.close()
+    P_ = batch.G // batch.S
+    log(f"  the loader's first batch of {SAMPLE_DATA}: S={batch.S} x P={P_} x N={batch.N}, "
+        f"no_padding={batch.no_padding}")
+    return {"part": (batch.G * H, batch.N), "global": (batch.S * H, P_ * batch.N)}
+
+
+def softcap_attention_inputs(gen, BH: int, T: int, softcap: float, gain: float = 3.0):
+    """q, k, va as the unfused branch hands them to the softcap kernels:
+    qk-norm rows at gain ``gain`` (norm gain·sqrt(dh)), q pre-scaled by
+    scale/c, so |q·k| <= gain²·sqrt(dh)/c and the cap bites."""
+    def rows(norm):
+        x = torch.randn((BH, T, DH), generator=gen, device="cuda")
+        return (x / x.norm(dim=-1, keepdim=True) * norm).to(torch.bfloat16)
+
+    v = torch.randn((BH, T, DH), generator=gen, device="cuda").to(torch.bfloat16)
+    va = torch.cat([v, torch.ones((BH, T, 1), dtype=torch.bfloat16, device="cuda")], -1)
+    return rows(gain / softcap), rows(gain * np.sqrt(DH)), va.contiguous()
+
+
+def run_kernels_softcap(fails, state, gen, compare, compare_lse):
+    """The softcap variants of rows 2, 3, 6, 7 and 8 against their softcap
+    twins: forward at the sample path's dense shapes (c = 5: fixed, c = 50:
+    online, the choice flash_attention's guard makes), and the masked
+    forward and the backward at the multi-view shapes."""
+    from rap_tpu_torch.ops import flash_attention as fa
+
+    shapes = state["sample_shapes"] = sample_attention_shapes()
+    sc = state["softcap"] = {}
+    for tag, (BH, T) in shapes.items():
+        for c in (5.0, 50.0):
+            qh, kh, vah = softcap_attention_inputs(gen, BH, T, c)
+            b2 = fa._cap2(c)
+            if b2 <= fa.SAFE_BOUND2:
+                name = "flash_fixed_softcap"
+                got, ref = (fa.flash_fixed(qh, kh, vah, b2, c),
+                            fa.flash_fixed_plain(qh, kh, vah, b2, c))
+            else:
+                name = "flash_online_softcap"
+                got, ref = (fa.flash_online(qh, kh, vah, None, 1, c),
+                            fa.flash_online_plain(qh, kh, vah, None, 1, c))
+            compare(f"{name}@{c:g}", f"{name}[sample {tag}, c={c:g}].out", got[0], ref[0])
+            compare_lse(f"{name}[sample {tag}, c={c:g}].lse2", got[1], ref[1])
+            sc["sample", tag, c] = (qh, kh, vah)
+
+    part_mask, global_mask = multiview_masks(multiview_parts())
+    for tag, BH, T, mask in (("part", MV_S * MV_P * H, MV_N, part_mask),
+                             ("global", MV_S * H, MV_P * MV_N, global_mask)):
+        for c in (5.0, 50.0):
+            qh, kh, vah = softcap_attention_inputs(gen, BH, T, c)
+            dout = torch.randn((BH, T, DH), generator=gen, device="cuda").to(torch.bfloat16)
+            out, lse = fa.flash_online(qh, kh, vah, mask, H, c)
+            compare(f"flash_online_softcap@{c:g}/mv",
+                    f"flash_online_softcap[multiview {tag}, c={c:g}].out", out,
+                    fa.flash_online_plain(qh, kh, vah, mask, H, c)[0])
+            doa = fa.augment_do(dout, out).contiguous()
+            if tag == "part":  # the fused backward, masked (row 6)
+                got = fa.flash_bwd(qh, kh, vah, out, lse, dout, mask, H, c)
+                ref = fa.flash_bwd_plain(qh, kh, vah, out, lse, dout, mask, H, c)
+                for nm, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
+                    compare(f"flash_bwd_softcap@{c:g}",
+                            f"flash_bwd_softcap[multiview part, c={c:g}].{nm}", g_, r_)
+            else:  # the split backward (rows 7-8)
+                args = (qh, kh, vah, doa, lse, mask, H)
+                dk, dv = fa.flash_bwd_dkv(*args, c)
+                dq = fa.flash_bwd_dq(*args, c)
+                rk, rv = fa.flash_bwd_dkv_plain(*args, c)
+                tag_c = f"multiview global, c={c:g}"
+                compare(f"flash_bwd_dkv_softcap@{c:g}", f"flash_bwd_dkv_softcap[{tag_c}].dk",
+                        dk, rk)
+                compare(f"flash_bwd_dkv_softcap@{c:g}", f"flash_bwd_dkv_softcap[{tag_c}].dv",
+                        dv, rv)
+                compare(f"flash_bwd_dq_softcap@{c:g}", f"flash_bwd_dq_softcap[{tag_c}].dq", dq,
+                        fa.flash_bwd_dq_plain(*args, c))
+                fails.check(f"flash_bwd_dkv/dq_softcap[{tag_c}] bitwise repeatable",
+                            torch.equal(dq, fa.flash_bwd_dq(*args, c))
+                            and all(torch.equal(a, b) for a, b in
+                                    zip((dk, dv), fa.flash_bwd_dkv(*args, c))))
+            sc["mv", tag, c] = (qh, kh, vah, mask, out, lse, dout, doa)
+
+
+def write_random_checkpoint(cfg, seed: int) -> Path:
+    """fp32 random weights from ``seed`` at ``cfg``'s shape, with the gains
+    of ONLINE_LAYERS raised, as an .npz in rap_tpu's layout (flat "a/b/c"
+    keys, layers stacked) under the build directory; returns its path."""
+    from rap_tpu_torch.models.dit import init_dit_params
+
+    params = init_dit_params(seed, cfg, device="cpu", masters=True)
+    for i, prefix in ONLINE_LAYERS:
+        for qk in ("q", "k"):
+            params["layers"][i][f"{prefix}_{qk}_gamma"] *= ONLINE_GAIN
+
+    def flat(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            out.update(flat(v, f"{prefix}{k}/") if isinstance(v, dict)
+                       else {f"{prefix}{k}": v.numpy()})
+        return out
+
+    arrays = flat({k: v for k, v in params.items() if k != "layers"})
+    layers = [flat(lp, "layers/") for lp in params["layers"]]
+    arrays.update({k: np.stack([lp[k] for lp in layers]) for k in layers[0]})
+    out = ROOT / "rap_tpu_torch" / "build" / f"sample_random_{seed}.npz"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(out, **arrays)
+    return out
+
+
+def run_sample(report, fails, state):
+    """rap_tpu_torch.apps.sample.main on the shipped config and data at each
+    softcap, through the kernels and through the plain versions."""
+    from rap_tpu_torch.apps import sample as app
+    from rap_tpu_torch.config import load_config
+    from rap_tpu_torch.ops import KERNELS, launch_counts, reset_launches
+
+    cfg = load_config(ROOT / SAMPLE_CONFIG)
+    ckpt = write_random_checkpoint(cfg.model, SAMPLE_SEED)
+    L, steps = cfg.model.num_layers, cfg.pipeline.inference_sampling_steps
+    n_online = len(ONLINE_LAYERS)
+    runs = state["sample_runs"] = {}
+    outs = {}
+    for c in SOFTCAPS:
+        log(f"  -- apps.sample.main, softcap {c:g}, kernels")
+        rec = {}
+        reset_launches()
+        app.main(sample_argv(ckpt, c), record=rec)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        log(f"  -- apps.sample.main, softcap {c:g}, plain versions")
+        rec_p = {}
+        reset_launches()
+        app.main(sample_argv(ckpt, c, kernels=False), record=rec_p)
+        torch.cuda.synchronize()
+        fails.check(f"sample c={c:g}: plain path launched no kernel",
+                    sum(launch_counts().values()) == 0)
+        forwards = len(rec["batch_gen_ms"]) * cfg.pipeline.n_generations * steps
+        expected = dict.fromkeys(KERNELS, 0)
+        if c == 0.0:
+            expected.update(proj=2 * L * forwards, out_proj=2 * L * forwards, ff=L * forwards,
+                            flash_fixed=(2 * L - n_online) * forwards,
+                            flash_online=n_online * forwards)
+        else:
+            name = ("flash_fixed_softcap" if c * np.log2(np.e) <= 60.0
+                    else "flash_online_softcap")
+            expected.update({"ff": L * forwards, name: 2 * L * forwards})
+        log(f"  launches, softcap {c:g}: {counts}")
+        fails.check(f"sample c={c:g} launch counts", counts == expected, f"expected {expected}")
+        sections = rec["sections"]
+        vals = [v for sec in sections.values() for md in sec.values() for v in md.values()]
+        fails.check(f"sample c={c:g}: every metric finite ({len(vals)} values)",
+                    len(vals) > 0 and all(np.isfinite(v) for v in vals))
+        worst_p, worst_r = 0.0, 0.0
+        for (names, gens), (_, gens_p) in zip(rec["outputs"], rec_p["outputs"], strict=True):
+            for (pts, R, t), (pts_p, R_p, _) in zip(gens, gens_p, strict=True):
+                fails.check(f"sample c={c:g}: output finite",
+                            all(bool(torch.isfinite(a).all()) for a in (pts, R, t)))
+                worst_p = max(worst_p, fails.compare(
+                    f"sample c={c:g} points vs plain ({len(names)} samples)", pts, pts_p,
+                    tol_rel=TOL_POINTS))
+                err_r = float((R - R_p).abs().max())
+                worst_r = max(worst_r, err_r)
+                fails.check(f"sample c={c:g} rotations vs plain", err_r <= TOL_ROTATION_ABS,
+                            f"max_abs_err={err_r:.4e} (tol {TOL_ROTATION_ABS})")
+        outs[c] = rec["outputs"][0][1][0][0]
+        gen_s = sum(rec["batch_gen_ms"]) / 1e3
+        log(f"  softcap {c:g}: {len(rec['batch_gen_ms'])} batch(es), {rec['pairs']} pairs; "
+            f"generation {', '.join(f'{x:.2f}' for x in rec['batch_gen_ms'])} ms per batch -> "
+            f"{rec['pairs'] / gen_s:.3f} pairs/s (first run); loader wait "
+            f"{', '.join(f'{x:.2f}' for x in rec['load_ms'])} ms; plain versions "
+            f"{', '.join(f'{x:.2f}' for x in rec_p['batch_gen_ms'])} ms per batch")
+        runs[c] = {"launches": counts, "batch_ms_first": rec["batch_gen_ms"],
+                   "load_ms": rec["load_ms"], "plain_batch_ms": rec_p["batch_gen_ms"],
+                   "pairs": rec["pairs"], "points_err": worst_p, "rotation_err": worst_r,
+                   "metrics": sections}
+    moved = float((outs[5.0] - outs[0.0]).abs().max())
+    fails.check("softcap 5 moves the output away from softcap 0",
+                moved > max(1e-6, runs[5.0]["points_err"]),
+                f"max|points(c=5) - points(c=0)| = {moved:.4e}, kernels vs plain at c=5 "
+                f"{runs[5.0]['points_err']:.4e}")
+    report["sample"] = {str(c): {k: v for k, v in r.items() if k != "metrics"}
+                        for c, r in runs.items()}
+    state["sample_ckpt"] = ckpt
+
+
 def build_main_params(cfg):
     from rap_tpu_torch.models.dit import attach_bounds, init_dit_params
 
@@ -522,12 +794,12 @@ def run_main(report, fails, state):
     pts, R, t = serve(rcfg)
     torch.cuda.synchronize()
     counts = launch_counts()
-    expected = {
+    expected = dict.fromkeys(counts, 0)
+    expected.update({
         "proj": 2 * LAYERS * STEPS, "out_proj": 2 * LAYERS * STEPS,
         "ff": LAYERS * STEPS, "flash_fixed": (2 * LAYERS - n_online) * STEPS,
-        "flash_online": n_online * STEPS, "flash_bwd": 0, "proj_bwd": 0, "ff_bwd": 0,
-        "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
-    }
+        "flash_online": n_online * STEPS,
+    })
     log(f"  launches in one sample: {counts}")
     fails.check("launch counts", counts == expected, f"expected {expected}")
     fails.check("both attention variants ran",
@@ -705,12 +977,12 @@ def run_train(report, fails, state):
     err_u, k_u = max((rel_l2(pk[k] - p0[k], pp[k] - p0[k]), k) for k in pp)
     log(f"  raw update d, worst leaf {k_u}: kernels vs plain rel L2 {err_u:.3f}; "
         f"plain vs fp32 gradient {rel_l2(pp[k_u] - p0[k_u], u32[k_u]):.3f}")
-    expected = {
+    expected = dict.fromkeys(counts, 0)
+    expected.update({
         "proj": 4 * LAYERS, "out_proj": 4 * LAYERS, "ff": 2 * LAYERS,
         "flash_fixed": 2 * (2 * LAYERS - n_online), "flash_online": 2 * n_online,
         "flash_bwd": 2 * LAYERS, "proj_bwd": 2 * LAYERS, "ff_bwd": LAYERS,
-        "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
-    }
+    })
     log(f"  launches in one train step: {counts}")
     fails.check("train launch counts", counts == expected, f"expected {expected}")
 
@@ -780,6 +1052,23 @@ def run_multiview(report, fails, state):
     fails.check("multiview rotations vs plain", err_r <= TOL_ROTATION_ABS,
                 f"max_abs_err={err_r:.4e} (tol {TOL_ROTATION_ABS})")
 
+    # 1b. the same check with a softcap: the masked forward, masked row 6
+    #     (part attention) and rows 7-8 (global attention), softcap variants
+    capped = RPFConfig(model=dataclasses.replace(small.model, softcap=MV_SOFTCAP))
+    reset_launches()
+    check_train_gradients(fails, f"multiview softcap {MV_SOFTCAP:g} ({MV_CHECK_LAYERS} layers)",
+                          init_dit_params(0, capped.model, device="cuda", masters=True),
+                          batch, capped)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    Lc = MV_CHECK_LAYERS
+    expected = dict.fromkeys(counts, 0)
+    expected.update(flash_online_softcap=4 * Lc, ff=2 * Lc, ff_bwd=Lc, flash_bwd_softcap=Lc,
+                    flash_bwd_dkv_softcap=Lc, flash_bwd_dq_softcap=Lc)
+    log(f"  launches in the {Lc}-layer softcap forward and backward: {counts}")
+    fails.check("multiview softcap launch counts", counts == expected, f"expected {expected}")
+    state["mv_softcap_counts"] = counts
+
     # 2. rap_12's depth: the launch counts of one step, five more steps
     rcfg = RPFConfig(model=cfg)
     opt_cfg = OptimizerConfig()
@@ -794,9 +1083,9 @@ def run_multiview(report, fails, state):
     torch.cuda.synchronize()
     counts = launch_counts()
     L = MV_LAYERS
-    expected = {"proj": 0, "flash_fixed": 0, "flash_online": 4 * L, "out_proj": 0,
-                "ff": 2 * L, "flash_bwd": L, "proj_bwd": 0, "ff_bwd": L,
-                "flash_bwd_dkv": L, "flash_bwd_dq": L}
+    expected = dict.fromkeys(counts, 0)
+    expected.update({"flash_online": 4 * L, "ff": 2 * L, "flash_bwd": L, "ff_bwd": L,
+                     "flash_bwd_dkv": L, "flash_bwd_dq": L})
     log(f"  launches in one {L}-layer multiview step: {counts}")
     fails.check("multiview launch counts", counts == expected, f"expected {expected}")
     losses = []
@@ -836,12 +1125,14 @@ def kernel_rows(state, counts):
     mv_counts = state.get("mv_counts", {})
 
     def row(name, source, replaces, fn_k, fn_p, fn_lib, flops, nbytes, shape, reps=10,
-            lib_ms=None, launches=None, err_key=None, **extra):
+            lib_ms=None, launches=None, err_key=None, mufu=0.0, **extra):
         ms = cuda_time_ms(fn_k, reps)
         plain_ms = cuda_time_ms(fn_p, 3)
         if fn_lib is not None:
             lib_ms = cuda_time_ms(fn_lib, reps)
-        b_ms, b_by = bound(flops, nbytes)
+        b_ms, b_by = bound(flops, nbytes, mufu)
+        if mufu:  # one exp2 per logit (and a tanh under softcap)
+            extra = {"mufu_ops": mufu, "ops_limiter": ops_limiter(flops, mufu), **extra}
         # launches: on the serving path for the forward kernels, on the train
         # step for the backward ones, unless given (train_launches and
         # multiview_launches: every kernel's on those steps)
@@ -883,11 +1174,13 @@ def kernel_rows(state, counts):
         rf = row("flash_fixed", "rap_tpu_torch/csrc/attention.cu",
                  "rap_tpu/ops/pallas_attention.py:188",
                  lambda: fa.flash_fixed_kernel(qh, kh, vah, b2),
-                 lambda: fa.flash_fixed_plain(qh, kh, vah, b2), sdpa, flops, nbytes, shape)
+                 lambda: fa.flash_fixed_plain(qh, kh, vah, b2), sdpa, flops, nbytes, shape,
+                 mufu=BH * Tn * Tn)
         ro = row("flash_online", "rap_tpu_torch/csrc/attention.cu",
                  "rap_tpu/ops/pallas_attention.py:91",
                  lambda: fa.flash_online_kernel(qh, kh, vah),
-                 lambda: fa.flash_online_plain(qh, kh, vah), sdpa, flops, nbytes, shape)
+                 lambda: fa.flash_online_plain(qh, kh, vah), sdpa, flops, nbytes, shape,
+                 mufu=BH * Tn * Tn)
         if tag == "global":
             rows += [rf, ro]
 
@@ -934,7 +1227,7 @@ def kernel_rows(state, counts):
                 lambda: fa.flash_bwd_plain(qh, kh, vah, out, lse, dout), None,
                 10 * BH * Tn * Tn * DH,
                 BH * Tn * (4 * DH * 2 + (DH + 1) * 2 + 4) + 3 * BH * Tn * DH * 2,
-                f"{tag}: BH={BH}, T={Tn}, d={DH} bf16", lib_ms=lib)
+                f"{tag}: BH={BH}, T={Tn}, d={DH} bf16", lib_ms=lib, mufu=BH * Tn * Tn)
         if tag == "global":
             rows.append(r)
 
@@ -961,6 +1254,166 @@ def kernel_rows(state, counts):
                     f"tokens {T}, D={D}, hidden {FH} bf16"))
     if "mv_attn" in state:
         rows += multiview_kernel_rows(state, row)
+    if "softcap" in state:
+        rows += softcap_kernel_rows(state, row)
+    return rows
+
+
+def flex_softcap_ms(qh, kh, vah, c: float, mask=None, heads: int = 1, dout=None, out=None):
+    """torch.compile(flex_attention) on the same head-major q, k, v (and dO):
+    the logit c·tanh(q·k) (q is pre-scaled, so scale 1) as its score_mod,
+    the key mask as a block mask (built once, outside the timing). Returns
+    (forward ms, backward ms as forward+backward minus forward or None
+    without ``dout``, max |flex out - out| over the rows with a valid key);
+    (None, None, None) if the library refuses the call. Timed here only: the
+    port never calls it."""
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+
+    # every shape and score_mod is a graph of its own: room for them all, so
+    # none falls back to the eager version (which holds every score)
+    dyn = torch._dynamo.config
+    limit = "recompile_limit" if hasattr(dyn, "recompile_limit") else "cache_size_limit"
+    setattr(dyn, limit, max(getattr(dyn, limit), 64))
+    flex = torch.compile(flex_attention, fullgraph=True, dynamic=False)
+    BH, T, _ = qh.shape
+    B = BH // heads
+    q_, k_, v_ = (a.reshape(B, heads, T, DH).detach().clone().requires_grad_(dout is not None)
+                  for a in (qh, kh, vah[..., :DH].contiguous()))
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return c * torch.tanh(score)
+
+    block_mask, rows_ok = None, None
+    if mask is not None:
+        keys = mask.bool()
+        rows_ok = keys.any(1)
+
+        def key_mask(b, h, q_idx, kv_idx):
+            return keys[b, kv_idx]
+
+        block_mask = create_block_mask(key_mask, B, None, T, T, device=qh.device)
+
+    def fwd():
+        with torch.no_grad():
+            return flex(q_, k_, v_, score_mod=score_mod, block_mask=block_mask, scale=1.0)
+
+    try:
+        got = fwd().reshape(BH, T, DH)
+        err = None
+        if out is not None:
+            d = (got.float() - out.float()).abs().reshape(B, heads, T, DH)
+            err = float((d if rows_ok is None else d[rows_ok]).max())
+        f_ms = cuda_time_ms(fwd, 5)
+        if dout is None:
+            return f_ms, None, err
+        do = dout.reshape(B, heads, T, DH)
+
+        def fwd_bwd():
+            o = flex(q_, k_, v_, score_mod=score_mod, block_mask=block_mask, scale=1.0)
+            torch.autograd.grad(o, (q_, k_, v_), do)
+
+        return f_ms, cuda_time_ms(fwd_bwd, 5) - f_ms, err
+    except Exception as e:  # the library's refusal, recorded as "none"
+        log(f"  flex_attention (softcap {c:g}, BH={BH}, T={T}) refused: "
+            f"{type(e).__name__}: {str(e)[:300]}")
+        return None, None, None
+
+
+def softcap_kernel_rows(state, row):
+    """The softcap variants: forward at the sample path's shapes (c = 5 fixed,
+    c = 50 online), masked forward and backward at the multi-view shapes
+    (c = 5); launches from the sample runs and the multi-view softcap check.
+    The bound counts the products as without softcap and two
+    special-function ops per logit this run's keys need (exp2 and tanh;
+    ``tanh_ops`` is the tanh part): that tips the forward and the dQ pass to
+    the special-function unit. The library call is flex_attention with the
+    same cap (``flex_softcap_ms``)."""
+    from rap_tpu_torch.ops import flash_attention as fa
+
+    runs = state.get("sample_runs", {})
+    mv = state.get("mv_softcap_counts", {})
+    rows = []
+    for tag in ("part", "global"):
+        for c, name in ((5.0, "flash_fixed_softcap"), (50.0, "flash_online_softcap")):
+            qh, kh, vah = state["softcap"]["sample", tag, c]
+            BH, Tn, _ = qh.shape
+            b2 = fa._cap2(c)
+            if name == "flash_fixed_softcap":
+                fn_k = lambda: fa.flash_fixed_kernel(qh, kh, vah, b2, c)  # noqa: E731
+                fn_p = lambda: fa.flash_fixed_plain(qh, kh, vah, b2, c)  # noqa: E731
+            else:
+                fn_k = lambda: fa.flash_online_kernel(qh, kh, vah, None, 1, c)  # noqa: E731
+                fn_p = lambda: fa.flash_online_plain(qh, kh, vah, None, 1, c)  # noqa: E731
+            lib_ms, _, lib_err = flex_softcap_ms(qh, kh, vah, c, out=fn_k()[0])
+            rows.append(row(name, "rap_tpu_torch/csrc/attention.cu",
+                            "rap_tpu/ops/pallas_attention.py:" + ("188" if c == 5.0 else "91"),
+                            fn_k, fn_p, None, 4 * BH * Tn * Tn * DH,
+                            4 * BH * Tn * DH * 2 + BH * Tn * 4,
+                            f"sample {tag}: BH={BH}, T={Tn}, d={DH} bf16, softcap {c:g}",
+                            lib_ms=lib_ms, mufu=2 * BH * Tn * Tn,
+                            launches=runs.get(c, {}).get("launches", {}).get(name, 0),
+                            err_key=f"{name}@{c:g}", softcap=c, tanh_ops=BH * Tn * Tn,
+                            library="flex_attention", library_max_abs_err=lib_err,
+                            path=f"sample, softcap {c:g}"))
+
+    c = MV_SOFTCAP
+    for tag in ("part", "global"):
+        qh, kh, vah, mask, out, lse, dout, doa = state["softcap"]["mv", tag, c]
+        BH, T, _ = qh.shape
+        valid = float(mask.sum()) * H
+        lib_f, lib_b, lib_err = flex_softcap_ms(qh, kh, vah, c, mask, H, dout, out)
+        rows.append(row(
+            "flash_online_softcap", "rap_tpu_torch/csrc/attention.cu",
+            "rap_tpu/ops/pallas_attention.py:91",
+            lambda: fa.flash_online_kernel(qh, kh, vah, mask, H, c),
+            lambda: fa.flash_online_plain(qh, kh, vah, mask, H, c), None,
+            4 * T * DH * valid,
+            BH * T * (DH * 2 + (DH + 1) * 2 + DH * 2 + DH * 2 + 4) + mask.numel() * 4,
+            f"multiview {tag}: BH={BH}, T={T}, d={DH} bf16, key mask, softcap {c:g}",
+            reps=5, launches=mv.get("flash_online_softcap", 0), lib_ms=lib_f,
+            mufu=2 * T * valid, err_key=f"flash_online_softcap@{c:g}/mv", softcap=c,
+            tanh_ops=T * valid, library="flex_attention", library_max_abs_err=lib_err,
+            path=f"multiview {MV_CHECK_LAYERS}-layer check, softcap {c:g}",
+            bound_all_tiles_ms=bound(4 * T * T * DH * BH, 0, 2 * T * T * BH)[0]))
+        reads = BH * T * (2 * DH * 2 + 2 * (DH + 1) * 2 + 4) + mask.numel() * 4
+        shape = f"multiview {tag}: BH={BH}, T={T}, d={DH} bf16, key mask, softcap {c:g}"
+        common = dict(softcap=c, path=f"multiview {MV_CHECK_LAYERS}-layer check, softcap {c:g}",
+                      mufu=2 * T * valid, tanh_ops=T * valid, library="flex_attention")
+        if tag == "part":
+            rows.append(row(
+                "flash_bwd_softcap", "rap_tpu_torch/csrc/attention_bwd.cu",
+                "rap_tpu/ops/pallas_attention.py:506",
+                lambda: fa.flash_bwd_kernel(qh, kh, vah, out, lse, dout, mask, H, c),
+                lambda: fa.flash_bwd_plain(qh, kh, vah, out, lse, dout, mask, H, c), None,
+                10 * T * DH * valid, reads + 3 * BH * T * DH * 2, shape,
+                launches=mv.get("flash_bwd_softcap", 0), lib_ms=lib_b,
+                err_key=f"flash_bwd_softcap@{c:g}",
+                bound_all_tiles_ms=bound(10 * T * T * DH * BH, 0, 2 * T * T * BH)[0],
+                **common))
+        else:
+            # the two passes together are one backward: the library's
+            # backward stands beside each (library_backward_ms)
+            args = (qh, kh, vah, doa, lse, mask, H)
+            rows.append(row(
+                "flash_bwd_dkv_softcap", "rap_tpu_torch/csrc/attention_bwd_split.cu",
+                "rap_tpu/ops/pallas_attention.py:426",
+                lambda: fa.flash_bwd_dkv_kernel(*args, c),
+                lambda: fa.flash_bwd_dkv_plain(*args, c), None,
+                8 * T * DH * valid, reads + 2 * BH * T * DH * 2, shape, reps=5,
+                launches=mv.get("flash_bwd_dkv_softcap", 0),
+                err_key=f"flash_bwd_dkv_softcap@{c:g}", library_backward_ms=lib_b,
+                bound_all_tiles_ms=bound(8 * T * T * DH * BH, 0, 2 * T * T * BH)[0],
+                **common))
+            rows.append(row(
+                "flash_bwd_dq_softcap", "rap_tpu_torch/csrc/attention_bwd_split.cu",
+                "rap_tpu/ops/pallas_attention.py:471",
+                lambda: fa.flash_bwd_dq_kernel(*args, c),
+                lambda: fa.flash_bwd_dq_plain(*args, c), None,
+                6 * T * DH * valid, reads + BH * T * DH * 2, shape, reps=5,
+                launches=mv.get("flash_bwd_dq_softcap", 0),
+                err_key=f"flash_bwd_dq_softcap@{c:g}", library_backward_ms=lib_b,
+                bound_all_tiles_ms=bound(6 * T * T * DH * BH, 0, 2 * T * T * BH)[0],
+                **common))
     return rows
 
 
@@ -1021,7 +1474,8 @@ def multiview_kernel_rows(state, row):
             BH * T * (DH * 2 + (DH + 1) * 2 + DH * 2 + DH * 2 + 4) + mask.numel() * 4,
             f"multiview {tag}: BH={BH}, T={T}, d={DH} bf16, key mask", lib_ms=sdpa[tag][0],
             reps=5, launches=mv_counts.get("flash_online", 0), err_key="flash_online_masked",
-            variant="masked", bound_all_tiles_ms=bound(4 * T * T * DH * BH, 0)[0]))
+            variant="masked", mufu=T * valid,
+            bound_all_tiles_ms=bound(4 * T * T * DH * BH, 0, T * T * BH)[0]))
 
     qh, kh, vah, mask, out, lse, dout = state["mv_attn"]["part"]
     BH, T, _ = qh.shape
@@ -1035,7 +1489,8 @@ def multiview_kernel_rows(state, row):
         10 * T * DH * valid, reads + 3 * BH * T * DH * 2,
         f"multiview part: BH={BH}, T={T}, d={DH} bf16, key mask", lib_ms=sdpa["part"][1],
         launches=mv_counts.get("flash_bwd", 0), err_key="flash_bwd_masked",
-        variant="masked", bound_all_tiles_ms=bound(10 * T * T * DH * BH, 0)[0]))
+        variant="masked", mufu=T * valid,
+        bound_all_tiles_ms=bound(10 * T * T * DH * BH, 0, T * T * BH)[0]))
 
     qh, kh, vah, mask, out, lse, dout, doa = state["mv_attn"]["global"]
     BH, T, _ = qh.shape
@@ -1048,16 +1503,16 @@ def multiview_kernel_rows(state, row):
         "rap_tpu/ops/pallas_attention.py:426",
         lambda: fa.flash_bwd_dkv_kernel(*args), lambda: fa.flash_bwd_dkv_plain(*args), None,
         8 * T * DH * valid, reads + 2 * BH * T * DH * 2, shape, reps=5,
-        launches=mv_counts.get("flash_bwd_dkv", 0),
-        bound_all_tiles_ms=bound(8 * T * T * DH * BH, 0)[0],
+        launches=mv_counts.get("flash_bwd_dkv", 0), mufu=T * valid,
+        bound_all_tiles_ms=bound(8 * T * T * DH * BH, 0, T * T * BH)[0],
         library_backward_ms=sdpa["global"][1]))
     rows.append(row(
         "flash_bwd_dq", "rap_tpu_torch/csrc/attention_bwd_split.cu",
         "rap_tpu/ops/pallas_attention.py:471",
         lambda: fa.flash_bwd_dq_kernel(*args), lambda: fa.flash_bwd_dq_plain(*args), None,
         6 * T * DH * valid, reads + BH * T * DH * 2, shape, reps=5,
-        launches=mv_counts.get("flash_bwd_dq", 0),
-        bound_all_tiles_ms=bound(6 * T * T * DH * BH, 0)[0],
+        launches=mv_counts.get("flash_bwd_dq", 0), mufu=T * valid,
+        bound_all_tiles_ms=bound(6 * T * T * DH * BH, 0, T * T * BH)[0],
         library_backward_ms=sdpa["global"][1]))
     return rows
 
@@ -1132,6 +1587,7 @@ def run_timing(report, fails, state):
     report["multiview_step_ms_all"] = [x * 1e3 for x in times]
     report["multiview_valid_points_per_s"] = n_valid / per_step
     report["multiview_slots_per_s"] = slots / per_step
+    time_sample(report, state)
     profile_multiview(report, state)
     counts = report.get("launches", {})
     reset_launches()
@@ -1139,17 +1595,59 @@ def run_timing(report, fails, state):
     reset_launches()  # timing launches are not main-path launches
 
 
+def time_sample(report, state) -> None:
+    """apps.sample.main at each softcap, SAMPLE_TIMING_RUNS more runs: the
+    median generation ms per batch (rap_tpu's timing contract: generation
+    only, synchronised; metrics and loading excluded) and pairs/s, and the
+    loader's wait per batch beside it."""
+    from rap_tpu_torch.apps import sample as app
+    from rap_tpu_torch.config import load_config
+
+    cfg = load_config(ROOT / SAMPLE_CONFIG)
+    report["sample_timing"] = {}
+    for c in SOFTCAPS:
+        gen_ms, load_ms, pairs = [], [], 0
+        for _ in range(SAMPLE_TIMING_RUNS):
+            rec = {}
+            app.main(sample_argv(state["sample_ckpt"], c), record=rec)
+            gen_ms += rec["batch_gen_ms"]
+            load_ms += rec["load_ms"]
+            pairs = rec["pairs"] // len(rec["batch_gen_ms"])
+        med = float(np.median(gen_ms))
+        log(f"  sample, softcap {c:g} ({pairs} pairs per batch, "
+            f"{cfg.pipeline.inference_sampling_steps} steps, {cfg.model.num_layers} layers): median {med:.2f} ms per batch over {len(gen_ms)} "
+            f"(all: {', '.join(f'{x:.2f}' for x in gen_ms)}) -> {pairs / med * 1e3:.3f} pairs/s; "
+            f"loader wait median {float(np.median(load_ms)):.2f} ms per batch")
+        # one more run under the profiler: its wall time includes loading,
+        # the metrics and the profiler's own cost
+        prof = device_profile(f"one apps.sample.main run, softcap {c:g}",
+                              lambda: app.main(sample_argv(state["sample_ckpt"], c)))
+        report["sample_timing"][str(c)] = {
+            "batch_ms": med, "batch_ms_all": gen_ms, "pairs_per_s": pairs / med * 1e3,
+            "load_ms": float(np.median(load_ms)), "load_ms_all": load_ms,
+            "plain_batch_ms": state["sample_runs"][c]["plain_batch_ms"], "profile": prof}
+
+
 def profile_multiview(report, state) -> None:
-    """torch.profiler over one multi-view step: each device kernel's total
-    time and the device's busy share of the step's wall time (the kernels
+    """torch.profiler over one multi-view step (see ``device_profile``)."""
+    step, s, batch = state["mv_step"], state["mv_state"], state["mv_batch"]
+
+    def one_step():
+        _, m = step(s, batch)
+        float(m["loss"])
+
+    report["multiview_profile"] = device_profile("one multiview step", one_step)
+
+
+def device_profile(what: str, fn) -> dict:
+    """torch.profiler over one call of ``fn``: each device kernel's total
+    time and the device's busy share of the call's wall time (the kernels
     run on one stream, so their times add up without overlap)."""
     from torch.profiler import ProfilerActivity, profile
 
-    step, s, batch = state["mv_step"], state["mv_state"], state["mv_batch"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        s, m = step(s, batch)
-        float(m["loss"])
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = []
@@ -1165,14 +1663,13 @@ def profile_multiview(report, state) -> None:
         group = next((g for frags, g in PROFILE_GROUPS if any(f in k["name"] for f in frags)),
                      "PyTorch elementwise, reductions, copies")
         groups[group] = groups.get(group, 0.0) + k["ms"]
-    log(f"  profile of one multiview step: wall {wall_ms:.2f} ms, device kernels "
+    log(f"  profile of {what}: wall {wall_ms:.2f} ms, device kernels "
         f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}% busy, {len(kernels)} kernel names)")
     for group, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"    {ms:10.3f} ms {100 * ms / wall_ms:5.1f}%  {group}")
     for k in kernels[:12]:
         log(f"    {k['ms']:10.3f} ms x{k['count']:6d}  {k['name'][:100]}")
-    report["multiview_profile"] = {"wall_ms": wall_ms, "device_ms": busy_ms,
-                                   "groups": groups, "kernels": kernels}
+    return {"wall_ms": wall_ms, "device_ms": busy_ms, "groups": groups, "kernels": kernels}
 
 
 def main(argv=None) -> int:
@@ -1187,7 +1684,7 @@ def main(argv=None) -> int:
         ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
     phases.add("build")  # every other phase runs the kernels
     if "timing" in phases:  # times the inputs and the paths of the phases before
-        phases |= {"kernels", "main", "train", "multiview"}
+        phases |= {"kernels", "main", "sample", "train", "multiview"}
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on the card",
@@ -1208,6 +1705,7 @@ def main(argv=None) -> int:
     steps = {"build": lambda: run_build(report),
              "kernels": lambda: run_kernels(report, fails, state),
              "main": lambda: run_main(report, fails, state),
+             "sample": lambda: run_sample(report, fails, state),
              "train": lambda: run_train(report, fails, state),
              "multiview": lambda: run_multiview(report, fails, state),
              "timing": lambda: run_timing(report, fails, state)}

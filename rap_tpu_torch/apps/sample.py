@@ -1,0 +1,197 @@
+"""Batch evaluation entry point (counterpart of rap_tpu/apps/sample.py).
+
+    python -m rap_tpu_torch.apps.sample --config configs/synth_student.yaml
+    python -m rap_tpu_torch.apps.sample --config configs/synth_student.yaml \\
+        -o model.softcap=5.0 -o checkpoint= --device cpu
+
+Per batch of the loader, ``pipeline.n_generations`` generations through
+``registration.sample`` (with trajectories when the rigidity selection
+averages over them) and ``predict_poses``, the evaluator's metrics, their
+aggregation over generations, and one table per section at the end.
+Timing follows rap_tpu's contract (sample.py:128-135): the generation only,
+closed by ``torch.cuda.synchronize()`` on the card; metrics are not timed.
+The noise of generation g of batch b comes from a ``torch.Generator`` on the
+run's device seeded from (``trainer.seed``, b, g); it is not jax.random's.
+
+Runs on the card (``--device cuda``, the default) unless the CPU is asked
+for. Not ported (each raises): ``.ckpt``/``.pth`` and orbax checkpoints
+(ROADMAP A4), ``visualize`` (A9), the evaluator's optional metrics and
+artifacts (A2), rap_tpu's ``--profile-dir``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .._device import resolve_device
+from ..config import Config, load_config
+from ..data import BatchLoader, LoaderConfig, PointCloudDataset
+from ..eval import Evaluator, MetricsMeter
+from ..eval.meter import print_eval_table
+from ..models.dit import init_dit_params
+from ..registration import predict_poses, sample
+from ..weights import load_params_npz
+
+logger = logging.getLogger("rap_tpu_torch.sample")
+
+
+def load_params(cfg: Config, device="cuda"):
+    """The model's parameters on ``device``: a committed ``.npz`` export, or
+    random weights from ``trainer.seed`` when no checkpoint is given."""
+    device = resolve_device(device)
+    ckpt = cfg.checkpoint
+    if not ckpt:
+        logger.warning("no checkpoint given — evaluating RANDOM weights")
+        return init_dit_params(cfg.trainer.seed, cfg.model, device=device)
+    if ckpt.endswith(".npz"):
+        logger.info("loading npz params %s", ckpt)
+        params = load_params_npz(ckpt, device=device, compute_dtype=cfg.model.compute_dtype)
+        if len(params["layers"]) != cfg.model.num_layers:
+            raise ValueError(f"{ckpt} has {len(params['layers'])} layers, the config "
+                             f"{cfg.model.num_layers}")
+        return params
+    raise NotImplementedError(
+        f"checkpoint {ckpt!r}: only .npz parameter exports are read; torch "
+        ".ckpt/.pth files and orbax directories wait for ROADMAP A4")
+
+
+def make_generate_fn(cfg: Config, return_trajectory: bool = True):
+    """(params, batch, generator=None, x_1=None) -> (sample output, R, t):
+    one generation and its per-part poses."""
+
+    def generate(params, batch, generator=None, x_1=None):
+        out = sample(params, cfg.pipeline, batch, generator=generator, x_1=x_1,
+                     return_trajectory=return_trajectory)
+        R, t = predict_poses(batch, out["points"])
+        return out, R, t
+
+    return generate
+
+
+def generation_generator(seed: int, batch_index: int, generation: int,
+                         device) -> torch.Generator:
+    """The noise generator of one generation, on ``device``."""
+    state = np.random.SeedSequence([seed, batch_index, generation]).generate_state(1)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_eval(cfg: Config, params=None, device="cuda", record: dict | None = None) -> dict:
+    """Evaluate every configured dataset; returns {dataset: {metric: mean}}
+    with an 'overall' entry, prints the tables. ``record``, if given,
+    receives the timings (generation ms per batch and per generation,
+    loader wait ms per batch, pairs) and each batch's generations as
+    ``outputs``: [(names, [(points, R, t) per generation])]."""
+    device = resolve_device(device)
+    if cfg.visualize:
+        raise NotImplementedError("visualize: the visualizer waits for ROADMAP A9")
+    if params is None:
+        params = load_params(cfg, device)
+    n_params = sum(v.numel() for v in _leaves(params))
+    logger.info("model %s: %.1fM params", cfg.model_name, n_params / 1e6)
+    evaluator = Evaluator(cfg.eval)
+    meter = MetricsMeter()
+    need_traj = cfg.eval.use_average_rigidity_rmse
+    generate = make_generate_fn(cfg, return_trajectory=need_traj)
+    rec = record if record is not None else {}
+    rec.update(batch_gen_ms=[], gen_ms=[], load_ms=[], pairs=0, outputs=[])
+
+    for ds_cfg in cfg.data.datasets:
+        ds = PointCloudDataset(ds_cfg)
+        loader = BatchLoader([ds], LoaderConfig(
+            max_points_per_batch=cfg.data.max_points_per_batch,
+            prefetch=cfg.data.num_prefetch), device=device)
+        batches = loader.epoch(0)
+        b_idx = 0
+        while True:
+            t_load0 = time.perf_counter()
+            item = next(batches, None)
+            if item is None:
+                break
+            batch, names, ds_name = item
+            rec["load_ms"].append((time.perf_counter() - t_load0) * 1e3)
+            gen_results, trajs, gens = [], [], []
+            t_batch = 0.0
+            for g in range(cfg.pipeline.n_generations):
+                gen = generation_generator(cfg.trainer.seed, b_idx, g, device)
+                _sync(device)
+                t_gen0 = time.perf_counter()
+                out, R, t = generate(params, batch, generator=gen)
+                _sync(device)
+                dt = time.perf_counter() - t_gen0
+                rec["gen_ms"].append(dt * 1e3)
+                t_batch += dt
+                gen_results.append(evaluator.compute_metrics(batch, out["points"], R, t))
+                if "end_point_trajectory" in out:
+                    trajs.append(out["end_point_trajectory"])
+                gens.append((out["points"], R, t))
+            rec["batch_gen_ms"].append(t_batch * 1e3)
+            rec["pairs"] += int(batch.sample_valid.sum())
+            rec["outputs"].append((names, gens))
+            agg = evaluator.aggregate_generations(batch, gen_results, trajs)
+            valid = batch.sample_valid.cpu().numpy()
+            nparts = batch.part_valid.reshape(batch.S, -1).sum(1).cpu().numpy()
+            meter.add_metrics(ds_name, agg["avg"], valid, nparts)
+            for section in (f"best_of_{cfg.pipeline.n_generations}", "rigidity_selected"):
+                if section in agg:
+                    meter.add_metrics(ds_name, {f"{section}/{k}": v
+                                                for k, v in agg[section].items()}, valid)
+            b_idx += 1
+        logger.info("%s padding: %s", ds_cfg.dataset_name, loader.padding_stats.summary())
+
+    meter.reduce_across_hosts([d.dataset_name for d in cfg.data.datasets])
+    results = meter.compute_average()
+    sections: dict[str, dict[str, dict[str, float]]] = {"average": {}}
+    for ds_name, md in results.items():
+        for k, v in md.items():
+            sec, _, metric = k.partition("/")
+            if not metric:
+                sec, metric = "average", k
+            sections.setdefault(sec, {}).setdefault(ds_name, {})[metric] = v
+    print_eval_table(sections, meter.get_sample_counts(), meter.get_part_count_ranges())
+    if rec["gen_ms"]:
+        logger.info("inference time/batch: %.3fs ± %.3fs | time/generation: %.3fs ± %.3fs",
+                    np.mean(rec["batch_gen_ms"]) / 1e3, np.std(rec["batch_gen_ms"]) / 1e3,
+                    np.mean(rec["gen_ms"]) / 1e3, np.std(rec["gen_ms"]) / 1e3)
+    rec["sections"] = sections
+    return results
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def main(argv=None, record: dict | None = None) -> dict:
+    logging.basicConfig(level=logging.INFO, stream=sys.stderr)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--config", default="configs/rap_inference.yaml")
+    ap.add_argument("-o", "--override", action="append", default=[], help="key.sub=value")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu (the plain versions)")
+    args = ap.parse_args(argv)
+    device = resolve_device(args.device)
+    cfg = load_config(args.config, args.override)
+    if not cfg.data.datasets:
+        ap.error("no datasets configured (set data.datasets)")
+    return run_eval(cfg, device=device, record=record)
+
+
+if __name__ == "__main__":
+    main()

@@ -80,3 +80,10 @@ def rigidify_prediction(prediction, condition, mask):
     R, t = kabsch_masked(condition, prediction, mask)
     rigid = transform_points(R, t, condition)
     return torch.where(mask[..., None], rigid, prediction)
+
+
+def rotation_angle_deg(R_a, R_b):
+    """Geodesic angle in degrees between rotation matrices (..., 3, 3)
+    (procrustes.py:118-125)."""
+    tr = _matmul33(R_a.transpose(-1, -2), R_b).diagonal(dim1=-2, dim2=-1).sum(-1)
+    return torch.rad2deg(torch.arccos(((tr - 1.0) / 2.0).clamp(-1.0, 1.0)))

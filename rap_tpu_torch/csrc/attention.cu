@@ -9,6 +9,13 @@
 //         key mask shared by the H heads of a batch row, key blocks with no
 //         valid key skipped, and fully masked rows giving 0 and LSE_EMPTY
 //         (:131-138).
+// SOFTCAP (rows 2 and 3 with a logit cap c, `softcap` static in both TPU
+// kernels, :113-114 and :202-203): q arrives pre-scaled by scale/c, and the
+// base-2 logit is s2 = c·log2(e)·tanh(q·k) (tanhf, one MUFU op per logit);
+// the host passes cap2 = c·log2(e) rounded to fp32, and the fixed variant's
+// bound is that same cap2 (:841-843). A masked key's logit is set to NEG_INF
+// after the tanh, as the TPU kernel selects after it. With SOFTCAP false
+// the instantiations are the kernels of the no-softcap path, unchanged.
 // Both write out (BH, Tq, d) bf16 and lse2 (BH, Tq) fp32 = max + log2(l), the
 // residual the training slice's backward will read. Both read only the first
 // d columns of the ones-augmented v rows (the online kernel's input at :287);
@@ -39,12 +46,12 @@ constexpr int LDS = D + 8;
 constexpr float NEG_INF = -1e30f;
 constexpr float LSE_EMPTY = 1e30f;
 
-template <bool FIXED_BOUND>
+template <bool FIXED_BOUND, bool SOFTCAP>
 __global__ void __launch_bounds__(NTHREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ va, const int* __restrict__ mask,
-                 float bound, bf16* __restrict__ out, float* __restrict__ lse,
-                 int Tq, int Tk, int heads) {
+                 float bound, float cap2, bf16* __restrict__ out,
+                 float* __restrict__ lse, int Tq, int Tk, int heads) {
   __shared__ __align__(16) bf16 sQ[BQ * LDS];
   __shared__ __align__(16) bf16 sK[BK * LDS];
   __shared__ __align__(16) bf16 sV[BK * LDS];
@@ -99,6 +106,15 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t b0, b1;
         rtt::load_b_nk(b0, b1, sK, LDS, kc * 16, j * 8, lane);
         rtt::mma16816(s[j], qa[kc], b0, b1);
+      }
+    }
+    if (SOFTCAP) {  // s2 = c log2(e) tanh(z'), before the mask
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        s[j][0] = tanhf(s[j][0]) * cap2;
+        s[j][1] = tanhf(s[j][1]) * cap2;
+        s[j][2] = tanhf(s[j][2]) * cap2;
+        s[j][3] = tanhf(s[j][3]) * cap2;
       }
     }
 
@@ -183,14 +199,15 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <bool FIXED_BOUND>
+template <bool FIXED_BOUND, bool SOFTCAP>
 int launch(const void* q, const void* k, const void* va, const void* mask,
-           float bound, void* out, void* lse, int BH, int Tq, int Tk,
-           int heads, void* stream) {
+           float bound, float cap2, void* out, void* lse, int BH, int Tq,
+           int Tk, int heads, void* stream) {
   dim3 grid(Tq / BQ, BH);
-  flash_fwd_kernel<FIXED_BOUND><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)va, (const int*)mask,
-      bound, (bf16*)out, (float*)lse, Tq, Tk, heads);
+  flash_fwd_kernel<FIXED_BOUND, SOFTCAP>
+      <<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+          (const bf16*)q, (const bf16*)k, (const bf16*)va, (const int*)mask,
+          bound, cap2, (bf16*)out, (float*)lse, Tq, Tk, heads);
   return (int)cudaGetLastError();
 }
 
@@ -199,8 +216,8 @@ int launch(const void* q, const void* k, const void* va, const void* mask,
 extern "C" int rtt_flash_fixed(const void* q, const void* k, const void* va,
                                float bound, void* out, void* lse, int BH,
                                int Tq, int Tk, void* stream) {
-  return launch<true>(q, k, va, nullptr, bound, out, lse, BH, Tq, Tk, 1,
-                      stream);
+  return launch<true, false>(q, k, va, nullptr, bound, 0.f, out, lse, BH, Tq,
+                             Tk, 1, stream);
 }
 
 // mask: (BH / heads, Tk) int32, nonzero = valid key; null = every key valid.
@@ -208,6 +225,25 @@ extern "C" int rtt_flash_online(const void* q, const void* k, const void* va,
                                 const void* mask, void* out, void* lse,
                                 int BH, int Tq, int Tk, int heads,
                                 void* stream) {
-  return launch<false>(q, k, va, mask, 0.f, out, lse, BH, Tq, Tk, heads,
-                       stream);
+  return launch<false, false>(q, k, va, mask, 0.f, 0.f, out, lse, BH, Tq, Tk,
+                              heads, stream);
+}
+
+// The softcap variants: cap2 = c log2(e) in fp32; the fixed one's bound is
+// cap2 too (the caller passes it).
+extern "C" int rtt_flash_fixed_softcap(const void* q, const void* k,
+                                       const void* va, float bound, float cap2,
+                                       void* out, void* lse, int BH, int Tq,
+                                       int Tk, void* stream) {
+  return launch<true, true>(q, k, va, nullptr, bound, cap2, out, lse, BH, Tq,
+                            Tk, 1, stream);
+}
+
+extern "C" int rtt_flash_online_softcap(const void* q, const void* k,
+                                        const void* va, const void* mask,
+                                        float cap2, void* out, void* lse,
+                                        int BH, int Tq, int Tk, int heads,
+                                        void* stream) {
+  return launch<false, true>(q, k, va, mask, 0.f, cap2, out, lse, BH, Tq, Tk,
+                             heads, stream);
 }

@@ -22,6 +22,9 @@
 // all queries in blocks of 64 staged in shared memory; dS^T goes through
 // shared memory for dQ += dS K. A key block with no valid key writes zeros
 // and stops. Warp-level mma.sync; no TMA, no wgmma, no pipelining.
+// `rtt_flash_bwd_softcap` is the kernel's softcap variant (the TPU kernel's
+// static `softcap`): the per-logit factor c(1 - tanh²) is applied in
+// `p_ds`, so the caller scales dq_acc by 1 instead of ln2 (:618).
 #include "attention_bwd_common.cuh"
 
 // q, k (BH, T, 64) bf16; va (BH, Tk, 65) bf16 with its ones column; mask
@@ -34,6 +37,19 @@ extern "C" int rtt_flash_bwd(const void* q, const void* k, const void* va,
                              const void* mask, const void* doa, const void* lse,
                              void* dq_acc, void* dk, void* dv, int BH, int Tq,
                              int Tk, int heads, void* stream) {
-  return rtt::attn_bwd::launch_dkv<true>(q, k, va, mask, doa, lse, dq_acc, dk,
-                                         dv, BH, Tq, Tk, heads, stream);
+  return rtt::attn_bwd::launch_dkv<true, false>(q, k, va, mask, doa, lse, dq_acc,
+                                                dk, dv, BH, Tq, Tk, heads,
+                                                rtt::attn_bwd::Cap{0.f, 0.f}, stream);
+}
+
+// The softcap variant: cap = c, cap2 = c log2(e) (q pre-scaled by scale/c);
+// dk is not scaled by ln2 and dq_acc receives sum ds K to be used as it is.
+extern "C" int rtt_flash_bwd_softcap(const void* q, const void* k, const void* va,
+                                     const void* mask, const void* doa,
+                                     const void* lse, void* dq_acc, void* dk,
+                                     void* dv, int BH, int Tq, int Tk, int heads,
+                                     float cap, float cap2, void* stream) {
+  return rtt::attn_bwd::launch_dkv<true, true>(q, k, va, mask, doa, lse, dq_acc,
+                                               dk, dv, BH, Tq, Tk, heads,
+                                               rtt::attn_bwd::Cap{cap, cap2}, stream);
 }

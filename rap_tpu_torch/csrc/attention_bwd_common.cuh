@@ -11,7 +11,13 @@
 // the -delta column of [dO | -delta] (bf16, `_augment_do` :566) entering
 // through va's ones column; p and ds rounded to bf16 before their products.
 // dV = sum p^T dO, dK = ln2 sum ds^T Q, dQ = ln2 sum ds K: the ln2 of the
-// base-2 domain is applied once per output element. Rows whose keys are all
+// base-2 domain is applied once per output element.
+// SOFTCAP (the `softcap` static of all three TPU kernels): q arrives
+// pre-scaled by scale/c, the logit is s = c·log2(e)·tanh(q.k) and ds gains
+// the per-logit factor dsdz = c·(1 - tanh²), both from one tanhf
+// (:402-405); the deferred ln2 is then not applied (:466, :502, :561, :618).
+// `Cap` carries c and cap2 = c·log2(e), each rounded to fp32 by the host.
+// Rows whose keys are all
 // masked carry lse2 = LSE_EMPTY = 1e30 from the forward, so their p is
 // exp2(-1e30 - 1e30) = 0 with no inf - inf.
 //
@@ -36,10 +42,28 @@ constexpr int LDS = D + 8;  // shared-memory row stride of a [row][dim] tile
 constexpr float LN2 = 0.6931471805599453f;
 constexpr float NEG_INF = -1e30f;
 
+struct Cap {
+  float c;     // the logit cap
+  float cap2;  // c log2(e)
+};
+
+// The scale of dK and dQ at finalize: ln2 of the base-2 domain, or 1 under
+// softcap (dsdz is applied per logit there).
+template <bool SOFTCAP>
+__device__ __forceinline__ float out_scale() {
+  return SOFTCAP ? 1.f : LN2;
+}
+
 // One logit: (p, ds). `valid` false is a masked key; `nd` is -delta (bf16
 // value) and `one` va's ones column of the key.
+template <bool SOFTCAP>
 __device__ __forceinline__ float2 p_ds(float s, float dpv, float lse, float nd,
-                                       float one, bool valid) {
+                                       float one, bool valid, Cap cap) {
+  if (SOFTCAP) {
+    const float th = tanhf(s);
+    const float p = exp2f((valid ? th * cap.cap2 : NEG_INF) - lse);
+    return make_float2(p, p * (dpv + nd * one) * (cap.c * (1.f - th * th)));
+  }
   const float p = exp2f((valid ? s : NEG_INF) - lse);
   return make_float2(p, p * (dpv + nd * one));
 }
@@ -79,23 +103,23 @@ __device__ __forceinline__ void st_dpt(float (*st)[4], float (*dpt)[4],
 // P^T and dS^T as bf16 A fragments (M = keys, K = queries). This thread's
 // keys are kr + g (oneA, validA) and kr + g + 8 (oneB, validB); sLse and sND
 // hold lse2 and -delta of the step's queries.
-template <int BQ>
+template <int BQ, bool SOFTCAP>
 __device__ __forceinline__ void pt_dst(uint32_t (*pa)[4], uint32_t (*dsa)[4],
                                        const float (*st)[4],
                                        const float (*dpt)[4],
                                        const float* sLse, const float* sND,
                                        float oneA, float oneB, bool validA,
-                                       bool validB, int lane) {
+                                       bool validB, Cap cap, int lane) {
   const int t = lane & 3;
 #pragma unroll
   for (int j = 0; j < BQ / 8; ++j) {
     const int c = j * 8 + 2 * t;  // query within the step
     const float l0 = sLse[c], l1 = sLse[c + 1];
     const float n0 = sND[c], n1 = sND[c + 1];
-    const float2 a0 = p_ds(st[j][0], dpt[j][0], l0, n0, oneA, validA);
-    const float2 a1 = p_ds(st[j][1], dpt[j][1], l1, n1, oneA, validA);
-    const float2 b0 = p_ds(st[j][2], dpt[j][2], l0, n0, oneB, validB);
-    const float2 b1 = p_ds(st[j][3], dpt[j][3], l1, n1, oneB, validB);
+    const float2 a0 = p_ds<SOFTCAP>(st[j][0], dpt[j][0], l0, n0, oneA, validA, cap);
+    const float2 a1 = p_ds<SOFTCAP>(st[j][1], dpt[j][1], l1, n1, oneA, validA, cap);
+    const float2 b0 = p_ds<SOFTCAP>(st[j][2], dpt[j][2], l0, n0, oneB, validB, cap);
+    const float2 b1 = p_ds<SOFTCAP>(st[j][3], dpt[j][3], l1, n1, oneB, validB, cap);
     const int slot = (j & 1) * 2;  // C tile j -> A registers of k-step j/2
     pa[j >> 1][slot] = pack_f2(a0.x, a1.x);
     pa[j >> 1][slot + 1] = pack_f2(b0.x, b1.x);
@@ -151,21 +175,21 @@ __device__ __forceinline__ void s_dp(float (*s)[4], float (*dp)[4],
 // dS as bf16 A fragments (M = queries, K = keys). This thread's queries are
 // g (lse lA, -delta nA) and g + 8 (lB, nB); sOne and sValid hold va's ones
 // column and the mask of the step's keys.
-template <int BK>
+template <int BK, bool SOFTCAP>
 __device__ __forceinline__ void ds_q(uint32_t (*dsa)[4], const float (*s)[4],
                                      const float (*dp)[4], float lA, float lB,
                                      float nA, float nB, const float* sOne,
-                                     const int* sValid, int lane) {
+                                     const int* sValid, Cap cap, int lane) {
   const int t = lane & 3;
 #pragma unroll
   for (int j = 0; j < BK / 8; ++j) {
     const int c = j * 8 + 2 * t;  // key within the step
     const float o0 = sOne[c], o1 = sOne[c + 1];
     const bool v0 = sValid[c] != 0, v1 = sValid[c + 1] != 0;
-    const float2 a0 = p_ds(s[j][0], dp[j][0], lA, nA, o0, v0);
-    const float2 a1 = p_ds(s[j][1], dp[j][1], lA, nA, o1, v1);
-    const float2 b0 = p_ds(s[j][2], dp[j][2], lB, nB, o0, v0);
-    const float2 b1 = p_ds(s[j][3], dp[j][3], lB, nB, o1, v1);
+    const float2 a0 = p_ds<SOFTCAP>(s[j][0], dp[j][0], lA, nA, o0, v0, cap);
+    const float2 a1 = p_ds<SOFTCAP>(s[j][1], dp[j][1], lA, nA, o1, v1, cap);
+    const float2 b0 = p_ds<SOFTCAP>(s[j][2], dp[j][2], lB, nB, o0, v0, cap);
+    const float2 b1 = p_ds<SOFTCAP>(s[j][3], dp[j][3], lB, nB, o1, v1, cap);
     const int slot = (j & 1) * 2;
     dsa[j >> 1][slot] = pack_f2(a0.y, a1.y);
     dsa[j >> 1][slot + 1] = pack_f2(b0.y, b1.y);
@@ -189,15 +213,16 @@ constexpr size_t dkv_smem_bytes() {
 
 // q, k (BH, T, 64) bf16; va (BH, Tk, 65) bf16 = [V | 1]; mask (BH / heads,
 // Tk) int32 or null (every key valid); doa (BH, Tq, 65) bf16 = [dO | -delta];
-// lse (BH, Tq) fp32. dk (x ln2) and dv (BH, Tk, 64) bf16. FUSED_DQ: dq_acc
-// (BH, Tq, 64) fp32, zeroed by the caller, receives sum ds K by atomicAdd.
-template <bool FUSED_DQ>
+// lse (BH, Tq) fp32. dk (x ln2, or x 1 under SOFTCAP) and dv (BH, Tk, 64)
+// bf16. FUSED_DQ: dq_acc (BH, Tq, 64) fp32, zeroed by the caller, receives
+// sum ds K by atomicAdd.
+template <bool FUSED_DQ, bool SOFTCAP>
 __global__ void __launch_bounds__(KV_THREADS)
 dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ va, const int* __restrict__ mask,
            const bf16* __restrict__ doa, const float* __restrict__ lse,
            float* __restrict__ dq_acc, bf16* __restrict__ dk,
-           bf16* __restrict__ dv, int Tq, int Tk, int heads) {
+           bf16* __restrict__ dv, int Tq, int Tk, int heads, Cap cap) {
   constexpr int BQ = KV_BQ, BK = KV_BK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // [key][dim]
@@ -267,7 +292,8 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float st[BQ / 8][4], dpt[BQ / 8][4];
     st_dpt<BQ>(st, dpt, sK, sV, sQ, sDO, kr, lane);
     uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
-    pt_dst<BQ>(pa, dsa, st, dpt, sLse, sND, oneA, oneB, validA, validB, lane);
+    pt_dst<BQ, SOFTCAP>(pa, dsa, st, dpt, sLse, sND, oneA, oneB, validA, validB, cap,
+                        lane);
     accumulate_dkv<BQ>(dvacc, dkacc, pa, dsa, sQ, sDO, lane);
 
     if constexpr (FUSED_DQ) {
@@ -307,34 +333,36 @@ dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  // ---- dK (x ln2) and dV, bf16 ---------------------------------------------
+  // ---- dK (x ln2, x 1 under softcap) and dV, bf16 ---------------------------
+  const float ks = out_scale<SOFTCAP>();
   const long rowA = krow0 + kr + gg, rowB = rowA + 8;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int c = j * 8 + 2 * t;
     *reinterpret_cast<uint32_t*>(dk + rowA * D + c) =
-        pack_f2(dkacc[j][0] * LN2, dkacc[j][1] * LN2);
+        pack_f2(dkacc[j][0] * ks, dkacc[j][1] * ks);
     *reinterpret_cast<uint32_t*>(dk + rowB * D + c) =
-        pack_f2(dkacc[j][2] * LN2, dkacc[j][3] * LN2);
+        pack_f2(dkacc[j][2] * ks, dkacc[j][3] * ks);
     *reinterpret_cast<uint32_t*>(dv + rowA * D + c) = pack_f2(dvacc[j][0], dvacc[j][1]);
     *reinterpret_cast<uint32_t*>(dv + rowB * D + c) = pack_f2(dvacc[j][2], dvacc[j][3]);
   }
 }
 
 // Tq % 64 == 0, Tk % 128 == 0. Returns cudaGetLastError() after the launch.
-template <bool FUSED_DQ>
+template <bool FUSED_DQ, bool SOFTCAP>
 inline int launch_dkv(const void* q, const void* k, const void* va, const void* mask,
                const void* doa, const void* lse, void* dq_acc, void* dk, void* dv,
-               int BH, int Tq, int Tk, int heads, void* stream) {
+               int BH, int Tq, int Tk, int heads, Cap cap, void* stream) {
   constexpr size_t smem = dkv_smem_bytes<FUSED_DQ>();
   cudaError_t err = cudaFuncSetAttribute(
-      dkv_kernel<FUSED_DQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      dkv_kernel<FUSED_DQ, SOFTCAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(Tk / KV_BK, BH);
-  dkv_kernel<FUSED_DQ><<<grid, KV_THREADS, smem, (cudaStream_t)stream>>>(
+  dkv_kernel<FUSED_DQ, SOFTCAP><<<grid, KV_THREADS, smem, (cudaStream_t)stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)va, (const int*)mask,
       (const bf16*)doa, (const float*)lse, (float*)dq_acc, (bf16*)dk, (bf16*)dv,
-      Tq, Tk, heads);
+      Tq, Tk, heads, cap);
   return (int)cudaGetLastError();
 }
 

@@ -24,6 +24,9 @@
 // tensor cores bound them, exp2 on the FP32 pipes next; the split recomputes
 // S and dP twice, which is its price for needing no dQ slab. Simple first
 // design: warp-level mma.sync; no TMA, no wgmma, no pipelining.
+// The `_softcap` entry points are both passes' softcap variants (the TPU
+// kernels' static `softcap`): dsdz = c(1 - tanh²) per logit in `p_ds`, and
+// no ln2 at finalize (:466, :502).
 #include "attention_bwd_common.cuh"
 
 namespace {
@@ -31,7 +34,8 @@ namespace {
 using rtt::bf16;
 using rtt::attn_bwd::D;
 using rtt::attn_bwd::LDS;
-using rtt::attn_bwd::LN2;
+using rtt::attn_bwd::Cap;
+using rtt::attn_bwd::out_scale;
 using rtt::attn_bwd::ds_q;
 using rtt::attn_bwd::s_dp;
 using rtt::attn_bwd::zero_tiles;
@@ -40,11 +44,12 @@ constexpr int BQ = 64;         // queries per block (16 per warp)
 constexpr int BK = 64;         // keys per step
 constexpr int NTHREADS = 128;  // 4 warps
 
+template <bool SOFTCAP>
 __global__ void __launch_bounds__(NTHREADS)
 dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const bf16* __restrict__ va, const int* __restrict__ mask,
           const bf16* __restrict__ doa, const float* __restrict__ lse,
-          bf16* __restrict__ dq, int Tq, int Tk, int heads) {
+          bf16* __restrict__ dq, int Tq, int Tk, int heads, Cap cap) {
   __shared__ __align__(16) bf16 sQ[BQ * LDS];
   __shared__ __align__(16) bf16 sDO[BQ * LDS];
   __shared__ __align__(16) bf16 sK[BK * LDS];
@@ -102,7 +107,7 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     float s[BK / 8][4], dp[BK / 8][4];
     s_dp<BK>(s, dp, qa, da, sK, sV, lane);
     uint32_t dsa[BK / 16][4];
-    ds_q<BK>(dsa, s, dp, lA, lB, nA, nB, sOne, sValid, lane);
+    ds_q<BK, SOFTCAP>(dsa, s, dp, lA, lB, nA, nB, sOne, sValid, cap, lane);
     // ---- dQ += dS K (M = queries, K = keys, N = dims) ----------------------
 #pragma unroll
     for (int kc = 0; kc < BK / 16; ++kc) {
@@ -115,15 +120,27 @@ dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
   }
 
-  // ---- dQ x ln2, bf16 ---------------------------------------------------------
+  // ---- dQ x ln2 (x 1 under softcap), bf16 -------------------------------------
+  const float qs = out_scale<SOFTCAP>();
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
     const int c = j * 8 + 2 * t;
     *reinterpret_cast<uint32_t*>(dq + rowA * D + c) =
-        rtt::pack_f2(dqacc[j][0] * LN2, dqacc[j][1] * LN2);
+        rtt::pack_f2(dqacc[j][0] * qs, dqacc[j][1] * qs);
     *reinterpret_cast<uint32_t*>(dq + rowB * D + c) =
-        rtt::pack_f2(dqacc[j][2] * LN2, dqacc[j][3] * LN2);
+        rtt::pack_f2(dqacc[j][2] * qs, dqacc[j][3] * qs);
   }
+}
+
+template <bool SOFTCAP>
+int launch_dq(const void* q, const void* k, const void* va, const void* mask,
+              const void* doa, const void* lse, void* dq, int BH, int Tq, int Tk,
+              int heads, Cap cap, void* stream) {
+  dim3 grid(Tq / BQ, BH);
+  dq_kernel<SOFTCAP><<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)va, (const int*)mask,
+      (const bf16*)doa, (const float*)lse, (bf16*)dq, Tq, Tk, heads, cap);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -136,8 +153,9 @@ extern "C" int rtt_flash_bwd_dkv(const void* q, const void* k, const void* va,
                                  const void* mask, const void* doa,
                                  const void* lse, void* dk, void* dv, int BH,
                                  int Tq, int Tk, int heads, void* stream) {
-  return rtt::attn_bwd::launch_dkv<false>(q, k, va, mask, doa, lse, nullptr, dk,
-                                          dv, BH, Tq, Tk, heads, stream);
+  return rtt::attn_bwd::launch_dkv<false, false>(q, k, va, mask, doa, lse, nullptr,
+                                                 dk, dv, BH, Tq, Tk, heads,
+                                                 Cap{0.f, 0.f}, stream);
 }
 
 // dQ writes dq (x ln2) (BH, Tq, 64) bf16; Tq % 64 == 0, Tk % 64 == 0.
@@ -145,9 +163,29 @@ extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* va,
                                 const void* mask, const void* doa,
                                 const void* lse, void* dq, int BH, int Tq,
                                 int Tk, int heads, void* stream) {
-  dim3 grid(Tq / BQ, BH);
-  dq_kernel<<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)va, (const int*)mask,
-      (const bf16*)doa, (const float*)lse, (bf16*)dq, Tq, Tk, heads);
-  return (int)cudaGetLastError();
+  return launch_dq<false>(q, k, va, mask, doa, lse, dq, BH, Tq, Tk, heads,
+                          Cap{0.f, 0.f}, stream);
+}
+
+// The softcap variants of both passes: cap = c, cap2 = c log2(e) (q
+// pre-scaled by scale/c); dk and dq are not scaled by ln2.
+extern "C" int rtt_flash_bwd_dkv_softcap(const void* q, const void* k,
+                                         const void* va, const void* mask,
+                                         const void* doa, const void* lse,
+                                         void* dk, void* dv, int BH, int Tq,
+                                         int Tk, int heads, float cap,
+                                         float cap2, void* stream) {
+  return rtt::attn_bwd::launch_dkv<false, true>(q, k, va, mask, doa, lse, nullptr,
+                                                dk, dv, BH, Tq, Tk, heads,
+                                                Cap{cap, cap2}, stream);
+}
+
+extern "C" int rtt_flash_bwd_dq_softcap(const void* q, const void* k,
+                                        const void* va, const void* mask,
+                                        const void* doa, const void* lse,
+                                        void* dq, int BH, int Tq, int Tk,
+                                        int heads, float cap, float cap2,
+                                        void* stream) {
+  return launch_dq<true>(q, k, va, mask, doa, lse, dq, BH, Tq, Tk, heads,
+                         Cap{cap, cap2}, stream);
 }

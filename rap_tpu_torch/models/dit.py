@@ -9,10 +9,13 @@ two branches, chosen by its guard (dit.py:183-195) as on its accelerator:
   chosen per layer on the host from the qk-norm gains), out_proj
   (+ residual) and ff (+ residual);
 - the unfused branch (dit.py:228-268) for everything else, padded batches
-  above all: AdaLN, plain linears, per-head RMS qk-norm and
+  above all, and for a softcap or ``qk_norm=False``: AdaLN, plain linears,
+  per-head RMS qk-norm (with ``qk_norm``) and
   ``ops.attention.batched_attention`` with the point mask (flash kernels for
-  sequences of 1024 keys or more, dense or chunked attention below). A
-  dense batch there passes the exact logit bound of its gains.
+  sequences of 1024 keys or more, dense or chunked attention below; a
+  softcap takes their softcap variants). A dense batch with qk-norm passes
+  the exact logit bound of its gains; without qk-norm the flash route
+  bounds the logits from the row norms.
 The feed-forward takes its kernel where rap_tpu's ``legal`` rule holds. The
 encoding (NeRF PE, anchor embedding, optional latent) runs in fp32 and is
 cast to the compute dtype; the per-part timestep sinusoid and the AdaLN MLPs
@@ -31,8 +34,7 @@ amax and one host read for all layers) before the forward, and the
 recompute sees the same fixed/online choice as the first forward. A padded
 batch needs no bound.
 
-Not ported yet (each raises or is absent): ring attention, FF dropout,
-the softcap variants of the attention kernels.
+Not ported yet (each raises or is absent): ring attention, FF dropout.
 
 Parameters are a nested dict like the JAX pytree, except that ``layers`` is
 a list of per-layer dicts (the stacked ``layers/*`` arrays split along L).
@@ -277,10 +279,13 @@ def _attention_block(lp, prefix, x, t_emb, mask, cfg: DiTConfig, S: int, P: int,
     # the unfused branch (dit.py:228-268): XLA linears and batched_attention
     h = _adaln(lp[f"{prefix}_prenorm"], x, t_emb)
     q, k, v = _linear(lp[f"{prefix}_qkv"], h).reshape(G, N, 3, H, dh).unbind(2)
-    q = _rms_qk(q, lp[f"{prefix}_q_gamma"])
-    k = _rms_qk(k, lp[f"{prefix}_k_gamma"])
-    # a dense batch's exact bound on |q.k|, dh max|gq| max|gk| (:236-244)
-    logit_bound = None if mask is not None else bound2 * math.sqrt(dh) / math.log2(math.e)
+    logit_bound = None
+    if cfg.qk_norm:
+        q = _rms_qk(q, lp[f"{prefix}_q_gamma"])
+        k = _rms_qk(k, lp[f"{prefix}_k_gamma"])
+        if mask is None:
+            # a dense batch's exact bound on |q.k|, dh max|gq| max|gk| (:236-244)
+            logit_bound = bound2 * math.sqrt(dh) / math.log2(math.e)
     kv_mask = mask
     if is_global:  # (S, P*N, H, dh): all parts of a sample form one sequence
         q, k, v = (a.reshape(S, P * N, H, dh) for a in (q, k, v))
@@ -333,10 +338,6 @@ def dit_forward(
     S, P = timesteps.shape[0], parts_per_sample
     if G != S * P:
         raise ValueError(f"regular layout required: G={G} != S*P={S * P}")
-    if not cfg.qk_norm or cfg.softcap != 0.0:
-        raise NotImplementedError(
-            "the port needs qk_norm; the softcap variants of the attention "
-            "kernels are not ported yet (ROADMAP section B3)")
     dtype = cfg.compute_dtype
     mask = None if batch.no_padding else batch.point_mask
 

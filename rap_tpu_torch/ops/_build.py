@@ -42,6 +42,11 @@ SIGNATURES = {
     "rtt_flash_bwd": [_P] * 9 + [_I] * 4 + [_P],
     "rtt_flash_bwd_dkv": [_P] * 8 + [_I] * 4 + [_P],
     "rtt_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [_P],
+    "rtt_flash_fixed_softcap": [_P] * 3 + [_F] * 2 + [_P] * 2 + [_I] * 3 + [_P],
+    "rtt_flash_online_softcap": [_P] * 4 + [_F] + [_P] * 2 + [_I] * 4 + [_P],
+    "rtt_flash_bwd_softcap": [_P] * 9 + [_I] * 4 + [_F] * 2 + [_P],
+    "rtt_flash_bwd_dkv_softcap": [_P] * 8 + [_I] * 4 + [_F] * 2 + [_P],
+    "rtt_flash_bwd_dq_softcap": [_P] * 7 + [_I] * 4 + [_F] * 2 + [_P],
     "rtt_proj_bwd": [_P] * 16 + [_I] * 5 + [_P],
     "rtt_ff_bwd": [_P] * 19 + [_I] * 3 + [_P],
 }

@@ -6,7 +6,8 @@ no fallback from one to the other. Every launch goes through ``launch``,
 which makes the tensors' device current around the C call (the launchers
 take the device from the calling thread, the stream from the tensor), checks
 the error code and counts the launch. ``flash_bwd`` counts the fused
-attention backward with and without a key mask.
+attention backward with and without a key mask; each attention kernel's
+softcap variant counts under its own ``*_softcap`` name.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ import torch
 from . import _build
 
 KERNELS = ("proj", "flash_fixed", "flash_online", "out_proj", "ff",
-           "flash_bwd", "proj_bwd", "ff_bwd", "flash_bwd_dkv", "flash_bwd_dq")
+           "flash_bwd", "proj_bwd", "ff_bwd", "flash_bwd_dkv", "flash_bwd_dq",
+           "flash_fixed_softcap", "flash_online_softcap", "flash_bwd_softcap",
+           "flash_bwd_dkv_softcap", "flash_bwd_dq_softcap")
 
 # one plain integer per kernel, incremented only where the kernel launches
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)

@@ -11,8 +11,7 @@ would exceed 2**28 entries. rap_tpu computes those two in XLA outside any
 Pallas kernel, so here they are plain PyTorch.
 
 Numerics as the reference: logits scaled by 1/sqrt(d), optional tanh softcap
-(dense and chunked only: the kernels' softcap variants are not ported),
-fp32 softmax, p rounded to v's dtype before the PV product. Fully masked
+(on the flash route, the kernels' softcap variants), fp32 softmax, p rounded to v's dtype before the PV product. Fully masked
 query rows return zeros.
 """
 

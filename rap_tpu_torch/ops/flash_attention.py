@@ -24,6 +24,15 @@ slab stays within 2 GiB, else csrc/attention_bwd_split.cu (TPU
 a plain twin here with the same arithmetic and cast points (``*_plain``),
 chunked over (batch*head, query) tiles to bound memory. The gradient of the
 bound is 0 and the ones column of va gets a zero cotangent (:321-323).
+
+Softcap c > 0 (the TPU kernels' static ``softcap``): q is pre-scaled by
+scale/c instead of scale·log2(e) (:829-832), each logit becomes
+s2 = c·log2(e)·tanh(q·k), and the no-padding path's bound is c·log2(e)
+(:841-843), so SAFE_BOUND2 chooses fixed or online from c alone. The
+backward's ds gains c·(1 - tanh²) per logit and drops the deferred ln2
+(``_recompute_p_ds`` :402-405; :466, :502, :561, :618). Every kernel has a
+softcap variant (a ``*_softcap`` C entry point and launch counter) and every
+plain twin a ``softcap`` argument; ``softcap=0`` is the path above.
 """
 
 from __future__ import annotations
@@ -68,6 +77,24 @@ def _chunks(BH: int, Tq: int, Tk: int, budget: int = _PLAIN_LOGITS):
         yield slice(i, min(BH, i + step))
 
 
+def _cap2(softcap: float) -> float:
+    """c·log2(e) as the kernels take it: one fp32 constant."""
+    return float(torch.tensor(softcap * LOG2E, dtype=torch.float32))
+
+
+def _dk_scale(softcap: float) -> float:
+    """The finalize scale of dK and dQ: the deferred ln2, or 1 under softcap."""
+    return 1.0 if softcap > 0.0 else LN2
+
+
+def _logits(qh, kh, softcap: float):
+    """fp32 base-2 logits of pre-scaled q (rows, Tq, Tk), capped under softcap."""
+    s = qh.float() @ kh.float().transpose(-1, -2)
+    if softcap > 0.0:
+        s = torch.tanh(s) * _cap2(softcap)
+    return s
+
+
 def _valid_keys(mask, heads: int, sl: slice):
     """(rows, 1, Tk) bool of the (batch*head) rows ``sl``, or None."""
     if mask is None:
@@ -75,13 +102,13 @@ def _valid_keys(mask, heads: int, sl: slice):
     return mask.bool().repeat_interleave(heads, dim=0)[sl][:, None, :]
 
 
-def flash_fixed_plain(qh, kh, vah, bound: float):
+def flash_fixed_plain(qh, kh, vah, bound: float, softcap: float = 0.0):
     """Plain fixed-bound attention: (out (BH,Tq,d), lse2 (BH,Tq) fp32)."""
     BH, Tq, d = qh.shape
     out = torch.empty_like(qh)
     lse = torch.empty((BH, Tq), dtype=torch.float32, device=qh.device)
     for sl in _chunks(BH, Tq, kh.shape[1]):
-        s = qh[sl].float() @ kh[sl].float().transpose(-1, -2)
+        s = _logits(qh[sl], kh[sl], softcap)
         p = torch.exp2(s - bound).to(qh.dtype).float()
         pv = p @ vah[sl].float()  # the ones column gives the row sum l
         l = pv[..., d:].clamp_min(1e-30)
@@ -90,14 +117,14 @@ def flash_fixed_plain(qh, kh, vah, bound: float):
     return out, lse
 
 
-def flash_online_plain(qh, kh, vah, mask=None, heads: int = 1):
+def flash_online_plain(qh, kh, vah, mask=None, heads: int = 1, softcap: float = 0.0):
     """Plain masked softmax attention: (out, lse2). mask: (BH/heads, Tk)
     bool or None (every key valid); fully masked rows give 0 and LSE_EMPTY."""
     BH, Tq, d = qh.shape
     out = torch.empty_like(qh)
     lse = torch.empty((BH, Tq), dtype=torch.float32, device=qh.device)
     for sl in _chunks(BH, Tq, kh.shape[1]):
-        s = qh[sl].float() @ kh[sl].float().transpose(-1, -2)
+        s = _logits(qh[sl], kh[sl], softcap)
         valid = _valid_keys(mask, heads, sl)
         if valid is not None:
             s = torch.where(valid, s, NEG_INF)
@@ -143,41 +170,51 @@ def _as_kernel_mask(mask):
     return None if mask is None else mask.to(torch.int32).contiguous()
 
 
-def flash_fixed_kernel(qh, kh, vah, bound: float):
-    """Launch the fixed-bound variant of csrc/attention.cu."""
+def flash_fixed_kernel(qh, kh, vah, bound: float, softcap: float = 0.0):
+    """Launch the fixed-bound variant of csrc/attention.cu (its softcap
+    variant for ``softcap`` > 0)."""
     _check_attention_inputs(qh, kh, vah)
     BH, Tq, _ = qh.shape
     out = torch.empty_like(qh)
     lse = torch.empty((BH, Tq), dtype=torch.float32, device=qh.device)
-    launch("flash_fixed", qh, qh.data_ptr(), kh.data_ptr(), vah.data_ptr(),
-           float(bound), out.data_ptr(), lse.data_ptr(), BH, Tq, kh.shape[1])
+    head = (qh.data_ptr(), kh.data_ptr(), vah.data_ptr(), float(bound))
+    tail = (out.data_ptr(), lse.data_ptr(), BH, Tq, kh.shape[1])
+    if softcap > 0.0:
+        launch("flash_fixed_softcap", qh, *head, _cap2(softcap), *tail)
+    else:
+        launch("flash_fixed", qh, *head, *tail)
     return out, lse
 
 
-def flash_online_kernel(qh, kh, vah, mask=None, heads: int = 1):
-    """Launch the online-softmax variant of csrc/attention.cu."""
+def flash_online_kernel(qh, kh, vah, mask=None, heads: int = 1, softcap: float = 0.0):
+    """Launch the online-softmax variant of csrc/attention.cu (its softcap
+    variant for ``softcap`` > 0)."""
     _check_attention_inputs(qh, kh, vah)
     BH, Tq, _ = qh.shape
     Tk = kh.shape[1]
     mask_ptr = _mask_arg(mask, qh, Tk, heads)
     out = torch.empty_like(qh)
     lse = torch.empty((BH, Tq), dtype=torch.float32, device=qh.device)
-    launch("flash_online", qh, qh.data_ptr(), kh.data_ptr(), vah.data_ptr(),
-           mask_ptr, out.data_ptr(), lse.data_ptr(), BH, Tq, Tk, heads)
+    head = (qh.data_ptr(), kh.data_ptr(), vah.data_ptr(), mask_ptr)
+    tail = (out.data_ptr(), lse.data_ptr(), BH, Tq, Tk, heads)
+    if softcap > 0.0:
+        launch("flash_online_softcap", qh, *head, _cap2(softcap), *tail)
+    else:
+        launch("flash_online", qh, *head, *tail)
     return out, lse
 
 
-def flash_fixed(qh, kh, vah, bound: float):
+def flash_fixed(qh, kh, vah, bound: float, softcap: float = 0.0):
     if on_cpu(qh, kh, vah):
-        return flash_fixed_plain(qh, kh, vah, bound)
-    return flash_fixed_kernel(qh, kh, vah, bound)
+        return flash_fixed_plain(qh, kh, vah, bound, softcap)
+    return flash_fixed_kernel(qh, kh, vah, bound, softcap)
 
 
-def flash_online(qh, kh, vah, mask=None, heads: int = 1):
+def flash_online(qh, kh, vah, mask=None, heads: int = 1, softcap: float = 0.0):
     """mask: (BH/heads, Tk), nonzero = valid key; None = every key valid."""
     if on_cpu(qh, kh, vah):
-        return flash_online_plain(qh, kh, vah, mask, heads)
-    return flash_online_kernel(qh, kh, vah, _as_kernel_mask(mask), heads)
+        return flash_online_plain(qh, kh, vah, mask, heads, softcap)
+    return flash_online_kernel(qh, kh, vah, _as_kernel_mask(mask), heads, softcap)
 
 
 # --------------------------------------------------------------------------
@@ -213,10 +250,11 @@ def augment_do(dout, out):
     return torch.cat([dout, (-delta).to(dout.dtype)], dim=-1)
 
 
-def _p_ds_tiles(qh, kh, vah, doa, lse2, mask, heads):
+def _p_ds_tiles(qh, kh, vah, doa, lse2, mask, heads, softcap: float = 0.0):
     """The recomputed tiles of the plain backward twins, over (batch*head
     rows, query rows) chunks: (rows, queries, p, ds), with p and ds rounded
-    to the storage dtype where ``_recompute_p_ds`` (:369) rounds them."""
+    to the storage dtype where ``_recompute_p_ds`` (:369) rounds them; under
+    softcap ds carries c·(1 - tanh²) (:402-405)."""
     BH, Tq, d = qh.shape
     Tk = kh.shape[1]
     dt = qh.dtype
@@ -227,47 +265,61 @@ def _p_ds_tiles(qh, kh, vah, doa, lse2, mask, heads):
         for i in range(0, Tq, qstep):
             qs = slice(i, min(Tq, i + qstep))
             s = qh[sl, qs].float() @ kh[sl].float().transpose(-1, -2)
+            dsdz = None
+            if softcap > 0.0:
+                th = torch.tanh(s)
+                s = th * _cap2(softcap)
+                dsdz = softcap * (1.0 - th * th)
             if valid is not None:
                 s = torch.where(valid, s, NEG_INF)
             p = torch.exp2(s - lse2[sl, qs, None])
             dpd = doa[sl, qs].float() @ vah[sl].to(dt).float().transpose(-1, -2)
-            ds = (p * dpd).to(dt).float()
+            ds = p * dpd
+            if dsdz is not None:
+                ds = ds * dsdz
+            ds = ds.to(dt).float()
             yield sl, qs, p.to(dt).float(), ds
 
 
-def flash_bwd_dkv_plain(qh, kh, vah, doa, lse2, mask=None, heads: int = 1):
+def flash_bwd_dkv_plain(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
+                        softcap: float = 0.0):
     """Plain version of the dKV pass: (dk, dv), each (BH, Tk, d) in q's
-    dtype; dk carries the ln2 of the base-2 domain. doa = [dO | -delta]."""
+    dtype; dk carries the ln2 of the base-2 domain (none under softcap).
+    doa = [dO | -delta]."""
     d = qh.shape[-1]
     dk = torch.zeros(kh.shape, dtype=torch.float32, device=qh.device)
     dv = torch.zeros_like(dk)
-    for sl, qs, p, ds in _p_ds_tiles(qh, kh, vah, doa, lse2, mask, heads):
+    for sl, qs, p, ds in _p_ds_tiles(qh, kh, vah, doa, lse2, mask, heads, softcap):
         dv[sl] += p.transpose(-1, -2) @ doa[sl, qs, :d].float()
         dk[sl] += ds.transpose(-1, -2) @ qh[sl, qs].float()
-    return (dk * LN2).to(qh.dtype), dv.to(qh.dtype)
+    return (dk * _dk_scale(softcap)).to(qh.dtype), dv.to(qh.dtype)
 
 
-def flash_bwd_dq_plain(qh, kh, vah, doa, lse2, mask=None, heads: int = 1):
-    """Plain version of the dQ pass: dq (BH, Tq, d) in q's dtype, x ln2."""
+def flash_bwd_dq_plain(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
+                       softcap: float = 0.0):
+    """Plain version of the dQ pass: dq (BH, Tq, d) in q's dtype, x ln2
+    (x 1 under softcap)."""
     dq = torch.empty_like(qh)
-    for sl, qs, _, ds in _p_ds_tiles(qh, kh, vah, doa, lse2, mask, heads):
-        dq[sl, qs] = ((ds @ kh[sl].float()) * LN2).to(qh.dtype)
+    for sl, qs, _, ds in _p_ds_tiles(qh, kh, vah, doa, lse2, mask, heads, softcap):
+        dq[sl, qs] = ((ds @ kh[sl].float()) * _dk_scale(softcap)).to(qh.dtype)
     return dq
 
 
-def flash_bwd_plain(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1):
+def flash_bwd_plain(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1,
+                    softcap: float = 0.0):
     """Plain version of the fused backward kernel: (dq, dk, dv), each
     (BH, T, d) in q's dtype, from one recompute per tile."""
     d = qh.shape[-1]
+    scale = _dk_scale(softcap)
     doa = augment_do(dout.to(qh.dtype), out)
     dq = torch.empty_like(qh)
     dk = torch.zeros(kh.shape, dtype=torch.float32, device=qh.device)
     dv = torch.zeros_like(dk)
-    for sl, qs, p, ds in _p_ds_tiles(qh, kh, vah, doa, lse2, mask, heads):
+    for sl, qs, p, ds in _p_ds_tiles(qh, kh, vah, doa, lse2, mask, heads, softcap):
         dv[sl] += p.transpose(-1, -2) @ doa[sl, qs, :d].float()
         dk[sl] += ds.transpose(-1, -2) @ qh[sl, qs].float()
-        dq[sl, qs] = ((ds @ kh[sl].float()) * LN2).to(qh.dtype)
-    return dq, (dk * LN2).to(qh.dtype), dv.to(qh.dtype)
+        dq[sl, qs] = ((ds @ kh[sl].float()) * scale).to(qh.dtype)
+    return dq, (dk * scale).to(qh.dtype), dv.to(qh.dtype)
 
 
 def _check_bwd_inputs(qh, kh, vah, doa, lse2, mask, heads, key_block: int):
@@ -281,7 +333,17 @@ def _check_bwd_inputs(qh, kh, vah, doa, lse2, mask, heads, key_block: int):
     return _mask_arg(mask, qh, Tk, heads)
 
 
-def flash_bwd_kernel(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1):
+def _launch_bwd(kernel: str, like, args: tuple, softcap: float) -> None:
+    """Launch a backward entry point, or its softcap variant (which takes
+    c and c·log2(e) after the integer arguments)."""
+    if softcap > 0.0:
+        launch(f"{kernel}_softcap", like, *args, float(softcap), _cap2(softcap))
+    else:
+        launch(kernel, like, *args)
+
+
+def flash_bwd_kernel(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1,
+                     softcap: float = 0.0):
     """Launch csrc/attention_bwd.cu on CUDA tensors: (dq, dk, dv)."""
     check_input("out", out, torch.bfloat16, qh.shape)
     doa = augment_do(dout.to(qh.dtype), out).contiguous()
@@ -290,81 +352,91 @@ def flash_bwd_kernel(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1):
     dq_acc = torch.zeros((BH, Tq, d), dtype=torch.float32, device=qh.device)
     dk = torch.empty_like(kh)
     dv = torch.empty_like(kh)
-    launch("flash_bwd", qh, qh.data_ptr(), kh.data_ptr(), vah.data_ptr(), mask_ptr,
-           doa.data_ptr(), lse2.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
-           dv.data_ptr(), BH, Tq, kh.shape[1], heads)
-    return (dq_acc * LN2).to(qh.dtype), dk, dv
+    _launch_bwd("flash_bwd", qh,
+                (qh.data_ptr(), kh.data_ptr(), vah.data_ptr(), mask_ptr, doa.data_ptr(),
+                 lse2.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH,
+                 Tq, kh.shape[1], heads), softcap)
+    return (dq_acc * _dk_scale(softcap)).to(qh.dtype), dk, dv
 
 
-def flash_bwd_dkv_kernel(qh, kh, vah, doa, lse2, mask=None, heads: int = 1):
+def flash_bwd_dkv_kernel(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
+                         softcap: float = 0.0):
     """Launch the dKV pass of csrc/attention_bwd_split.cu: (dk, dv)."""
     mask_ptr = _check_bwd_inputs(qh, kh, vah, doa, lse2, mask, heads, _BWD_KEY_BLOCK)
     BH, Tq, _ = qh.shape
     dk = torch.empty_like(kh)
     dv = torch.empty_like(kh)
-    launch("flash_bwd_dkv", qh, qh.data_ptr(), kh.data_ptr(), vah.data_ptr(),
-           mask_ptr, doa.data_ptr(), lse2.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-           BH, Tq, kh.shape[1], heads)
+    _launch_bwd("flash_bwd_dkv", qh,
+                (qh.data_ptr(), kh.data_ptr(), vah.data_ptr(), mask_ptr, doa.data_ptr(),
+                 lse2.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, Tq, kh.shape[1],
+                 heads), softcap)
     return dk, dv
 
 
-def flash_bwd_dq_kernel(qh, kh, vah, doa, lse2, mask=None, heads: int = 1):
+def flash_bwd_dq_kernel(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
+                        softcap: float = 0.0):
     """Launch the dQ pass of csrc/attention_bwd_split.cu: dq."""
     mask_ptr = _check_bwd_inputs(qh, kh, vah, doa, lse2, mask, heads, _KEY_BLOCK)
     BH, Tq, _ = qh.shape
     dq = torch.empty_like(qh)
-    launch("flash_bwd_dq", qh, qh.data_ptr(), kh.data_ptr(), vah.data_ptr(),
-           mask_ptr, doa.data_ptr(), lse2.data_ptr(), dq.data_ptr(), BH, Tq,
-           kh.shape[1], heads)
+    _launch_bwd("flash_bwd_dq", qh,
+                (qh.data_ptr(), kh.data_ptr(), vah.data_ptr(), mask_ptr, doa.data_ptr(),
+                 lse2.data_ptr(), dq.data_ptr(), BH, Tq, kh.shape[1], heads), softcap)
     return dq
 
 
-def flash_bwd(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1):
+def flash_bwd(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1,
+              softcap: float = 0.0):
     if on_cpu(qh, kh, vah, out, lse2, dout):
-        return flash_bwd_plain(qh, kh, vah, out, lse2, dout, mask, heads)
-    return flash_bwd_kernel(qh, kh, vah, out, lse2, dout, _as_kernel_mask(mask), heads)
+        return flash_bwd_plain(qh, kh, vah, out, lse2, dout, mask, heads, softcap)
+    return flash_bwd_kernel(qh, kh, vah, out, lse2, dout, _as_kernel_mask(mask), heads,
+                            softcap)
 
 
-def flash_bwd_dkv(qh, kh, vah, doa, lse2, mask=None, heads: int = 1):
+def flash_bwd_dkv(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
+                  softcap: float = 0.0):
     if on_cpu(qh, kh, vah, doa, lse2):
-        return flash_bwd_dkv_plain(qh, kh, vah, doa, lse2, mask, heads)
-    return flash_bwd_dkv_kernel(qh, kh, vah, doa, lse2, _as_kernel_mask(mask), heads)
+        return flash_bwd_dkv_plain(qh, kh, vah, doa, lse2, mask, heads, softcap)
+    return flash_bwd_dkv_kernel(qh, kh, vah, doa, lse2, _as_kernel_mask(mask), heads,
+                                softcap)
 
 
-def flash_bwd_dq(qh, kh, vah, doa, lse2, mask=None, heads: int = 1):
+def flash_bwd_dq(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
+                 softcap: float = 0.0):
     if on_cpu(qh, kh, vah, doa, lse2):
-        return flash_bwd_dq_plain(qh, kh, vah, doa, lse2, mask, heads)
-    return flash_bwd_dq_kernel(qh, kh, vah, doa, lse2, _as_kernel_mask(mask), heads)
+        return flash_bwd_dq_plain(qh, kh, vah, doa, lse2, mask, heads, softcap)
+    return flash_bwd_dq_kernel(qh, kh, vah, doa, lse2, _as_kernel_mask(mask), heads,
+                               softcap)
 
 
 def attention_backward(qh, kh, vah, out, lse2, dout, mask, heads: int, split: bool,
-                       kernels: bool):
+                       kernels: bool, softcap: float = 0.0):
     """(dq, dk, dv) as ``_bwd_impl`` (:639) computes them: the fused pass, or
     with ``split`` the dKV and dQ passes on one [dO | -delta]."""
     dout = dout.contiguous()
     if not split:
         bwd = flash_bwd if kernels else flash_bwd_plain
-        return bwd(qh, kh, vah, out, lse2, dout, mask, heads)
+        return bwd(qh, kh, vah, out, lse2, dout, mask, heads, softcap)
     doa = augment_do(dout.to(qh.dtype), out).contiguous()
     dkv, dq_pass = ((flash_bwd_dkv, flash_bwd_dq) if kernels
                     else (flash_bwd_dkv_plain, flash_bwd_dq_plain))
-    dk, dv = dkv(qh, kh, vah, doa, lse2, mask, heads)
-    return dq_pass(qh, kh, vah, doa, lse2, mask, heads), dk, dv
+    dk, dv = dkv(qh, kh, vah, doa, lse2, mask, heads, softcap)
+    return dq_pass(qh, kh, vah, doa, lse2, mask, heads, softcap), dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
     """Counterpart of ``_flash_hm_full_va`` (pallas_attention.py:296-326)."""
 
     @staticmethod
-    def forward(ctx, qh, kh, vah, bound2: float, kernels: bool):
+    def forward(ctx, qh, kh, vah, bound2: float, kernels: bool, softcap: float):
         if bound2 <= SAFE_BOUND2:
             fwd = flash_fixed if kernels else flash_fixed_plain
-            out, lse = fwd(qh, kh, vah, bound2)
+            out, lse = fwd(qh, kh, vah, bound2, softcap)
         else:
             fwd = flash_online if kernels else flash_online_plain
-            out, lse = fwd(qh, kh, vah)
+            out, lse = fwd(qh, kh, vah, None, 1, softcap)
         ctx.save_for_backward(qh, kh, vah, out, lse)
-        ctx.kernels = kernels
+        ctx.kernels, ctx.softcap = kernels, softcap
         return out
 
     @staticmethod
@@ -373,18 +445,20 @@ class _FlashAttention(torch.autograd.Function):
         BH, Tq, d = qh.shape
         split = fused_backward_slab_bytes(BH, Tq, kh.shape[1], d) > _FUSED_DQ_PARTIALS_CAP
         dq, dk, dv = attention_backward(qh, kh, vah, out, lse, dout, None, 1, split,
-                                        ctx.kernels)
-        return dq, dk, F.pad(dv, (0, 1)), None, None
+                                        ctx.kernels, ctx.softcap)
+        return dq, dk, F.pad(dv, (0, 1)), None, None, None
 
 
-def flash_attention_headmajor(qh, kh, vah, bound2: float, kernels: bool = True):
+def flash_attention_headmajor(qh, kh, vah, bound2: float, kernels: bool = True,
+                              softcap: float = 0.0):
     """No-padding attention on (BH, T, d) pre-scaled q, k and ones-augmented
-    va (BH, T, d+1). ``bound2`` bounds |q·k| (base 2); the caller computes it
-    on the host from the qk-norm gains. Returns out (BH, T, d).
+    va (BH, T, d+1). ``bound2`` bounds the base-2 logits: from the qk-norm
+    gains (the caller computes it on the host), or c·log2(e) under a softcap
+    c. Returns out (BH, T, d).
 
     Differentiable. ``kernels=False`` takes the plain versions forward and
     backward on any device; CPU tensors take them either way."""
-    return _FlashAttention.apply(qh, kh, vah, float(bound2), kernels)
+    return _FlashAttention.apply(qh, kh, vah, float(bound2), kernels, float(softcap))
 
 
 class _MaskedFlashAttention(torch.autograd.Function):
@@ -393,11 +467,11 @@ class _MaskedFlashAttention(torch.autograd.Function):
     on the ones-augmented v that the forward reads."""
 
     @staticmethod
-    def forward(ctx, qh, kh, vah, mask, heads: int, kernels: bool):
+    def forward(ctx, qh, kh, vah, mask, heads: int, kernels: bool, softcap: float):
         fwd = flash_online if kernels else flash_online_plain
-        out, lse = fwd(qh, kh, vah, mask, heads)
+        out, lse = fwd(qh, kh, vah, mask, heads, softcap)
         ctx.save_for_backward(qh, kh, vah, mask, out, lse)
-        ctx.heads, ctx.kernels = heads, kernels
+        ctx.heads, ctx.kernels, ctx.softcap = heads, kernels, softcap
         return out
 
     @staticmethod
@@ -406,8 +480,8 @@ class _MaskedFlashAttention(torch.autograd.Function):
         BH, Tq, d = qh.shape
         split = masked_backward_slab_bytes(BH, Tq, kh.shape[1], d) > _FUSED_DQ_PARTIALS_CAP
         dq, dk, dv = attention_backward(qh, kh, vah, out, lse, dout, mask, ctx.heads,
-                                        split, ctx.kernels)
-        return dq, dk, F.pad(dv, (0, 1)), None, None, None
+                                        split, ctx.kernels, ctx.softcap)
+        return dq, dk, F.pad(dv, (0, 1)), None, None, None, None
 
 
 def _head_major(a, B: int, H: int, T: int, d: int):
@@ -422,24 +496,25 @@ def flash_attention(q, k, v, kv_mask=None, scale: float | None = None,
     takes the no-padding path where Tq and Tk are multiples of 128.
     ``logit_bound``: a host bound on the unscaled logits max|q·k| for that
     path (from the qk-norm gains); without one it is computed from the row
-    norms (one host read). Differentiable."""
-    if softcap > 0.0:
-        raise NotImplementedError(
-            "the softcap variants of the attention kernels are not ported yet "
-            "(ROADMAP section B3)")
+    norms (one host read). ``softcap`` c > 0 caps every logit at c with
+    tanh; that path's bound is then c·log2(e). Differentiable."""
     B, Tq, H, d = q.shape
     Tk = k.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    # q * jnp.asarray(scale * LOG2E, q.dtype) (:829-832): the constant itself
-    # is rounded to q's dtype; bf16 x bf16 is exact in fp32, then rounded
-    q = q * float(torch.tensor(scale * LOG2E, dtype=q.dtype))
+    # q * jnp.asarray(scale * LOG2E, q.dtype) or scale / softcap (:829-832):
+    # the constant itself is rounded to q's dtype; bf16 x bf16 is exact in
+    # fp32, then rounded
+    pre = scale / softcap if softcap > 0.0 else scale * LOG2E
+    q = q * float(torch.tensor(pre, dtype=q.dtype))
     qh = _head_major(q, B, H, Tq, d)
     kh = _head_major(k, B, H, Tk, d)
     vh = _head_major(v, B, H, Tk, d)
 
     if kv_mask is None and Tq % 128 == 0 and Tk % 128 == 0 and d < 128:
-        if logit_bound is not None:
+        if softcap > 0.0:
+            bound2 = _cap2(softcap)  # tanh caps the base-2 logits (:841-843)
+        elif logit_bound is not None:
             bound2 = float(logit_bound) * scale * LOG2E
         else:
             with torch.no_grad():
@@ -447,7 +522,7 @@ def flash_attention(q, k, v, kv_mask=None, scale: float | None = None,
                 kn = kh.float().square().sum(-1).sqrt().max()
                 bound2 = float(qn * kn)
         out = flash_attention_headmajor(qh, kh, F.pad(vh, (0, 1), value=1.0), bound2,
-                                        kernels)
+                                        kernels, softcap)
         return out.reshape(B, H, Tq, d).transpose(1, 2)
 
     if kv_mask is None:
@@ -459,5 +534,5 @@ def flash_attention(q, k, v, kv_mask=None, scale: float | None = None,
     kh = F.pad(kh, (0, 0, 0, pk))
     vah = F.pad(F.pad(vh, (0, 0, 0, pk)), (0, 1), value=1.0)
     mask = F.pad(kv_mask.to(torch.int32), (0, pk))
-    out = _MaskedFlashAttention.apply(qh, kh, vah, mask, H, kernels)
+    out = _MaskedFlashAttention.apply(qh, kh, vah, mask, H, kernels, float(softcap))
     return out[:, :Tq].reshape(B, H, Tq, d).transpose(1, 2)

@@ -30,8 +30,7 @@ from .models.dit import attention_bounds, dit_forward
 
 @dataclasses.dataclass(frozen=True)
 class RPFConfig:
-    """Pipeline configuration (rap_tpu's RPFConfig without n_generations and
-    prune_factor)."""
+    """Pipeline configuration (rap_tpu's RPFConfig, registration.py:34-70)."""
 
     model: DiTConfig = dataclasses.field(default_factory=DiTConfig)
     loss_type: str = "mse"
@@ -40,6 +39,7 @@ class RPFConfig:
     inference_sampling_steps: int = 10
     inference_sampler: str = "euler"
     inference_schedule: str = "uniform"
+    n_generations: int = 1  # generations per batch in apps.sample
     rigidity_forcing: bool = True
     return_end_point_trajectory: bool = True
     prune_coarse_steps: int = 0  # the pruned sampler is not ported: raises where it would run

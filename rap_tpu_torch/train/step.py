@@ -74,7 +74,10 @@ def make_train_step(cfg: RPFConfig, opt_cfg: OptimizerConfig, remat: bool = True
         leaves = {k: p.detach().requires_grad_(True) for k, p in flat.items()}
         loss, metrics = training_forward(tree_replace(state.params, leaves), cfg, batch,
                                          state.generator, remat=remat, x_1=x_1, t=t)
-        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        # a leaf the forward does not read (the qk gains with qk_norm=False)
+        # gets a zero gradient, as jax.grad gives it
+        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()),
+                                                     materialize_grads=True)))
         with torch.no_grad():
             gnorm = global_norm(grads.values())
             finite = torch.isfinite(gnorm)

@@ -16,8 +16,8 @@ path's shapes).
 import pytest
 import torch
 
+from rap_tpu_torch.ops import KERNELS, fused_ff, fused_proj, launch_counts, reset_launches
 from rap_tpu_torch.ops import flash_attention as fa
-from rap_tpu_torch.ops import fused_ff, fused_proj, launch_counts, reset_launches
 
 pytestmark = pytest.mark.cuda
 
@@ -34,6 +34,11 @@ def gen():
 
 def _randn(gen, *shape, dtype=torch.bfloat16, scale=1.0):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+def _counts(**launched):
+    """Every kernel's launch count: 0 unless given."""
+    return {**dict.fromkeys(KERNELS, 0), **launched}
 
 
 def _close(got, ref):
@@ -67,9 +72,7 @@ def test_proj_attention_out_kernels(gen, is_global):
     a5 = o_k.reshape(got[0].shape)
     _close(fused_proj.out_kernel(a5, x, w_out, b_out, P, is_global),
            fused_proj.out_plain(a5, x, w_out, b_out, P, is_global))
-    assert launch_counts() == {"proj": 1, "flash_fixed": 1, "flash_online": 1,
-                               "out_proj": 1, "ff": 0, "flash_bwd": 0, "proj_bwd": 0,
-                               "ff_bwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+    assert launch_counts() == _counts(proj=1, flash_fixed=1, flash_online=1, out_proj=1)
 
 
 def test_online_kernel_masked_rows(gen):
@@ -124,9 +127,7 @@ def test_dit_forward_kernels_match_plain(gen):
     v_k = dit_forward(params, cfg, x, ts, batch, P)
     counts = launch_counts()
     v_p = dit_forward(params, dataclasses.replace(cfg, use_kernels=False), x, ts, batch, P)
-    assert counts == {"proj": 4, "flash_fixed": 3, "flash_online": 1, "out_proj": 4, "ff": 2,
-                      "flash_bwd": 0, "proj_bwd": 0, "ff_bwd": 0, "flash_bwd_dkv": 0,
-                      "flash_bwd_dq": 0}
+    assert counts == _counts(proj=4, flash_fixed=3, flash_online=1, out_proj=4, ff=2)
     err = float((v_k - v_p).abs().max())
     assert err <= 5e-2 * float(v_p.abs().max()), err
 
@@ -220,9 +221,8 @@ def test_training_gradients_kernels_match_plain(gen):
         grads = torch.autograd.grad(loss, list(leaves.values()))
         out[name] = (float(loss.detach()), dict(zip(leaves, grads)), launch_counts())
     (lk, gk, ck), (lp, gp, cp), (_, g32, _) = out["kernels"], out["plain"], out["fp32"]
-    assert ck == {"proj": 8, "flash_fixed": 6, "flash_online": 2, "out_proj": 8, "ff": 4,
-                  "flash_bwd": 4, "proj_bwd": 4, "ff_bwd": 2, "flash_bwd_dkv": 0,
-                  "flash_bwd_dq": 0}
+    assert ck == _counts(proj=8, flash_fixed=6, flash_online=2, out_proj=8, ff=4,
+                         flash_bwd=4, proj_bwd=4, ff_bwd=2)
     assert sum(cp.values()) == 0
     assert abs(lk - lp) <= 2e-2 * abs(lp)
 
@@ -321,3 +321,92 @@ def test_kernels_launch_on_their_tensors_device():
     _close(out, fa.flash_online_plain(q, k, va, mask, heads)[0])
     _close(dq, fa.flash_bwd_dq_plain(q, k, va, doa, lse, mask, heads))
     _close(fused[0], dq)
+
+
+# --------------------------------------------------------------------------
+# the softcap variants of rows 2, 3, 6, 7 and 8, and apps.sample
+# --------------------------------------------------------------------------
+
+def _softcap_inputs(gen, BH, T, c):
+    """qk-norm rows at gain 3, q pre-scaled by scale/c: |q.k| up to 72/c."""
+    def rows(norm):
+        x = torch.randn((BH, T, DH), generator=gen, device="cuda")
+        return (x / x.norm(dim=-1, keepdim=True) * norm).to(torch.bfloat16)
+
+    va = torch.cat([_randn(gen, BH, T, DH), torch.ones(BH, T, 1, device="cuda",
+                                                       dtype=torch.bfloat16)], -1)
+    return rows(3.0 / c), rows(24.0), va.contiguous()
+
+
+@pytest.mark.parametrize("c", [5.0, 50.0])
+def test_softcap_forward_kernels(gen, c):
+    """c = 5: the fixed-bound variant (bound 5 log2 e); c = 50: online, with
+    and without a key mask."""
+    heads, B, T = 2, 4, 512
+    q, k, va = _softcap_inputs(gen, B * heads, T, c)
+    b2 = fa._cap2(c)
+    reset_launches()
+    o_k, l_k = fa.flash_fixed_kernel(q, k, va, b2, c)
+    o_p, l_p = fa.flash_fixed_plain(q, k, va, b2, c)
+    _close(o_k, o_p)
+    assert float((l_k - l_p).abs().max()) < 2e-2
+    mask = _key_mask(gen, B, T)
+    for m in (None, mask):
+        o_k, l_k = fa.flash_online_kernel(q, k, va, m, heads, c)
+        o_p, _ = fa.flash_online_plain(q, k, va, m, heads, c)
+        _close(o_k, o_p)
+    assert launch_counts() == _counts(flash_fixed_softcap=1, flash_online_softcap=2)
+    assert (o_k[(B - 1) * heads:] == 0).all()
+
+
+@pytest.mark.parametrize("c", [5.0, 50.0])
+def test_softcap_backward_kernels(gen, c):
+    """Row 6 (fused) and rows 7-8 (split) with a key mask: each against its
+    softcap twin; the split passes bitwise repeatable; the fused dQ against
+    the split one."""
+    heads, B, T = 2, 4, 512
+    q, k, va = _softcap_inputs(gen, B * heads, T, c)
+    mask = _key_mask(gen, B, T)
+    out, lse = fa.flash_online_kernel(q, k, va, mask, heads, c)
+    dout = _randn(gen, B * heads, T, DH)
+    doa = fa.augment_do(dout, out).contiguous()
+    args = (q, k, va, doa, lse, mask, heads)
+    reset_launches()
+    fused = fa.flash_bwd_kernel(q, k, va, out, lse, dout, mask, heads, c)
+    dk, dv = fa.flash_bwd_dkv_kernel(*args, c)
+    dq = fa.flash_bwd_dq_kernel(*args, c)
+    assert launch_counts() == _counts(flash_bwd_softcap=1, flash_bwd_dkv_softcap=1,
+                                      flash_bwd_dq_softcap=1)
+    for g_, r_ in zip(fused, fa.flash_bwd_plain(q, k, va, out, lse, dout, mask, heads, c)):
+        _close(g_, r_)
+    rk, rv = fa.flash_bwd_dkv_plain(*args, c)
+    for g_, r_ in ((dq, fa.flash_bwd_dq_plain(*args, c)), (dk, rk), (dv, rv)):
+        _close(g_, r_)
+    assert torch.equal(dq, fa.flash_bwd_dq_kernel(*args, c))
+    _close(fused[0], dq)
+
+
+@pytest.mark.parametrize("c", [0.0, 5.0])
+def test_sample_app_launch_counts(gen, c):
+    """apps.sample.main on configs/synth_student.yaml at 2 layers with random
+    weights (unit gains: every guard bound under 60): softcap 0 runs the
+    fused branch's five kernels (fixed-bound attention), softcap 5 the FF
+    kernel and the fixed-bound softcap kernel."""
+    from pathlib import Path
+
+    from rap_tpu_torch.apps import sample as app
+
+    root = Path(__file__).resolve().parent.parent
+    rec = {}
+    reset_launches()
+    app.main(["--config", str(root / "configs/synth_student.yaml"), "-o", "checkpoint=",
+              "-o", f"data.datasets.0.data_path={root / 'demo_data/synth'}",
+              "-o", "model.num_layers=2", "-o", f"model.softcap={c}"], record=rec)
+    forwards = len(rec["batch_gen_ms"]) * 4  # 4 Euler steps, one generation
+    if c == 0.0:
+        expected = _counts(proj=4 * forwards, flash_fixed=4 * forwards, out_proj=4 * forwards,
+                           ff=2 * forwards)
+    else:
+        expected = _counts(flash_fixed_softcap=4 * forwards, ff=2 * forwards)
+    assert launch_counts() == expected
+    assert rec["pairs"] == 8

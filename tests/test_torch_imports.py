@@ -135,3 +135,32 @@ def test_train_step_defaults_to_cuda():
         make_train_step(RPFConfig(), OptimizerConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TrainState.create({"anchor_emb": torch.zeros(2, 4)}, OptimizerConfig(), seed=0)
+
+
+def test_sample_slice_modules_and_sources_are_covered():
+    """The batch-evaluation slice's modules are in MODULES (so the fresh
+    interpreter above imports them), and every attention kernel has a
+    softcap entry point beside it."""
+    from rap_tpu_torch.ops._build import SIGNATURES
+
+    assert {"rap_tpu_torch.config", "rap_tpu_torch.apps.sample", "rap_tpu_torch.data.dataset",
+            "rap_tpu_torch.data.packer", "rap_tpu_torch.data.loader",
+            "rap_tpu_torch.eval.metrics", "rap_tpu_torch.eval.evaluator",
+            "rap_tpu_torch.eval.meter", "rap_tpu_torch.utils.ply"} <= set(MODULES)
+    for name in ("flash_fixed", "flash_online", "flash_bwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        assert f"rtt_{name}_softcap" in SIGNATURES
+
+
+def test_collate_defaults_to_cuda():
+    from rap_tpu_torch.data.dataset import Sample
+    from rap_tpu_torch.data.packer import collate_to_part_batch
+
+    _no_card()
+    import numpy as np
+
+    pts = [np.zeros((4, 3), np.float32)] * 2
+    smp = Sample("s", "d", 0, pts, pts, [np.zeros((4, 32), np.float32)] * 2,
+                 np.tile(np.eye(3, dtype=np.float32), (2, 1, 1)), np.zeros((2, 3), np.float32),
+                 0, 1.0, np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        collate_to_part_batch([smp], N=4, P=2)
