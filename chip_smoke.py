@@ -34,7 +34,12 @@ Phases, each printed on its own flushed line with its wall time:
               fixed-bound variant, c = 50 the online one, as the guard
               does), the masked forward and the backward at the multi-view
               shapes (row 6 at the part shape, rows 7-8 at the global one,
-              bitwise repeatable).
+              bitwise repeatable). The attention forward (csrc/attention.cu,
+              TMA + wgmma, 128 query rows per block, key tiles of 128) at the
+              edges of its design, both variants and their softcap forms at
+              c = 5: one key tile (shorter than the TMA ring), an odd number
+              of tiles (Tq = Tk = 384), one head (BH = 1), and key masks that
+              leave only the first or only the last key tile live.
 3. main       registration.sample + predict_poses at S=4 x 2 x 4096, 2 Euler
               steps, rigidity forcing, bf16, with random weights from a seed at
               the width and depth of teacher3_last (6 layers, D=512). The qk
@@ -318,8 +323,9 @@ def run_build(report):
     log(f"  library {lib.path.relative_to(ROOT)}; nvcc took {lib.build_seconds:.1f} s"
         + ("" if lib.build_seconds else " (cached build loaded)"))
     for line in lib.compiler_log.splitlines():
-        if any(w in line for w in ("entry function", "registers", "spill")) \
-                or "error" in line.lower():
+        if any(w in line for w in ("entry function", "registers", "spill", "wgmma",
+                                   "setmaxnreg")) \
+                or "error" in line.lower() or "warning" in line.lower():
             log(f"  ptxas: {line.strip()}")
     report["build_seconds"] = lib.build_seconds
 
@@ -464,6 +470,7 @@ def run_kernels(report, fails, state):
     state["ff_bwd_args"] = ffb_args
     run_kernels_multiview(fails, state, gen, compare)
     run_kernels_softcap(fails, state, gen, compare, compare_lse)
+    run_kernels_edges(fails, gen, compare, compare_lse)
 
 
 def multiview_attention_inputs(gen, BH: int, T: int):
@@ -646,6 +653,67 @@ def run_kernels_softcap(fails, state, gen, compare, compare_lse):
                             and all(torch.equal(a, b) for a, b in
                                     zip((dk, dv), fa.flash_bwd_dkv(*args, c))))
             sc["mv", tag, c] = (qh, kh, vah, mask, out, lse, dout, doa)
+
+
+# (label, BH, Tq, Tk, heads, live): the masked variant gets a random key mask
+# (the last batch row fully masked where there are two) or, with live set, a
+# mask that leaves only the first or only the last key tile live
+FWD_EDGES = (("one key tile", 16, 128, 128, 8, None), ("odd tiles", 16, 384, 384, 8, None),
+             ("one head", 1, 1024, 1024, 1, None), ("first tile live", 16, 1024, 1024, 8, "first"),
+             ("last tile live", 16, 1024, 1024, 8, "last"))
+
+
+def edge_mask(gen, B: int, Tk: int, live):
+    if live is None:
+        mask = torch.rand((B, Tk), generator=gen, device="cuda") > 0.3
+        if B > 1:
+            mask[-1] = False
+        return mask
+    mask = torch.zeros((B, Tk), dtype=torch.bool, device="cuda")
+    keys = slice(0, 128) if live == "first" else slice(Tk - 128, Tk)
+    mask[:, keys] = torch.rand((B, 128), generator=gen, device="cuda") > 0.5
+    mask[:, keys.start] = True
+    return mask
+
+
+def run_kernels_edges(fails, gen, compare, compare_lse):
+    """csrc/attention.cu at the edges of its design: one key tile (shorter
+    than the TMA ring), an odd number of tiles, one head, and masks that
+    leave only the first or the last key tile live; the fixed and online
+    variants unmasked and the online one masked, each at softcap 0 and 5,
+    against their plain twins."""
+    from rap_tpu_torch.ops import flash_attention as fa
+
+    for label, BH, Tq, Tk, heads, live in FWD_EDGES:
+        for c in (0.0, 5.0):
+            if c > 0.0:
+                q, k, va = softcap_attention_inputs(gen, BH, max(Tq, Tk), c)
+                b2 = fa._cap2(c)
+            else:
+                q, k, va = multiview_attention_inputs(gen, BH, max(Tq, Tk))
+                b2 = float(np.log2(np.e) * np.sqrt(DH))  # |q| = log2(e), |k| = sqrt(dh)
+            q, k, va = q[:, :Tq].contiguous(), k[:, :Tk].contiguous(), va[:, :Tk].contiguous()
+            sfx = "_softcap" if c > 0.0 else ""
+            tag = f"edge {label}, BH={BH}, Tq={Tq}, Tk={Tk}, c={c:g}"
+            if live is None:
+                for name, got, ref in (
+                        (f"flash_fixed{sfx}", fa.flash_fixed(q, k, va, b2, c),
+                         fa.flash_fixed_plain(q, k, va, b2, c)),
+                        (f"flash_online{sfx}", fa.flash_online(q, k, va, None, 1, c),
+                         fa.flash_online_plain(q, k, va, None, 1, c))):
+                    compare(f"{name}/edges", f"{name}[{tag}].out", got[0], ref[0])
+                    compare_lse(f"{name}[{tag}].lse2", got[1], ref[1])
+            mask = edge_mask(gen, BH // heads, Tk, live)
+            got = fa.flash_online(q, k, va, mask, heads, c)
+            ref = fa.flash_online_plain(q, k, va, mask, heads, c)
+            name = f"flash_online{sfx}"
+            compare(f"{name}/edges", f"{name}[{tag}, masked].out", got[0], ref[0])
+            rows = (mask.sum(1) > 0).repeat_interleave(heads)
+            fails.check(f"{name}[{tag}, masked] empty rows",
+                        bool((got[0][~rows] == 0).all())
+                        and bool((got[1][~rows] == fa.LSE_EMPTY).all()),
+                        f"{int((~rows).sum())} empty (batch*head) rows")
+            compare_lse(f"{name}[{tag}, masked].lse2 (live rows)", got[1][rows], ref[1][rows])
 
 
 def write_random_checkpoint(cfg, seed: int) -> Path:

@@ -1,197 +1,325 @@
 // Flash attention forward on head-major, pre-scaled (base-2) q, k, v.
 //
-// One source, two instantiations of one kernel (compile-time FIXED_BOUND):
-//   true  replaces rap_tpu/ops/pallas_attention.py:188 `_flash_fwd_full_kernel`
-//         (launched by `_fwd_full_impl`, :224): p = exp2(s - bound) with a
-//         fixed per-call logit bound and no running max.
-//   false replaces rap_tpu/ops/pallas_attention.py:91 `_flash_fwd_kernel`
-//         (launched by `_fwd_impl`, :140): online max and rescale, a (B, Tk)
-//         key mask shared by the H heads of a batch row, key blocks with no
-//         valid key skipped, and fully masked rows giving 0 and LSE_EMPTY
+// One source, four instantiations of one kernel (compile-time FIXED_BOUND
+// and SOFTCAP):
+//   FIXED_BOUND true  replaces rap_tpu/ops/pallas_attention.py:188
+//         `_flash_fwd_full_kernel` (launched by `_fwd_full_impl`, :224):
+//         p = exp2(s - bound) with a fixed per-call logit bound and no running
+//         max; out = O / max(l, 1e-30), lse2 = bound + log2(l).
+//   FIXED_BOUND false replaces rap_tpu/ops/pallas_attention.py:91
+//         `_flash_fwd_kernel` (launched by `_fwd_impl`, :140): online max and
+//         rescale, a (B, Tk) int32 key mask shared by the H heads of a batch
+//         row, key tiles with no valid key skipped (never loaded, never
+//         multiplied), and fully masked rows giving 0 and LSE_EMPTY
 //         (:131-138).
-// SOFTCAP (rows 2 and 3 with a logit cap c, `softcap` static in both TPU
-// kernels, :113-114 and :202-203): q arrives pre-scaled by scale/c, and the
-// base-2 logit is s2 = c·log2(e)·tanh(q·k) (tanhf, one MUFU op per logit);
-// the host passes cap2 = c·log2(e) rounded to fp32, and the fixed variant's
-// bound is that same cap2 (:841-843). A masked key's logit is set to NEG_INF
-// after the tanh, as the TPU kernel selects after it. With SOFTCAP false
-// the instantiations are the kernels of the no-softcap path, unchanged.
-// Both write out (BH, Tq, d) bf16 and lse2 (BH, Tq) fp32 = max + log2(l), the
-// residual the training slice's backward will read. Both read only the first
-// d columns of the ones-augmented v rows (the online kernel's input at :287);
-// the row sum l is the fp32 sum of the bf16-rounded p, which is the value the
-// TPU kernel's ones column produced through its matmul. Keys are never
-// padded: zero-padded keys would leak exp2(-bound) mass into the softmax, so
-// the wrapper refuses lengths that are not multiples of the key block.
+//   SOFTCAP (the TPU kernels' static `softcap`, :113-114 and :202-203): q
+//         arrives pre-scaled by scale/c, and the base-2 logit is
+//         s2 = cap2·tanhf(q·k) with cap2 = c·log2(e) in fp32 from the host; a
+//         masked key's logit is NEG_INF after the tanh.
+// Both write out (BH, Tq, 64) bf16 and lse2 (BH, Tq) fp32, the residual the
+// backward kernels read. The row sum l is the fp32 sum of the bf16-rounded p,
+// the value the TPU kernel's ones column produced, and is produced the same
+// way here (below). v arrives as (BH, Tk, 64) with 128-byte rows (the wrapper
+// drops the ones column of va), the layout rap_tpu's online path feeds its
+// kernel (:288). Keys are never padded: the wrapper refuses Tq, Tk that are
+// not multiples of 128.
 //
-// Bound on the H100 at the main path's shapes (d=64; part: BH=64, T=4096,
-// 275 GFLOP; global: BH=32, T=8192, 550 GFLOP; both move < 100 MB): the
-// tensor cores bound it (~278 us and ~556 us at 989 TFLOP/s), with exp2 on
-// the FP32 pipes next (T^2 per head). This is the simple first design
-// (FlashAttention-2 style): a block owns 64 query rows of one head (16 per
-// warp, q fragments in registers), walks the keys in blocks of 64 staged in
-// shared memory, computes S = Q K^T and O += P V with warp-level mma.sync and
-// keeps P in registers between the two products. No TMA, no wgmma, no
-// pipelining of the key blocks.
+// Bound on the H100 (d = 64): per logit 2·2·64 bf16 tensor-core operations
+// and one exp2 on the special-function units (16 per clock per SM, a 256th
+// of the bf16 rate), which tie: 0.556 ms each at BH=32, T=8192 (550 GFLOP,
+// 2.1 G exp2); the bytes (< 100 MB) are far below. Under softcap the tanh
+// doubles the special-function time, which then bounds the kernel. So the
+// design keeps the tensor cores fed without stalls on memory, and keeps
+// every other per-logit instruction off the special-function pipe.
+//
+// Design (Hopper: TMA, mbarriers, wgmma, warp specialisation). A block owns
+// 128 query rows of one head and has three warpgroups:
+// - a producer warpgroup (registers lowered to 40 by setmaxnreg) whose one
+//   elected thread loads Q once and the K and V tiles of 128 keys into a ring
+//   of STAGES shared-memory stages by TMA (128-byte swizzle), each stage with
+//   a full barrier (transaction bytes) and an empty barrier (8 consumer
+//   warps), so the loads of the next tiles overlap the products;
+// - two consumer warpgroups of 64 query rows (registers raised to 232): for
+//   each tile, S = Q K^T by 4 wgmma.m64n128k16 from shared memory, then the
+//   softcap, mask and running max in registers (the accumulator puts rows g
+//   and g+8 of a warp on one quad; the max is a tree, then a quad shuffle),
+//   P = exp2(S - m) rounded to bf16 by cvt.rn.bf16x2 into register A
+//   fragments, and O += P V by 8 wgmma.m64n72k16 with P from registers and
+//   B = [V | ones] from shared memory (MN-major): columns 64-71 of B are a
+//   2 KB block of bf16 ones one descriptor offset from V, so the tensor
+//   cores also produce l = sum of the bf16-rounded p in fp32, as the TPU's
+//   ones column did, and the online rescale of O rescales l with it. The P V
+//   product of tile i is issued in one commit group with the Q K^T product
+//   of tile i+1; the stage of tile i is released when that group completes.
+// - For the masked variant all 12 warps first reduce the batch row's mask to
+//   per-key bits (4 words per tile) and a compacted list of live tiles in
+//   shared memory, while the Q load is in flight; producer and consumers then
+//   walk the same list, and consumers read each live tile's bits from shared
+//   memory.
+//
+// ptxas (sm_90a), all four instantiations: 168 registers (the
+// launch bound for 384 threads; setmaxnreg moves them to 40 / 232), no
+// spills, no stack; dynamic shared memory 117 888 bytes, plus 20 bytes per
+// key tile with a mask.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using rtt::bf16;
-constexpr int D = 64;          // head width
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // keys per block step
-constexpr int NTHREADS = 128;  // 4 warps x 16 query rows
-constexpr int LDS = D + 8;
+constexpr int D = 64;                    // head width
+constexpr int BQ = 128;                  // query rows per block (64 per consumer)
+constexpr int BK = 128;                  // keys per tile
+constexpr int STAGES = 3;                // K/V ring depth
+constexpr int NTHREADS = 384;            // producer + 2 consumer warpgroups
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;       // 40 + 2 x 232 = 3 x 168 (launch bound)
+constexpr uint32_t TILE_BYTES = BK * D * 2;  // one 128 x 64 bf16 tile: 16 KB
+constexpr size_t ONES_OFF = (1 + 2 * STAGES) * (size_t)TILE_BYTES;  // after Q, K[], V[]
+constexpr size_t SMEM_TILES = ONES_OFF + 2048;  // + 16 rows of bf16 ones
+constexpr size_t SMEM_BARS = 128;        // q, full[], empty[] barriers, live count
+constexpr size_t SMEM_FIXED = 1024 + SMEM_TILES + SMEM_BARS;  // + alignment slack
 constexpr float NEG_INF = -1e30f;
 constexpr float LSE_EMPTY = 1e30f;
 
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// P = exp2(S - m) rounded to bf16 (cvt.rn.bf16x2), as wgmma A fragments:
+// k-step j/2 holds keys 0-7 (rows g, g+8) in registers 0, 1, keys 8-15 in 2, 3
+__device__ __forceinline__ void exp_tile(uint32_t (&p)[32], const float (&s)[64], float mA,
+                                         float mB) {
+#pragma unroll
+  for (int j = 0; j < BK / 8; ++j) {
+    p[4 * (j >> 1) + 2 * (j & 1)] = rtt::pack_f2(ex2(s[4 * j] - mA), ex2(s[4 * j + 1] - mA));
+    p[4 * (j >> 1) + 2 * (j & 1) + 1] =
+        rtt::pack_f2(ex2(s[4 * j + 2] - mB), ex2(s[4 * j + 3] - mB));
+  }
+}
+
 template <bool FIXED_BOUND, bool SOFTCAP>
-__global__ void __launch_bounds__(NTHREADS)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ va, const int* __restrict__ mask,
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap map_q,
+                 const __grid_constant__ CUtensorMap map_k,
+                 const __grid_constant__ CUtensorMap map_v, const int* __restrict__ mask,
                  float bound, float cap2, bf16* __restrict__ out,
                  float* __restrict__ lse, int Tq, int Tk, int heads) {
-  __shared__ __align__(16) bf16 sQ[BQ * LDS];
-  __shared__ __align__(16) bf16 sK[BK * LDS];
-  __shared__ __align__(16) bf16 sV[BK * LDS];
-  __shared__ int sMask[BK];
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (rtt::smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sK = sQ + BQ * D;           // STAGES tiles
+  bf16* sV = sK + STAGES * BK * D;  // STAGES tiles
+  uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + SMEM_TILES);
+  uint64_t* full = qbar + 1;
+  uint64_t* empty = full + STAGES;
+  int* sCount = reinterpret_cast<int*>(empty + STAGES);
+  uint32_t* sBits = reinterpret_cast<uint32_t*>(smem + SMEM_TILES + SMEM_BARS);
+  const int ntiles = Tk / BK;
+  int* sList = reinterpret_cast<int*>(sBits + 4 * ntiles);
 
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gg = lane >> 2, t = lane & 3;
-  const bf16* qb = q + ((long)bh * Tq + q0) * D;
-  const bf16* kb = k + (long)bh * Tk * D;
-  const bf16* vb = va + (long)bh * Tk * (D + 1);
-  const int* mrow = mask == nullptr ? nullptr : mask + (long)(bh / heads) * Tk;
+  const bool masked = !FIXED_BOUND && mask != nullptr;
 
-  rtt::stage_tile<NTHREADS>(sQ, LDS, qb, D, BQ, D);
-  __syncthreads();
-  uint32_t qa[D / 16][4];
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) rtt::load_a(qa[kc], sQ, LDS, warp * 16, kc * 16, lane);
-
-  float o[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-  float mA = NEG_INF, mB = NEG_INF;  // running max (online variant)
-  float lA = 0.f, lB = 0.f;          // this thread's part of the row sums
-
-  for (int k0 = 0; k0 < Tk; k0 += BK) {
-    __syncthreads();  // previous block's sK / sV / sMask reads are done
-    if (!FIXED_BOUND) {
-      int any = 0;
-      for (int i = threadIdx.x; i < BK; i += NTHREADS) {
-        const int m = mrow == nullptr ? 1 : (mrow[k0 + i] != 0);
-        sMask[i] = m;
-        any |= m;
-      }
-      if (!__syncthreads_or(any)) continue;  // no valid key in this block
+  if (threadIdx.x == 0) {
+    rtt::mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      rtt::mbar_init(&full[s], 1);
+      rtt::mbar_init(&empty[s], 8);  // lane 0 of each consumer warp
     }
-    rtt::stage_tile<NTHREADS>(sK, LDS, kb + (long)k0 * D, D, BK, D);
-    for (int i = threadIdx.x; i < BK * D; i += NTHREADS) {
-      const int r = i / D, c = i % D;
-      sV[r * LDS + c] = vb[(long)(k0 + r) * (D + 1) + c];
+    rtt::mbar_fence_init();
+    rtt::fence_proxy_async();
+    rtt::mbar_expect_tx(qbar, BQ * D * 2);
+    rtt::tma_load_2d(sQ, &map_q, qbar, 0, bh * Tq + q0);
+  }
+  if (masked) {
+    // per-key bits: word w of a tile holds keys 32w..32w+31
+    const int* mrow = mask + (long)(bh / heads) * Tk;
+#pragma unroll 4
+    for (int tile = warp; tile < ntiles; tile += NTHREADS / 32) {
+      const int* m = mrow + tile * BK + lane;
+      const uint32_t w0 = __ballot_sync(0xffffffffu, m[0] != 0);
+      const uint32_t w1 = __ballot_sync(0xffffffffu, m[32] != 0);
+      const uint32_t w2 = __ballot_sync(0xffffffffu, m[64] != 0);
+      const uint32_t w3 = __ballot_sync(0xffffffffu, m[96] != 0);
+      if (lane == 0) *reinterpret_cast<uint4*>(sBits + 4 * tile) = make_uint4(w0, w1, w2, w3);
     }
     __syncthreads();
-
-    // ---- S = Q K^T (base-2 logits), 16 rows x 64 keys per warp -----------
-    float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kc = 0; kc < D / 16; ++kc) {
-        uint32_t b0, b1;
-        rtt::load_b_nk(b0, b1, sK, LDS, kc * 16, j * 8, lane);
-        rtt::mma16816(s[j], qa[kc], b0, b1);
+    if (warp == 0) {  // compact the live tiles, in order
+      int n = 0;
+      for (int t0 = 0; t0 < ntiles; t0 += 32) {
+        const int tile = t0 + lane;
+        bool live = false;
+        if (tile < ntiles) {
+          const uint4 b = *reinterpret_cast<const uint4*>(sBits + 4 * tile);
+          live = (b.x | b.y | b.z | b.w) != 0;
+        }
+        const uint32_t ballot = __ballot_sync(0xffffffffu, live);
+        if (live) sList[n + __popc(ballot & ((1u << lane) - 1u))] = tile;
+        n += __popc(ballot);
       }
-    }
-    if (SOFTCAP) {  // s2 = c log2(e) tanh(z'), before the mask
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        s[j][0] = tanhf(s[j][0]) * cap2;
-        s[j][1] = tanhf(s[j][1]) * cap2;
-        s[j][2] = tanhf(s[j][2]) * cap2;
-        s[j][3] = tanhf(s[j][3]) * cap2;
-      }
-    }
-
-    float subA = bound, subB = bound;
-    if (!FIXED_BOUND) {
-      float bmA = NEG_INF, bmB = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        const int c = j * 8 + 2 * t;
-        if (!sMask[c]) s[j][0] = s[j][2] = NEG_INF;
-        if (!sMask[c + 1]) s[j][1] = s[j][3] = NEG_INF;
-        bmA = fmaxf(bmA, fmaxf(s[j][0], s[j][1]));
-        bmB = fmaxf(bmB, fmaxf(s[j][2], s[j][3]));
-      }
-      const float nA = fmaxf(mA, rtt::quad_max(bmA));
-      const float nB = fmaxf(mB, rtt::quad_max(bmB));
-      const float cA = exp2f(mA - nA), cB = exp2f(mB - nB);
-      mA = nA;
-      mB = nB;
-      subA = nA;
-      subB = nB;
-      lA *= cA;
-      lB *= cB;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        o[j][0] *= cA;
-        o[j][1] *= cA;
-        o[j][2] *= cB;
-        o[j][3] *= cB;
-      }
-    }
-
-    // ---- P = exp2(S - m) in bf16 (kept in registers), O += P V ------------
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      uint32_t pa[4];
-      float pr[8];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float* sj = s[2 * kc + h];
-        const bf16 p0 = __float2bfloat16(exp2f(sj[0] - subA));
-        const bf16 p1 = __float2bfloat16(exp2f(sj[1] - subA));
-        const bf16 p2 = __float2bfloat16(exp2f(sj[2] - subB));
-        const bf16 p3 = __float2bfloat16(exp2f(sj[3] - subB));
-        pa[2 * h] = rtt::pack_raw(p0, p1);
-        pa[2 * h + 1] = rtt::pack_raw(p2, p3);
-        pr[4 * h + 0] = __bfloat162float(p0);
-        pr[4 * h + 1] = __bfloat162float(p1);
-        pr[4 * h + 2] = __bfloat162float(p2);
-        pr[4 * h + 3] = __bfloat162float(p3);
-      }
-      lA += pr[0] + pr[1] + pr[4] + pr[5];
-      lB += pr[2] + pr[3] + pr[6] + pr[7];
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        uint32_t b0, b1;
-        rtt::load_b_kn(b0, b1, sV, LDS, kc * 16, j * 8, lane);
-        rtt::mma16816(o[j], pa, b0, b1);
-      }
+      if (lane == 0) *sCount = n;
     }
   }
+  {  // bf16 ones, read by the P V products as B's columns 64-71
+    uint32_t* ones = reinterpret_cast<uint32_t*>(smem + ONES_OFF);
+    for (int i = threadIdx.x; i < 512; i += NTHREADS) ones[i] = 0x3F803F80u;
+    rtt::fence_proxy_async();
+  }
+  __syncthreads();
+  const int n_live = masked ? *sCount : ntiles;
 
-  // ---- finalize: out = O / l, lse2 = m + log2(l) ---------------------------
-  lA = rtt::quad_sum(lA);
-  lB = rtt::quad_sum(lB);
+  if (warp < 4) {
+    // ---- producer: one thread keeps the K/V ring full --------------------------
+    rtt::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = 0; i < n_live; ++i) {
+        if (i >= STAGES) rtt::mbar_wait(&empty[stage], phase ^ 1);
+        const int row = bh * Tk + (masked ? sList[i] : i) * BK;
+        rtt::mbar_expect_tx(&full[stage], 2 * TILE_BYTES);
+        rtt::tma_load_2d(sK + stage * BK * D, &map_k, &full[stage], 0, row);
+        rtt::tma_load_2d(sV + stage * BK * D, &map_v, &full[stage], 0, row);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 query rows each ---------------------------------------------
+  rtt::setmaxnreg_inc<CONSUMER_REGS>();
+  const int c = warp / 4 - 1;  // consumer warpgroup
+  const int wq = warp & 3;     // warp within it: rows 16wq..16wq+15
+  const int g = lane >> 2, t = lane & 3;
+  const uint64_t desc_q = rtt::sw128_desc(rtt::smem_u32(sQ + c * 64 * D));
+  const uint32_t ones_addr = rtt::smem_u32(smem + ONES_OFF);
+
+  // o[0..31]: O (64 x 64); o[32..35]: columns 64-71, the row sums l
+  float o[36], s[64];
+  uint32_t pa[32];  // P of the last tile: 8 k-steps x 4 A-fragment registers
+#pragma unroll
+  for (int i = 0; i < 36; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) pa[i] = 0u;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) s[i] = 0.f;
+  float mA = NEG_INF, mB = NEG_INF;  // running max (online variant), rows g, g+8
+
+  // O += P V of the tile in stage st, and l += P 1: each k-step's B is 16
+  // keys of V (MN-major) with the ones block one leading byte offset away
+  auto issue_pv = [&](int st) {
+    const uint32_t v_addr = rtt::smem_u32(sV + st * BK * D);
+#pragma unroll
+    for (int kc = 0; kc < BK / 16; ++kc) {
+      const uint32_t a = v_addr + 2048 * kc;  // 16 keys of 128 bytes
+      rtt::wgmma_m64n72k16_rs(o, pa[4 * kc], pa[4 * kc + 1], pa[4 * kc + 2], pa[4 * kc + 3],
+                              rtt::sw128_desc(a, ones_addr - a), 1);
+    }
+  };
+
+  rtt::mbar_wait(qbar, 0);
+  int stage = 0, prev = 0;
+  uint32_t phase = 0;
+  for (int i = 0; i < n_live; ++i) {
+    rtt::mbar_wait(&full[stage], phase);
+    // ---- S = Q K^T of this tile, then O += P V of the previous one -------------
+    const uint64_t desc_k = rtt::sw128_desc(rtt::smem_u32(sK + stage * BK * D));
+    rtt::fence_regs(o);
+    rtt::fence_regs(pa);
+    rtt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      rtt::wgmma_m64n128k16_ss(s, desc_q + 2 * kk, desc_k + 2 * kk, kk > 0);
+    if (i > 0) issue_pv(prev);
+    rtt::wgmma_commit();
+    rtt::wgmma_wait<0>();
+    rtt::fence_regs(s);
+    rtt::fence_regs(o);
+    if (i > 0 && lane == 0) rtt::mbar_arrive(&empty[prev]);  // V of the previous tile
+
+    if (SOFTCAP) {  // s2 = c log2(e) tanh(z'), before the mask
+#pragma unroll
+      for (int e = 0; e < 64; ++e) s[e] = tanhf(s[e]) * cap2;
+    }
+    if (!FIXED_BOUND) {
+      if (masked) {
+        const uint4 b = *reinterpret_cast<const uint4*>(sBits + 4 * sList[i]);
+        const uint32_t words[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j) {
+          const uint32_t bits = words[j >> 2] >> (8 * (j & 3) + 2 * t);
+          if (!(bits & 1u)) s[4 * j] = s[4 * j + 2] = NEG_INF;
+          if (!(bits & 2u)) s[4 * j + 1] = s[4 * j + 3] = NEG_INF;
+        }
+      }
+      // the row maxima by a tree (short dependency chains), then the quad
+      float xA[BK / 8], xB[BK / 8];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        xA[j] = fmaxf(s[4 * j], s[4 * j + 1]);
+        xB[j] = fmaxf(s[4 * j + 2], s[4 * j + 3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) xA[j] = fmaxf(xA[j], xA[j + 8]), xB[j] = fmaxf(xB[j], xB[j + 8]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xA[j] = fmaxf(xA[j], xA[j + 4]), xB[j] = fmaxf(xB[j], xB[j + 4]);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) xA[j] = fmaxf(xA[j], xA[j + 2]), xB[j] = fmaxf(xB[j], xB[j + 2]);
+      const float tA = rtt::quad_max(fmaxf(xA[0], xA[1]));
+      const float tB = rtt::quad_max(fmaxf(xB[0], xB[1]));
+      const float nA = fmaxf(mA, tA), nB = fmaxf(mB, tB);
+      const float cA = ex2(mA - nA), cB = ex2(mB - nB);
+      mA = nA;
+      mB = nB;
+#pragma unroll
+      for (int j = 0; j < 9; ++j) {  // rescale O and l to the new maxima
+        o[4 * j] *= cA;
+        o[4 * j + 1] *= cA;
+        o[4 * j + 2] *= cB;
+        o[4 * j + 3] *= cB;
+      }
+      exp_tile(pa, s, mA, mB);
+    } else {
+      exp_tile(pa, s, bound, bound);
+    }
+    prev = stage;
+    if (++stage == STAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  if (n_live > 0) {  // O += P V of the last tile
+    rtt::fence_regs(o);
+    rtt::fence_regs(pa);
+    rtt::wgmma_fence();
+    issue_pv(prev);
+    rtt::wgmma_commit();
+    rtt::wgmma_wait<0>();
+    rtt::fence_regs(o);
+  }
+
+  // ---- finalize: out = O / l, lse2 = m + log2(l) -----------------------------------
+  const float lA = o[32], lB = o[34];  // every column of the ones block holds l
   const float refA = FIXED_BOUND ? bound : mA, refB = FIXED_BOUND ? bound : mB;
   const float dA = fmaxf(lA, 1e-30f), dB = fmaxf(lB, 1e-30f);
   const bool emptyA = !FIXED_BOUND && !(lA > 0.f);
   const bool emptyB = !FIXED_BOUND && !(lB > 0.f);
-  const long rowA = (long)bh * Tq + q0 + warp * 16 + gg, rowB = rowA + 8;
+  const long rowA = (long)bh * Tq + q0 + 64 * c + 16 * wq + g, rowB = rowA + 8;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j) {
-    const int c = j * 8 + 2 * t;
-    const float a0 = emptyA ? 0.f : o[j][0] / dA, a1 = emptyA ? 0.f : o[j][1] / dA;
-    const float b0 = emptyB ? 0.f : o[j][2] / dB, b1 = emptyB ? 0.f : o[j][3] / dB;
-    *reinterpret_cast<uint32_t*>(out + rowA * D + c) = rtt::pack_f2(a0, a1);
-    *reinterpret_cast<uint32_t*>(out + rowB * D + c) = rtt::pack_f2(b0, b1);
+    const int col = j * 8 + 2 * t;
+    const float a0 = emptyA ? 0.f : o[4 * j] / dA, a1 = emptyA ? 0.f : o[4 * j + 1] / dA;
+    const float b0 = emptyB ? 0.f : o[4 * j + 2] / dB, b1 = emptyB ? 0.f : o[4 * j + 3] / dB;
+    *reinterpret_cast<uint32_t*>(out + rowA * D + col) = rtt::pack_f2(a0, a1);
+    *reinterpret_cast<uint32_t*>(out + rowB * D + col) = rtt::pack_f2(b0, b1);
   }
   if (t == 0) {
     lse[rowA] = emptyA ? LSE_EMPTY : refA + log2f(dA);
@@ -200,50 +328,52 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <bool FIXED_BOUND, bool SOFTCAP>
-int launch(const void* q, const void* k, const void* va, const void* mask,
-           float bound, float cap2, void* out, void* lse, int BH, int Tq,
-           int Tk, int heads, void* stream) {
-  dim3 grid(Tq / BQ, BH);
-  flash_fwd_kernel<FIXED_BOUND, SOFTCAP>
-      <<<grid, NTHREADS, 0, (cudaStream_t)stream>>>(
-          (const bf16*)q, (const bf16*)k, (const bf16*)va, (const int*)mask,
-          bound, cap2, (bf16*)out, (float*)lse, Tq, Tk, heads);
+int launch(const void* q, const void* k, const void* v, const void* mask, float bound,
+           float cap2, void* out, void* lse, int BH, int Tq, int Tk, int heads,
+           void* stream) {
+  CUtensorMap map_q, map_k, map_v;
+  if (!rtt::bf16_rows64_map(&map_q, q, (uint64_t)BH * Tq, BQ) ||
+      !rtt::bf16_rows64_map(&map_k, k, (uint64_t)BH * Tk, BK) ||
+      !rtt::bf16_rows64_map(&map_v, v, (uint64_t)BH * Tk, BK))
+    return (int)cudaErrorInvalidValue;
+  const bool masked = !FIXED_BOUND && mask != nullptr;
+  // per-key bits (16 bytes) and a list entry (4 bytes) per key tile
+  const size_t smem = SMEM_FIXED + (masked ? (size_t)(Tk / BK) * 20 : 0);
+  auto kernel = flash_fwd_kernel<FIXED_BOUND, SOFTCAP>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(Tq / BQ, BH), NTHREADS, smem, (cudaStream_t)stream>>>(
+      map_q, map_k, map_v, (const int*)mask, bound, cap2, (bf16*)out, (float*)lse, Tq, Tk,
+      heads);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int rtt_flash_fixed(const void* q, const void* k, const void* va,
-                               float bound, void* out, void* lse, int BH,
-                               int Tq, int Tk, void* stream) {
-  return launch<true, false>(q, k, va, nullptr, bound, 0.f, out, lse, BH, Tq,
-                             Tk, 1, stream);
+// v: (BH, Tk, 64) bf16, contiguous; every pointer 16-byte aligned.
+extern "C" int rtt_flash_fixed(const void* q, const void* k, const void* v, float bound,
+                               void* out, void* lse, int BH, int Tq, int Tk, void* stream) {
+  return launch<true, false>(q, k, v, nullptr, bound, 0.f, out, lse, BH, Tq, Tk, 1, stream);
 }
 
 // mask: (BH / heads, Tk) int32, nonzero = valid key; null = every key valid.
-extern "C" int rtt_flash_online(const void* q, const void* k, const void* va,
-                                const void* mask, void* out, void* lse,
-                                int BH, int Tq, int Tk, int heads,
-                                void* stream) {
-  return launch<false, false>(q, k, va, mask, 0.f, 0.f, out, lse, BH, Tq, Tk,
-                              heads, stream);
+extern "C" int rtt_flash_online(const void* q, const void* k, const void* v,
+                                const void* mask, void* out, void* lse, int BH, int Tq,
+                                int Tk, int heads, void* stream) {
+  return launch<false, false>(q, k, v, mask, 0.f, 0.f, out, lse, BH, Tq, Tk, heads, stream);
 }
 
 // The softcap variants: cap2 = c log2(e) in fp32; the fixed one's bound is
 // cap2 too (the caller passes it).
-extern "C" int rtt_flash_fixed_softcap(const void* q, const void* k,
-                                       const void* va, float bound, float cap2,
-                                       void* out, void* lse, int BH, int Tq,
-                                       int Tk, void* stream) {
-  return launch<true, true>(q, k, va, nullptr, bound, cap2, out, lse, BH, Tq,
-                            Tk, 1, stream);
+extern "C" int rtt_flash_fixed_softcap(const void* q, const void* k, const void* v,
+                                       float bound, float cap2, void* out, void* lse,
+                                       int BH, int Tq, int Tk, void* stream) {
+  return launch<true, true>(q, k, v, nullptr, bound, cap2, out, lse, BH, Tq, Tk, 1, stream);
 }
 
-extern "C" int rtt_flash_online_softcap(const void* q, const void* k,
-                                        const void* va, const void* mask,
-                                        float cap2, void* out, void* lse,
-                                        int BH, int Tq, int Tk, int heads,
-                                        void* stream) {
-  return launch<false, true>(q, k, va, mask, 0.f, cap2, out, lse, BH, Tq, Tk,
-                             heads, stream);
+extern "C" int rtt_flash_online_softcap(const void* q, const void* k, const void* v,
+                                        const void* mask, float cap2, void* out, void* lse,
+                                        int BH, int Tq, int Tk, int heads, void* stream) {
+  return launch<false, true>(q, k, v, mask, 0.f, cap2, out, lse, BH, Tq, Tk, heads, stream);
 }

@@ -49,8 +49,8 @@ NEG_INF = -1e30
 LSE_EMPTY = 1e30
 LOG2E = math.log2(math.e)
 LN2 = math.log(2.0)
-_KEY_BLOCK = 64    # csrc/attention.cu BK: keys are never padded
-_QUERY_BLOCK = 64  # csrc/attention.cu BQ
+_FWD_BLOCK = 128  # csrc/attention.cu BQ and BK: query rows per block, keys per tile
+_BWD_BLOCK = 64   # csrc/attention_bwd*.cu: query rows per step; the dQ pass's BK
 _PLAIN_LOGITS = 2**28  # fp32 logits per chunk of the plain versions (1 GiB)
 _BWD_KEY_BLOCK = 128  # csrc/attention_bwd.cu and the dKV pass: keys per block
 _FUSED_DQ_PARTIALS_CAP = 2 * 2**30  # pallas_attention.py:636
@@ -142,12 +142,12 @@ def flash_online_plain(qh, kh, vah, mask=None, heads: int = 1, softcap: float = 
     return out, lse
 
 
-def _check_attention_inputs(qh, kh, vah):
+def _check_attention_inputs(qh, kh, vah, block: int = _BWD_BLOCK):
     BH, Tq, d = qh.shape
     Tk = kh.shape[1]
     require(d == 64, f"attention kernel takes head width 64, got {d}")
-    require(Tq % _QUERY_BLOCK == 0 and Tk % _KEY_BLOCK == 0,
-            f"attention kernel takes Tq, Tk multiples of 64 (keys are never "
+    require(Tq % block == 0 and Tk % block == 0,
+            f"attention kernel takes Tq, Tk multiples of {block} (keys are never "
             f"padded); got Tq={Tq}, Tk={Tk}")
     check_input("qh", qh, torch.bfloat16, (BH, Tq, d))
     check_input("kh", kh, torch.bfloat16, (BH, Tk, d))
@@ -170,14 +170,27 @@ def _as_kernel_mask(mask):
     return None if mask is None else mask.to(torch.int32).contiguous()
 
 
+def _forward_v(qh, kh, vah):
+    """Check the forward kernel's inputs; return v = va without its ones
+    column, (BH, Tk, 64) with 128-byte rows, the layout its TMA loads read
+    (a fresh tensor, so aligned). TMA also needs q's and k's base addresses
+    16-byte aligned."""
+    _check_attention_inputs(qh, kh, vah, _FWD_BLOCK)
+    for name, t in (("qh", qh), ("kh", kh)):
+        require(t.data_ptr() % 16 == 0,
+                f"{name}: the attention forward kernel takes 16-byte-aligned inputs "
+                f"(TMA), got data_ptr % 16 = {t.data_ptr() % 16}")
+    return vah[..., :qh.shape[-1]].contiguous()
+
+
 def flash_fixed_kernel(qh, kh, vah, bound: float, softcap: float = 0.0):
     """Launch the fixed-bound variant of csrc/attention.cu (its softcap
     variant for ``softcap`` > 0)."""
-    _check_attention_inputs(qh, kh, vah)
+    v = _forward_v(qh, kh, vah)
     BH, Tq, _ = qh.shape
     out = torch.empty_like(qh)
     lse = torch.empty((BH, Tq), dtype=torch.float32, device=qh.device)
-    head = (qh.data_ptr(), kh.data_ptr(), vah.data_ptr(), float(bound))
+    head = (qh.data_ptr(), kh.data_ptr(), v.data_ptr(), float(bound))
     tail = (out.data_ptr(), lse.data_ptr(), BH, Tq, kh.shape[1])
     if softcap > 0.0:
         launch("flash_fixed_softcap", qh, *head, _cap2(softcap), *tail)
@@ -189,13 +202,13 @@ def flash_fixed_kernel(qh, kh, vah, bound: float, softcap: float = 0.0):
 def flash_online_kernel(qh, kh, vah, mask=None, heads: int = 1, softcap: float = 0.0):
     """Launch the online-softmax variant of csrc/attention.cu (its softcap
     variant for ``softcap`` > 0)."""
-    _check_attention_inputs(qh, kh, vah)
+    v = _forward_v(qh, kh, vah)
     BH, Tq, _ = qh.shape
     Tk = kh.shape[1]
     mask_ptr = _mask_arg(mask, qh, Tk, heads)
     out = torch.empty_like(qh)
     lse = torch.empty((BH, Tq), dtype=torch.float32, device=qh.device)
-    head = (qh.data_ptr(), kh.data_ptr(), vah.data_ptr(), mask_ptr)
+    head = (qh.data_ptr(), kh.data_ptr(), v.data_ptr(), mask_ptr)
     tail = (out.data_ptr(), lse.data_ptr(), BH, Tq, Tk, heads)
     if softcap > 0.0:
         launch("flash_online_softcap", qh, *head, _cap2(softcap), *tail)
@@ -376,7 +389,7 @@ def flash_bwd_dkv_kernel(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
 def flash_bwd_dq_kernel(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
                         softcap: float = 0.0):
     """Launch the dQ pass of csrc/attention_bwd_split.cu: dq."""
-    mask_ptr = _check_bwd_inputs(qh, kh, vah, doa, lse2, mask, heads, _KEY_BLOCK)
+    mask_ptr = _check_bwd_inputs(qh, kh, vah, doa, lse2, mask, heads, _BWD_BLOCK)
     BH, Tq, _ = qh.shape
     dq = torch.empty_like(qh)
     _launch_bwd("flash_bwd_dq", qh,

@@ -101,10 +101,16 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     x = torch.zeros(4, 100, D, device="cuda", dtype=torch.bfloat16)  # N % 64 != 0
     with pytest.raises(ValueError):
         fused_ff.geglu_ff(x.float(), *(torch.zeros(1, device="cuda"),) * 6, impl="pallas")
-    with pytest.raises(ValueError, match="multiples of 64"):
+    with pytest.raises(ValueError, match="multiples of 128"):
         q = torch.zeros(8, 100, DH, device="cuda", dtype=torch.bfloat16)
         fa.flash_fixed(q, q, torch.zeros(8, 100, DH + 1, device="cuda", dtype=torch.bfloat16),
                        1.0)
+    va = torch.zeros(8, 128, DH + 1, device="cuda", dtype=torch.bfloat16)
+    q = torch.zeros(8 * 128 * DH + 1, device="cuda", dtype=torch.bfloat16)[1:].view(8, 128, DH)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fa.flash_fixed(q, q, va, 1.0)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fa.flash_online(q, q, va)
 
 
 def test_dit_forward_kernels_match_plain(gen):
@@ -130,6 +136,74 @@ def test_dit_forward_kernels_match_plain(gen):
     assert counts == _counts(proj=4, flash_fixed=3, flash_online=1, out_proj=4, ff=2)
     err = float((v_k - v_p).abs().max())
     assert err <= 5e-2 * float(v_p.abs().max()), err
+
+
+# --------------------------------------------------------------------------
+# the forward kernel (csrc/attention.cu) at the edges of its design: one key
+# tile (shorter than the TMA ring), an odd number of tiles, one head, and
+# masks that leave only the first or only the last key tile live
+# --------------------------------------------------------------------------
+
+_FWD_VARIANTS = ("fixed", "online", "online_masked", "fixed_softcap", "online_softcap",
+                 "online_masked_softcap")
+# (id, BH, Tq, Tk, mask): mask applies to the masked variants only
+_FWD_EDGES = (("one_tile", 4, 128, 128, "random"), ("odd_tiles", 4, 384, 384, "random"),
+              ("one_head", 1, 256, 512, "random"), ("first_tile_live", 4, 384, 384, "first"),
+              ("last_tile_live", 4, 384, 384, "last"))
+_FWD_CASES = [(v, e) for v in _FWD_VARIANTS for e in _FWD_EDGES
+              if "masked" in v or e[4] == "random"]
+
+
+def _edge_mask(gen, B, Tk, kind):
+    """(B, Tk) int32: random keys with the last batch row fully masked (for
+    B > 1), or only some keys of the first or of the last tile of 128."""
+    if kind == "random":
+        mask = (torch.rand((B, Tk), generator=gen, device="cuda") > 0.4).to(torch.int32)
+        if B > 1:
+            mask[-1] = 0
+        return mask
+    mask = torch.zeros((B, Tk), dtype=torch.int32, device="cuda")
+    live = slice(0, 128) if kind == "first" else slice(Tk - 128, Tk)
+    mask[:, live] = (torch.rand((B, 128), generator=gen, device="cuda") > 0.5).to(torch.int32)
+    mask[:, live.start] = 1
+    return mask
+
+
+@pytest.mark.parametrize("variant,edge", _FWD_CASES,
+                         ids=[f"{v}-{e[0]}" for v, e in _FWD_CASES])
+def test_forward_kernel_edges(gen, variant, edge):
+    """Each forward variant (softcap 5 for the softcap ones) against its plain
+    twin: out within TOL of max|ref|, lse2 within 2e-2 on live rows, fully
+    masked rows exactly 0 and LSE_EMPTY; one launch of its kernel."""
+    _, BH, Tq, Tk, kind = edge
+    c = 5.0 if variant.endswith("softcap") else 0.0
+    heads = 1 if BH == 1 else 2
+    if c > 0.0:
+        q, k, va = _softcap_inputs(gen, BH, max(Tq, Tk), c)
+        q, k, va = q[:, :Tq].contiguous(), k[:, :Tk].contiguous(), va[:, :Tk].contiguous()
+    else:
+        q, k = _randn(gen, BH, Tq, DH, scale=0.4), _randn(gen, BH, Tk, DH, scale=0.4)
+        va = torch.cat([_randn(gen, BH, Tk, DH), torch.ones(BH, Tk, 1, device="cuda",
+                                                            dtype=torch.bfloat16)], -1)
+    reset_launches()
+    if variant.startswith("fixed"):
+        b2 = fa._cap2(c) if c > 0.0 else float((q.float() @ k.float().transpose(1, 2)).max())
+        got = fa.flash_fixed_kernel(q, k, va, b2, c)
+        ref = fa.flash_fixed_plain(q, k, va, b2, c)
+        mask = None
+    else:
+        mask = _edge_mask(gen, BH // heads, Tk, kind) if "masked" in variant else None
+        got = fa.flash_online_kernel(q, k, va, mask, heads, c)
+        ref = fa.flash_online_plain(q, k, va, None if mask is None else mask.bool(), heads, c)
+    name = ("flash_fixed" if variant.startswith("fixed") else "flash_online") + (
+        "_softcap" if c > 0.0 else "")
+    assert launch_counts() == _counts(**{name: 1})
+    _close(got[0], ref[0])
+    live = torch.ones(BH, dtype=torch.bool, device="cuda")
+    if mask is not None:
+        live = (mask.sum(1) > 0).repeat_interleave(heads)
+        assert (got[0][~live] == 0).all() and (got[1][~live] == fa.LSE_EMPTY).all()
+    assert float((got[1][live] - ref[1][live]).abs().max()) < 2e-2
 
 
 # --------------------------------------------------------------------------

@@ -204,10 +204,69 @@ def test_kernel_inputs_are_checked():
         fused_proj.proj_kernel(x, torch.zeros(G, 2 * D), torch.zeros(D, 3 * D),
                                gq, gq, P, False)
     qh = torch.zeros(4, 100, DH, dtype=torch.bfloat16)  # 100 keys: not a block multiple
-    with pytest.raises(ValueError, match="multiples of 64"):
+    with pytest.raises(ValueError, match="multiples of 128"):
         fa.flash_fixed_kernel(qh, qh, torch.zeros(4, 100, DH + 1, dtype=torch.bfloat16), 1.0)
     bf = dict(dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="D=512"):
         fused_ff.ff_kernel(torch.zeros(64, D, **bf), torch.ones(D), torch.zeros(D),
                            torch.zeros(D, 8 * D, **bf), torch.zeros(8 * D, **bf),
                            torch.zeros(4 * D, D, **bf), torch.zeros(D, **bf))
+
+
+def _bf16_attention_inputs(BH, Tq, Tk):
+    bf = dict(dtype=torch.bfloat16)
+    return (torch.zeros(BH, Tq, DH, **bf), torch.zeros(BH, Tk, DH, **bf),
+            torch.zeros(BH, Tk, DH + 1, **bf))
+
+
+@pytest.mark.parametrize("variant", ["fixed", "online", "online_masked", "fixed_softcap",
+                                     "online_softcap"])
+@pytest.mark.parametrize("Tq,Tk", [(192, 128), (128, 192), (64, 64)])
+def test_forward_kernels_refuse_non_128_lengths(monkeypatch, variant, Tq, Tk):
+    """csrc/attention.cu owns 128 query rows per block and walks keys in tiles
+    of 128: each forward entry refuses other lengths before any launch."""
+    launched = []
+    monkeypatch.setattr(fa, "launch", lambda *a: launched.append(a))
+    qh, kh, vah = _bf16_attention_inputs(2, Tq, Tk)
+    softcap = 5.0 if variant.endswith("softcap") else 0.0
+    with pytest.raises(ValueError, match="multiples of 128"):
+        if variant.startswith("fixed"):
+            fa.flash_fixed_kernel(qh, kh, vah, 1.0, softcap)
+        else:
+            mask = torch.ones(2, Tk, dtype=torch.int32) if variant == "online_masked" else None
+            fa.flash_online_kernel(qh, kh, vah, mask, 1, softcap)
+    assert launched == []
+
+
+@pytest.mark.parametrize("variant", ["fixed", "online"])
+def test_forward_kernels_refuse_unaligned_inputs(monkeypatch, variant):
+    """TMA reads q and k at their base addresses: a view 2 bytes into its
+    storage is refused before any launch."""
+    launched = []
+    monkeypatch.setattr(fa, "launch", lambda *a: launched.append(a))
+    qh, kh, vah = _bf16_attention_inputs(2, 128, 128)
+    shifted = torch.zeros(qh.numel() + 1, dtype=torch.bfloat16)[1:].view(qh.shape)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        if variant == "fixed":
+            fa.flash_fixed_kernel(shifted, kh, vah, 1.0)
+        else:
+            fa.flash_online_kernel(qh, shifted, vah)
+    assert launched == []
+
+
+@pytest.mark.parametrize("T", [64, 192])
+def test_dq_pass_keeps_its_own_block(monkeypatch, T):
+    """The dQ pass (csrc/attention_bwd_split.cu, 64 keys per step) still takes
+    lengths that are multiples of 64 and not of 128: the forward's block does
+    not move its refusals."""
+    launched = []
+    monkeypatch.setattr(fa, "launch", lambda kernel, *a: launched.append(kernel))
+    qh, kh, vah = _bf16_attention_inputs(2, T, T)
+    doa = torch.zeros(2, T, DH + 1, dtype=torch.bfloat16)
+    lse2 = torch.zeros(2, T)
+    fa.flash_bwd_dq_kernel(qh, kh, vah, doa, lse2)
+    fa.flash_bwd_dq_kernel(qh, kh, vah, doa, lse2, torch.ones(1, T, dtype=torch.int32), 2,
+                           5.0)
+    assert launched == ["flash_bwd_dq", "flash_bwd_dq_softcap"]
+    with pytest.raises(ValueError, match="multiples of 64"):
+        fa.flash_bwd_dq_kernel(qh[:, :T - 32], kh, vah, doa[:, :T - 32], lse2[:, :T - 32])
