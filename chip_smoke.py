@@ -10,7 +10,10 @@
 Phases, each printed on its own flushed line with its wall time:
 
 1. build      one nvcc call over rap_tpu_torch/csrc/*.cu into
-              rap_tpu_torch/build/ (first use builds, an unchanged tree loads).
+              rap_tpu_torch/build/ (first use builds, an unchanged tree loads);
+              the key-block backward's four instantiations (rows 6, 7 and
+              their softcap variants) must have the launch bound's 168
+              registers and no local memory (cudaFuncGetAttributes).
 2. kernels    each of the ten kernels against its plain PyTorch version on
               the card, at the shapes of the paths below (D=512, H=8, dh=64,
               FF hidden 2048, bf16): max abs and relative error beside the
@@ -103,7 +106,9 @@ Phases, each printed on its own flushed line with its wall time:
               boolean key mask for the masked shapes; for the softcap
               variants torch.compile(flex_attention) with the score_mod
               c·tanh(s) and a block mask from the key mask, timed here and
-              used nowhere in the port).
+              used nowhere in the port); row 7 (the dKV pass) also as the
+              split pair, rows 7 and 8 in one timed call (``pair_ms``), the
+              time to hold beside the library's whole backward.
 
 Then it prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. Any failed
@@ -316,7 +321,9 @@ def nvidia_smi() -> str:
 # phases
 # --------------------------------------------------------------------------
 
-def run_build(report):
+def run_build(report, fails):
+    import ctypes
+
     from rap_tpu_torch.ops import _build
 
     lib = _build.load()
@@ -328,6 +335,19 @@ def run_build(report):
                 or "error" in line.lower() or "warning" in line.lower():
             log(f"  ptxas: {line.strip()}")
     report["build_seconds"] = lib.build_seconds
+    # the key-block backward (rows 6, 7): setmaxnreg needs the launch bound's
+    # 168 registers; local memory would be a stack or spills
+    report["dkv_kernel_attributes"] = {}
+    for entry, fused in (("rtt_flash_bwd_attributes", "true"),
+                         ("rtt_flash_bwd_dkv_attributes", "false")):
+        out = (ctypes.c_int * 4)()
+        _build.check(getattr(lib.lib, entry)(out), entry)
+        for i, softcap in enumerate(("false", "true")):
+            name = f"dkv_kernel<{fused}, {softcap}>"
+            regs, local = out[2 * i], out[2 * i + 1]
+            report["dkv_kernel_attributes"][name] = {"registers": regs, "local_bytes": local}
+            fails.check(f"{name}: {regs} registers, {local} local bytes",
+                        regs == 168 and local == 0, "(need 168 and 0)")
 
 
 def make_kernel_inputs(gen):
@@ -1289,7 +1309,7 @@ def kernel_rows(state, counts):
             torch.autograd.grad(o, (q_, k_, v_), dout[None])
 
         lib = cuda_time_ms(sdpa_fwd_bwd, 10) - cuda_time_ms(sdpa_fwd, 10)
-        r = row("flash_bwd", "rap_tpu_torch/csrc/attention_bwd.cu",
+        r = row("flash_bwd", "rap_tpu_torch/csrc/attention_bwd_dkv.cuh",
                 "rap_tpu/ops/pallas_attention.py:506",
                 lambda: fa.flash_bwd_kernel(qh, kh, vah, out, lse, dout),
                 lambda: fa.flash_bwd_plain(qh, kh, vah, out, lse, dout), None,
@@ -1449,7 +1469,7 @@ def softcap_kernel_rows(state, row):
                       mufu=2 * T * valid, tanh_ops=T * valid, library="flex_attention")
         if tag == "part":
             rows.append(row(
-                "flash_bwd_softcap", "rap_tpu_torch/csrc/attention_bwd.cu",
+                "flash_bwd_softcap", "rap_tpu_torch/csrc/attention_bwd_dkv.cuh",
                 "rap_tpu/ops/pallas_attention.py:506",
                 lambda: fa.flash_bwd_kernel(qh, kh, vah, out, lse, dout, mask, H, c),
                 lambda: fa.flash_bwd_plain(qh, kh, vah, out, lse, dout, mask, H, c), None,
@@ -1463,7 +1483,7 @@ def softcap_kernel_rows(state, row):
             # backward stands beside each (library_backward_ms)
             args = (qh, kh, vah, doa, lse, mask, H)
             rows.append(row(
-                "flash_bwd_dkv_softcap", "rap_tpu_torch/csrc/attention_bwd_split.cu",
+                "flash_bwd_dkv_softcap", "rap_tpu_torch/csrc/attention_bwd_dkv.cuh",
                 "rap_tpu/ops/pallas_attention.py:426",
                 lambda: fa.flash_bwd_dkv_kernel(*args, c),
                 lambda: fa.flash_bwd_dkv_plain(*args, c), None,
@@ -1471,7 +1491,7 @@ def softcap_kernel_rows(state, row):
                 launches=mv.get("flash_bwd_dkv_softcap", 0),
                 err_key=f"flash_bwd_dkv_softcap@{c:g}", library_backward_ms=lib_b,
                 bound_all_tiles_ms=bound(8 * T * T * DH * BH, 0, 2 * T * T * BH)[0],
-                **common))
+                pair_ms=split_pair_ms(args, c), **common))
             rows.append(row(
                 "flash_bwd_dq_softcap", "rap_tpu_torch/csrc/attention_bwd_split.cu",
                 "rap_tpu/ops/pallas_attention.py:471",
@@ -1483,6 +1503,16 @@ def softcap_kernel_rows(state, row):
                 bound_all_tiles_ms=bound(6 * T * T * DH * BH, 0, 2 * T * T * BH)[0],
                 **common))
     return rows
+
+
+def split_pair_ms(args, c: float = 0.0) -> float:
+    """Median ms of the split backward as one call: the dKV pass (row 7)
+    then the dQ pass (row 8), the time to hold beside a library's whole
+    backward (``library_backward_ms``)."""
+    from rap_tpu_torch.ops import flash_attention as fa
+
+    return cuda_time_ms(lambda: (fa.flash_bwd_dkv_kernel(*args, c),
+                                 fa.flash_bwd_dq_kernel(*args, c)), 5)
 
 
 def sdpa_masked_ms(qh, kh, vah, dout, mask, heads: int):
@@ -1550,7 +1580,7 @@ def multiview_kernel_rows(state, row):
     valid = float(mask.sum()) * H
     reads = BH * T * (2 * DH * 2 + 2 * (DH + 1) * 2 + 4) + mask.numel() * 4
     rows.append(row(
-        "flash_bwd", "rap_tpu_torch/csrc/attention_bwd.cu",
+        "flash_bwd", "rap_tpu_torch/csrc/attention_bwd_dkv.cuh",
         "rap_tpu/ops/pallas_attention.py:506",
         lambda: fa.flash_bwd_kernel(qh, kh, vah, out, lse, dout, mask, H),
         lambda: fa.flash_bwd_plain(qh, kh, vah, out, lse, dout, mask, H), None,
@@ -1567,13 +1597,13 @@ def multiview_kernel_rows(state, row):
     args = (qh, kh, vah, doa, lse, mask, H)
     shape = f"multiview global: BH={BH}, T={T}, d={DH} bf16, key mask"
     rows.append(row(
-        "flash_bwd_dkv", "rap_tpu_torch/csrc/attention_bwd_split.cu",
+        "flash_bwd_dkv", "rap_tpu_torch/csrc/attention_bwd_dkv.cuh",
         "rap_tpu/ops/pallas_attention.py:426",
         lambda: fa.flash_bwd_dkv_kernel(*args), lambda: fa.flash_bwd_dkv_plain(*args), None,
         8 * T * DH * valid, reads + 2 * BH * T * DH * 2, shape, reps=5,
         launches=mv_counts.get("flash_bwd_dkv", 0), mufu=T * valid,
         bound_all_tiles_ms=bound(8 * T * T * DH * BH, 0, T * T * BH)[0],
-        library_backward_ms=sdpa["global"][1]))
+        library_backward_ms=sdpa["global"][1], pair_ms=split_pair_ms(args)))
     rows.append(row(
         "flash_bwd_dq", "rap_tpu_torch/csrc/attention_bwd_split.cu",
         "rap_tpu/ops/pallas_attention.py:471",
@@ -1770,7 +1800,7 @@ def main(argv=None) -> int:
     report: dict = {}
     fails = Failures()
     state: dict = {}
-    steps = {"build": lambda: run_build(report),
+    steps = {"build": lambda: run_build(report, fails),
              "kernels": lambda: run_kernels(report, fails, state),
              "main": lambda: run_main(report, fails, state),
              "sample": lambda: run_sample(report, fails, state),

@@ -5,12 +5,13 @@
 // launched by `_bwd_split_impl` (:655, at :673 and :703). rap_tpu takes them
 // when the fused kernel's fp32 dQ partials slab would exceed 2 GiB
 // (`_bwd_impl`, :639-652): masked behind the online forward of a padded
-// batch (`_flash_hm_bwd`), unmasked behind the no-padding forward. The tile
-// math is attention_bwd_common.cuh's, shared with the fused backward (row 6).
+// batch (`_flash_hm_bwd`), unmasked behind the no-padding forward. Both passes
+// compute every logit with attention_bwd_common.cuh's `p_ds`.
 //
-// dKV (`rtt_flash_bwd_dkv`): the grid of `_bwd_split_impl`, one block per key
-// block of one head, walking every query block; dV += P^T dO and dK += dS^T Q
-// in fp32 registers, written once as bf16 (dK x ln2). No atomics, no slab.
+// dKV (`rtt_flash_bwd_dkv`): attention_bwd_dkv.cuh's key block without dQ
+// (TMA, wgmma, warp specialisation; its note gives the design): one block per
+// 128 keys of one head, walking every query; dV += P^T dO and dK += dS^T Q in
+// fp32 registers, written once as bf16 (dK x ln2). No atomics, no slab.
 // dQ (`rtt_flash_bwd_dq`): one block per 64 queries of one head, dQ in fp32
 // registers over every key block, written once as dQ x ln2 in bf16: no
 // zero-fill, no atomics, no post-scale, so rows 7-8 are bitwise repeatable.
@@ -22,12 +23,13 @@
 // computes 4 products (S, dP, dV, dK), 8.80 TFLOP, 8.89 ms; dQ 3 (S, dP,
 // dQ), 6.60 TFLOP, 6.67 ms; masked key blocks lower both in proportion. The
 // tensor cores bound them, exp2 on the FP32 pipes next; the split recomputes
-// S and dP twice, which is its price for needing no dQ slab. Simple first
-// design: warp-level mma.sync; no TMA, no wgmma, no pipelining.
+// S and dP twice, which is its price for needing no dQ slab. The dQ pass is
+// still the simple first design: warp-level mma.sync; no TMA, no wgmma, no
+// pipelining; it reads va and [dO | -delta] with their 130-byte rows.
 // The `_softcap` entry points are both passes' softcap variants (the TPU
 // kernels' static `softcap`): dsdz = c(1 - tanh²) per logit in `p_ds`, and
 // no ln2 at finalize (:466, :502).
-#include "attention_bwd_common.cuh"
+#include "attention_bwd_dkv.cuh"
 
 namespace {
 
@@ -145,19 +147,23 @@ int launch_dq(const void* q, const void* k, const void* va, const void* mask,
 
 }  // namespace
 
-// Both: q, k (BH, T, 64) bf16; va (BH, Tk, 65) bf16 with its ones column;
-// mask (BH / heads, Tk) int32, nonzero = valid key, or null (masked=False:
-// every key valid); doa (BH, Tq, 65) bf16 = [dO | -delta]; lse (BH, Tq) fp32.
-// dKV writes dk (x ln2), dv (BH, Tk, 64) bf16; Tq % 64 == 0, Tk % 128 == 0.
-extern "C" int rtt_flash_bwd_dkv(const void* q, const void* k, const void* va,
-                                 const void* mask, const void* doa,
-                                 const void* lse, void* dk, void* dv, int BH,
+// dKV: q, k (BH, T, 64) bf16; v (BH, Tk, 64) bf16 and ones (BH, Tk) fp32, va
+// without and with its ones column; mask (BH / heads, Tk) int32, nonzero =
+// valid key, or null (masked=False: every key valid); dout (BH, Tq, 64) bf16
+// and nd (BH, Tq) fp32, [dO | -delta] split the same way; lse (BH, Tq) fp32.
+// Writes dk (x ln2), dv (BH, Tk, 64) bf16. Tq % 64 == 0, Tk % 128 == 0; q, k,
+// v, dout, nd and lse 16-byte aligned.
+extern "C" int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
+                                 const void* ones, const void* mask, const void* dout,
+                                 const void* nd, const void* lse, void* dk, void* dv, int BH,
                                  int Tq, int Tk, int heads, void* stream) {
-  return rtt::attn_bwd::launch_dkv<false, false>(q, k, va, mask, doa, lse, nullptr,
-                                                 dk, dv, BH, Tq, Tk, heads,
-                                                 Cap{0.f, 0.f}, stream);
+  return rtt::attn_bwd::launch_dkv<false, false>(q, k, v, ones, mask, dout, nd, lse, nullptr,
+                                                 dk, dv, BH, Tq, Tk, heads, Cap{0.f, 0.f},
+                                                 stream);
 }
 
+// dQ: q, k, mask and lse as above; va (BH, Tk, 65) bf16 with its ones column;
+// doa (BH, Tq, 65) bf16 = [dO | -delta].
 // dQ writes dq (x ln2) (BH, Tq, 64) bf16; Tq % 64 == 0, Tk % 64 == 0.
 extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* va,
                                 const void* mask, const void* doa,
@@ -169,15 +175,14 @@ extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* va,
 
 // The softcap variants of both passes: cap = c, cap2 = c log2(e) (q
 // pre-scaled by scale/c); dk and dq are not scaled by ln2.
-extern "C" int rtt_flash_bwd_dkv_softcap(const void* q, const void* k,
-                                         const void* va, const void* mask,
-                                         const void* doa, const void* lse,
-                                         void* dk, void* dv, int BH, int Tq,
-                                         int Tk, int heads, float cap,
+extern "C" int rtt_flash_bwd_dkv_softcap(const void* q, const void* k, const void* v,
+                                         const void* ones, const void* mask, const void* dout,
+                                         const void* nd, const void* lse, void* dk, void* dv,
+                                         int BH, int Tq, int Tk, int heads, float cap,
                                          float cap2, void* stream) {
-  return rtt::attn_bwd::launch_dkv<false, true>(q, k, va, mask, doa, lse, nullptr,
-                                                dk, dv, BH, Tq, Tk, heads,
-                                                Cap{cap, cap2}, stream);
+  return rtt::attn_bwd::launch_dkv<false, true>(q, k, v, ones, mask, dout, nd, lse, nullptr,
+                                                dk, dv, BH, Tq, Tk, heads, Cap{cap, cap2},
+                                                stream);
 }
 
 extern "C" int rtt_flash_bwd_dq_softcap(const void* q, const void* k,
@@ -188,4 +193,11 @@ extern "C" int rtt_flash_bwd_dq_softcap(const void* q, const void* k,
                                         void* stream) {
   return launch_dq<true>(q, k, va, mask, doa, lse, dq, BH, Tq, Tk, heads,
                          Cap{cap, cap2}, stream);
+}
+
+// Registers and local (stack + spill) bytes of the dKV pass's two
+// instantiations, <fused, softcap> = <0, 0> then <0, 1>, into out[0..3].
+extern "C" int rtt_flash_bwd_dkv_attributes(int* out) {
+  const int err = rtt::attn_bwd::dkv_attributes<false, false>(out, out + 1);
+  return err != 0 ? err : rtt::attn_bwd::dkv_attributes<false, true>(out + 2, out + 3);
 }

@@ -1,7 +1,8 @@
 // Shared device helpers for the port's hand-written Hopper kernels.
 //
-// Every product in these kernels is a bf16 x bf16 -> fp32 warp-level
-// `mma.sync.m16n8k16` (the simple first design; `wgmma` + TMA come later).
+// The kernels of the simple first design compute every product as a bf16 x
+// bf16 -> fp32 warp-level `mma.sync.m16n8k16`; the TMA + `wgmma` kernels
+// (attention.cu, attention_bwd_dkv.cuh) take their pieces from hopper.cuh.
 // Fragment layouts follow the PTX ISA for m16n8k16 with .row.col operands;
 // with g = lane / 4 and t = lane % 4:
 //   A (16x16, row-major):  a0 = A[g][2t..2t+1]    a1 = A[g+8][2t..2t+1]
@@ -69,17 +70,6 @@ __device__ __forceinline__ void load_b_nk(uint32_t& b0, uint32_t& b1,
   const bf16* p = s + (n0 + g) * ld + k0 + 2 * t;
   b0 = *reinterpret_cast<const uint32_t*>(p);
   b1 = *reinterpret_cast<const uint32_t*>(p + 8);
-}
-
-// A fragment from a tile stored [k][m] (m contiguous): A[m][k] = s[k*ld + m].
-__device__ __forceinline__ void load_a_km(uint32_t* a, const bf16* s, int ld,
-                                          int row0, int k0, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const bf16* p = s + (k0 + 2 * t) * ld + row0 + g;
-  a[0] = pack_raw(p[0], p[ld]);
-  a[1] = pack_raw(p[8], p[ld + 8]);
-  a[2] = pack_raw(p[8 * ld], p[9 * ld]);
-  a[3] = pack_raw(p[8 * ld + 8], p[9 * ld + 8]);
 }
 
 // Copy a rows x cols tile (cols % 8 == 0, 16-byte aligned rows) of a

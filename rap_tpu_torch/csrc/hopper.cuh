@@ -6,13 +6,20 @@
 //   from a CUtensorMap passed as a __grid_constant__ kernel parameter; the
 //   host encodes the map with cuTensorMapEncodeTiled, looked up at run time
 //   through cudaGetDriverEntryPoint, so the library needs no -lcuda.
+// - Bulk copies: a contiguous global -> shared load on an mbarrier (no map),
+//   and a shared -> global tile reduce-add through a tensor map
+//   (cp.reduce.async.bulk.tensor) with its bulk-group commit and waits.
+// - Named barriers: bar.sync within a warpgroup.
 // - wgmma: shared-memory descriptors for tiles in the 128-byte swizzle that
 //   TMA's CU_TENSOR_MAP_SWIZZLE_128B writes (rows of 64 bf16 = 128 bytes,
-//   8-row groups 1024 bytes apart, tile bases 1024-byte aligned), and the two
-//   products flash attention needs at head width 64:
+//   8-row groups 1024 bytes apart, tile bases 1024-byte aligned), and the
+//   products of flash attention at head width 64: the forward's two,
 //     m64n128k16, A and B from shared memory, both K-major (S = Q K^T);
 //     m64n72k16, A from registers, B from shared memory MN-major (O += P V,
-//     with 8 more columns of B for the row sums of P).
+//     with 8 more columns of B for the row sums of P);
+//   and the backward's: m64n64k16 with A and B from shared memory, either
+//   of them K-major or MN-major (S^T = K Q^T, dQ = dS K), and with A from
+//   registers and B MN-major (dV += P^T dO, dK += dS^T Q).
 //   The accumulator of an m64nNk16 product puts, in warp w of the warpgroup,
 //   d[4j + 0..1] at row 16w + g, columns 8j + 2t..2t+1 and d[4j + 2..3] at
 //   row 16w + g + 8 (g = lane / 4, t = lane % 4): the mma.sync m16n8 layout
@@ -89,6 +96,54 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// ---- bulk copies without a tensor map ---------------------------------------------
+
+// Copy `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// memory to dst; the copy completes on bar's transaction count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Add the box of shared memory at src into the tensor of `map` at (column c0,
+// row c1), element by element, performed by the memory system (fp32 adds for
+// an fp32 map); tracked by the issuing thread's bulk groups.
+__device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map, const void* src,
+                                                  int c0, int c1) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.2d.global.shared::cta.add.tile.bulk_group"
+      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- named barriers (id 0 is __syncthreads) -----------------------------------------
+
+// Wait until `n` threads (whole warps) have arrived at barrier `id`.
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // ---- register reallocation between warpgroups ------------------------------------
@@ -191,6 +246,47 @@ __device__ __forceinline__ void wgmma_m64n72k16_rs(float (&d)[36], uint32_t a0, 
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
 }
 
+// d (64 x 64, fp32) = (accumulate ? d : 0) + A (64 x 16) B (16 x 64), A and
+// B from shared memory; TRANS_A / TRANS_B 0: K-major, 1: MN-major (the
+// transpose bits).
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
+}
+
+// d (64 x 64, fp32) = (accumulate ? d : 0) + A (64 x 16, bf16 fragments in
+// registers) B, with B (16 x 64) MN-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                                   uint32_t a2, uint32_t a3, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+}
+
 // ---- host: tensor maps ------------------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -227,6 +323,23 @@ inline bool bf16_rows64_map(CUtensorMap* map, const void* base, uint64_t rows,
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A tensor map over a row-major (rows, 64) fp32 matrix, boxes of box_rows x 32
+// (128 bytes a row) in the 128-byte swizzle: the 16-byte chunk k of a box's
+// row r sits at chunk k ^ (r % 8). Returns false if the driver refuses it.
+inline bool f32_rows64_map(CUtensorMap* map, const void* base, uint64_t rows,
+                           uint32_t box_rows) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {64, rows};
+  const cuuint64_t strides[1] = {64 * 4};
+  const cuuint32_t box[2] = {32, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides,
+            box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

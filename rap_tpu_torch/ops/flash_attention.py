@@ -20,9 +20,13 @@ Forward kernels: csrc/attention.cu (TPU ``_flash_fwd_full_kernel`` :188 and
 (:639) dispatches: csrc/attention_bwd.cu (TPU ``_flash_bwd_fused_kernel``
 :506, with or without a key mask) while the fused kernel's fp32 dQ partials
 slab stays within 2 GiB, else csrc/attention_bwd_split.cu (TPU
-``_flash_bwd_dkv_kernel`` :426 and ``_flash_bwd_dq_kernel`` :471). Each has
-a plain twin here with the same arithmetic and cast points (``*_plain``),
-chunked over (batch*head, query) tiles to bound memory. The gradient of the
+``_flash_bwd_dkv_kernel`` :426 and ``_flash_bwd_dq_kernel`` :471). The fused
+kernel and the dKV pass are one key-block kernel (csrc/attention_bwd_dkv.cuh,
+TMA + wgmma), which reads V and dO with 64-value rows and -delta and va's
+ones column as fp32 vectors (``backward_operands``); the dQ pass reads va and
+[dO | -delta] (``augment_do``) as they are. Each has a plain twin here with
+the same arithmetic and cast points (``*_plain``), chunked over
+(batch*head, query) tiles to bound memory. The gradient of the
 bound is 0 and the ones column of va gets a zero cotangent (:321-323).
 
 Softcap c > 0 (the TPU kernels' static ``softcap``): q is pre-scaled by
@@ -50,9 +54,9 @@ LSE_EMPTY = 1e30
 LOG2E = math.log2(math.e)
 LN2 = math.log(2.0)
 _FWD_BLOCK = 128  # csrc/attention.cu BQ and BK: query rows per block, keys per tile
-_BWD_BLOCK = 64   # csrc/attention_bwd*.cu: query rows per step; the dQ pass's BK
+_BWD_BLOCK = 64   # the backward kernels' query rows per step; the dQ pass's BK
 _PLAIN_LOGITS = 2**28  # fp32 logits per chunk of the plain versions (1 GiB)
-_BWD_KEY_BLOCK = 128  # csrc/attention_bwd.cu and the dKV pass: keys per block
+_BWD_KEY_BLOCK = 128  # csrc/attention_bwd_dkv.cuh (rows 6 and 7): keys per block
 _FUSED_DQ_PARTIALS_CAP = 2 * 2**30  # pallas_attention.py:636
 
 
@@ -256,11 +260,35 @@ def masked_backward_slab_bytes(BH: int, Tq: int, Tk: int, d: int) -> int:
     return BH * (Tkp // bk) * Tqp * d * 4
 
 
+def _neg_delta(dout, out):
+    """-delta in dO's dtype, delta = rowsum(dO·O) in fp32 (``_augment_do``,
+    pallas_attention.py:566): (BH, T). The products are taken in place in an
+    fp32 copy of dO (out widened element by element: the same values as
+    ``out.float()``, one temporary fewer)."""
+    prod = dout.to(torch.float32, copy=True).mul_(out)
+    return (-prod.sum(-1)).to(dout.dtype)
+
+
 def augment_do(dout, out):
-    """[dO | -delta] in dO's dtype, delta = rowsum(dO·O) in fp32
-    (``_augment_do``, pallas_attention.py:566)."""
-    delta = (dout.float() * out.float()).sum(-1, keepdim=True)
-    return torch.cat([dout, (-delta).to(dout.dtype)], dim=-1)
+    """[dO | -delta] in dO's dtype (``_augment_do``, pallas_attention.py:566)."""
+    return torch.cat([dout, _neg_delta(dout, out)[..., None]], dim=-1)
+
+
+def _split_last(xa):
+    """(x, its last column as fp32): a (BH, T, d+1) ones- or delta-augmented
+    tensor as the key-block kernel reads it, both contiguous."""
+    return xa[..., :-1].contiguous(), xa[..., -1].float().contiguous()
+
+
+def backward_operands(vah, dout, out):
+    """(v, dO, -delta, ones): the operands of the key-block backward kernel
+    (csrc/attention_bwd_dkv.cuh, rows 6 and 7), whose TMA loads need 16-byte
+    row strides where va and [dO | -delta] have d+1 values a row. v and dO
+    are (BH, T, d) in their dtype; -delta and va's ones column are (BH, T)
+    fp32 vectors holding exactly ``augment_do(dout, out)[..., d]`` and
+    ``vah[..., d]``."""
+    v, ones = _split_last(vah)
+    return v, dout.contiguous(), _neg_delta(dout, out).float(), ones
 
 
 def _p_ds_tiles(qh, kh, vah, doa, lse2, mask, heads, softcap: float = 0.0):
@@ -335,14 +363,31 @@ def flash_bwd_plain(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1,
     return dq, (dk * scale).to(qh.dtype), dv.to(qh.dtype)
 
 
-def _check_bwd_inputs(qh, kh, vah, doa, lse2, mask, heads, key_block: int):
+def _check_dq_inputs(qh, kh, vah, doa, lse2, mask, heads):
+    """Check the dQ pass's inputs; return the mask pointer."""
+    _check_attention_inputs(qh, kh, vah)
+    BH, Tq, d = qh.shape
+    check_input("doa", doa, torch.bfloat16, (BH, Tq, d + 1))
+    check_input("lse2", lse2, torch.float32, (BH, Tq))
+    return _mask_arg(mask, qh, kh.shape[1], heads)
+
+
+def _check_dkv_inputs(qh, kh, vah, do, nd, lse2, mask, heads):
+    """Check the key-block kernel's inputs (rows 6 and 7: va, and [dO | -delta]
+    split as ``backward_operands`` splits them); return the mask pointer. TMA
+    and the bulk copies need q, k, dO, -delta and lse2 16-byte aligned."""
     _check_attention_inputs(qh, kh, vah)
     BH, Tq, d = qh.shape
     Tk = kh.shape[1]
-    require(Tk % key_block == 0,
-            f"attention backward kernel takes Tk % {key_block} == 0, got {Tk}")
-    check_input("doa", doa, torch.bfloat16, (BH, Tq, d + 1))
+    require(Tk % _BWD_KEY_BLOCK == 0,
+            f"attention backward kernel takes Tk % {_BWD_KEY_BLOCK} == 0, got {Tk}")
+    check_input("dout", do, torch.bfloat16, (BH, Tq, d))
+    check_input("-delta", nd, torch.float32, (BH, Tq))
     check_input("lse2", lse2, torch.float32, (BH, Tq))
+    for name, t in (("qh", qh), ("kh", kh), ("dout", do), ("-delta", nd), ("lse2", lse2)):
+        require(t.data_ptr() % 16 == 0,
+                f"{name}: the attention backward kernel takes 16-byte-aligned inputs "
+                f"(TMA), got data_ptr % 16 = {t.data_ptr() % 16}")
     return _mask_arg(mask, qh, Tk, heads)
 
 
@@ -359,37 +404,43 @@ def flash_bwd_kernel(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1,
                      softcap: float = 0.0):
     """Launch csrc/attention_bwd.cu on CUDA tensors: (dq, dk, dv)."""
     check_input("out", out, torch.bfloat16, qh.shape)
-    doa = augment_do(dout.to(qh.dtype), out).contiguous()
-    mask_ptr = _check_bwd_inputs(qh, kh, vah, doa, lse2, mask, heads, _BWD_KEY_BLOCK)
+    v, do, nd, ones = backward_operands(vah, dout.to(qh.dtype), out)
+    mask_ptr = _check_dkv_inputs(qh, kh, vah, do, nd, lse2, mask, heads)
     BH, Tq, d = qh.shape
     dq_acc = torch.zeros((BH, Tq, d), dtype=torch.float32, device=qh.device)
     dk = torch.empty_like(kh)
     dv = torch.empty_like(kh)
     _launch_bwd("flash_bwd", qh,
-                (qh.data_ptr(), kh.data_ptr(), vah.data_ptr(), mask_ptr, doa.data_ptr(),
-                 lse2.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH,
-                 Tq, kh.shape[1], heads), softcap)
-    return (dq_acc * _dk_scale(softcap)).to(qh.dtype), dk, dv
+                (qh.data_ptr(), kh.data_ptr(), v.data_ptr(), ones.data_ptr(), mask_ptr,
+                 do.data_ptr(), nd.data_ptr(), lse2.data_ptr(), dq_acc.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), BH, Tq, kh.shape[1], heads), softcap)
+    scale = _dk_scale(softcap)
+    if scale != 1.0:
+        dq_acc.mul_(scale)
+    return dq_acc.to(qh.dtype), dk, dv
 
 
 def flash_bwd_dkv_kernel(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
                          softcap: float = 0.0):
     """Launch the dKV pass of csrc/attention_bwd_split.cu: (dk, dv)."""
-    mask_ptr = _check_bwd_inputs(qh, kh, vah, doa, lse2, mask, heads, _BWD_KEY_BLOCK)
-    BH, Tq, _ = qh.shape
+    BH, Tq, d = qh.shape
+    check_input("doa", doa, torch.bfloat16, (BH, Tq, d + 1))
+    v, ones = _split_last(vah)
+    do, nd = _split_last(doa)
+    mask_ptr = _check_dkv_inputs(qh, kh, vah, do, nd, lse2, mask, heads)
     dk = torch.empty_like(kh)
     dv = torch.empty_like(kh)
     _launch_bwd("flash_bwd_dkv", qh,
-                (qh.data_ptr(), kh.data_ptr(), vah.data_ptr(), mask_ptr, doa.data_ptr(),
-                 lse2.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, Tq, kh.shape[1],
-                 heads), softcap)
+                (qh.data_ptr(), kh.data_ptr(), v.data_ptr(), ones.data_ptr(), mask_ptr,
+                 do.data_ptr(), nd.data_ptr(), lse2.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 BH, Tq, kh.shape[1], heads), softcap)
     return dk, dv
 
 
 def flash_bwd_dq_kernel(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
                         softcap: float = 0.0):
     """Launch the dQ pass of csrc/attention_bwd_split.cu: dq."""
-    mask_ptr = _check_bwd_inputs(qh, kh, vah, doa, lse2, mask, heads, _BWD_BLOCK)
+    mask_ptr = _check_dq_inputs(qh, kh, vah, doa, lse2, mask, heads)
     BH, Tq, _ = qh.shape
     dq = torch.empty_like(qh)
     _launch_bwd("flash_bwd_dq", qh,

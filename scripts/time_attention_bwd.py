@@ -1,0 +1,131 @@
+#!/usr/bin/env python3
+"""Time the attention backward's key-block rows of one or more checkouts, in turns, on one card.
+
+    python3 scripts/time_attention_bwd.py                  # this checkout
+    python3 scripts/time_attention_bwd.py A B B A          # trees A and B in turns
+    python3 scripts/time_attention_bwd.py --only "row 6" A B   # the rows named so
+
+Each argument is the root of a tree holding ``rap_tpu_torch/`` and
+``chip_smoke.py`` (a checkout, or a ``git archive`` of one unpacked in a
+git-ignored directory). The trees' kernel libraries are built first, all
+at once (one process each); then each argument, in the order given, is timed
+in a process of its own, so one tree can be timed before and after another
+on the same card. Rows, at chip_smoke.py's shapes and with its inputs:
+row 6 dense global (BH=32, T=8192, unmasked), row 6 masked multi-view part
+(BH=128, T=4096), its softcap variant at c = 5, row 7 masked multi-view
+global (BH=16, T=32768), its softcap variant, the split pair (rows 7 + 8)
+as one call, and row 7 at the dense global shape (unmasked; no path runs it
+there, it shows what row 6 pays for its dQ). Each is the median of
+CUDA-event times over repeated calls of the public kernel wrapper (its
+operand copies included), printed with the card's name and power limit as
+one JSON line per argument; each row also as the key-block kernel's own
+device time (torch.profiler), without the wrapper's operand copies and
+dQ's zeroing and scaling.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent.parent
+
+
+def build(root: Path) -> subprocess.Popen:
+    code = (f"import sys; sys.path.insert(0, {str(root)!r}); "
+            "from rap_tpu_torch.ops import _build; _build.load()")
+    return subprocess.Popen([sys.executable, "-c", code])
+
+
+def kernel_ms(fn, fragment: str, calls: int = 5) -> float:
+    """Device ms per call of ``fn`` spent in kernels whose name holds
+    ``fragment`` (torch.profiler), the rest of the wrapper's work excluded."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages()
+             if fragment in e.key)
+    return us / 1e3 / calls
+
+
+def time_root(root: Path, only: str) -> dict:
+    """Runs in the child process: the rows of ``root``'s kernels whose name
+    holds ``only``."""
+    sys.path.insert(0, str(root))
+    import torch
+
+    import chip_smoke as cs
+    from rap_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    part_mask, global_mask = cs.multiview_masks(cs.multiview_parts())
+    H = cs.H
+    rows = {}
+
+    def inputs(BH, T, c, mask):
+        if c > 0.0:
+            qh, kh, vah = cs.softcap_attention_inputs(gen, BH, T, c)
+        else:
+            qh, kh, vah = cs.multiview_attention_inputs(gen, BH, T)
+        heads = 1 if mask is None else H
+        out, lse = fa.flash_online(qh, kh, vah, mask, heads, c)
+        dout = torch.randn((BH, T, cs.DH), generator=gen, device="cuda").to(torch.bfloat16)
+        return qh, kh, vah, out, lse, dout, heads
+
+    for name, BH, T, c, mask in (("row 6 dense global", 32, 8192, 0.0, None),
+                                 ("row 6 masked part", 128, 4096, 0.0, part_mask),
+                                 ("row 6s masked part, c=5", 128, 4096, 5.0, part_mask)):
+        if only not in name:
+            continue
+        qh, kh, vah, out, lse, dout, heads = inputs(BH, T, c, mask)
+        call = lambda: fa.flash_bwd_kernel(qh, kh, vah, out, lse, dout, mask, heads, c)  # noqa: E731
+        rows[name] = cs.cuda_time_ms(call, 10)
+        rows[name + ", key-block kernel alone"] = kernel_ms(call, "dkv_kernel")
+        del qh, kh, vah, out, lse, dout, call
+    for name, BH, T, c, mask in (("row 7 masked global", 16, 32768, 0.0, global_mask),
+                                 ("row 7s masked global, c=5", 16, 32768, 5.0, global_mask),
+                                 ("row 7 dense global", 32, 8192, 0.0, None)):
+        if only not in name and only not in name.replace("row 7", "rows 7+8"):
+            continue
+        qh, kh, vah, out, lse, dout, heads = inputs(BH, T, c, mask)
+        doa = fa.augment_do(dout, out).contiguous()
+        args = (qh, kh, vah, doa, lse, mask, heads, c)
+        rows[name] = cs.cuda_time_ms(lambda: fa.flash_bwd_dkv_kernel(*args), 5)
+        rows[name + ", key-block kernel alone"] = kernel_ms(
+            lambda: fa.flash_bwd_dkv_kernel(*args), "dkv_kernel")
+        if mask is not None:
+            rows[name.replace("row 7", "rows 7+8")] = cs.cuda_time_ms(
+                lambda: (fa.flash_bwd_dkv_kernel(*args), fa.flash_bwd_dq_kernel(*args)), 5)
+        del qh, kh, vah, out, lse, dout, doa, args
+    return {"root": str(root), "card": cs.nvidia_smi(), "ms": rows}
+
+
+def main(argv: list[str]) -> int:
+    if argv[:1] == ["--child"]:
+        print(json.dumps(time_root(Path(argv[1]).resolve(), argv[2])), flush=True)
+        return 0
+    only = ""
+    if argv[:1] == ["--only"]:
+        only, argv = argv[1], argv[2:]
+    roots = [Path(a).resolve() for a in argv] or [HERE]
+    builds = [build(r) for r in dict.fromkeys(roots)]
+    if any(p.wait() != 0 for p in builds):
+        print("a build failed", file=sys.stderr)
+        return 1
+    for root in roots:
+        rc = subprocess.run([sys.executable, __file__, "--child", str(root), only]).returncode
+        if rc != 0:
+            return rc
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

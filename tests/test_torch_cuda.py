@@ -484,3 +484,81 @@ def test_sample_app_launch_counts(gen, c):
         expected = _counts(flash_fixed_softcap=4 * forwards, ff=2 * forwards)
     assert launch_counts() == expected
     assert rec["pairs"] == 8
+
+
+# --------------------------------------------------------------------------
+# the key-block backward (rows 6 and 7, csrc/attention_bwd_dkv.cuh) at small
+# odd shapes and the edges of its design
+# --------------------------------------------------------------------------
+
+_KB_BH, _KB_TQ, _KB_TK = 3, 192, 256  # three heads, 3 query steps, 2 key blocks
+
+
+def _edge_key_mask(gen):
+    """(3, 256) int32: row 0 has a dead first key block and one valid key in
+    its second, row 1 random keys, row 2 every key masked."""
+    mask = (torch.rand((_KB_BH, _KB_TK), generator=gen, device="cuda") > 0.3).to(torch.int32)
+    mask[0] = 0
+    mask[0, 200] = 1
+    mask[2] = 0
+    return mask
+
+
+@pytest.mark.parametrize("c", [0.0, 5.0, 50.0])
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "edges"])
+def test_key_block_backward_kernels(gen, c, masked):
+    """Rows 6 (fused) and 7 (dKV pass) against their plain twins at BH=3,
+    Tq=192, Tk=256, within TOL of the largest output: unmasked, and with a
+    dead key block, a block with one valid key and a fully masked head; the
+    rows of two query steps carry lse2 = LSE_EMPTY (p = 0 there). Row 7 is
+    bitwise repeatable; dead and masked keys get exactly zero dK, dV."""
+    BH, Tq, Tk = _KB_BH, _KB_TQ, _KB_TK
+    if c > 0.0:
+        q, k, va = _softcap_inputs(gen, BH, Tk, c)
+    else:
+        q, k, va = _bwd_inputs(gen, BH, Tk)
+    q = q[:, :Tq].contiguous()
+    mask = _edge_key_mask(gen) if masked else None
+    out, lse = fa.flash_online_plain(q, k, va, mask, 1, c)  # the forward takes Tq % 128
+    lse[:, 70:130] = fa.LSE_EMPTY
+    dout = _randn(gen, BH, Tq, DH)
+    doa = fa.augment_do(dout, out).contiguous()
+    args = (q, k, va, doa, lse, mask, 1, c)
+    reset_launches()
+    fused = fa.flash_bwd_kernel(q, k, va, out, lse, dout, mask, 1, c)
+    dk, dv = fa.flash_bwd_dkv_kernel(*args)
+    sfx = "_softcap" if c > 0.0 else ""
+    assert launch_counts() == _counts(**{f"flash_bwd{sfx}": 1, f"flash_bwd_dkv{sfx}": 1})
+    for g_, r_ in zip(fused, fa.flash_bwd_plain(q, k, va, out, lse, dout, mask, 1, c)):
+        _close(g_, r_)
+    rk, rv = fa.flash_bwd_dkv_plain(*args)
+    _close(dk, rk)
+    _close(dv, rv)
+    dk2, dv2 = fa.flash_bwd_dkv_kernel(*args)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    assert not fused[0][:, 70:130].any()  # p = 0 on the LSE_EMPTY rows: no dQ
+    if masked:
+        dead = (mask == 0)
+        for g_ in (fused[1], fused[2], dk, dv):
+            assert not g_[dead].any()
+        assert fused[1][0, 200].any() and dk[0, 200].any()  # the one valid key
+
+
+def test_key_block_backward_refuses_what_it_does_not_take(gen):
+    """Tk not a multiple of 128, Tq not a multiple of 64, an unaligned dO:
+    the wrappers raise before any launch."""
+    q, k, va = _bwd_inputs(gen, 2, 256)
+    out, lse = fa.flash_online_kernel(q, k, va)
+    dout = _randn(gen, 2, 256, DH)
+    doa = fa.augment_do(dout, out).contiguous()
+    reset_launches()
+    with pytest.raises(ValueError, match="Tk % 128"):
+        fa.flash_bwd_dkv_kernel(q, k[:, :192].contiguous(), va[:, :192].contiguous(), doa, lse)
+    with pytest.raises(ValueError, match="multiples of 64"):
+        fa.flash_bwd_kernel(q[:, :96].contiguous(), k, va, out[:, :96].contiguous(),
+                            lse[:, :96].contiguous(), dout[:, :96].contiguous())
+    odd = torch.zeros(dout.numel() + 1, device="cuda", dtype=torch.bfloat16)[1:]
+    odd = odd.view(dout.shape).copy_(dout)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fa.flash_bwd_kernel(q, k, va, out, lse, odd)
+    assert launch_counts() == _counts()
