@@ -12,8 +12,9 @@ Phases, each printed on its own flushed line with its wall time:
 1. build      one nvcc call over rap_tpu_torch/csrc/*.cu into
               rap_tpu_torch/build/ (first use builds, an unchanged tree loads);
               the key-block backward's four instantiations (rows 6, 7 and
-              their softcap variants) must have the launch bound's 168
-              registers and no local memory (cudaFuncGetAttributes).
+              their softcap variants) and the dQ pass's two (rows 8, 8s)
+              must have the launch bound's 168 registers and no local
+              memory (cudaFuncGetAttributes).
 2. kernels    each of the ten kernels against its plain PyTorch version on
               the card, at the shapes of the paths below (D=512, H=8, dh=64,
               FF hidden 2048, bf16): max abs and relative error beside the
@@ -42,7 +43,12 @@ Phases, each printed on its own flushed line with its wall time:
               edges of its design, both variants and their softcap forms at
               c = 5: one key tile (shorter than the TMA ring), an odd number
               of tiles (Tq = Tk = 384), one head (BH = 1), and key masks that
-              leave only the first or only the last key tile live.
+              leave only the first or only the last key tile live. The dQ
+              pass (rows 8, 8s: csrc/attention_bwd_dq.cuh, TMA + wgmma, 128
+              queries per block, key tiles of 128) at the same edges, at
+              softcap 0 and 5, masked (a batch row with every key masked
+              must get dq exactly 0) and, where the mask is random,
+              unmasked, bitwise repeatable.
 3. main       registration.sample + predict_poses at S=4 x 2 x 4096, 2 Euler
               steps, rigidity forcing, bf16, with random weights from a seed at
               the width and depth of teacher3_last (6 layers, D=512). The qk
@@ -335,17 +341,20 @@ def run_build(report, fails):
                 or "error" in line.lower() or "warning" in line.lower():
             log(f"  ptxas: {line.strip()}")
     report["build_seconds"] = lib.build_seconds
-    # the key-block backward (rows 6, 7): setmaxnreg needs the launch bound's
-    # 168 registers; local memory would be a stack or spills
+    # the key-block backward (rows 6, 7) and the dQ pass (row 8): setmaxnreg
+    # needs the launch bound's 168 registers; local memory would be a stack or
+    # spills
     report["dkv_kernel_attributes"] = {}
-    for entry, fused in (("rtt_flash_bwd_attributes", "true"),
-                         ("rtt_flash_bwd_dkv_attributes", "false")):
+    report["dq_kernel_attributes"] = {}
+    for entry, key, kernel in (("rtt_flash_bwd_attributes", "dkv", "dkv_kernel<true, {}>"),
+                               ("rtt_flash_bwd_dkv_attributes", "dkv", "dkv_kernel<false, {}>"),
+                               ("rtt_flash_bwd_dq_attributes", "dq", "dq_kernel<{}>")):
         out = (ctypes.c_int * 4)()
         _build.check(getattr(lib.lib, entry)(out), entry)
         for i, softcap in enumerate(("false", "true")):
-            name = f"dkv_kernel<{fused}, {softcap}>"
+            name = kernel.format(softcap)
             regs, local = out[2 * i], out[2 * i + 1]
-            report["dkv_kernel_attributes"][name] = {"registers": regs, "local_bytes": local}
+            report[f"{key}_kernel_attributes"][name] = {"registers": regs, "local_bytes": local}
             fails.check(f"{name}: {regs} registers, {local} local bytes",
                         regs == 168 and local == 0, "(need 168 and 0)")
 
@@ -491,6 +500,7 @@ def run_kernels(report, fails, state):
     run_kernels_multiview(fails, state, gen, compare)
     run_kernels_softcap(fails, state, gen, compare, compare_lse)
     run_kernels_edges(fails, gen, compare, compare_lse)
+    run_kernels_dq_edges(fails, gen, compare)
 
 
 def multiview_attention_inputs(gen, BH: int, T: int):
@@ -734,6 +744,42 @@ def run_kernels_edges(fails, gen, compare, compare_lse):
                         and bool((got[1][~rows] == fa.LSE_EMPTY).all()),
                         f"{int((~rows).sum())} empty (batch*head) rows")
             compare_lse(f"{name}[{tag}, masked].lse2 (live rows)", got[1][rows], ref[1][rows])
+
+
+def run_kernels_dq_edges(fails, gen, compare):
+    """The dQ pass (rows 8, 8s: csrc/attention_bwd_dq.cuh) at the edges of
+    its design, FWD_EDGES' cases: one key tile (shorter than the TMA ring),
+    an odd number of tiles, one head, and masks that leave only the first or
+    the last key tile live; each at softcap 0 and 5 against
+    flash_bwd_dq_plain, with the key mask (a batch row whose keys are all
+    masked must get dq exactly 0: the kernel writes it, the caller does not
+    zero-fill) and, where the mask is random, without one; bitwise
+    repeatable."""
+    from rap_tpu_torch.ops import flash_attention as fa
+
+    for label, BH, Tq, Tk, heads, live in FWD_EDGES:
+        for c in (0.0, 5.0):
+            if c > 0.0:
+                q, k, va = softcap_attention_inputs(gen, BH, max(Tq, Tk), c)
+            else:
+                q, k, va = multiview_attention_inputs(gen, BH, max(Tq, Tk))
+            q, k, va = q[:, :Tq].contiguous(), k[:, :Tk].contiguous(), va[:, :Tk].contiguous()
+            dout = torch.randn((BH, Tq, DH), generator=gen, device="cuda").to(torch.bfloat16)
+            sfx = "_softcap" if c > 0.0 else ""
+            mask = edge_mask(gen, BH // heads, Tk, live)
+            for tag, m in (("masked", mask), ("unmasked", None))[:1 if live else 2]:
+                out, lse = fa.flash_online(q, k, va, m, heads, c)
+                args = (q, k, va, fa.augment_do(dout, out).contiguous(), lse, m, heads, c)
+                name = f"flash_bwd_dq{sfx}"
+                what = f"{name}[edge {label}, BH={BH}, Tq={Tq}, Tk={Tk}, c={c:g}, {tag}]"
+                dq = fa.flash_bwd_dq(*args)
+                compare(f"{name}/edges", f"{what}.dq", dq, fa.flash_bwd_dq_plain(*args))
+                fails.check(f"{what} bitwise repeatable", torch.equal(dq, fa.flash_bwd_dq(*args)))
+                if m is not None:
+                    empty = (m.sum(1) == 0).repeat_interleave(heads)
+                    fails.check(f"{what} fully masked rows: dq exactly 0",
+                                not bool(dq[empty].any()),
+                                f"{int(empty.sum())} fully masked (batch*head) rows")
 
 
 def write_random_checkpoint(cfg, seed: int) -> Path:
@@ -1480,7 +1526,9 @@ def softcap_kernel_rows(state, row):
                 **common))
         else:
             # the two passes together are one backward: the library's
-            # backward stands beside each (library_backward_ms)
+            # backward stands beside each (library_backward_ms); they read
+            # the pieces of va and [dO | -delta] (backward_operands)
+            reads = BH * T * (4 * DH * 2 + 3 * 4) + mask.numel() * 4
             args = (qh, kh, vah, doa, lse, mask, H)
             rows.append(row(
                 "flash_bwd_dkv_softcap", "rap_tpu_torch/csrc/attention_bwd_dkv.cuh",
@@ -1493,7 +1541,7 @@ def softcap_kernel_rows(state, row):
                 bound_all_tiles_ms=bound(8 * T * T * DH * BH, 0, 2 * T * T * BH)[0],
                 pair_ms=split_pair_ms(args, c), **common))
             rows.append(row(
-                "flash_bwd_dq_softcap", "rap_tpu_torch/csrc/attention_bwd_split.cu",
+                "flash_bwd_dq_softcap", "rap_tpu_torch/csrc/attention_bwd_dq.cuh",
                 "rap_tpu/ops/pallas_attention.py:471",
                 lambda: fa.flash_bwd_dq_kernel(*args, c),
                 lambda: fa.flash_bwd_dq_plain(*args, c), None,
@@ -1593,7 +1641,9 @@ def multiview_kernel_rows(state, row):
     qh, kh, vah, mask, out, lse, dout, doa = state["mv_attn"]["global"]
     BH, T, _ = qh.shape
     valid = float(mask.sum()) * H
-    reads = BH * T * (2 * DH * 2 + 2 * (DH + 1) * 2 + 4) + mask.numel() * 4
+    # q, k, V, dO (bf16), va's ones column, -delta, lse2 (fp32): the pieces
+    # the split passes read (backward_operands), and the key mask
+    reads = BH * T * (4 * DH * 2 + 3 * 4) + mask.numel() * 4
     args = (qh, kh, vah, doa, lse, mask, H)
     shape = f"multiview global: BH={BH}, T={T}, d={DH} bf16, key mask"
     rows.append(row(
@@ -1605,7 +1655,7 @@ def multiview_kernel_rows(state, row):
         bound_all_tiles_ms=bound(8 * T * T * DH * BH, 0, T * T * BH)[0],
         library_backward_ms=sdpa["global"][1], pair_ms=split_pair_ms(args)))
     rows.append(row(
-        "flash_bwd_dq", "rap_tpu_torch/csrc/attention_bwd_split.cu",
+        "flash_bwd_dq", "rap_tpu_torch/csrc/attention_bwd_dq.cuh",
         "rap_tpu/ops/pallas_attention.py:471",
         lambda: fa.flash_bwd_dq_kernel(*args), lambda: fa.flash_bwd_dq_plain(*args), None,
         6 * T * DH * valid, reads + BH * T * DH * 2, shape, reps=5,

@@ -2,7 +2,8 @@
 //
 // The kernels of the simple first design compute every product as a bf16 x
 // bf16 -> fp32 warp-level `mma.sync.m16n8k16`; the TMA + `wgmma` kernels
-// (attention.cu, attention_bwd_dkv.cuh) take their pieces from hopper.cuh.
+// (attention.cu, attention_bwd_dkv.cuh, attention_bwd_dq.cuh) take their
+// pieces from hopper.cuh.
 // Fragment layouts follow the PTX ISA for m16n8k16 with .row.col operands;
 // with g = lane / 4 and t = lane % 4:
 //   A (16x16, row-major):  a0 = A[g][2t..2t+1]    a1 = A[g+8][2t..2t+1]

@@ -18,8 +18,10 @@
 //     m64n72k16, A from registers, B from shared memory MN-major (O += P V,
 //     with 8 more columns of B for the row sums of P);
 //   and the backward's: m64n64k16 with A and B from shared memory, either
-//   of them K-major or MN-major (S^T = K Q^T, dQ = dS K), and with A from
-//   registers and B MN-major (dV += P^T dO, dK += dS^T Q).
+//   of them K-major or MN-major (S^T = K Q^T, dQ = dS K, the dQ pass's
+//   S = Q K^T), and with A from registers and B MN-major (dV += P^T dO,
+//   dK += dS^T Q, the dQ pass's dQ += dS K) or K-major (the dQ pass's
+//   dP = dO V^T).
 //   The accumulator of an m64nNk16 product puts, in warp w of the warpgroup,
 //   d[4j + 0..1] at row 16w + g, columns 8j + 2t..2t+1 and d[4j + 2..3] at
 //   row 16w + g + 8 (g = lane / 4, t = lane % 4): the mma.sync m16n8 layout
@@ -268,7 +270,9 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, 
 }
 
 // d (64 x 64, fp32) = (accumulate ? d : 0) + A (64 x 16, bf16 fragments in
-// registers) B, with B (16 x 64) MN-major in shared memory.
+// registers) B, with B (16 x 64) in shared memory; TRANS_B 1: MN-major (the
+// transpose bit), 0: K-major.
+template <int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, uint32_t a1,
                                                    uint32_t a2, uint32_t a3, uint64_t db,
                                                    int accumulate) {
@@ -277,14 +281,14 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], uint32_t a0, 
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
       "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate), "n"(TRANS_B));
 }
 
 // ---- host: tensor maps ------------------------------------------------------------

@@ -41,20 +41,22 @@ SIGNATURES = {
     "rtt_flash_online": [_P] * 6 + [_I] * 4 + [_P],
     "rtt_flash_bwd": [_P] * 11 + [_I] * 4 + [_P],
     "rtt_flash_bwd_dkv": [_P] * 10 + [_I] * 4 + [_P],
-    "rtt_flash_bwd_dq": [_P] * 7 + [_I] * 4 + [_P],
+    "rtt_flash_bwd_dq": [_P] * 9 + [_I] * 4 + [_P],
     "rtt_flash_fixed_softcap": [_P] * 3 + [_F] * 2 + [_P] * 2 + [_I] * 3 + [_P],
     "rtt_flash_online_softcap": [_P] * 4 + [_F] + [_P] * 2 + [_I] * 4 + [_P],
     "rtt_flash_bwd_softcap": [_P] * 11 + [_I] * 4 + [_F] * 2 + [_P],
     "rtt_flash_bwd_dkv_softcap": [_P] * 10 + [_I] * 4 + [_F] * 2 + [_P],
-    "rtt_flash_bwd_dq_softcap": [_P] * 7 + [_I] * 4 + [_F] * 2 + [_P],
+    "rtt_flash_bwd_dq_softcap": [_P] * 9 + [_I] * 4 + [_F] * 2 + [_P],
     "rtt_proj_bwd": [_P] * 16 + [_I] * 5 + [_P],
     "rtt_ff_bwd": [_P] * 19 + [_I] * 3 + [_P],
 }
 # C entry points that launch nothing: the registers and local bytes of the
-# key-block backward's instantiations (cudaFuncGetAttributes), 4 ints each
+# backward's setmaxnreg kernels (the key block's four instantiations, the dQ
+# pass's two; cudaFuncGetAttributes), 4 ints each
 QUERIES = {
     "rtt_flash_bwd_attributes": [_P],
     "rtt_flash_bwd_dkv_attributes": [_P],
+    "rtt_flash_bwd_dq_attributes": [_P],
 }
 
 

@@ -21,10 +21,11 @@ Forward kernels: csrc/attention.cu (TPU ``_flash_fwd_full_kernel`` :188 and
 :506, with or without a key mask) while the fused kernel's fp32 dQ partials
 slab stays within 2 GiB, else csrc/attention_bwd_split.cu (TPU
 ``_flash_bwd_dkv_kernel`` :426 and ``_flash_bwd_dq_kernel`` :471). The fused
-kernel and the dKV pass are one key-block kernel (csrc/attention_bwd_dkv.cuh,
-TMA + wgmma), which reads V and dO with 64-value rows and -delta and va's
-ones column as fp32 vectors (``backward_operands``); the dQ pass reads va and
-[dO | -delta] (``augment_do``) as they are. Each has a plain twin here with
+kernel and the dKV pass are one key-block kernel (csrc/attention_bwd_dkv.cuh),
+the dQ pass its mirror (csrc/attention_bwd_dq.cuh), all TMA + wgmma. They
+read V and dO with 64-value rows and -delta and va's ones column as fp32
+vectors (``backward_operands``), split once off va and [dO | -delta]
+(``augment_do``) for both split passes. Each has a plain twin here with
 the same arithmetic and cast points (``*_plain``), chunked over
 (batch*head, query) tiles to bound memory. The gradient of the
 bound is 0 and the ones column of va gets a zero cotangent (:321-323).
@@ -54,9 +55,11 @@ LSE_EMPTY = 1e30
 LOG2E = math.log2(math.e)
 LN2 = math.log(2.0)
 _FWD_BLOCK = 128  # csrc/attention.cu BQ and BK: query rows per block, keys per tile
-_BWD_BLOCK = 64   # the backward kernels' query rows per step; the dQ pass's BK
+_BWD_BLOCK = 64   # csrc/attention_bwd_dkv.cuh (rows 6 and 7): queries per step
 _PLAIN_LOGITS = 2**28  # fp32 logits per chunk of the plain versions (1 GiB)
 _BWD_KEY_BLOCK = 128  # csrc/attention_bwd_dkv.cuh (rows 6 and 7): keys per block
+# csrc/attention_bwd_dq.cuh (row 8) owns _FWD_BLOCK queries a block and walks
+# key tiles of _FWD_BLOCK
 _FUSED_DQ_PARTIALS_CAP = 2 * 2**30  # pallas_attention.py:636
 
 
@@ -363,32 +366,50 @@ def flash_bwd_plain(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1,
     return dq, (dk * scale).to(qh.dtype), dv.to(qh.dtype)
 
 
-def _check_dq_inputs(qh, kh, vah, doa, lse2, mask, heads):
-    """Check the dQ pass's inputs; return the mask pointer."""
-    _check_attention_inputs(qh, kh, vah)
-    BH, Tq, d = qh.shape
-    check_input("doa", doa, torch.bfloat16, (BH, Tq, d + 1))
-    check_input("lse2", lse2, torch.float32, (BH, Tq))
-    return _mask_arg(mask, qh, kh.shape[1], heads)
+def _split_operands(vah, doa):
+    """(v, dO, -delta, ones) of va and an augmented [dO | -delta]: the
+    pieces of ``backward_operands``, split off the tensors the plain twins
+    read."""
+    v, ones = _split_last(vah)
+    do, nd = _split_last(doa)
+    return v, do, nd, ones
 
 
-def _check_dkv_inputs(qh, kh, vah, do, nd, lse2, mask, heads):
-    """Check the key-block kernel's inputs (rows 6 and 7: va, and [dO | -delta]
-    split as ``backward_operands`` splits them); return the mask pointer. TMA
-    and the bulk copies need q, k, dO, -delta and lse2 16-byte aligned."""
-    _check_attention_inputs(qh, kh, vah)
+def _check_bwd_operands(qh, kh, vah, ops, lse2, block: int):
+    """Check what a backward kernel reads: q, k, va's shape, lse2 and the
+    pieces (v, dO, -delta, ones) of ``backward_operands``. TMA and the bulk
+    copies need every one of them 16-byte aligned."""
+    _check_attention_inputs(qh, kh, vah, block)
+    v, do, nd, ones = ops
     BH, Tq, d = qh.shape
     Tk = kh.shape[1]
-    require(Tk % _BWD_KEY_BLOCK == 0,
-            f"attention backward kernel takes Tk % {_BWD_KEY_BLOCK} == 0, got {Tk}")
+    check_input("v", v, torch.bfloat16, (BH, Tk, d))
+    check_input("ones", ones, torch.float32, (BH, Tk))
     check_input("dout", do, torch.bfloat16, (BH, Tq, d))
     check_input("-delta", nd, torch.float32, (BH, Tq))
     check_input("lse2", lse2, torch.float32, (BH, Tq))
-    for name, t in (("qh", qh), ("kh", kh), ("dout", do), ("-delta", nd), ("lse2", lse2)):
+    for name, t in (("qh", qh), ("kh", kh), ("v", v), ("ones", ones), ("dout", do),
+                    ("-delta", nd), ("lse2", lse2)):
         require(t.data_ptr() % 16 == 0,
                 f"{name}: the attention backward kernel takes 16-byte-aligned inputs "
                 f"(TMA), got data_ptr % 16 = {t.data_ptr() % 16}")
+
+
+def _check_dkv_inputs(qh, kh, vah, ops, lse2, mask, heads):
+    """Check the key-block kernel's inputs (rows 6 and 7: Tq % 64, Tk % 128);
+    return the mask pointer."""
+    _check_bwd_operands(qh, kh, vah, ops, lse2, _BWD_BLOCK)
+    Tk = kh.shape[1]
+    require(Tk % _BWD_KEY_BLOCK == 0,
+            f"attention backward kernel takes Tk % {_BWD_KEY_BLOCK} == 0, got {Tk}")
     return _mask_arg(mask, qh, Tk, heads)
+
+
+def _check_dq_inputs(qh, kh, vah, ops, lse2, mask, heads):
+    """Check the dQ pass's inputs (row 8: blocks of 128 queries, key tiles of
+    128); return the mask pointer."""
+    _check_bwd_operands(qh, kh, vah, ops, lse2, _FWD_BLOCK)
+    return _mask_arg(mask, qh, kh.shape[1], heads)
 
 
 def _launch_bwd(kernel: str, like, args: tuple, softcap: float) -> None:
@@ -404,8 +425,8 @@ def flash_bwd_kernel(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1,
                      softcap: float = 0.0):
     """Launch csrc/attention_bwd.cu on CUDA tensors: (dq, dk, dv)."""
     check_input("out", out, torch.bfloat16, qh.shape)
-    v, do, nd, ones = backward_operands(vah, dout.to(qh.dtype), out)
-    mask_ptr = _check_dkv_inputs(qh, kh, vah, do, nd, lse2, mask, heads)
+    v, do, nd, ones = ops = backward_operands(vah, dout.to(qh.dtype), out)
+    mask_ptr = _check_dkv_inputs(qh, kh, vah, ops, lse2, mask, heads)
     BH, Tq, d = qh.shape
     dq_acc = torch.zeros((BH, Tq, d), dtype=torch.float32, device=qh.device)
     dk = torch.empty_like(kh)
@@ -420,14 +441,12 @@ def flash_bwd_kernel(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1,
     return dq_acc.to(qh.dtype), dk, dv
 
 
-def flash_bwd_dkv_kernel(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
-                         softcap: float = 0.0):
-    """Launch the dKV pass of csrc/attention_bwd_split.cu: (dk, dv)."""
-    BH, Tq, d = qh.shape
-    check_input("doa", doa, torch.bfloat16, (BH, Tq, d + 1))
-    v, ones = _split_last(vah)
-    do, nd = _split_last(doa)
-    mask_ptr = _check_dkv_inputs(qh, kh, vah, do, nd, lse2, mask, heads)
+def _launch_dkv(qh, kh, vah, ops, lse2, mask, heads: int, softcap: float):
+    """The dKV pass of csrc/attention_bwd_split.cu on the pieces ``ops`` =
+    (v, dO, -delta, ones): (dk, dv)."""
+    v, do, nd, ones = ops
+    mask_ptr = _check_dkv_inputs(qh, kh, vah, ops, lse2, mask, heads)
+    BH, Tq, _ = qh.shape
     dk = torch.empty_like(kh)
     dv = torch.empty_like(kh)
     _launch_bwd("flash_bwd_dkv", qh,
@@ -437,16 +456,34 @@ def flash_bwd_dkv_kernel(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
     return dk, dv
 
 
-def flash_bwd_dq_kernel(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
-                        softcap: float = 0.0):
-    """Launch the dQ pass of csrc/attention_bwd_split.cu: dq."""
-    mask_ptr = _check_dq_inputs(qh, kh, vah, doa, lse2, mask, heads)
+def _launch_dq(qh, kh, vah, ops, lse2, mask, heads: int, softcap: float):
+    """The dQ pass of csrc/attention_bwd_split.cu on the pieces ``ops`` =
+    (v, dO, -delta, ones): dq."""
+    v, do, nd, ones = ops
+    mask_ptr = _check_dq_inputs(qh, kh, vah, ops, lse2, mask, heads)
     BH, Tq, _ = qh.shape
     dq = torch.empty_like(qh)
     _launch_bwd("flash_bwd_dq", qh,
-                (qh.data_ptr(), kh.data_ptr(), vah.data_ptr(), mask_ptr, doa.data_ptr(),
-                 lse2.data_ptr(), dq.data_ptr(), BH, Tq, kh.shape[1], heads), softcap)
+                (qh.data_ptr(), kh.data_ptr(), v.data_ptr(), ones.data_ptr(), mask_ptr,
+                 do.data_ptr(), nd.data_ptr(), lse2.data_ptr(), dq.data_ptr(), BH, Tq,
+                 kh.shape[1], heads), softcap)
     return dq
+
+
+def flash_bwd_dkv_kernel(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
+                         softcap: float = 0.0):
+    """Launch the dKV pass of csrc/attention_bwd_split.cu: (dk, dv)."""
+    BH, Tq, d = qh.shape
+    check_input("doa", doa, torch.bfloat16, (BH, Tq, d + 1))
+    return _launch_dkv(qh, kh, vah, _split_operands(vah, doa), lse2, mask, heads, softcap)
+
+
+def flash_bwd_dq_kernel(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
+                        softcap: float = 0.0):
+    """Launch the dQ pass of csrc/attention_bwd_split.cu: dq."""
+    BH, Tq, d = qh.shape
+    check_input("doa", doa, torch.bfloat16, (BH, Tq, d + 1))
+    return _launch_dq(qh, kh, vah, _split_operands(vah, doa), lse2, mask, heads, softcap)
 
 
 def flash_bwd(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1,
@@ -476,16 +513,20 @@ def flash_bwd_dq(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
 def attention_backward(qh, kh, vah, out, lse2, dout, mask, heads: int, split: bool,
                        kernels: bool, softcap: float = 0.0):
     """(dq, dk, dv) as ``_bwd_impl`` (:639) computes them: the fused pass, or
-    with ``split`` the dKV and dQ passes on one [dO | -delta]."""
+    with ``split`` the dKV and dQ passes on one [dO | -delta]: on CUDA
+    tensors its pieces (``backward_operands``), split once for both kernels."""
     dout = dout.contiguous()
     if not split:
         bwd = flash_bwd if kernels else flash_bwd_plain
         return bwd(qh, kh, vah, out, lse2, dout, mask, heads, softcap)
+    if kernels and not on_cpu(qh, kh, vah, out, lse2, dout):
+        mask = _as_kernel_mask(mask)
+        ops = backward_operands(vah, dout.to(qh.dtype), out)
+        dk, dv = _launch_dkv(qh, kh, vah, ops, lse2, mask, heads, softcap)
+        return _launch_dq(qh, kh, vah, ops, lse2, mask, heads, softcap), dk, dv
     doa = augment_do(dout.to(qh.dtype), out).contiguous()
-    dkv, dq_pass = ((flash_bwd_dkv, flash_bwd_dq) if kernels
-                    else (flash_bwd_dkv_plain, flash_bwd_dq_plain))
-    dk, dv = dkv(qh, kh, vah, doa, lse2, mask, heads, softcap)
-    return dq_pass(qh, kh, vah, doa, lse2, mask, heads, softcap), dk, dv
+    dk, dv = flash_bwd_dkv_plain(qh, kh, vah, doa, lse2, mask, heads, softcap)
+    return flash_bwd_dq_plain(qh, kh, vah, doa, lse2, mask, heads, softcap), dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Time the attention backward's key-block rows of one or more checkouts, in turns, on one card.
+"""Time the attention backward's rows (6, 7, 8) of one or more checkouts, in turns, on one card.
 
     python3 scripts/time_attention_bwd.py                  # this checkout
     python3 scripts/time_attention_bwd.py A B B A          # trees A and B in turns
     python3 scripts/time_attention_bwd.py --only "row 6" A B   # the rows named so
+    python3 scripts/time_attention_bwd.py --only "row 8" A B B A
 
 Each argument is the root of a tree holding ``rap_tpu_torch/`` and
 ``chip_smoke.py`` (a checkout, or a ``git archive`` of one unpacked in a
@@ -12,15 +13,15 @@ at once (one process each); then each argument, in the order given, is timed
 in a process of its own, so one tree can be timed before and after another
 on the same card. Rows, at chip_smoke.py's shapes and with its inputs:
 row 6 dense global (BH=32, T=8192, unmasked), row 6 masked multi-view part
-(BH=128, T=4096), its softcap variant at c = 5, row 7 masked multi-view
-global (BH=16, T=32768), its softcap variant, the split pair (rows 7 + 8)
-as one call, and row 7 at the dense global shape (unmasked; no path runs it
-there, it shows what row 6 pays for its dQ). Each is the median of
-CUDA-event times over repeated calls of the public kernel wrapper (its
-operand copies included), printed with the card's name and power limit as
-one JSON line per argument; each row also as the key-block kernel's own
-device time (torch.profiler), without the wrapper's operand copies and
-dQ's zeroing and scaling.
+(BH=128, T=4096), its softcap variant at c = 5; rows 7 and 8 (the split
+backward's dK/dV and dQ passes) masked multi-view global (BH=16, T=32768),
+their softcap variants, and each pair as one call; row 7 at the dense
+global shape (unmasked; no path runs it there, it shows what row 6 pays for
+its dQ). Each is the median of CUDA-event times over repeated calls of the
+public kernel wrapper (its operand copies included), printed with the
+card's name and power limit as one JSON line per argument; each row also as
+its kernel's own device time (torch.profiler: `dkv_kernel` or `dq_kernel`),
+without the wrapper's operand copies and dQ's zeroing and scaling.
 """
 
 from __future__ import annotations
@@ -90,21 +91,29 @@ def time_root(root: Path, only: str) -> dict:
         rows[name] = cs.cuda_time_ms(call, 10)
         rows[name + ", key-block kernel alone"] = kernel_ms(call, "dkv_kernel")
         del qh, kh, vah, out, lse, dout, call
-    for name, BH, T, c, mask in (("row 7 masked global", 16, 32768, 0.0, global_mask),
-                                 ("row 7s masked global, c=5", 16, 32768, 5.0, global_mask),
-                                 ("row 7 dense global", 32, 8192, 0.0, None)):
-        if only not in name and only not in name.replace("row 7", "rows 7+8"):
+    for tag, BH, T, c, mask in (("masked global", 16, 32768, 0.0, global_mask),
+                                ("masked global, c=5", 16, 32768, 5.0, global_mask),
+                                ("dense global", 32, 8192, 0.0, None)):
+        s = "s" if c > 0.0 else ""
+        row7, row8, pair = f"row 7{s} {tag}", f"row 8{s} {tag}", f"rows 7{s}+8{s} {tag}"
+        # rows 8 and 7+8 where a path runs them: behind a key mask
+        wanted = [n for n in (row7, row8, pair) if only in n and (mask is not None or n == row7)]
+        if not wanted:
             continue
         qh, kh, vah, out, lse, dout, heads = inputs(BH, T, c, mask)
         doa = fa.augment_do(dout, out).contiguous()
         args = (qh, kh, vah, doa, lse, mask, heads, c)
-        rows[name] = cs.cuda_time_ms(lambda: fa.flash_bwd_dkv_kernel(*args), 5)
-        rows[name + ", key-block kernel alone"] = kernel_ms(
-            lambda: fa.flash_bwd_dkv_kernel(*args), "dkv_kernel")
-        if mask is not None:
-            rows[name.replace("row 7", "rows 7+8")] = cs.cuda_time_ms(
-                lambda: (fa.flash_bwd_dkv_kernel(*args), fa.flash_bwd_dq_kernel(*args)), 5)
-        del qh, kh, vah, out, lse, dout, doa, args
+        dkv = lambda: fa.flash_bwd_dkv_kernel(*args)  # noqa: E731
+        dq = lambda: fa.flash_bwd_dq_kernel(*args)  # noqa: E731
+        if row7 in wanted:
+            rows[row7] = cs.cuda_time_ms(dkv, 5)
+            rows[row7 + ", key-block kernel alone"] = kernel_ms(dkv, "dkv_kernel")
+        if row8 in wanted:
+            rows[row8] = cs.cuda_time_ms(dq, 5)
+            rows[row8 + ", dQ kernel alone"] = kernel_ms(dq, "dq_kernel")
+        if pair in wanted:
+            rows[pair] = cs.cuda_time_ms(lambda: (dkv(), dq()), 5)
+        del qh, kh, vah, out, lse, dout, doa, args, dkv, dq
     return {"root": str(root), "card": cs.nvidia_smi(), "ms": rows}
 
 

@@ -5,10 +5,12 @@ their plain twins for CPU tensors. Same inputs and cotangents, made with
 numpy from a seed, fp32 unless stated:
 
 - the split backward twins (rows 7-8: ``flash_bwd_dkv_plain``,
-  ``flash_bwd_dq_plain``) against ``_bwd_split_impl``, masked and unmasked,
-  and the masked fused twin (row 6) against ``_bwd_fused_impl``, on the same
-  forward residuals. The mask holds a fully masked 128-key tile and a fully
-  masked sequence. Tolerance 2e-5 of the largest element (fp32 sums in
+  ``flash_bwd_dq_plain``) against ``_bwd_split_impl``, masked and unmasked
+  at T = 256, and at T = 384 (an odd number of key tiles of 128) masked at
+  random or with only the first or only the last key tile live; and the
+  masked fused twin (row 6) against ``_bwd_fused_impl``, on the same
+  forward residuals. The masks hold a fully masked 128-key tile (or every
+  tile but one) and a fully masked sequence. Tolerance 2e-5 of the largest element (fp32 sums in
   another order); the fully masked sequence's gradients are exactly 0.
 - ``flash_attention`` with a key mask, forward and ``jax.vjp`` against
   torch.autograd, with rap_tpu's fused and split backward (BWD_IMPL and the
@@ -71,11 +73,34 @@ def _headmajor_inputs(T, seed):
     return q, f(B * H, T, DH), f(B * H, T, DH), f(B * H, T, DH)
 
 
-@pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
-def test_split_twins_match_pallas(masked):
-    T = 256
+def _tile_mask(T, live, seed=0):
+    """(B, T): row 0 with valid keys only in the first or only in the last
+    tile of 128 (random, the tile's first key valid), row 1 fully masked."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((B, T), bool)
+    keys = slice(0, 128) if live == "first" else slice(T - 128, T)
+    mask[0, keys] = rng.random(128) > 0.5
+    mask[0, keys.start] = True
+    return mask
+
+
+# id: (T, key mask) -- 384 is an odd number of the dQ pass's key tiles of 128
+_SPLIT_CASES = {"masked": (256, "random"), "unmasked": (256, None),
+                "odd_tiles": (384, "random"), "first_tile_live": (384, "first"),
+                "last_tile_live": (384, "last")}
+
+
+@pytest.mark.parametrize("case", list(_SPLIT_CASES))
+def test_split_twins_match_pallas(case):
+    T, kind = _SPLIT_CASES[case]
+    masked = kind is not None
     q, k, v, dout = _headmajor_inputs(T, seed=1)
-    mask = _key_mask(T) if masked else np.ones((B, T), bool)
+    if kind == "random":
+        mask = _key_mask(T)
+    elif masked:
+        mask = _tile_mask(T, kind)
+    else:
+        mask = np.ones((B, T), bool)
     maski = jnp.asarray(mask.astype(np.int32))[:, None, :]
     jq, jk, jv = map(jnp.asarray, (q, k, v))
     out, lse = jpa._fwd_impl(jq, jk, jv, maski, 0.0, 128, 128, True)

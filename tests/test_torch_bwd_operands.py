@@ -15,7 +15,15 @@ padded to rap_tpu's blocks, padded keys masked).
 - (V, ones) and (dO, -delta) put back together give ``vah`` and the port's
   ``augment_do(dout, out)`` bit for bit, and the split of an augmented
   tensor (the dKV pass's route) gives the same pieces.
+
+The dQ pass (csrc/attention_bwd_dq.cuh, row 8) reads the same pieces. With
+the launch replaced by a recorder (no card here): the memory at the pointers
+``flash_bwd_dq_kernel`` hands its kernel holds exactly ``backward_operands``'
+pieces, and the split branch of ``attention_backward`` splits va and
+[dO | -delta] once and hands the same tensors to both passes.
 """
+
+import ctypes
 
 import jax.numpy as jnp
 import numpy as np
@@ -79,3 +87,67 @@ def test_backward_operands_match_augment_do(case, dtype):
     for whole, pieces in ((vah, (v, ones)), (doa, (do, nd))):
         for got, want in zip(fa._split_last(whole), pieces):
             assert torch.equal(got, want)
+
+
+# pointer arguments of the split passes' entry points (q, k, v, ones, mask,
+# dout, -delta, lse2, then the outputs)
+_PIECE_ARGS = {"v": 2, "ones": 3, "dout": 5, "-delta": 6}
+
+
+def _read(ptr, like):
+    """A copy of the memory at ``ptr``, as a tensor like ``like``."""
+    raw = ctypes.string_at(ptr, like.numel() * like.element_size())
+    return torch.frombuffer(bytearray(raw), dtype=like.dtype).view(like.shape)
+
+
+def _split_inputs(BH, T, seed=7):
+    dout, out, vh = (_torch(a, torch.bfloat16) for a in _inputs(BH, T, seed))
+    q, k, _ = (_torch(a, torch.bfloat16) for a in _inputs(BH, T, seed + 1))
+    return q, k, F.pad(vh, (0, 1), value=1.0), out, dout, torch.zeros(BH, T)
+
+
+@pytest.mark.parametrize("softcap", [0.0, 5.0])
+def test_dq_wrapper_hands_its_kernel_the_pieces(monkeypatch, softcap):
+    """flash_bwd_dq_kernel takes va and [dO | -delta] with 65-value rows; at
+    the launch, the memory at its V, ones, dO and -delta pointers equals
+    backward_operands' pieces bit for bit."""
+    qh, kh, vah, out, dout, lse2 = _split_inputs(4, 256)
+    want = dict(zip(("v", "dout", "-delta", "ones"), fa.backward_operands(vah, dout, out)))
+    seen = {}
+
+    def record(kernel, like, *args):
+        seen[kernel] = {n: _read(args[i], want[n]) for n, i in _PIECE_ARGS.items()}
+
+    monkeypatch.setattr(fa, "launch", record)
+    fa.flash_bwd_dq_kernel(qh, kh, vah, fa.augment_do(dout, out), lse2, None, 1, softcap)
+    name = "flash_bwd_dq_softcap" if softcap > 0.0 else "flash_bwd_dq"
+    assert list(seen) == [name]
+    for piece, got in seen[name].items():
+        assert torch.equal(got, want[piece]), piece
+
+
+@pytest.mark.parametrize("softcap", [0.0, 5.0])
+def test_split_backward_splits_once_for_both_passes(monkeypatch, softcap):
+    """attention_backward's split branch through the kernels (CUDA tensors,
+    stood in for by CPU ones): one backward_operands call, and the dKV and
+    dQ launches both get its pieces' pointers."""
+    heads, B, T = 2, 2, 256
+    qh, kh, vah, out, dout, lse2 = _split_inputs(B * heads, T)
+    mask = torch.ones(B, T, dtype=torch.bool)
+    mask[1, 100:] = False
+    made, launched = [], []
+    real = fa.backward_operands
+    monkeypatch.setattr(fa, "backward_operands", lambda *a: made.append(real(*a)) or made[-1])
+    monkeypatch.setattr(fa, "on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(fa, "launch", lambda kernel, like, *args: launched.append((kernel, args)))
+    fa.attention_backward(qh, kh, vah, out, lse2, dout, mask, heads, split=True, kernels=True,
+                          softcap=softcap)
+    sfx = "_softcap" if softcap > 0.0 else ""
+    assert [k for k, _ in launched] == [f"flash_bwd_dkv{sfx}", f"flash_bwd_dq{sfx}"]
+    assert len(made) == 1
+    v, do, nd, ones = made[0]
+    want = {"v": v.data_ptr(), "ones": ones.data_ptr(), "dout": do.data_ptr(),
+            "-delta": nd.data_ptr()}
+    for kernel, args in launched:
+        assert {n: args[i] for n, i in _PIECE_ARGS.items()} == want, kernel
+        assert args[0] == qh.data_ptr() and args[1] == kh.data_ptr() and args[7] == lse2.data_ptr()

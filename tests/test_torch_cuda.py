@@ -562,3 +562,44 @@ def test_key_block_backward_refuses_what_it_does_not_take(gen):
     with pytest.raises(ValueError, match="16-byte-aligned"):
         fa.flash_bwd_kernel(q, k, va, out, lse, odd)
     assert launch_counts() == _counts()
+
+
+# --------------------------------------------------------------------------
+# the dQ pass (row 8, csrc/attention_bwd_dq.cuh) at the edges of its design:
+# the forward edges' shapes and masks, at softcap 0 and 5
+# --------------------------------------------------------------------------
+
+_DQ_CASES = [(e, c) for e in _FWD_EDGES for c in (0.0, 5.0)]
+
+
+@pytest.mark.parametrize("edge,c", _DQ_CASES, ids=[f"{e[0]}-c{c:g}" for e, c in _DQ_CASES])
+def test_dq_pass_edges(gen, edge, c):
+    """Row 8 (8s at c = 5) against flash_bwd_dq_plain within TOL of the
+    largest output: one key tile (shorter than the TMA ring), an odd number
+    of tiles, one head, only the first or only the last key tile live; with
+    the key mask (a random one fully masks the last batch row, whose dq must
+    be exactly 0: the kernel writes it, nothing zero-fills) and, where the
+    mask is random, without one. Bitwise repeatable; one launch each."""
+    _, BH, Tq, Tk, kind = edge
+    heads = 1 if BH == 1 else 2
+    if c > 0.0:
+        q, k, va = _softcap_inputs(gen, BH, max(Tq, Tk), c)
+        q, k, va = q[:, :Tq].contiguous(), k[:, :Tk].contiguous(), va[:, :Tk].contiguous()
+    else:
+        q, k = _randn(gen, BH, Tq, DH, scale=0.4), _randn(gen, BH, Tk, DH, scale=0.4)
+        va = torch.cat([_randn(gen, BH, Tk, DH), torch.ones(BH, Tk, 1, device="cuda",
+                                                            dtype=torch.bfloat16)], -1)
+    dout = _randn(gen, BH, Tq, DH)
+    mask = _edge_mask(gen, BH // heads, Tk, kind)
+    name = "flash_bwd_dq_softcap" if c > 0.0 else "flash_bwd_dq"
+    for m in (mask, None) if kind == "random" else (mask,):
+        out, lse = fa.flash_online_kernel(q, k, va, m, heads, c)
+        args = (q, k, va, fa.augment_do(dout, out).contiguous(), lse, m, heads, c)
+        reset_launches()
+        dq = fa.flash_bwd_dq_kernel(*args)
+        assert launch_counts() == _counts(**{name: 1})
+        _close(dq, fa.flash_bwd_dq_plain(*args))
+        assert torch.equal(dq, fa.flash_bwd_dq_kernel(*args))
+        if m is not None:
+            empty = (m.sum(1) == 0).repeat_interleave(heads)
+            assert not dq[empty].any()

@@ -254,11 +254,13 @@ def test_forward_kernels_refuse_unaligned_inputs(monkeypatch, variant):
     assert launched == []
 
 
-@pytest.mark.parametrize("T", [64, 192])
+@pytest.mark.parametrize("T", [128, 384])
 def test_dq_pass_keeps_its_own_block(monkeypatch, T):
-    """The dQ pass (csrc/attention_bwd_split.cu, 64 keys per step) still takes
-    lengths that are multiples of 64 and not of 128: the forward's block does
-    not move its refusals."""
+    """The dQ pass (csrc/attention_bwd_dq.cuh) owns 128 queries a block and
+    walks key tiles of 128: lengths that are multiples of 128 launch it (and
+    its softcap variant); queries or keys 64 short of that, and a q 2 bytes
+    into its storage (TMA reads it at its base address), are refused before
+    any launch."""
     launched = []
     monkeypatch.setattr(fa, "launch", lambda kernel, *a: launched.append(kernel))
     qh, kh, vah = _bf16_attention_inputs(2, T, T)
@@ -268,5 +270,13 @@ def test_dq_pass_keeps_its_own_block(monkeypatch, T):
     fa.flash_bwd_dq_kernel(qh, kh, vah, doa, lse2, torch.ones(1, T, dtype=torch.int32), 2,
                            5.0)
     assert launched == ["flash_bwd_dq", "flash_bwd_dq_softcap"]
-    with pytest.raises(ValueError, match="multiples of 64"):
-        fa.flash_bwd_dq_kernel(qh[:, :T - 32], kh, vah, doa[:, :T - 32], lse2[:, :T - 32])
+    S = T - 64
+    with pytest.raises(ValueError, match="multiples of 128"):
+        fa.flash_bwd_dq_kernel(qh[:, :S].contiguous(), kh, vah, doa[:, :S].contiguous(),
+                               lse2[:, :S].contiguous())
+    with pytest.raises(ValueError, match="multiples of 128"):
+        fa.flash_bwd_dq_kernel(qh, kh[:, :S].contiguous(), vah[:, :S].contiguous(), doa, lse2)
+    shifted = torch.zeros(qh.numel() + 1, dtype=torch.bfloat16)[1:].view(qh.shape)
+    with pytest.raises(ValueError, match="16-byte-aligned"):
+        fa.flash_bwd_dq_kernel(shifted, kh, vah, doa, lse2)
+    assert launched == ["flash_bwd_dq", "flash_bwd_dq_softcap"]
