@@ -12,9 +12,10 @@ Phases, each printed on its own flushed line with its wall time:
 1. build      one nvcc call over rap_tpu_torch/csrc/*.cu into
               rap_tpu_torch/build/ (first use builds, an unchanged tree loads);
               the key-block backward's four instantiations (rows 6, 7 and
-              their softcap variants) and the dQ pass's two (rows 8, 8s)
-              must have the launch bound's 168 registers and no local
-              memory (cudaFuncGetAttributes).
+              their softcap variants), the dQ pass's two (rows 8, 8s) and
+              the ff backward's fused GEGLU kernel (row 10) must have the
+              launch bound's 168 registers, and they and every other kernel
+              behind rows 5 and 10 no local memory (cudaFuncGetAttributes).
 2. kernels    each of the ten kernels against its plain PyTorch version on
               the card, at the shapes of the paths below (D=512, H=8, dh=64,
               FF hidden 2048, bf16): max abs and relative error beside the
@@ -48,7 +49,12 @@ Phases, each printed on its own flushed line with its wall time:
               queries per block, key tiles of 128) at the same edges, at
               softcap 0 and 5, masked (a batch row with every key masked
               must get dq exactly 0) and, where the mask is random,
-              unmasked, bitwise repeatable.
+              unmasked, bitwise repeatable. Rows 5 and 10 (the GEGLU
+              feed-forward, csrc/ff.cu and csrc/ff_bwd.cu on the TMA +
+              wgmma GEMM of csrc/gemm_sm90.cuh) also at the multi-view
+              step's 65536 tokens, and at (D, hidden) = (256, 1024), (768,
+              3072) and (1024, 4096) with 128 and 512 tokens; row 10's
+              gradients bitwise equal on two calls at every shape.
 3. main       registration.sample + predict_poses at S=4 x 2 x 4096, 2 Euler
               steps, rigidity forcing, bf16, with random weights from a seed at
               the width and depth of teacher3_last (6 layers, D=512). The qk
@@ -114,7 +120,11 @@ Phases, each printed on its own flushed line with its wall time:
               c·tanh(s) and a block mask from the key mask, timed here and
               used nowhere in the port); row 7 (the dKV pass) also as the
               split pair, rows 7 and 8 in one timed call (``pair_ms``), the
-              time to hold beside the library's whole backward.
+              time to hold beside the library's whole backward; rows 5 and
+              10 also at the multi-view step's 65536 tokens, each beside the
+              yardstick ``matmul_ms``: torch.matmul over the same products
+              without their epilogues (two for row 5, five for row 10),
+              timed here and used nowhere in the port.
 
 Then it prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. Any failed
@@ -198,6 +208,9 @@ MV_PARTS = (8, 6)              # parts of sample 0 and sample 1
 MV_PART_POINTS = (2500, 4096)  # part sizes, uniform, from MV_SEED
 MV_SEED = 21
 MV_LAYERS, MV_CHECK_LAYERS = 12, 2
+# (D, hidden) of models rows 5 and 10 take beside the main path's (512,
+# 2048): rap_tpu's rule admits D % 128 == 0 and hidden % 64 == 0
+FF_WIDTHS = ((256, 1024), (768, 3072), (1024, 4096))
 
 # sample phase: the batch-evaluation entry point on the shipped config and
 # data, random weights from a seed at its checkpoint's shape (6 layers,
@@ -288,11 +301,13 @@ PROFILE_GROUPS = (
     (("dq_kernel<false>",), "row 8: dQ pass"),
     (("flash_fwd_kernel<false, true>", "flash_fwd_kernel<true, true>", "dkv_kernel<true, true>",
       "dkv_kernel<false, true>", "dq_kernel<true>"), "rows 2, 3, 6-8: softcap variants"),
-    (("ff_kernel",), "row 5: ff forward"),
+    (("FfFwd", "ff_ln_kernel<false>"), "row 5: ff forward"),
     (("proj_kernel",), "row 1: proj forward"),
     (("out_kernel",), "row 4: out_proj forward"),
-    (("geglu_bwd_kernel", "proj_dy_kernel", "wgrad_kernel", "gemm_nt_f32", "ln_affine_rows",
-      "ln_bwd_rows"), "rows 9-10: proj and ff backward"),
+    (("FfBwd", "ff_bwd_", "ff_ln_kernel<true>", "colsum_kernel", "splitsum_kernel"),
+     "row 10: ff backward"),
+    (("proj_dy_kernel", "wgrad_kernel", "gemm_nt_f32", "ln_affine_rows", "ln_bwd_rows"),
+     "row 9: proj backward"),
     (("gemm", "nvjet", "cutlass", "xmma"), "cuBLAS matrix products"),
 )
 
@@ -357,6 +372,20 @@ def run_build(report, fails):
             report[f"{key}_kernel_attributes"][name] = {"registers": regs, "local_bytes": local}
             fails.check(f"{name}: {regs} registers, {local} local bytes",
                         regs == 168 and local == 0, "(need 168 and 0)")
+    # every kernel behind rows 5 and 10: no local memory (a stack or spills);
+    # the fused GEGLU backward's setmaxnreg needs the launch bound's 168
+    report["ff_kernel_attributes"] = {}
+    for entry, names in (("rtt_ff_attributes", _build.FF_KERNELS),
+                         ("rtt_ff_bwd_attributes", _build.FF_BWD_KERNELS)):
+        out = (ctypes.c_int * (2 * len(names)))()
+        _build.check(getattr(lib.lib, entry)(out), entry)
+        for i, name in enumerate(names):
+            regs, local = out[2 * i], out[2 * i + 1]
+            report["ff_kernel_attributes"][name] = {"registers": regs, "local_bytes": local}
+            need_168 = name == "ff_bwd_geglu_kernel"
+            fails.check(f"{name}: {regs} registers, {local} local bytes",
+                        local == 0 and (regs == 168 or not need_168),
+                        "(need 168 and 0)" if need_168 else "(need 0 local bytes)")
 
 
 def make_kernel_inputs(gen):
@@ -492,15 +521,58 @@ def run_kernels(report, fails, state):
 
     ffb_args = (inp["x"].reshape(-1, D), randn(inp["tokens"], D, scale=0.1), inp["ln_s"],
                 inp["ln_b"], inp["wi"], inp["bi"].float(), inp["wo"])
-    got = ff.ff_bwd_kernel(*ffb_args)
-    for nm, g_, r_ in zip(("dx", "dws", "dwb", "dwi", "dbi", "dwo", "dbo"), got,
-                          ff.ff_bwd_plain(*ffb_args)):
-        compare("ff_bwd", f"ff_bwd.{nm}", g_, r_)
+    compare_ff_bwd(fails, compare, "ff_bwd", ffb_args)
     state["ff_bwd_args"] = ffb_args
+    run_kernels_ff(fails, state, gen, compare)
     run_kernels_multiview(fails, state, gen, compare)
     run_kernels_softcap(fails, state, gen, compare, compare_lse)
     run_kernels_edges(fails, gen, compare, compare_lse)
     run_kernels_dq_edges(fails, gen, compare)
+
+
+FF_GRADS = ("dx", "dws", "dwb", "dwi", "dbi", "dwo", "dbo")
+
+
+def compare_ff_bwd(fails, compare, label, args):
+    """Row 10 against its twin, and its gradients bitwise equal on a second
+    call (every sum over tokens is added in a fixed order)."""
+    from rap_tpu_torch.ops import fused_ff as ff
+
+    got, again = ff.ff_bwd_kernel(*args), ff.ff_bwd_kernel(*args)
+    for nm, g_, r_ in zip(FF_GRADS, got, ff.ff_bwd_plain(*args)):
+        compare("ff_bwd", f"{label}.{nm}", g_, r_)
+    fails.check(f"{label}: bitwise equal on two calls",
+                all(torch.equal(a, b) for a, b in zip(got, again)))
+
+
+def ff_inputs(gen, T: int, width: int, hidden: int):
+    """Rows 5 and 10's inputs at T tokens, width D, hidden width FH, on the
+    card, with make_kernel_inputs' scales: (forward args, backward args)."""
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    fwd = (randn(T, width), 1.0 + randn(width, dtype=torch.float32, scale=0.1),
+           randn(width, dtype=torch.float32, scale=0.1),
+           randn(width, 2 * hidden, scale=width ** -0.5), randn(2 * hidden, scale=0.1),
+           randn(hidden, width, scale=hidden ** -0.5), randn(width, scale=0.1))
+    bwd = (fwd[0], randn(T, width, scale=0.1), fwd[1], fwd[2], fwd[3], fwd[4].float(), fwd[5])
+    return fwd, bwd
+
+
+def run_kernels_ff(fails, state, gen, compare):
+    """Rows 5 and 10 at the multi-view step's 65536 tokens (kept for the
+    timing phase), and at the other widths the kernels take, 128 and 512
+    tokens each."""
+    from rap_tpu_torch.ops import fused_ff as ff
+
+    shapes = [(MV_S * MV_P * MV_N, D, FH)] + [(T, w, h) for w, h in FF_WIDTHS for T in (128, 512)]
+    for T, width, hidden in shapes:
+        fwd, bwd = ff_inputs(gen, T, width, hidden)
+        label = f"T={T}, D={width}, hidden {hidden}"
+        compare("ff", f"ff[{label}]", ff.ff_kernel(*fwd), ff.ff_plain(*fwd))
+        compare_ff_bwd(fails, compare, f"ff_bwd[{label}]", bwd)
+        if T == MV_S * MV_P * MV_N:
+            state["ff_mv"] = (fwd, bwd)
 
 
 def multiview_attention_inputs(gen, BH: int, T: int):
@@ -1331,12 +1403,16 @@ def kernel_rows(state, counts):
 
     ff_args = (inp["x"].reshape(-1, D), inp["ln_s"], inp["ln_b"], inp["wi"],
                inp["bi"], inp["wo"], inp["bo"])
-    rows.append(row("ff", "rap_tpu_torch/csrc/ff.cu", "rap_tpu/ops/fused_ff.py:55",
-                    lambda: ff.ff_kernel(*ff_args), lambda: ff.ff_plain(*ff_args), None,
-                    2 * T * D * 2 * FH + 2 * T * FH * D,
-                    2 * T * D * 2 + D * 2 * FH * 2 + 2 * FH * 2 + FH * D * 2 + D * 2
-                    + 2 * D * 4,
-                    f"tokens {T}, D={D}, hidden {FH} bf16"))
+    ff_rows = [("dense", ff_args, state["ff_bwd_args"], counts, train_counts)]
+    if "ff_mv" in state:
+        ff_rows.append(("multiview", *state["ff_mv"], mv_counts, mv_counts))
+    for tag, fwd, _, launched, _ in ff_rows:
+        Tn = fwd[0].shape[0]
+        rows.append(row("ff", "rap_tpu_torch/csrc/ff.cu", "rap_tpu/ops/fused_ff.py:55",
+                        lambda fwd=fwd: ff.ff_kernel(*fwd), lambda fwd=fwd: ff.ff_plain(*fwd),
+                        None, *ff_work(Tn), f"{tag}: tokens {Tn}, D={D}, hidden {FH} bf16",
+                        launches=launched.get("ff", 0),
+                        matmul_ms=cuda_time_ms(ff_matmuls(fwd)[0], 10)))
 
     # ---- backward kernels, at the training shapes --------------------------
     for tag in ("part", "global"):
@@ -1378,19 +1454,59 @@ def kernel_rows(state, counts):
         if tag == "global":
             rows.append(r)
 
-    ffb = state["ff_bwd_args"]
-    rows.append(row("ff_bwd", "rap_tpu_torch/csrc/ff_bwd.cu", "rap_tpu/ops/fused_ff.py:121",
-                    lambda: ff.ff_bwd_kernel(*ffb), lambda: ff.ff_bwd_plain(*ffb), None,
-                    # recompute 4 + dact 2 + dwo 2 + dwi 4 + dyln 4 (x T*D*FH)
-                    16 * T * D * FH,
-                    2 * T * D * 2 + 2 * D * 4 + D * 2 * FH * 2 + 2 * FH * 4 + FH * D * 2
-                    + T * D * 2 + 3 * D * 4 + D * 2 * FH * 4 + 2 * FH * 4 + FH * D * 4,
-                    f"tokens {T}, D={D}, hidden {FH} bf16"))
+    for tag, fwd, bwd, _, launched in ff_rows:
+        Tn = bwd[0].shape[0]
+        rows.append(row("ff_bwd", "rap_tpu_torch/csrc/ff_bwd.cu", "rap_tpu/ops/fused_ff.py:121",
+                        lambda bwd=bwd: ff.ff_bwd_kernel(*bwd),
+                        lambda bwd=bwd: ff.ff_bwd_plain(*bwd), None, *ff_bwd_work(Tn),
+                        f"{tag}: tokens {Tn}, D={D}, hidden {FH} bf16",
+                        launches=launched.get("ff_bwd", 0),
+                        matmul_ms=cuda_time_ms(ff_matmuls(fwd, bwd)[1], 10)))
     if "mv_attn" in state:
         rows += multiview_kernel_rows(state, row)
     if "softcap" in state:
         rows += softcap_kernel_rows(state, row)
     return rows
+
+
+def ff_work(T: int) -> tuple[float, float]:
+    """Row 5's bf16 operations and the bytes it must move at T tokens (D,
+    FH): the two products; x, the LN and bias vectors, wi, wo in, out."""
+    return (2 * T * D * 2 * FH + 2 * T * FH * D,
+            2 * T * D * 2 + D * 2 * FH * 2 + 2 * FH * 2 + FH * D * 2 + D * 2 + 2 * D * 4)
+
+
+def ff_bwd_work(T: int) -> tuple[float, float]:
+    """Row 10's: recompute 4 + dact 2 + dwo 2 + dwi 4 + dyln 4 (x T D FH);
+    x, g, the weights in, dx and every gradient out."""
+    return (16 * T * D * FH,
+            2 * T * D * 2 + 2 * D * 4 + D * 2 * FH * 2 + 2 * FH * 4 + FH * D * 2
+            + T * D * 2 + 3 * D * 4 + D * 2 * FH * 4 + 2 * FH * 4 + FH * D * 4)
+
+
+def ff_matmuls(fwd, bwd=None):
+    """The yardstick of rows 5 and 10: torch.matmul over the same products,
+    bf16 in and out, without their epilogues (act and dproj stand in as
+    tensors of their shapes): (row 5's two, row 10's five). Timed beside the
+    kernels, used nowhere in the port."""
+    x, _, _, wi, _, wo, _ = fwd
+    T, fh = x.shape[0], wo.shape[0]
+    act = torch.ones((T, fh), dtype=torch.bfloat16, device=x.device)
+    dproj = torch.ones((T, 2 * fh), dtype=torch.bfloat16, device=x.device)
+    g = x if bwd is None else bwd[1]
+
+    def row5():
+        torch.matmul(x, wi)
+        torch.matmul(act, wo)
+
+    def row10():
+        torch.matmul(x, wi)            # proj
+        torch.matmul(g, wo.t())        # dact
+        torch.matmul(dproj, wi.t())    # dyln
+        torch.matmul(act.t(), g)       # dwo
+        torch.matmul(x.t(), dproj)     # dwi
+
+    return row5, row10
 
 
 def flex_softcap_ms(qh, kh, vah, c: float, mask=None, heads: int = 1, dout=None, out=None):

@@ -1,5 +1,5 @@
-// Building blocks shared by the backward kernels of the AdaLN+QKV projection
-// (proj_bwd.cu) and the GEGLU feed-forward (ff_bwd.cu).
+// Building blocks of the AdaLN+QKV projection's backward (proj_bwd.cu; the
+// GEGLU feed-forward's backward, ff_bwd.cu, moved to gemm_sm90.cuh).
 //
 // The TPU backward kernels run their token blocks in order and keep the
 // weight gradients resident in VMEM across the whole grid. Blocks on the
@@ -9,8 +9,7 @@
 //     warp-level mma.sync, both operands staged through shared memory in
 //     32-deep slabs (either operand may be stored transposed);
 //   * ln_affine_rows: bf16(LN(x) * (c + a) + b), the recompute of the
-//     normalised input (AdaLN: c = 1, a = scale, b = shift per part;
-//     FF LayerNorm: c = 0, a = scale, b = bias);
+//     normalised input (AdaLN: c = 1, a = scale, b = shift per part);
 //   * ln_bwd_rows: the LayerNorm vjp, dx = rstd (dxhat - mean(dxhat) -
 //     xhat mean(dxhat xhat)) [+ residual cotangent], with dxhat = dY (c + a),
 //     and the per-part column sums of dY xhat, dY (and of the residual
@@ -100,8 +99,8 @@ __device__ __forceinline__ float col_sum8(float v) {
 }
 
 // C (M x N, fp32, row-major) = A(M x K) . B with B(k, n) = B[n * ldb + k]:
-// a token-major activation times a transposed weight (dhid = dy W^T,
-// dact = g wo^T, dyln = dproj wi^T). Grid (N / 64, M / 64).
+// a token-major activation times a transposed weight (dhid = dy W^T). Grid
+// (N / 64, M / 64).
 __global__ void __launch_bounds__(GTHREADS)
 gemm_nt_f32(const bf16* __restrict__ A, const bf16* __restrict__ B,
             float* __restrict__ C, int N, int K) {

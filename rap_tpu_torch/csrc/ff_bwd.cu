@@ -13,115 +13,475 @@
 //
 // Bound on the H100 at the training shape (32768 tokens, D=512, hidden
 // 2048): recompute 137 + dact 69 + dwo 69 + dwi 137 + dyln 137 = 550 GFLOP
-// (~0.556 ms at 989 TFLOP/s), so the tensor cores bound it. The (tokens,
-// 4096) intermediate does not fit on chip, and the weight gradients sum over
-// every token, so this design writes the GEGLU intermediates to device
-// memory once, in bf16, and reads them back for the weight gradients:
-// act (tokens x 2048, 128 MiB) and dproj (tokens x 4096, 256 MiB), beside
-// yln (32 MiB bf16), dact (256 MiB fp32) and dyln (64 MiB fp32). Seven
-// launches on one stream (the shared pieces are in bwd_common.cuh); the
-// weight gradients are split over 2048-token chunks and meet in fp32
-// atomicAdd. Simple first design: mma.sync, no TMA, no wgmma, no pipelining.
-#include "bwd_common.cuh"
+// (~0.556 ms at 989 TFLOP/s), so the tensor cores bound it. The TPU kernel
+// keeps the weight gradients in VMEM across a sequential grid of token
+// blocks; blocks on the card run in parallel, so the five products run as
+// four TMA + wgmma kernels on one stream, with act and dproj through device
+// memory once in bf16 and dyln in fp32:
+//   1. ff_ln_kernel<true>: yln (T, D) bf16;
+//   2. ff_bwd_geglu_kernel: products 1 and 2 over one 128-token tile and 64
+//      hidden units (K = D for both, as the TPU kernel's token block):
+//      proj's hidden and gate columns (yln . wi, B MN-major) and dact (g .
+//      wo^T, B K-major) in registers; the epilogue runs the GEGLU vjp,
+//      writes act and dproj in bf16 into swizzled shared-memory tiles that
+//      TMA stores (dact never leaves the chip), and the column sums of
+//      dproj over each 64 tokens (dbi's partials);
+//   3. GEMM dyln = bf16(dproj) . wi^T (K = 2FH), written fp32;
+//   4. ff_bwd_ln_grad_kernel: the LayerNorm vjp per row (dx), and the
+//      column sums of dyln xhat, dyln and g over each 64 tokens;
+//   5. GEMMs dwo = act^T g and dwi = yln^T dproj (A and B MN-major, K = T),
+//      split over token ranges where the tiles alone would leave SMs idle
+//      (the wrapper picks the splits), each split's fp32 partial written to
+//      scratch.
+// Every sum over tokens is added in an order fixed by the shape
+// (colsum_kernel, splitsum_kernel; no atomics), so the gradients are bitwise
+// repeatable. Takes every shape rap_tpu's `legal` rule admits: T % 128 == 0,
+// D % 128 == 0, FH % 64 == 0 (FH % 128 == 64 leaves dwo's last tile half
+// outside the matrix: TMA reads zeros there and the epilogue stores nothing).
+#include "ff_common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
-// For 64 tokens x 64 hidden units: recompute the hidden and gate columns of
-// proj, apply the GEGLU vjp with dact, write act and dproj in bf16 and add
-// the column sums of dproj to dbi. Grid (FH / 64, T / 64).
-__global__ void __launch_bounds__(GTHREADS)
-geglu_bwd_kernel(const bf16* __restrict__ yln, const bf16* __restrict__ wi,
-                 const float* __restrict__ bi, const float* __restrict__ dact,
-                 bf16* __restrict__ act, bf16* __restrict__ dproj,
-                 float* __restrict__ dbi, int D, int FH) {
-  __shared__ __align__(16) bf16 sA[GT * GLD];
-  __shared__ __align__(16) bf16 sB[GT * GLD];
-  const int u0 = blockIdx.x * GT, m0 = blockIdx.y * GT;
-  const long F2 = 2L * FH;
-  float hid[8][4], gat[8][4];
-  zero_acc(hid);
-  zero_acc(gat);
-  gemm_tile64<false, false>(hid, yln + (long)m0 * D, D, wi + u0, F2, D, sA, sB);
-  gemm_tile64<false, false>(gat, yln + (long)m0 * D, D, wi + FH + u0, F2, D, sA, sB);
+using rtt::gemm::BOX_BYTES;
+using rtt::gemm::K_MAJOR;
+using rtt::gemm::MN_MAJOR;
+using rtt::gemm::Unit;
 
+// ---- products 1 and 2 with the GEGLU vjp -----------------------------------------
+
+constexpr int GB_THREADS = 384;  // a producer warpgroup + 2 consumer warpgroups
+constexpr int GB_STAGES = 3;
+// a stage: yln rows 0-63, 64-127; wi hidden, gate; g rows 0-63, 64-127; wo
+constexpr uint32_t GB_STAGE_BYTES = 7 * BOX_BYTES;
+// each consumer's act, dproj-hidden and dproj-gate tiles (64 x 64 bf16 in
+// the 128-byte swizzle), written by its threads and stored by TMA
+constexpr size_t GB_OUT = 2 * 3 * (size_t)BOX_BYTES;
+constexpr size_t GB_RED = 2 * 4 * 128 * sizeof(float);  // consumer x warp x 128 columns
+constexpr size_t GB_SMEM =
+    1024 + GB_STAGES * (size_t)GB_STAGE_BYTES + GB_OUT + GB_RED + 2 * GB_STAGES * 8;
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;  // 40 + 2 x 232 = 3 x 168 (the launch bound)
+constexpr int LAUNCH_REGS = 168;
+
+// Sum over the 8 lanes that share t = lane % 4 (a column of an accumulator).
+__device__ __forceinline__ float col_sum8(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  return v;
+}
+
+// Byte offset of the bf16 pair at (row r, column c even) of a 64 x 64 tile in
+// TMA's 128-byte swizzle: 16-byte chunk c / 8 of row r sits at chunk
+// (c / 8) ^ (r % 8). A warp's pairs of one accumulator column block land in
+// 32 different banks.
+__device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+// A unit is 128 tokens (m tile) x 64 hidden units (tn): grid-stride over
+// (T / 128) x (FH / 64) units, the hidden index fastest.
+__global__ void __launch_bounds__(GB_THREADS, 1)
+ff_bwd_geglu_kernel(const __grid_constant__ CUtensorMap map_yln,
+                    const __grid_constant__ CUtensorMap map_wi,
+                    const __grid_constant__ CUtensorMap map_g,
+                    const __grid_constant__ CUtensorMap map_wo,
+                    const __grid_constant__ CUtensorMap map_act,
+                    const __grid_constant__ CUtensorMap map_dproj, const float* __restrict__ bi,
+                    float* __restrict__ dbi_part, int T, int D, int FH) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (rtt::smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* out_tiles = smem + GB_STAGES * (size_t)GB_STAGE_BYTES;
+  float* red = reinterpret_cast<float*>(out_tiles + GB_OUT);
+  uint64_t* full = reinterpret_cast<uint64_t*>(out_tiles + GB_OUT + GB_RED);
+  uint64_t* empty = full + GB_STAGES;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int gg = lane >> 2, t = lane & 3;
-  const long rows[2] = {m0 + warp * 16 + gg, m0 + warp * 16 + gg + 8};
+  const int tiles_n = FH / 64, units = (T / 128) * tiles_n, nslab = D / 64;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GB_STAGES; ++s) {
+      rtt::mbar_init(&full[s], 1);
+      rtt::mbar_init(&empty[s], 8);
+    }
+    rtt::mbar_fence_init();
+    rtt::fence_proxy_async();
+  }
+  __syncthreads();
+
+  if (warp < 4) {
+    // ---- producer ------------------------------------------------------------------
+    rtt::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      int stage = 0, it = 0;
+      uint32_t phase = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const int m0 = (u / tiles_n) * 128, n0 = (u % tiles_n) * 64;
+        for (int ks = 0; ks < nslab; ++ks, ++it) {
+          if (it >= GB_STAGES) rtt::mbar_wait(&empty[stage], phase ^ 1);
+          uint8_t* st = smem + stage * (size_t)GB_STAGE_BYTES;
+          uint64_t* bar = &full[stage];
+          const int k0 = ks * 64;
+          rtt::mbar_expect_tx(bar, GB_STAGE_BYTES);
+          rtt::tma_load_2d(st, &map_yln, bar, k0, m0);
+          rtt::tma_load_2d(st + BOX_BYTES, &map_yln, bar, k0, m0 + 64);
+          rtt::tma_load_2d(st + 2 * BOX_BYTES, &map_wi, bar, n0, k0);
+          rtt::tma_load_2d(st + 3 * BOX_BYTES, &map_wi, bar, FH + n0, k0);
+          rtt::tma_load_2d(st + 4 * BOX_BYTES, &map_g, bar, k0, m0);
+          rtt::tma_load_2d(st + 5 * BOX_BYTES, &map_g, bar, k0, m0 + 64);
+          rtt::tma_load_2d(st + 6 * BOX_BYTES, &map_wo, bar, k0, n0);
+          if (++stage == GB_STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: 64 tokens each ----------------------------------------------------
+  rtt::setmaxnreg_inc<CONSUMER_REGS>();
+  const int c = warp / 4 - 1, wq = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int i = threadIdx.x - 128 * (c + 1);  // thread in the warpgroup
+  float* red_w = red + (c * 4 + wq) * 128;  // this warp's column sums
+  float* red_c = red + c * 4 * 128;
+  uint8_t* o_act = out_tiles + c * 3 * BOX_BYTES;  // then dproj hidden, dproj gate
+  float pacc[64], dacc[32];                        // [hidden | gate] and dact
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int u = u0 + j * 8 + 2 * t;
-    float sh[2] = {0.f, 0.f}, sg[2] = {0.f, 0.f};
+  for (int e = 0; e < 64; ++e) pacc[e] = 0.f;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const long row = rows[half];
-      float a_out[2], dh_out[2], dg_out[2];
+  for (int e = 0; e < 32; ++e) dacc[e] = 0.f;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const int m0 = (u / tiles_n) * 128, n0 = (u % tiles_n) * 64;
+    int prev = -1;
+    for (int ks = 0; ks < nslab; ++ks) {
+      rtt::mbar_wait(&full[stage], phase);
+      const uint32_t base = rtt::smem_u32(smem + stage * (size_t)GB_STAGE_BYTES);
+      const uint64_t d_yln = rtt::sw128_desc(base + c * BOX_BYTES);
+      const uint64_t d_wi = rtt::sw128_desc(base + 2 * BOX_BYTES, BOX_BYTES);
+      const uint64_t d_g = rtt::sw128_desc(base + (4 + c) * BOX_BYTES);
+      const uint64_t d_wo = rtt::sw128_desc(base + 6 * BOX_BYTES);
+      rtt::fence_regs(pacc);
+      rtt::fence_regs(dacc);
+      rtt::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        rtt::wgmma_m64n128k16_ss<0, 1>(pacc, d_yln + 2 * kk, d_wi + 128 * kk, ks > 0 || kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        rtt::wgmma_m64n64k16_ss<0, 0>(dacc, d_g + 2 * kk, d_wo + 2 * kk, ks > 0 || kk > 0);
+      rtt::wgmma_commit();
+      rtt::wgmma_wait<1>();
+      rtt::fence_regs(pacc);
+      rtt::fence_regs(dacc);
+      if (prev >= 0 && lane == 0) rtt::mbar_arrive(&empty[prev]);
+      prev = stage;
+      if (++stage == GB_STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    rtt::wgmma_wait<0>();
+    rtt::fence_regs(pacc);
+    rtt::fence_regs(dacc);
+    if (prev >= 0 && lane == 0) rtt::mbar_arrive(&empty[prev]);
+
+    // ---- GEGLU vjp: act, dproj (bf16) and dproj's column sums ----------------------
+    if (i == 0) rtt::bulk_wait_read<0>();  // the last unit's tiles have left
+    rtt::bar_sync(1 + c, 128);             // ... and red was read
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int cl = 8 * j + 2 * t, col = n0 + cl;
+      float sh[2] = {0.f, 0.f}, sg[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float av[2], dh[2], dg[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float hidden = pacc[4 * j + 2 * h + e] + bi[col + e];
+          const float gate = pacc[4 * (j + 8) + 2 * h + e] + bi[FH + col + e];
+          const float Phi = 0.5f * (1.f + erff(gate * 0.7071067811865476f));
+          const float phi = __expf(-0.5f * gate * gate) * 0.3989422804014327f;
+          const float gelu = gate * Phi, dgelu = Phi + gate * phi;
+          const float da = dacc[4 * j + 2 * h + e];
+          av[e] = hidden * gelu;
+          dh[e] = da * gelu;
+          dg[e] = da * hidden * dgelu;
+          sh[e] += dh[e];
+          sg[e] += dg[e];
+        }
+        const uint32_t off = sw128_offset(16 * wq + g + 8 * h, cl);
+        *reinterpret_cast<uint32_t*>(o_act + off) = rtt::pack_f2(av[0], av[1]);
+        *reinterpret_cast<uint32_t*>(o_act + BOX_BYTES + off) = rtt::pack_f2(dh[0], dh[1]);
+        *reinterpret_cast<uint32_t*>(o_act + 2 * BOX_BYTES + off) = rtt::pack_f2(dg[0], dg[1]);
+      }
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float hidden = hid[j][2 * half + e] + bi[u + e];
-        const float gate = gat[j][2 * half + e] + bi[FH + u + e];
-        const float Phi = 0.5f * (1.f + erff(gate * 0.7071067811865476f));
-        const float phi = expf(-0.5f * gate * gate) * 0.3989422804014327f;
-        const float gelu = gate * Phi, dgelu = Phi + gate * phi;
-        const float da = dact[row * FH + u + e];
-        a_out[e] = hidden * gelu;
-        dh_out[e] = da * gelu;
-        dg_out[e] = da * hidden * dgelu;
-        sh[e] += dh_out[e];
-        sg[e] += dg_out[e];
+        const float vh = col_sum8(sh[e]), vg = col_sum8(sg[e]);
+        if (g == 0) {
+          red_w[cl + e] = vh;
+          red_w[64 + cl + e] = vg;
+        }
       }
-      *reinterpret_cast<uint32_t*>(act + row * FH + u) = rtt::pack_f2(a_out[0], a_out[1]);
-      *reinterpret_cast<uint32_t*>(dproj + row * F2 + u) =
-          rtt::pack_f2(dh_out[0], dh_out[1]);
-      *reinterpret_cast<uint32_t*>(dproj + row * F2 + FH + u) =
-          rtt::pack_f2(dg_out[0], dg_out[1]);
     }
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float vh = col_sum8(sh[e]), vg = col_sum8(sg[e]);
-      if (gg == 0) {
-        atomicAdd(dbi + u + e, vh);
-        atomicAdd(dbi + FH + u + e, vg);
-      }
+    rtt::fence_proxy_async();  // the tiles' writes, visible to TMA
+    rtt::bar_sync(1 + c, 128);
+    if (i == 0) {
+      const int row0 = m0 + 64 * c;
+      rtt::tma_store_2d(&map_act, o_act, n0, row0);
+      rtt::tma_store_2d(&map_dproj, o_act + BOX_BYTES, n0, row0);
+      rtt::tma_store_2d(&map_dproj, o_act + 2 * BOX_BYTES, FH + n0, row0);
+      rtt::bulk_commit();
+    }
+    {  // the warpgroup's 64 tokens: its four warps' sums, in order
+      const float v = red_c[i] + red_c[128 + i] + red_c[256 + i] + red_c[384 + i];
+      const int colg = i < 64 ? n0 + i : FH + n0 + (i - 64);
+      dbi_part[(long)(m0 / 64 + c) * 2 * FH + colg] = v;
     }
   }
+  if (i == 0) rtt::bulk_wait<0>();  // shared memory stays until the stores are done
+}
+
+// ---- the LayerNorm vjp --------------------------------------------------------------
+
+constexpr int LNB_ROWS = 64;  // rows per block
+
+// dx = bf16(g + rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat))), dxhat =
+// dyln ws, one warp per row (lane: 4 consecutive columns a step, D % 128 ==
+// 0); then part[block] = [sum dyln xhat | sum dyln | sum g] over the block's
+// 64 rows, each column summed in row order. Grid: T / 64.
+__global__ void __launch_bounds__(LN_THREADS)
+ff_bwd_ln_grad_kernel(const bf16* __restrict__ x, const float* __restrict__ dyln,
+                      const float* __restrict__ ws, const bf16* __restrict__ gr,
+                      bf16* __restrict__ dx, float* __restrict__ part, int D) {
+  __shared__ float sMu[LNB_ROWS], sRstd[LNB_ROWS];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long row0 = (long)blockIdx.x * LNB_ROWS;
+  for (int r = warp; r < LNB_ROWS; r += LN_THREADS / 32) {
+    const long row = row0 + r;
+    const bf16* xr = x + row * D;
+    const float* dyr = dyln + row * D;
+    float s = 0.f;
+    for (int c = 4 * lane; c < D; c += 128) {
+      const uint2 v = *reinterpret_cast<const uint2*>(xr + c);
+      const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) s += __bfloat162float(e[q]);
+    }
+    const float mu = rtt::warp_sum(s) / D;
+    float v2 = 0.f;
+    for (int c = 4 * lane; c < D; c += 128) {
+      const uint2 v = *reinterpret_cast<const uint2*>(xr + c);
+      const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float d = __bfloat162float(e[q]) - mu;
+        v2 += d * d;
+      }
+    }
+    const float rstd = rsqrtf(rtt::warp_sum(v2) / D + 1e-5f);
+    float m1 = 0.f, m2 = 0.f;
+    for (int c = 4 * lane; c < D; c += 128) {
+      const uint2 v = *reinterpret_cast<const uint2*>(xr + c);
+      const bf16* e = reinterpret_cast<const bf16*>(&v);
+      const float4 dy = *reinterpret_cast<const float4*>(dyr + c);
+      const float dyv[4] = {dy.x, dy.y, dy.z, dy.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float xhat = (__bfloat162float(e[q]) - mu) * rstd;
+        const float dxhat = dyv[q] * ws[c + q];
+        m1 += dxhat;
+        m2 += dxhat * xhat;
+      }
+    }
+    m1 = rtt::warp_sum(m1) / D;
+    m2 = rtt::warp_sum(m2) / D;
+    for (int c = 4 * lane; c < D; c += 128) {
+      const uint2 v = *reinterpret_cast<const uint2*>(xr + c);
+      const uint2 gv = *reinterpret_cast<const uint2*>(gr + row * D + c);
+      const bf16* e = reinterpret_cast<const bf16*>(&v);
+      const bf16* ge = reinterpret_cast<const bf16*>(&gv);
+      const float4 dy = *reinterpret_cast<const float4*>(dyr + c);
+      const float dyv[4] = {dy.x, dy.y, dy.z, dy.w};
+      float o[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float xhat = (__bfloat162float(e[q]) - mu) * rstd;
+        const float dxhat = dyv[q] * ws[c + q];
+        o[q] = __bfloat162float(ge[q]) + rstd * (dxhat - m1 - xhat * m2);
+      }
+      uint2 out;
+      out.x = rtt::pack_f2(o[0], o[1]);
+      out.y = rtt::pack_f2(o[2], o[3]);
+      *reinterpret_cast<uint2*>(dx + row * D + c) = out;
+    }
+    if (lane == 0) {
+      sMu[r] = mu;
+      sRstd[r] = rstd;
+    }
+  }
+  __syncthreads();
+  float* pb = part + (long)blockIdx.x * 3 * D;
+  for (int k = threadIdx.x; k < D; k += LN_THREADS) {
+    float s_dx = 0.f, s_d = 0.f, s_g = 0.f;
+    for (int r = 0; r < LNB_ROWS; ++r) {
+      const long o = (row0 + r) * D + k;
+      const float xhat = (__bfloat162float(x[o]) - sMu[r]) * sRstd[r];
+      const float dy = dyln[o];
+      s_dx += dy * xhat;
+      s_d += dy;
+      s_g += __bfloat162float(gr[o]);
+    }
+    pb[k] = s_dx;
+    pb[D + k] = s_d;
+    pb[2 * D + k] = s_g;
+  }
+}
+
+// ---- the GEMMs' epilogues ------------------------------------------------------------
+
+// dyln (T, D) fp32.
+struct FfBwdDyln {
+  float* dyln;
+  int D;
+  __device__ int2 b_cols(int tn) const { return make_int2(tn * 128, tn * 128 + 64); }
+  __device__ void operator()(const float (&acc)[64], const Unit& u, int row0, int wq,
+                             int lane) const {
+    const long ra = row0 + 16 * wq + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = u.tn * 128 + 8 * j + 2 * (lane & 3);
+      *reinterpret_cast<float2*>(dyln + ra * D + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(dyln + (ra + 8) * D + col) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+};
+
+// A weight gradient's split: out + split * split_stride is (M, N) fp32; rows
+// past M (dwo's last tile when FH % 128 == 64) are not stored.
+struct FfBwdWgrad {
+  float* out;
+  long split_stride;
+  int M, N;
+  __device__ int2 b_cols(int tn) const { return make_int2(tn * 128, tn * 128 + 64); }
+  __device__ void operator()(const float (&acc)[64], const Unit& u, int row0, int wq,
+                             int lane) const {
+    const int ra = row0 + 16 * wq + (lane >> 2);
+    float* o = out + u.split * split_stride;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = u.tn * 128 + 8 * j + 2 * (lane & 3);
+      if (ra < M)
+        *reinterpret_cast<float2*>(o + (long)ra * N + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      if (ra + 8 < M)
+        *reinterpret_cast<float2*>(o + (long)(ra + 8) * N + col) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+};
+
+// dW (M, N) = A^T B over T tokens in `splits` token ranges, A (T, M) and B (T,
+// N) row-major bf16; the splits' partials go to wpart and are then summed in
+// order into dW (one split writes dW directly).
+int weight_grad(const void* a, const void* b, float* dW, float* wpart, int T, int M, int N,
+                int splits, cudaStream_t s) {
+  CUtensorMap ma, mb;
+  if (!rtt::gemm::tile_map(&ma, a, T, M) || !rtt::gemm::tile_map(&mb, b, T, N))
+    return (int)cudaErrorInvalidValue;
+  const rtt::gemm::Sched sched{(M + 127) / 128, N / 128, splits, T / 64};
+  float* dst = splits > 1 ? wpart : dW;
+  const long n = (long)M * N;
+  int err = rtt::gemm::launch<MN_MAJOR, MN_MAJOR>(ma, mb, sched, FfBwdWgrad{dst, n, M, N}, s);
+  if (err || splits == 1) return err;
+  return rtt::gemm::launch_splitsum(wpart, dW, n, splits, s);
 }
 
 }  // namespace
 
-// x, g (T, D) bf16; ws, wb (D) fp32; wi (D, 2FH) bf16; bi (2FH) fp32;
-// wo (FH, D) bf16. Scratch: yln (T, D) bf16, dact (T, FH) fp32, act (T, FH)
-// bf16, dproj (T, 2FH) bf16, dyln (T, D) fp32. Outputs: dx (T, D) bf16; dws,
-// dwb, dbo (D), dwi (D, 2FH), dbi (2FH), dwo (FH, D) fp32, the last six
-// zeroed by the caller. T % 64 == 0, D % 64 == 0, FH % 64 == 0.
-extern "C" int rtt_ff_bwd(const void* x, const void* g, const void* ws,
-                          const void* wb, const void* wi, const void* bi,
-                          const void* wo, void* yln, void* dact, void* act,
-                          void* dproj, void* dyln, void* dx, void* dws,
-                          void* dwb, void* dwi, void* dbi, void* dwo,
-                          void* dbo, int T, int D, int FH, void* stream) {
+// x, g (T, D) bf16; ws, wb (D) fp32; wi (D, 2FH) bf16; bi (2FH) fp32; wo (FH,
+// D) bf16. Scratch: yln (T, D) bf16, act (T, FH) bf16, dproj (T, 2FH) bf16,
+// dyln (T, D) fp32, dbi_part (T / 64, 2FH) fp32, ln_part (T / 64, 3D) fp32,
+// wpart (max over dwo, dwi of splits x M x N where splits > 1) fp32.
+// Outputs: dx (T, D) bf16; dwi (D, 2FH), dbi (2FH), dwo (FH, D) and sums
+// (3, D) = [dws | dwb | dbo], fp32. splits_wo, splits_wi: token splits of
+// dwo's and dwi's products (1 <= splits <= T / 64). x, g, wi, wo and the
+// bf16 scratch 16-byte aligned.
+extern "C" int rtt_ff_bwd(const void* x, const void* g, const void* ws, const void* wb,
+                          const void* wi, const void* bi, const void* wo, void* yln, void* act,
+                          void* dproj, void* dyln, void* dbi_part, void* ln_part, void* wpart,
+                          void* dx, void* dwi, void* dbi, void* dwo, void* sums, int T, int D,
+                          int FH, int splits_wo, int splits_wi, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  ln_affine_rows<<<T / (ROW_THREADS / 32), ROW_THREADS, 0, s>>>(
-      (const bf16*)x, (const float*)ws, (const float*)wb, 0, T, 0.f,
-      (bf16*)yln, D);
-  int err = (int)cudaGetLastError();
+  if (T == 0) {  // no tokens: every gradient is 0
+    cudaMemsetAsync(dwi, 0, sizeof(float) * D * 2L * FH, s);
+    cudaMemsetAsync(dbi, 0, sizeof(float) * 2L * FH, s);
+    cudaMemsetAsync(dwo, 0, sizeof(float) * FH * (long)D, s);
+    cudaMemsetAsync(sums, 0, sizeof(float) * 3L * D, s);
+    return (int)cudaGetLastError();
+  }
+  int err = launch_ln<true>(x, ws, wb, yln, T, D, s);
   if (err) return err;
-  if ((err = launch_gemm_nt_f32((const bf16*)g, (const bf16*)wo, (float*)dact,
-                                T, FH, D, s)))
+
+  CUtensorMap m_yln, m_wi, m_g, m_wo, m_act, m_dproj;
+  if (!rtt::gemm::tile_map(&m_yln, yln, T, D) || !rtt::gemm::tile_map(&m_wi, wi, D, 2L * FH) ||
+      !rtt::gemm::tile_map(&m_g, g, T, D) || !rtt::gemm::tile_map(&m_wo, wo, FH, D) ||
+      !rtt::gemm::tile_map(&m_act, act, T, FH) ||
+      !rtt::gemm::tile_map(&m_dproj, dproj, T, 2L * FH))
+    return (int)cudaErrorInvalidValue;
+  static int regs = 0;  // read once: setmaxnreg.inc would wait forever on another count
+  if (regs == 0) {
+    int attr[2];
+    if ((err = rtt::gemm::attributes(ff_bwd_geglu_kernel, attr))) return err;
+    regs = attr[0];
+  }
+  if (regs != LAUNCH_REGS) return (int)cudaErrorInvalidConfiguration;
+  if ((err = (int)cudaFuncSetAttribute(ff_bwd_geglu_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)GB_SMEM)))
     return err;
-  geglu_bwd_kernel<<<dim3(FH / GT, T / GT), GTHREADS, 0, s>>>(
-      (const bf16*)yln, (const bf16*)wi, (const float*)bi, (const float*)dact,
-      (bf16*)act, (bf16*)dproj, (float*)dbi, D, FH);
+  const int units = (T / 128) * (FH / 64), sms = rtt::gemm::num_sms();
+  const int grid = units < sms ? units : sms;
+  ff_bwd_geglu_kernel<<<grid, GB_THREADS, GB_SMEM, s>>>(m_yln, m_wi, m_g, m_wo, m_act, m_dproj,
+                                                       (const float*)bi, (float*)dbi_part, T, D,
+                                                       FH);
   if ((err = (int)cudaGetLastError())) return err;
-  if ((err = launch_gemm_nt_f32((const bf16*)dproj, (const bf16*)wi,
-                                (float*)dyln, T, D, 2 * FH, s)))
+  if ((err = rtt::gemm::launch_colsum((const float*)dbi_part, (float*)dbi, T / 64, 2 * FH, s)))
     return err;
-  ln_bwd_rows<<<T / ROW_BLOCK, ROW_THREADS, 0, s>>>(
-      (const bf16*)x, (const float*)dyln, (const float*)ws, 0, T, 0.f,
-      (const bf16*)g, (bf16*)dx, (float*)dws, (float*)dwb, (float*)dbo, D);
+
+  const rtt::gemm::Sched sd{T / 128, D / 128, 1, 2 * FH / 64};
+  if ((err = rtt::gemm::launch<K_MAJOR, K_MAJOR>(m_dproj, m_wi, sd, FfBwdDyln{(float*)dyln, D},
+                                                 s)))
+    return err;
+  ff_bwd_ln_grad_kernel<<<T / LNB_ROWS, LN_THREADS, 0, s>>>(
+      (const bf16*)x, (const float*)dyln, (const float*)ws, (const bf16*)g, (bf16*)dx,
+      (float*)ln_part, D);
   if ((err = (int)cudaGetLastError())) return err;
-  if ((err = launch_wgrad((const bf16*)act, (const bf16*)g, (float*)dwo, FH, D,
-                          T, s)))
+  if ((err = rtt::gemm::launch_colsum((const float*)ln_part, (float*)sums, T / 64, 3 * D, s)))
     return err;
-  return launch_wgrad((const bf16*)yln, (const bf16*)dproj, (float*)dwi, D,
-                      2 * FH, T, s);
+
+  if ((err = weight_grad(act, g, (float*)dwo, (float*)wpart, T, FH, D, splits_wo, s)))
+    return err;
+  return weight_grad(yln, dproj, (float*)dwi, (float*)wpart, T, D, 2 * FH, splits_wi, s);
+}
+
+// Registers and local bytes of the backward's kernels, two ints each, in the
+// order ff_ln_kernel<true>, ff_bwd_geglu_kernel, the dyln GEMM,
+// ff_bwd_ln_grad_kernel, the weight-gradient GEMM, colsum_kernel,
+// splitsum_kernel.
+extern "C" int rtt_ff_bwd_attributes(int* out) {
+  int err = rtt::gemm::attributes(ff_ln_kernel<true>, out);
+  if (!err) err = rtt::gemm::attributes(ff_bwd_geglu_kernel, out + 2);
+  if (!err)
+    err = rtt::gemm::attributes(rtt::gemm::gemm_kernel<K_MAJOR, K_MAJOR, FfBwdDyln>, out + 4);
+  if (!err) err = rtt::gemm::attributes(ff_bwd_ln_grad_kernel, out + 6);
+  if (!err)
+    err = rtt::gemm::attributes(rtt::gemm::gemm_kernel<MN_MAJOR, MN_MAJOR, FfBwdWgrad>, out + 8);
+  if (!err) err = rtt::gemm::attributes(rtt::gemm::colsum_kernel, out + 10);
+  if (!err) err = rtt::gemm::attributes(rtt::gemm::splitsum_kernel, out + 12);
+  return err;
 }

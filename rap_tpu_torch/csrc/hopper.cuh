@@ -7,14 +7,16 @@
 //   host encodes the map with cuTensorMapEncodeTiled, looked up at run time
 //   through cudaGetDriverEntryPoint, so the library needs no -lcuda.
 // - Bulk copies: a contiguous global -> shared load on an mbarrier (no map),
-//   and a shared -> global tile reduce-add through a tensor map
-//   (cp.reduce.async.bulk.tensor) with its bulk-group commit and waits.
+//   and a shared -> global tile store or reduce-add through a tensor map
+//   (cp.async.bulk.tensor, cp.reduce.async.bulk.tensor) with its bulk-group
+//   commit and waits.
 // - Named barriers: bar.sync within a warpgroup.
 // - wgmma: shared-memory descriptors for tiles in the 128-byte swizzle that
 //   TMA's CU_TENSOR_MAP_SWIZZLE_128B writes (rows of 64 bf16 = 128 bytes,
 //   8-row groups 1024 bytes apart, tile bases 1024-byte aligned), and the
 //   products of flash attention at head width 64: the forward's two,
-//     m64n128k16, A and B from shared memory, both K-major (S = Q K^T);
+//     m64n128k16, A and B from shared memory, both K-major (S = Q K^T; the
+//     GEMMs of gemm_sm90.cuh take either operand MN-major);
 //     m64n72k16, A from registers, B from shared memory MN-major (O += P V,
 //     with 8 more columns of B for the row sums of P);
 //   and the backward's: m64n64k16 with A and B from shared memory, either
@@ -125,6 +127,18 @@ __device__ __forceinline__ void tma_reduce_add_2d(const CUtensorMap* map, const 
       : "memory");
 }
 
+// Store the box of shared memory at src (in the map's swizzle) into the
+// tensor of `map` at (column c0, row c1); tracked by the issuing thread's bulk
+// groups. The writes to src must be fenced (fence_proxy_async) first.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -200,8 +214,11 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-// d (64 x 128, fp32) = (accumulate ? d : 0) + A (64 x 16) B^T, with A and B
-// (128 x 16) both K-major in shared memory.
+// d (64 x 128, fp32) = (accumulate ? d : 0) + A (64 x 16) B (16 x 128), A and
+// B from shared memory; TRANS_A / TRANS_B 0: K-major (the default: S = Q K^T),
+// 1: MN-major (the transpose bits). An MN-major B's columns 64-127 sit one
+// leading byte offset after columns 0-63.
+template <int TRANS_A = 0, int TRANS_B = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
                                                     uint64_t db, int accumulate) {
   asm volatile(
@@ -211,7 +228,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, "
       "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
       "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
-      "%61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%61, %62, %63}, %64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -223,7 +240,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // d (64 x 72, fp32) = (accumulate ? d : 0) + A (64 x 16, bf16 fragments in

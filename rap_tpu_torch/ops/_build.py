@@ -36,7 +36,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "rtt_proj": [_P] * 8 + [_I] * 5 + [_P],
     "rtt_out_proj": [_P] * 5 + [_I] * 5 + [_P],
-    "rtt_ff": [_P] * 8 + [_I] * 3 + [_P],
+    "rtt_ff": [_P] * 10 + [_I] * 3 + [_P],
     "rtt_flash_fixed": [_P] * 3 + [_F] + [_P] * 2 + [_I] * 3 + [_P],
     "rtt_flash_online": [_P] * 6 + [_I] * 4 + [_P],
     "rtt_flash_bwd": [_P] * 11 + [_I] * 4 + [_P],
@@ -48,16 +48,25 @@ SIGNATURES = {
     "rtt_flash_bwd_dkv_softcap": [_P] * 10 + [_I] * 4 + [_F] * 2 + [_P],
     "rtt_flash_bwd_dq_softcap": [_P] * 9 + [_I] * 4 + [_F] * 2 + [_P],
     "rtt_proj_bwd": [_P] * 16 + [_I] * 5 + [_P],
-    "rtt_ff_bwd": [_P] * 19 + [_I] * 3 + [_P],
+    "rtt_ff_bwd": [_P] * 19 + [_I] * 5 + [_P],
 }
 # C entry points that launch nothing: the registers and local bytes of the
 # backward's setmaxnreg kernels (the key block's four instantiations, the dQ
-# pass's two; cudaFuncGetAttributes), 4 ints each
+# pass's two; 4 ints each) and of every kernel behind rtt_ff and rtt_ff_bwd
+# (2 ints each, in the order of FF_KERNELS and FF_BWD_KERNELS;
+# cudaFuncGetAttributes)
 QUERIES = {
     "rtt_flash_bwd_attributes": [_P],
     "rtt_flash_bwd_dkv_attributes": [_P],
     "rtt_flash_bwd_dq_attributes": [_P],
+    "rtt_ff_attributes": [_P],
+    "rtt_ff_bwd_attributes": [_P],
 }
+FF_KERNELS = ("ff_ln_kernel<false>", "gemm_kernel<K, MN, FfFwdGeglu>",
+              "gemm_kernel<K, MN, FfFwdResidual>")
+FF_BWD_KERNELS = ("ff_ln_kernel<true>", "ff_bwd_geglu_kernel", "gemm_kernel<K, K, FfBwdDyln>",
+                  "ff_bwd_ln_grad_kernel", "gemm_kernel<MN, MN, FfBwdWgrad>", "colsum_kernel",
+                  "splitsum_kernel")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,9 +1,10 @@
-"""Fused LayerNorm + GEGLU feed-forward with the residual, one kernel.
+"""Fused LayerNorm + GEGLU feed-forward with the residual: one C entry point each way.
 
 Counterpart of rap_tpu/ops/fused_ff.py ``geglu_ff`` (:288): x + FF(LN(x))
 with LN(scale, bias), proj = h @ wi + bi split into (hidden | gate), act =
-hidden * gelu(gate) with the exact erf, y = act @ wo + bo. The kernel is
-csrc/ff.cu (TPU ``_ff_kernel``, fused_ff.py:55); ``ff_plain`` repeats its
+hidden * gelu(gate) with the exact erf, y = act @ wo + bo. The kernels are
+csrc/ff.cu (TPU ``_ff_kernel``, fused_ff.py:55: a LayerNorm row pass and two
+TMA + wgmma products, csrc/gemm_sm90.cuh); ``ff_plain`` repeats their
 arithmetic and cast points in plain PyTorch (exact GELU): products sum bf16
 inputs in fp32, act is rounded to the compute dtype before the second
 product, the output is x + y in that dtype.
@@ -15,16 +16,24 @@ composition ``ff_reference`` (``_xla_reference``). The kernel route is a
 recomputes the forward with the exact-erf GELU and its derivative
 (``_gelu_grad_terms`` :114), with the in-projection bias in fp32 as the TPU
 backward takes it (:251), and returns every weight gradient in fp32.
+
+Both kernels take exactly the shapes rap_tpu's ``legal`` rule admits
+(``ff_shape_error``), and refuse any other before a launch.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from ._common import check_input, launch, on_cpu, require
 
-_FF_TOKENS = 32  # csrc/ff.cu BM
+_TILE = 128  # rows and columns of an output tile of csrc/gemm_sm90.cuh
+_SLAB = 64   # k slab of csrc/gemm_sm90.cuh; ff_bwd_ln_grad_kernel's rows per block
+_BLOCKS_PER_SM = 2  # csrc/gemm_sm90.cuh BLOCKS_PER_SM: the GEMM's blocks on one SM
+_MAX_SPLITS = 8
 
 
 def _ln_stats(xf):
@@ -44,13 +53,62 @@ def ff_plain(x, ln_scale, ln_bias, wi, bi, wo, bo):
     return x + y.to(dt)
 
 
+def ff_shape_error(T: int, D: int, fh: int) -> str | None:
+    """Why csrc/ff.cu and csrc/ff_bwd.cu refuse T tokens of width D with
+    hidden width fh, or None where they take them. They take exactly what
+    rap_tpu's ``legal`` rule (fused_ff.py:312) admits: D and 2*fh multiples of
+    128, and a token count that a block of 512, 1024, 256 or 128 divides, i.e.
+    T % 128 == 0. That is 128-token tiles, 128-column tiles of D and of
+    [hidden | gate], 64-deep k slabs, and 64-token blocks of the reductions."""
+    if D % 128 != 0:
+        return f"ff kernels take a width D that is a multiple of 128, got {D}"
+    if (2 * fh) % 128 != 0:
+        return f"ff kernels take a hidden width that is a multiple of 64, got {fh}"
+    if T % _TILE != 0:
+        return f"ff kernels take a token count that is a multiple of 128, got {T}"
+    return None
+
+
+def _require_shape(T: int, D: int, fh: int) -> None:
+    err = ff_shape_error(T, D, fh)
+    require(err is None, err or "")
+
+
+def _require_aligned(**tensors: torch.Tensor) -> None:
+    """TMA and the kernels' 16-byte loads need 16-byte-aligned base addresses."""
+    for name, t in tensors.items():
+        require(t.data_ptr() % 16 == 0,
+                f"{name}: the ff kernels take 16-byte-aligned inputs (a view at an "
+                "offset is not); pass a contiguous copy")
+
+
+def wgrad_splits(tiles: int, nslab: int, slots: int) -> int:
+    """Token splits of a weight gradient's product (csrc/ff_bwd.cu): the
+    fewest splits, at most 8 and each of at least 4 slabs of 64 tokens, whose
+    units (tiles x splits, all of one size) fill at least 85% of the waves
+    of ``slots`` resident blocks; else the split count that fills the most."""
+    best, best_fill = 1, 0.0
+    for s in range(1, _MAX_SPLITS + 1):
+        if s > 1 and nslab // s < 4:
+            break
+        units = tiles * s
+        fill = units / (math.ceil(units / slots) * slots)
+        if fill >= 0.85:
+            return s
+        if fill > best_fill:
+            best, best_fill = s, fill
+    return best
+
+
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def ff_kernel(x2, ln_scale, ln_bias, wi, bi, wo, bo):
     """Launch csrc/ff.cu on CUDA tensors; x2 is (T, D) tokens."""
     T, D = x2.shape
     fh = wo.shape[0]
-    require(D == 512, f"ff kernel is built for D=512, got {D}")
-    require(fh % 64 == 0, f"ff kernel takes a hidden width that is a multiple of 64, got {fh}")
-    require(T % _FF_TOKENS == 0, f"ff kernel takes a token count that is a multiple of 32, got {T}")
+    _require_shape(T, D, fh)
     check_input("x", x2, torch.bfloat16, (T, D))
     check_input("ln_scale", ln_scale, torch.float32, (D,))
     check_input("ln_bias", ln_bias, torch.float32, (D,))
@@ -58,12 +116,15 @@ def ff_kernel(x2, ln_scale, ln_bias, wi, bi, wo, bo):
     check_input("bi", bi, torch.bfloat16, (2 * fh,))
     check_input("wo", wo, torch.bfloat16, (fh, D))
     check_input("bo", bo, torch.bfloat16, (D,))
+    _require_aligned(x=x2, wi=wi, wo=wo)
+    yln = torch.empty((T, D), dtype=torch.bfloat16, device=x2.device)
+    act = torch.empty((T, fh), dtype=torch.bfloat16, device=x2.device)
     out = torch.empty_like(x2)
     launch(
         "ff", x2,
         x2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), wi.data_ptr(),
-        bi.data_ptr(), wo.data_ptr(), bo.data_ptr(), out.data_ptr(),
-        T, D, fh,
+        bi.data_ptr(), wo.data_ptr(), bo.data_ptr(), yln.data_ptr(), act.data_ptr(),
+        out.data_ptr(), T, D, fh,
     )
     return out
 
@@ -100,9 +161,7 @@ def ff_bwd_kernel(x2, g2, ln_scale, ln_bias, wi, bi, wo):
     Returns what ``ff_bwd_plain`` returns."""
     T, D = x2.shape
     fh = wo.shape[0]
-    require(D % 64 == 0 and D <= 1024, f"ff backward takes D % 64 == 0, D <= 1024; got {D}")
-    require(fh % 64 == 0, f"ff backward takes a hidden width that is a multiple of 64, got {fh}")
-    require(T % 64 == 0, f"ff backward takes a token count that is a multiple of 64, got {T}")
+    _require_shape(T, D, fh)
     check_input("x", x2, torch.bfloat16, (T, D))
     check_input("g", g2, torch.bfloat16, (T, D))
     check_input("ln_scale", ln_scale, torch.float32, (D,))
@@ -110,23 +169,32 @@ def ff_bwd_kernel(x2, g2, ln_scale, ln_bias, wi, bi, wo):
     check_input("wi", wi, torch.bfloat16, (D, 2 * fh))
     check_input("bi", bi, torch.float32, (2 * fh,))
     check_input("wo", wo, torch.bfloat16, (fh, D))
+    _require_aligned(x=x2, g=g2, wi=wi, wo=wo)
     bf = dict(dtype=torch.bfloat16, device=x2.device)
     f32 = dict(dtype=torch.float32, device=x2.device)
+    slots = _BLOCKS_PER_SM * _sm_count(x2.device)
+    nslab = T // _SLAB
+    splits_wo = wgrad_splits(math.ceil(fh / _TILE) * (D // _TILE), nslab, slots)
+    splits_wi = wgrad_splits((D // _TILE) * (2 * fh // _TILE), nslab, slots)
+    wpart = max((s * n for s, n in ((splits_wo, fh * D), (splits_wi, D * 2 * fh)) if s > 1),
+                default=4)
     yln, act = torch.empty((T, D), **bf), torch.empty((T, fh), **bf)
-    dproj = torch.empty((T, 2 * fh), **bf)
-    dact, dyln = torch.empty((T, fh), **f32), torch.empty((T, D), **f32)
+    dproj, dyln = torch.empty((T, 2 * fh), **bf), torch.empty((T, D), **f32)
+    dbi_part = torch.empty((nslab, 2 * fh), **f32)
+    ln_part = torch.empty((nslab, 3 * D), **f32)
+    wpart = torch.empty((wpart,), **f32)
     dx = torch.empty_like(x2)
-    dws, dwb, dbo = (torch.zeros((D,), **f32) for _ in range(3))
-    dwi, dbi = torch.zeros((D, 2 * fh), **f32), torch.zeros((2 * fh,), **f32)
-    dwo = torch.zeros((fh, D), **f32)
+    dwi, dbi = torch.empty((D, 2 * fh), **f32), torch.empty((2 * fh,), **f32)
+    dwo, sums = torch.empty((fh, D), **f32), torch.empty((3, D), **f32)
     launch(
         "ff_bwd", x2,
         x2.data_ptr(), g2.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-        wi.data_ptr(), bi.data_ptr(), wo.data_ptr(), yln.data_ptr(),
-        dact.data_ptr(), act.data_ptr(), dproj.data_ptr(), dyln.data_ptr(),
-        dx.data_ptr(), dws.data_ptr(), dwb.data_ptr(), dwi.data_ptr(),
-        dbi.data_ptr(), dwo.data_ptr(), dbo.data_ptr(), T, D, fh,
+        wi.data_ptr(), bi.data_ptr(), wo.data_ptr(), yln.data_ptr(), act.data_ptr(),
+        dproj.data_ptr(), dyln.data_ptr(), dbi_part.data_ptr(), ln_part.data_ptr(),
+        wpart.data_ptr(), dx.data_ptr(), dwi.data_ptr(), dbi.data_ptr(), dwo.data_ptr(),
+        sums.data_ptr(), T, D, fh, splits_wo, splits_wi,
     )
+    dws, dwb, dbo = sums.unbind(0)
     return dx, dws, dwb, dwi, dbi, dwo, dbo
 
 
@@ -195,8 +263,7 @@ def geglu_ff(x, ln_scale, ln_bias, wi, bi, wo, bo, impl: str = "auto",
     """
     D, fh = x.shape[-1], wo.shape[0]
     T = x.numel() // D
-    legal = (D % 128 == 0 and (2 * fh) % 128 == 0
-             and any(T % b == 0 for b in (512, 1024, 256, 128)))
+    legal = ff_shape_error(T, D, fh) is None
     if not (impl == "pallas" or (impl == "auto" and legal)):
         return ff_reference(x, ln_scale, ln_bias, wi, bi, wo, bo)
     return _GegluFF.apply(x, ln_scale, ln_bias, wi, bi, wo, bo, kernels)

@@ -113,14 +113,12 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         fa.flash_online(q, q, va)
 
 
-def test_dit_forward_kernels_match_plain(gen):
+def _dit_forward_matches_plain(gen, cfg):
     import dataclasses
 
     from rap_tpu_torch.core.batch import make_regular_synthetic_batch
-    from rap_tpu_torch.models.config import DiTConfig
     from rap_tpu_torch.models.dit import attach_bounds, dit_forward, init_dit_params
 
-    cfg = DiTConfig(num_layers=2, attn_impl="pallas")  # the fused branch at N=128
     params = init_dit_params(0, cfg)
     lp = params["layers"][0]
     lp["global_q_gamma"] = lp["global_q_gamma"] * 3
@@ -136,6 +134,12 @@ def test_dit_forward_kernels_match_plain(gen):
     assert counts == _counts(proj=4, flash_fixed=3, flash_online=1, out_proj=4, ff=2)
     err = float((v_k - v_p).abs().max())
     assert err <= 5e-2 * float(v_p.abs().max()), err
+
+
+def test_dit_forward_kernels_match_plain(gen):
+    from rap_tpu_torch.models.config import DiTConfig
+
+    _dit_forward_matches_plain(gen, DiTConfig(num_layers=2, attn_impl="pallas"))
 
 
 # --------------------------------------------------------------------------
@@ -268,16 +272,33 @@ def test_training_gradients_kernels_match_plain(gen):
     the plain fp32 one where bf16 alone moves a leaf further (the qk gains'
     gradients, sums over all tokens that nearly cancel); then one Muon step
     through the kernels stays finite."""
+    from rap_tpu_torch.models.config import DiTConfig
+
+    cfg = DiTConfig(num_layers=2, attn_impl="pallas")  # the fused branch at N=128
+    (gk, gp, g32, params, batch), rel = _training_gradients(gen, cfg), _rel_l2
+    for k, ref in gp.items():
+        assert rel(gk[k], ref) <= max(5e-2, 2 * rel(ref, g32[k])), (k, rel(gk[k], ref),
+                                                                  rel(ref, g32[k]))
+    _one_step_is_finite(cfg, params, batch)
+
+
+def _rel_l2(a, b):
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
+def _training_gradients(gen, cfg):
+    """Every gradient leaf of training_forward for a 2-layer model of
+    ``cfg`` (one online attention per forward) through the kernels, the
+    plain versions and the plain fp32 path at the same draws: (kernels,
+    plain, fp32), the parameters and the batch, after checking the kernel
+    launches and the loss (within 2e-2 relative of the plain path's)."""
     import dataclasses
 
     from rap_tpu_torch.core.batch import make_regular_synthetic_batch
-    from rap_tpu_torch.models.config import DiTConfig
     from rap_tpu_torch.models.dit import init_dit_params
     from rap_tpu_torch.registration import RPFConfig, training_forward
-    from rap_tpu_torch.train.optim import OptimizerConfig, tree_paths, tree_replace
-    from rap_tpu_torch.train.step import TrainState, make_train_step
+    from rap_tpu_torch.train.optim import tree_paths, tree_replace
 
-    cfg = DiTConfig(num_layers=2, attn_impl="pallas")  # the fused branch at N=128
     params = init_dit_params(0, cfg, masters=True)
     params["layers"][0]["global_q_gamma"] *= 3  # one online attention per forward
     params["layers"][0]["global_k_gamma"] *= 3
@@ -299,15 +320,64 @@ def test_training_gradients_kernels_match_plain(gen):
                          flash_bwd=4, proj_bwd=4, ff_bwd=2)
     assert sum(cp.values()) == 0
     assert abs(lk - lp) <= 2e-2 * abs(lp)
+    return gk, gp, g32, params, batch
 
-    def rel(a, b):
-        return float((a - b).norm()) / max(float(b.norm()), 1e-30)
 
-    for k, ref in gp.items():
-        assert rel(gk[k], ref) <= max(5e-2, 2 * rel(ref, g32[k])), k
+def _one_step_is_finite(cfg, params, batch):
+    """One Muon step of ``params`` on ``batch`` through the kernels."""
+    from rap_tpu_torch.registration import RPFConfig
+    from rap_tpu_torch.train.optim import OptimizerConfig
+    from rap_tpu_torch.train.step import TrainState, make_train_step
+
     state = TrainState.create(params, OptimizerConfig(), seed=0)
     state, m = make_train_step(RPFConfig(model=cfg), OptimizerConfig())(state, batch)
     assert float(m["skipped_nonfinite"]) == 0.0 and torch.isfinite(m["loss"])
+
+
+@pytest.mark.parametrize("width,heads", [(768, 12), (256, 4)], ids=["D768-H12", "D256-H4"])
+def test_other_model_widths_run_through_kernels(gen, width, heads):
+    """Models of width 768 (12 heads) and 256 (4 heads), head width 64, as
+    rap_tpu runs them on its kernels (the FF kernels took only D = 512
+    before they took every width rap_tpu's rule admits): dit_forward
+    through the kernels within 5e-2 of the plain path, as at D = 512; the
+    loss of a training forward within 2e-2; every gradient leaf within 5e-2
+    relative L2 of the plain path's, or no further from the plain fp32
+    gradient than twice the plain bf16 path is (the kernels no worse than
+    bf16 itself: the qk gains' gradients are sums that nearly cancel, and
+    any set of kernels moves them 5-15% at these widths); one Muon step
+    finite."""
+    from rap_tpu_torch.models.config import DiTConfig
+
+    cfg = DiTConfig(embed_dim=width, num_heads=heads, num_layers=2, attn_impl="pallas")
+    _dit_forward_matches_plain(gen, cfg)
+    (gk, gp, g32, params, batch), rel = _training_gradients(gen, cfg), _rel_l2
+    for k, ref in gp.items():
+        assert (rel(gk[k], ref) <= 5e-2
+                or rel(gk[k], g32[k]) <= 2 * rel(ref, g32[k])), (k, rel(gk[k], ref),
+                                                                 rel(gk[k], g32[k]),
+                                                                 rel(ref, g32[k]))
+    _one_step_is_finite(cfg, params, batch)
+
+
+@pytest.mark.parametrize("T,D,FH", [(128, 256, 1024), (512, 768, 3072), (128, 1024, 4096),
+                                    (256, 384, 320), (256, 256, 192)])
+def test_ff_kernels_at_every_width(gen, T, D, FH):
+    """Rows 5 and 10 at widths beside the model's, hidden widths that are odd
+    multiples of 64 among them (dwo's last tile then lies half outside the
+    matrix): against their twins, and the backward bitwise equal on two
+    calls (its sums over tokens are added in a fixed order)."""
+    args = (_randn(gen, T, D), 1 + _randn(gen, D, dtype=torch.float32, scale=0.1),
+            _randn(gen, D, dtype=torch.float32, scale=0.1),
+            _randn(gen, D, 2 * FH, scale=D ** -0.5), _randn(gen, 2 * FH, scale=0.1),
+            _randn(gen, FH, D, scale=FH ** -0.5), _randn(gen, D, scale=0.1))
+    _close(fused_ff.ff_kernel(*args), fused_ff.ff_plain(*args))
+    bargs = (args[0], _randn(gen, T, D, scale=0.1), args[1], args[2], args[3],
+             args[4].float(), args[5])
+    got, again = fused_ff.ff_bwd_kernel(*bargs), fused_ff.ff_bwd_kernel(*bargs)
+    for g_, a_, r_ in zip(got, again, fused_ff.ff_bwd_plain(*bargs)):
+        assert g_.dtype == r_.dtype and g_.shape == r_.shape
+        assert torch.equal(g_, a_)
+        _close(g_, r_)
 
 
 # --------------------------------------------------------------------------

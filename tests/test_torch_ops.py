@@ -148,15 +148,29 @@ def test_online_masked_matches_pallas():
     assert (got_l[heads:2 * heads] == fa.LSE_EMPTY).all()
 
 
-def test_geglu_ff_matches_pallas():
-    rng = np.random.default_rng(6)
-    FH = 4 * D
+def _geglu_ff_case(seed, width):
+    """geglu_ff at width D = ``width``, hidden 4 D, G x N tokens, fp32: the
+    port's (its plain version on the CPU) against rap_tpu's Pallas kernel."""
+    rng = np.random.default_rng(seed)
+    FH = 4 * width
     f = lambda *s, sc=1.0: (rng.standard_normal(s) * sc).astype(np.float32)  # noqa: E731
-    args = (f(G, N, D), 1 + f(D, sc=0.1), f(D, sc=0.1), f(D, 2 * FH, sc=D ** -0.5),
-            f(2 * FH, sc=0.1), f(FH, D, sc=FH ** -0.5), f(D, sc=0.1))
+    args = (f(G, N, width), 1 + f(width, sc=0.1), f(width, sc=0.1),
+            f(width, 2 * FH, sc=width ** -0.5), f(2 * FH, sc=0.1), f(FH, width, sc=FH ** -0.5),
+            f(width, sc=0.1))
     ref = jff.geglu_ff(*map(jnp.asarray, args), impl="pallas", interpret=True)
     got = fused_ff.geglu_ff(*map(t, args))
     _close(got.numpy(), ref)
+
+
+def test_geglu_ff_matches_pallas():
+    _geglu_ff_case(6, D)
+
+
+@pytest.mark.parametrize("width", [256, 512, 768])
+def test_geglu_ff_widths_match_pallas(width):
+    """The widths of models the FF kernels take beside D = 512 (a D = 256, H
+    = 4 and a D = 768, H = 12 model run the same FF), 2e-5 as above."""
+    _geglu_ff_case(16, width)
 
 
 def test_geglu_ff_bf16_matches_pallas():
@@ -207,10 +221,107 @@ def test_kernel_inputs_are_checked():
     with pytest.raises(ValueError, match="multiples of 128"):
         fa.flash_fixed_kernel(qh, qh, torch.zeros(4, 100, DH + 1, dtype=torch.bfloat16), 1.0)
     bf = dict(dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="D=512"):
+    with pytest.raises(ValueError, match="token count that is a multiple of 128"):
         fused_ff.ff_kernel(torch.zeros(64, D, **bf), torch.ones(D), torch.zeros(D),
                            torch.zeros(D, 8 * D, **bf), torch.zeros(8 * D, **bf),
                            torch.zeros(4 * D, D, **bf), torch.zeros(D, **bf))
+
+
+class _Shaped:
+    """Stands in for an array where only its shape is read."""
+
+    def __init__(self, *shape):
+        self.shape = shape
+
+    def reshape(self, *shape):
+        return _Shaped(*shape)
+
+
+def _rap_tpu_takes_ff_kernel(monkeypatch, T, D, fh):
+    """Whether rap_tpu's geglu_ff (impl="auto", as on its accelerator) takes
+    its fused kernel for T tokens of width D and hidden width fh: its own
+    ``legal`` rule, read by recording the call instead of running it."""
+    taken = []
+    monkeypatch.setattr(jff.jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jff, "_fused", lambda x, *a: taken.append(True) or x)
+    monkeypatch.setattr(jff, "_xla_reference", lambda x, *a: x)
+    jff.geglu_ff(_Shaped(T, D), None, None, None, None, _Shaped(fh, D), None, impl="auto")
+    return bool(taken)
+
+
+@pytest.mark.parametrize("width", [64, 128, 192, 256, 384, 512, 640, 768, 1024, 2048])
+def test_ff_shape_contract_is_rap_tpus_legal_rule(monkeypatch, width):
+    """csrc/ff.cu and csrc/ff_bwd.cu take (``ff_shape_error`` is None, the
+    rule ``geglu_ff`` dispatches on) exactly the shapes on which rap_tpu
+    takes its fused FF kernel, over a grid of token counts and hidden widths
+    (positive sizes)."""
+    for T in (64, 128, 192, 256, 384, 512, 640, 1000, 1024, 4096, 32768, 65536):
+        for fh in (32, 64, 96, 128, 192, 320, 512, 1024, 2048, 3072, 4096):
+            legal = _rap_tpu_takes_ff_kernel(monkeypatch, T, width, fh)
+            assert (fused_ff.ff_shape_error(T, width, fh) is None) == legal, (T, width, fh)
+
+
+def _ff_kernel_args(T, D, fh):
+    bf = dict(dtype=torch.bfloat16)
+    x = torch.zeros(T, D, **bf)
+    fwd = (x, torch.ones(D), torch.zeros(D), torch.zeros(D, 2 * fh, **bf),
+           torch.zeros(2 * fh, **bf), torch.zeros(fh, D, **bf), torch.zeros(D, **bf))
+    bwd = (x, x, torch.ones(D), torch.zeros(D), fwd[3], torch.zeros(2 * fh), fwd[5])
+    return fwd, bwd
+
+
+@pytest.mark.parametrize("T,D,fh", [(192, 256, 512), (256, 320, 512), (256, 256, 96)],
+                         ids=["tokens", "width", "hidden"])
+def test_ff_wrappers_refuse_what_legal_refuses(monkeypatch, T, D, fh):
+    """A shape that impl="pallas" forces past the rule is refused, with the
+    rule's reason, before any launch (rap_tpu crashes there)."""
+    launched = []
+    monkeypatch.setattr(fused_ff, "launch", lambda *a: launched.append(a))
+    reason = fused_ff.ff_shape_error(T, D, fh)
+    assert reason is not None
+    fwd, bwd = _ff_kernel_args(T, D, fh)
+    with pytest.raises(ValueError, match=reason):
+        fused_ff.ff_kernel(*fwd)
+    with pytest.raises(ValueError, match=reason):
+        fused_ff.ff_bwd_kernel(*bwd)
+    assert launched == []
+
+
+@pytest.mark.parametrize("T,D,fh", [(128, 256, 1024), (256, 768, 3072), (256, 256, 192)])
+def test_ff_wrappers_launch_what_legal_admits(monkeypatch, T, D, fh):
+    """The wrappers pass an admitted shape on to one launch each, with the
+    token splits of the weight gradients (132 SMs)."""
+    launched = []
+    monkeypatch.setattr(fused_ff, "launch", lambda name, like, *a: launched.append((name, a)))
+    monkeypatch.setattr(fused_ff, "_sm_count", lambda device: 132)
+    fwd, bwd = _ff_kernel_args(T, D, fh)
+    fused_ff.ff_kernel(*fwd)
+    fused_ff.ff_bwd_kernel(*bwd)
+    (f_name, f_args), (b_name, b_args) = launched
+    assert (f_name, f_args[-3:]) == ("ff", (T, D, fh))
+    slots = 2 * 132  # two GEMM blocks on each SM
+    splits = (fused_ff.wgrad_splits(-(-fh // 128) * (D // 128), T // 64, slots),
+              fused_ff.wgrad_splits((D // 128) * (2 * fh // 128), T // 64, slots))
+    assert (b_name, b_args[-5:]) == ("ff_bwd", (T, D, fh) + splits)
+
+
+@pytest.mark.parametrize("tiles,nslab", [(128, 512), (64, 512), (288, 1024), (8, 2), (4, 64)])
+def test_wgrad_splits_fill_the_card(tiles, nslab):
+    """Each split keeps at least 4 slabs; the splits chosen fill at least 85%
+    of the waves where any count up to 8 does, else the most any does."""
+    slots = 264
+
+    def fill(s):
+        units = tiles * s
+        return units / (math.ceil(units / slots) * slots)
+
+    s = fused_ff.wgrad_splits(tiles, nslab, slots)
+    allowed = [k for k in range(1, 9) if k == 1 or nslab // k >= 4]
+    assert s in allowed
+    if any(fill(k) >= 0.85 for k in allowed):
+        assert fill(s) >= 0.85 and all(fill(k) < 0.85 for k in allowed if k < s)
+    else:
+        assert fill(s) == max(fill(k) for k in allowed)
 
 
 def _bf16_attention_inputs(BH, Tq, Tk):

@@ -199,15 +199,14 @@ def test_attn_out_backward_matches_jax(is_global):
 # GEGLU feed-forward
 # --------------------------------------------------------------------------
 
-def _ff_inputs(seed=0, lead=(G, N)):
+def _ff_inputs(seed=0, lead=(G, N), width=D):
     f = _rng_f32(seed)
-    return (f(*lead, D), 1 + f(D, sc=0.1), f(D, sc=0.1), f(D, 8 * D, sc=D ** -0.5),
-            f(8 * D, sc=0.1), f(4 * D, D, sc=(4 * D) ** -0.5), f(D, sc=0.1))
+    return (f(*lead, width), 1 + f(width, sc=0.1), f(width, sc=0.1),
+            f(width, 8 * width, sc=width ** -0.5), f(8 * width, sc=0.1),
+            f(4 * width, width, sc=(4 * width) ** -0.5), f(width, sc=0.1))
 
 
-def test_ff_backward_matches_pallas():
-    inputs = _ff_inputs()
-    cot = _rng_f32(7)(G, N, D)
+def _ff_backward_case(inputs, cot):
     _, vjp = jax.vjp(lambda *a: jff.geglu_ff(*a, impl="pallas", interpret=True),
                      *map(jnp.asarray, inputs))
     ref = vjp(jnp.asarray(cot))
@@ -215,6 +214,17 @@ def test_ff_backward_matches_pallas():
     for name, g_, r_ in zip(("dx", "dws", "dwb", "dwi", "dbi", "dwo", "dbo"), got, ref):
         assert tuple(g_.shape) == r_.shape, name
         _close(g_, r_, what=name)
+
+
+def test_ff_backward_matches_pallas():
+    _ff_backward_case(_ff_inputs(), _rng_f32(7)(G, N, D))
+
+
+@pytest.mark.parametrize("width", [256, 512, 768])
+def test_ff_backward_widths_match_pallas(width):
+    """The FF backward at the widths of models the kernels take beside D =
+    512 (hidden 4 D), 2e-5 as above."""
+    _ff_backward_case(_ff_inputs(3, width=width), _rng_f32(9)(G, N, width))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
