@@ -15,7 +15,8 @@ Phases, each printed on its own flushed line with its wall time:
               their softcap variants), the dQ pass's two (rows 8, 8s) and
               the ff backward's fused GEGLU kernel (row 10) must have the
               launch bound's 168 registers, and they and every other kernel
-              behind rows 5 and 10 no local memory (cudaFuncGetAttributes).
+              behind rows 1, 4, 5 and 10 no local memory
+              (cudaFuncGetAttributes).
 2. kernels    each of the ten kernels against its plain PyTorch version on
               the card, at the shapes of the paths below (D=512, H=8, dh=64,
               FF hidden 2048, bf16): max abs and relative error beside the
@@ -24,7 +25,16 @@ Phases, each printed on its own flushed line with its wall time:
               both forward variants, the online one once more with a random
               key mask; the fused attention backward behind each forward
               variant, the proj backward in both layouts, the ff backward at
-              32768 tokens. Multi-view shapes (2 samples x 8 part slots x 4096
+              32768 tokens; row 1 bitwise equal on two calls. Rows 1 and 4
+              (csrc/proj.cu, csrc/out_proj.cu on the TMA + wgmma GEMM of
+              csrc/gemm_sm90.cuh) also at (D, H) = (512, 16), (256, 8),
+              (768, 8), (768, 12) and (1024, 16) (head widths 32, 64, 96) and
+              at one tile row (128 tokens), both layouts, row 1 bitwise
+              repeatable; and a global layout whose N = 192 is not a
+              multiple of 128 (P·N is): rap_tpu's rule refuses it, so the
+              entry points take the reference compositions, launch nothing
+              and stay within the tolerance of the kernels' twins, and the
+              kernel wrappers refuse it. Multi-view shapes (2 samples x 8 part slots x 4096
               points, the multiview phase's batch): the split backward (dKV
               and dQ passes) at the global shape (BH=16, T=32768) with the
               batch's key mask and without one, run twice and required to be
@@ -123,8 +133,9 @@ Phases, each printed on its own flushed line with its wall time:
               time to hold beside the library's whole backward; rows 5 and
               10 also at the multi-view step's 65536 tokens, each beside the
               yardstick ``matmul_ms``: torch.matmul over the same products
-              without their epilogues (two for row 5, five for row 10),
-              timed here and used nowhere in the port.
+              without their epilogues (two for row 5, five for row 10; one
+              for rows 1 and 4, three for row 9), timed here and used
+              nowhere in the port.
 
 Then it prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. Any failed
@@ -211,6 +222,11 @@ MV_LAYERS, MV_CHECK_LAYERS = 12, 2
 # (D, hidden) of models rows 5 and 10 take beside the main path's (512,
 # 2048): rap_tpu's rule admits D % 128 == 0 and hidden % 64 == 0
 FF_WIDTHS = ((256, 1024), (768, 3072), (1024, 4096))
+# (D, H) of models rows 1 and 4 take beside the main path's (512, 8):
+# rap_tpu's rule and fused guard admit D % 128 == 0, dh % 8 == 0, dh < 128;
+# head widths 32 (two heads a tile), 96 (one head a tile; out_proj gathers
+# the tokens first) and 64
+PROJ_WIDTHS = ((512, 16), (256, 8), (768, 8), (768, 12), (1024, 16))
 
 # sample phase: the batch-evaluation entry point on the shipped config and
 # data, random weights from a seed at its checkpoint's shape (6 layers,
@@ -302,8 +318,8 @@ PROFILE_GROUPS = (
     (("flash_fwd_kernel<false, true>", "flash_fwd_kernel<true, true>", "dkv_kernel<true, true>",
       "dkv_kernel<false, true>", "dq_kernel<true>"), "rows 2, 3, 6-8: softcap variants"),
     (("FfFwd", "ff_ln_kernel<false>"), "row 5: ff forward"),
-    (("proj_kernel",), "row 1: proj forward"),
-    (("out_kernel",), "row 4: out_proj forward"),
+    (("ProjEpi", "adaln_ln_kernel"), "row 1: proj forward"),
+    (("OutHeadMajor", "OutTokens", "tokens_kernel"), "row 4: out_proj forward"),
     (("FfBwd", "ff_bwd_", "ff_ln_kernel<true>", "colsum_kernel", "splitsum_kernel"),
      "row 10: ff backward"),
     (("proj_dy_kernel", "wgrad_kernel", "gemm_nt_f32", "ln_affine_rows", "ln_bwd_rows"),
@@ -372,16 +388,15 @@ def run_build(report, fails):
             report[f"{key}_kernel_attributes"][name] = {"registers": regs, "local_bytes": local}
             fails.check(f"{name}: {regs} registers, {local} local bytes",
                         regs == 168 and local == 0, "(need 168 and 0)")
-    # every kernel behind rows 5 and 10: no local memory (a stack or spills);
-    # the fused GEGLU backward's setmaxnreg needs the launch bound's 168
-    report["ff_kernel_attributes"] = {}
-    for entry, names in (("rtt_ff_attributes", _build.FF_KERNELS),
-                         ("rtt_ff_bwd_attributes", _build.FF_BWD_KERNELS)):
+    # every kernel behind rows 1, 4, 5 and 10: no local memory (a stack or
+    # spills); the fused GEGLU backward's setmaxnreg needs the launch bound's 168
+    report["gemm_kernel_attributes"] = {}
+    for entry, names in _build.QUERY_KERNELS.items():
         out = (ctypes.c_int * (2 * len(names)))()
         _build.check(getattr(lib.lib, entry)(out), entry)
         for i, name in enumerate(names):
             regs, local = out[2 * i], out[2 * i + 1]
-            report["ff_kernel_attributes"][name] = {"registers": regs, "local_bytes": local}
+            report["gemm_kernel_attributes"][name] = {"registers": regs, "local_bytes": local}
             need_168 = name == "ff_bwd_geglu_kernel"
             fails.check(f"{name}: {regs} registers, {local} local bytes",
                         local == 0 and (regs == 168 or not need_168),
@@ -442,9 +457,12 @@ def run_kernels(report, fails, state):
     for is_global in (False, True):
         tag = "global" if is_global else "part"
         args = (inp["x"], inp["ada"], inp["w_qkv"], inp["gq"], inp["gk"], P, is_global)
-        got = fp.adaln_qkv(*args)
+        got, again = fp.adaln_qkv(*args), fp.adaln_qkv(*args)
         for nm, g_, r_ in zip(("q", "k", "va"), got, fp.adaln_qkv_plain(*args)):
             compare("proj", f"proj[{tag}].{nm}", g_, r_)
+        fails.check(f"proj[{tag}]: bitwise equal on two calls",
+                    all(torch.equal(a, b) for a, b in zip(got, again)))
+        del again
         B = S if is_global else S * P
         T = P * N if is_global else N
         qh = got[0].reshape(B * H, T, DH)
@@ -523,6 +541,7 @@ def run_kernels(report, fails, state):
                 inp["ln_b"], inp["wi"], inp["bi"].float(), inp["wo"])
     compare_ff_bwd(fails, compare, "ff_bwd", ffb_args)
     state["ff_bwd_args"] = ffb_args
+    run_kernels_proj(fails, gen, compare)
     run_kernels_ff(fails, state, gen, compare)
     run_kernels_multiview(fails, state, gen, compare)
     run_kernels_softcap(fails, state, gen, compare, compare_lse)
@@ -543,6 +562,81 @@ def compare_ff_bwd(fails, compare, label, args):
         compare("ff_bwd", f"{label}.{nm}", g_, r_)
     fails.check(f"{label}: bitwise equal on two calls",
                 all(torch.equal(a, b) for a, b in zip(got, again)))
+
+
+def proj_inputs(gen, G: int, n: int, width: int, heads: int):
+    """Rows 1 and 4's inputs for G parts of n tokens at width D and H heads,
+    on the card, with make_kernel_inputs' scales: (x, ada, w_qkv, gamma_q,
+    gamma_k, w_out, b_out), the gains unfolded."""
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    dh = width // heads
+    return (randn(G, n, width), randn(G, 2 * width, dtype=torch.float32, scale=0.1),
+            randn(width, 3 * width, scale=width ** -0.5),
+            1.0 + randn(heads, dh, dtype=torch.float32, scale=0.1),
+            1.0 + randn(heads, dh, dtype=torch.float32, scale=0.1),
+            randn(width, width, scale=width ** -0.5), randn(width, scale=0.1))
+
+
+def run_kernels_proj(fails, gen, compare):
+    """Rows 1 and 4 at the other head widths they take (4 parts of 1024
+    tokens, 2 a sample), at one tile row (1 part of 128 tokens), both
+    layouts, and at a global layout whose N is not a multiple of 128 (N =
+    192, P·N = 384: rap_tpu's rule refuses it, its fused guard and the
+    kernels take it); row 1 bitwise equal on two calls. Then a part layout
+    of N = 192, which the kernels cannot take: the entry points take the
+    twins and launch nothing, and the kernels refuse it."""
+    from rap_tpu_torch.ops import fused_proj as fp
+    from rap_tpu_torch.ops import launch_counts, reset_launches
+
+    both = (False, True)
+    cases = [(f"D={w}, H={h}", 4, 1024, w, h, 2, both) for w, h in PROJ_WIDTHS]
+    cases.append(("one tile row", 1, 128, D, H, 1, both))
+    cases.append(("N=192, P=2", 4, 192, D, H, 2, (True,)))
+    for label, G_, n, width, heads, P_, layouts in cases:
+        x, ada, w, gamma_q, gamma_k, w_out, b_out = proj_inputs(gen, G_, n, width, heads)
+        gq_eff, gk_eff = fp.fold_gains(gamma_q, gamma_k)
+        for is_global in layouts:
+            tag = f"{label}, {'global' if is_global else 'part'}"
+            args = (x, ada, w, gq_eff, gk_eff, P_, is_global)
+            got, again = fp.proj_kernel(*args), fp.proj_kernel(*args)
+            for nm, g_, r_ in zip(("q", "k", "va"), got, fp.proj_plain(*args)):
+                compare("proj", f"proj[{tag}].{nm}", g_, r_)
+            fails.check(f"proj[{tag}]: bitwise equal on two calls",
+                        all(torch.equal(a, b) for a, b in zip(got, again)))
+            a5 = (torch.randn(got[0].shape, generator=gen, device="cuda")).to(torch.bfloat16)
+            out_args = (a5, x, w_out, b_out, P_, is_global)
+            compare("out_proj", f"out_proj[{tag}]", fp.out_kernel(*out_args),
+                    fp.out_plain(*out_args))
+
+    G_, n, P_ = 4, 192, 2
+    x, ada, w, gamma_q, gamma_k, w_out, b_out = proj_inputs(gen, G_, n, D, H)
+    gq_eff, gk_eff = fp.fold_gains(gamma_q, gamma_k)
+    label = f"G={G_}, N={n}, part (refused)"
+    reset_launches()
+    got = fp.adaln_qkv(x, ada, w, gamma_q, gamma_k, P_, False)
+    out = fp.attn_out(got[0], x, w_out, b_out, P_, False)
+    torch.cuda.synchronize()
+    fails.check(f"{label}: the entry points launch nothing", sum(launch_counts().values()) == 0)
+    for nm, g_, r_ in zip(("q", "k", "va"), got,
+                          fp.proj_plain(x, ada, w, gq_eff, gk_eff, P_, False)):
+        fails.compare(f"{label}: adaln_qkv.{nm} vs the kernel's twin", g_, r_)
+    fails.compare(f"{label}: attn_out vs the kernel's twin", out,
+                  fp.out_plain(got[0], x, w_out, b_out, P_, False))
+    reason = fp.proj_shape_error(G_, n, D, H, D // H, P_, False)
+    for name, call in (("proj_kernel", lambda: fp.proj_kernel(x, ada, w, gq_eff, gk_eff, P_,
+                                                             False)),
+                       ("out_kernel", lambda: fp.out_kernel(got[0], x, w_out, b_out, P_,
+                                                           False))):
+        try:
+            call()
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        fails.check(f"{label}: {name} refuses it",
+                    "multiple of 128 tokens" in refused and "got 192" in refused,
+                    f"({refused or 'no error'}; the rule: {reason})")
 
 
 def ff_inputs(gen, T: int, width: int, hidden: int):
@@ -1356,6 +1450,7 @@ def kernel_rows(state, counts):
             + "".join(f", {k} {v}" for k, v in extra.items()))
         return r
 
+    mm_proj, mm_out, mm_proj_bwd = proj_matmuls(inp["x"], inp["w_qkv"], inp["w_out"])
     for is_global in (False, True):
         tag = "global" if is_global else "part"
         args = (inp["x"], inp["ada"], inp["w_qkv"], gq_eff, gk_eff, P, is_global)
@@ -1364,7 +1459,7 @@ def kernel_rows(state, counts):
                 2 * T * D * 3 * D,
                 T * D * 2 + G * 2 * D * 4 + D * 3 * D * 2 + 2 * D * 4
                 + 2 * T * D * 2 + T * H * (DH + 1) * 2,
-                f"{tag}: x ({G},{N},{D}) bf16")
+                f"{tag}: x ({G},{N},{D}) bf16", matmul_ms=cuda_time_ms(mm_proj, 10))
         if is_global:
             rows.append(r)
 
@@ -1397,7 +1492,7 @@ def kernel_rows(state, counts):
         r = row("out_proj", "rap_tpu_torch/csrc/out_proj.cu", "rap_tpu/ops/fused_proj.py:458",
                 lambda: fp.out_kernel(*out_args), lambda: fp.out_plain(*out_args), None,
                 2 * T * D * D, 3 * T * D * 2 + D * D * 2 + D * 2,
-                f"{tag}: tokens {T}, D={D} bf16")
+                f"{tag}: tokens {T}, D={D} bf16", matmul_ms=cuda_time_ms(mm_out, 10))
         if is_global:
             rows.append(r)
 
@@ -1450,7 +1545,7 @@ def kernel_rows(state, counts):
                 T * D * 2 + G * 2 * D * 4 + D * 3 * D * 2 + 2 * D * 4 + 2 * T * D * 2
                 + T * H * (DH + 1) * 2 + T * D * 2 + G * 2 * D * 4 + D * 3 * D * 4
                 + 2 * D * 4,
-                f"{tag}: x ({G},{N},{D}) bf16")
+                f"{tag}: x ({G},{N},{D}) bf16", matmul_ms=cuda_time_ms(mm_proj_bwd, 10))
         if tag == "global":
             rows.append(r)
 
@@ -1482,6 +1577,25 @@ def ff_bwd_work(T: int) -> tuple[float, float]:
     return (16 * T * D * FH,
             2 * T * D * 2 + 2 * D * 4 + D * 2 * FH * 2 + 2 * FH * 4 + FH * D * 2
             + T * D * 2 + 3 * D * 4 + D * 2 * FH * 4 + 2 * FH * 4 + FH * D * 4)
+
+
+def proj_matmuls(x, w_qkv, w_out):
+    """The yardstick of rows 1, 4 and 9: torch.matmul over the same products,
+    bf16 in and out, without their LN passes, epilogues and relayouts (dy
+    stands in as a tensor of its shape): (row 1's (T x D)(D x 3D), row 4's
+    (T x D)(D x D), row 9's three: the q, k recompute (T x D)(D x 2D), dW
+    (D x T)(T x 3D), dh (T x 3D)(3D x D)). Timed beside the kernels, used
+    nowhere in the port."""
+    d = x.shape[-1]
+    x2 = x.reshape(-1, d)
+    dy = torch.ones((x2.shape[0], 3 * d), dtype=torch.bfloat16, device=x.device)
+
+    def row9():
+        torch.matmul(x2, w_qkv[:, :2 * d])
+        torch.matmul(x2.t(), dy)
+        torch.matmul(dy, w_qkv.t())
+
+    return (lambda: torch.matmul(x2, w_qkv)), (lambda: torch.matmul(x2, w_out)), row9
 
 
 def ff_matmuls(fwd, bwd=None):
@@ -1826,9 +1940,10 @@ def run_timing(report, fails, state):
     plain_step = time.perf_counter() - t0
     tokens = S * P * N
     log(f"  train step ({S} x {P} x {N} points, {LAYERS} layers, Muon, remat): median "
-        f"{per_step * 1e3:.2f} ms over 5 -> {tokens / per_step:.1f} tokens/s "
-        f"(plain versions: {plain_step * 1e3:.2f} ms, one run)")
+        f"{per_step * 1e3:.2f} ms over 5 (all: {', '.join(f'{x * 1e3:.2f}' for x in times)}) "
+        f"-> {tokens / per_step:.1f} tokens/s (plain versions: {plain_step * 1e3:.2f} ms, one run)")
     report["train_step_ms"] = per_step * 1e3
+    report["train_step_ms_all"] = [x * 1e3 for x in times]
     report["train_tokens_per_s"] = tokens / per_step
     report["plain_train_step_ms"] = plain_step * 1e3
 
@@ -1852,7 +1967,7 @@ def run_timing(report, fails, state):
     report["multiview_valid_points_per_s"] = n_valid / per_step
     report["multiview_slots_per_s"] = slots / per_step
     time_sample(report, state)
-    profile_multiview(report, state)
+    profile_paths(report, state)
     counts = report.get("launches", {})
     reset_launches()
     report["kernels"] = kernel_rows(state, counts)
@@ -1892,15 +2007,21 @@ def time_sample(report, state) -> None:
             "plain_batch_ms": state["sample_runs"][c]["plain_batch_ms"], "profile": prof}
 
 
-def profile_multiview(report, state) -> None:
-    """torch.profiler over one multi-view step (see ``device_profile``)."""
-    step, s, batch = state["mv_step"], state["mv_state"], state["mv_batch"]
+def profile_paths(report, state) -> None:
+    """torch.profiler over one serving batch, one dense and one multi-view
+    step (see ``device_profile``): where a path's wall time varies between
+    runs, whether the device's time varies with it."""
+    report["serving_profile"] = device_profile("one serving batch",
+                                               lambda: state["serve"](state["rcfg"]))
+    for key, what in (("train", "dense step"), ("mv", "multiview step")):
+        step, s, batch = state[f"{key}_step"], state[f"{key}_state"], state[f"{key}_batch"]
 
-    def one_step():
-        _, m = step(s, batch)
-        float(m["loss"])
+        def one_step():
+            _, m = step(s, batch)
+            float(m["loss"])
 
-    report["multiview_profile"] = device_profile("one multiview step", one_step)
+        report[f"{'multiview' if key == 'mv' else 'train'}_profile"] = device_profile(
+            f"one {what}", one_step)
 
 
 def device_profile(what: str, fn) -> dict:

@@ -62,34 +62,9 @@ struct FfFwdGeglu {
   }
 };
 
-// GEMM2's epilogue: out = x + bf16(y + bo).
-struct FfFwdResidual {
-  const bf16* x;
-  const bf16* bo;
-  bf16* out;
-  int D;
-  __device__ int2 b_cols(int tn) const { return make_int2(tn * 128, tn * 128 + 64); }
-  __device__ void operator()(const float (&acc)[64], const Unit& u, int row0, int wq,
-                             int lane) const {
-    const int g = lane >> 2, t = lane & 3;
-    const long ra = row0 + 16 * wq + g;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = u.tn * 128 + 8 * j + 2 * t;
-      const float b0 = __bfloat162float(bo[col]), b1 = __bfloat162float(bo[col + 1]);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const long o = (ra + 8 * h) * D + col;
-        const uint32_t xv = *reinterpret_cast<const uint32_t*>(x + o);
-        const __nv_bfloat162 x2 = *reinterpret_cast<const __nv_bfloat162*>(&xv);
-        const float y0 = __bfloat162float(__float2bfloat16(acc[4 * j + 2 * h] + b0));
-        const float y1 = __bfloat162float(__float2bfloat16(acc[4 * j + 2 * h + 1] + b1));
-        *reinterpret_cast<uint32_t*>(out + o) =
-            rtt::pack_f2(__bfloat162float(x2.x) + y0, __bfloat162float(x2.y) + y1);
-      }
-    }
-  }
-};
+// GEMM2's epilogue: out = x + bf16(y + bo) (a type of its own, so profiles
+// tell it from out_proj's).
+struct FfFwdResidual : rtt::gemm::BiasResidual {};
 
 }  // namespace
 
@@ -113,7 +88,7 @@ extern "C" int rtt_ff(const void* x, const void* ln_s, const void* ln_b, const v
     return err;
   const rtt::gemm::Sched s2{T / 128, D / 128, 1, FH / 64};
   return rtt::gemm::launch<K_MAJOR, MN_MAJOR>(
-      m_act, m_wo, s2, FfFwdResidual{(const bf16*)x, (const bf16*)bo, (bf16*)out, D}, s);
+      m_act, m_wo, s2, FfFwdResidual{{(const bf16*)x, (const bf16*)bo, (bf16*)out, D}}, s);
 }
 
 // Registers and local bytes of the forward's three kernels (ff_ln_kernel,

@@ -1,6 +1,7 @@
 // What the GEGLU feed-forward's forward (ff.cu) and backward (ff_bwd.cu)
 // share: the LayerNorm row pass that writes yln = bf16(LN(x) ws + wb), and
-// the exact-erf GELU.
+// the exact-erf GELU; the QKV projection (proj.cu) runs the same row with
+// its AdaLN scale and shift.
 #pragma once
 
 #include "common.cuh"
@@ -15,17 +16,13 @@ __device__ __forceinline__ float gelu_exact(float x) {
   return 0.5f * x * (1.f + erff(x * 0.7071067811865476f));
 }
 
-// y = bf16(LN(x) * ws + wb) with fp32 statistics (two passes, eps 1e-5), one
-// warp per row, 16-byte loads and stores (D % 8 == 0, 16-byte-aligned rows).
-// BWD only names the launch (the backward's recompute is profiled apart).
-// Grid: rows / 8.
-template <bool BWD>
-__global__ void __launch_bounds__(LN_THREADS)
-ff_ln_kernel(const bf16* __restrict__ x, const float* __restrict__ ws,
-             const float* __restrict__ wb, bf16* __restrict__ y, int D) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long row = (long)blockIdx.x * (LN_THREADS / 32) + warp;
-  const bf16* xr = x + row * D;
+// One row: y = bf16(LN(x) * ws + wb) with fp32 statistics (two passes, eps
+// 1e-5), by one warp, 16-byte loads and stores (D % 8 == 0, 16-byte-aligned
+// rows). ADA: ws is an AdaLN scale, applied as (1 + ws).
+template <bool ADA>
+__device__ __forceinline__ void ln_row(const bf16* __restrict__ xr, const float* __restrict__ ws,
+                                       const float* __restrict__ wb, bf16* __restrict__ yr,
+                                       int D, int lane) {
   float s = 0.f;
   for (int c = 8 * lane; c < D; c += 256) {
     const uint4 v = *reinterpret_cast<const uint4*>(xr + c);
@@ -54,10 +51,22 @@ ff_ln_kernel(const bf16* __restrict__ x, const float* __restrict__ ws,
     for (int q = 0; q < 8; q += 2) {
       const float h0 = (__bfloat162float(e[q]) - mu) * rstd;
       const float h1 = (__bfloat162float(e[q + 1]) - mu) * rstd;
-      op[q / 2] = rtt::pack_f2(h0 * ws[c + q] + wb[c + q], h1 * ws[c + q + 1] + wb[c + q + 1]);
+      const float s0 = ADA ? 1.f + ws[c + q] : ws[c + q];
+      const float s1 = ADA ? 1.f + ws[c + q + 1] : ws[c + q + 1];
+      op[q / 2] = rtt::pack_f2(h0 * s0 + wb[c + q], h1 * s1 + wb[c + q + 1]);
     }
-    *reinterpret_cast<uint4*>(y + row * D + c) = o;
+    *reinterpret_cast<uint4*>(yr + c) = o;
   }
+}
+
+// y = bf16(LN(x) * ws + wb), one warp per row (ln_row). BWD only names the
+// launch (the backward's recompute is profiled apart). Grid: rows / 8.
+template <bool BWD>
+__global__ void __launch_bounds__(LN_THREADS)
+ff_ln_kernel(const bf16* __restrict__ x, const float* __restrict__ ws,
+             const float* __restrict__ wb, bf16* __restrict__ y, int D) {
+  const long row = (long)blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
+  ln_row<false>(x + row * D, ws, wb, y + row * D, D, threadIdx.x & 31);
 }
 
 template <bool BWD>

@@ -12,19 +12,30 @@
 // - A stage of the shared-memory ring holds four boxes: A's rows 0-63 and
 //   64-127 and B's column halves 0-63 and 64-127 of one 64-deep k slab. The
 //   epilogue names where B's two halves start (`b_cols`), so a tile's 128
-//   columns may come from two places (the GEGLU's hidden and gate columns).
+//   columns may come from two places (the GEGLU's hidden and gate columns,
+//   or two heads of the QKV projection at any head width).
+// - Two optional hooks of the epilogue, defaulted where it lacks them, so
+//   a functor without them compiles to the plain GEMM: `a_box(m, k0)`, the
+//   (row, k) at which A's box of product rows m..m+63 and k slab k0 is read
+//   (default (m, k0): out_proj reads the head-major attention output, a
+//   relayout of the product's rows), `SCRATCH`, bytes of shared memory
+//   each consumer warp gets for its epilogue, passed as its last argument
+//   (default none: the QKV projection stages va's odd-width rows there), and
+//   `BLOCKS_PER_SM` (default 2): 1 for an epilogue that needs more than the
+//   96 registers a thread has with two blocks of 9 warps on an SM, which
+//   then gets a ring of ONE_BLOCK_STAGES slabs.
 // - One producer thread (warp 8) keeps STAGES slabs in flight by TMA, each
 //   stage with a full barrier (transaction bytes) and an empty barrier (the
 //   8 consumer warps). Two consumer warpgroups (warps 0-7) own 64 rows
 //   each: per slab 4 wgmma.m64n128k16, one commit group kept in flight, the
 //   slab before released when its group completes.
-// - The grid is persistent: two blocks on each SM (3 stages of 32 KB and at
-//   most 112 registers a thread let two fit) walk units u = blockIdx.x,
-//   + gridDim.x, ..., where a unit is one output tile and one range of k
-//   slabs (`Sched`: a split-K product gives each split a contiguous range
-//   and the epilogue writes the split's fp32 partial). While one block runs
-//   an epilogue, the other's products keep the SM's tensor cores busy, and
-//   each producer runs into its next unit's slabs.
+// - The grid is persistent: two blocks on each SM (3 stages of 32 KB; ptxas
+//   then holds a thread to 96 registers), or one (`BLOCKS_PER_SM`), walk
+//   units u = blockIdx.x, + gridDim.x, ..., where a unit is one output tile
+//   and one range of k slabs (`Sched`: a split-K product gives each split a
+//   contiguous range and the epilogue writes the split's fp32 partial).
+//   While one block runs an epilogue, the other's products keep the SM's
+//   tensor cores busy, and each producer runs into its next unit's slabs.
 // The accumulator of a consumer puts, in warp w of its warpgroup,
 // acc[4j + 0..1] at row 16w + g, columns 8j + 2t..2t+1 and acc[4j + 2..3] at
 // row 16w + g + 8 (g = lane / 4, t = lane % 4; j = 0..15, columns 0-63 are
@@ -34,6 +45,8 @@
 // fixed by the shape alone, so every sum built from them is bitwise
 // repeatable (no atomics).
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -48,8 +61,8 @@ constexpr uint32_t BOX_BYTES = BOX * BOX * 2;    // 8 KB
 constexpr int NTHREADS = 288;                    // 2 consumer warpgroups + a producer warp
 constexpr int BLOCKS_PER_SM = 2;
 constexpr int STAGES = 3;
+constexpr int ONE_BLOCK_STAGES = 6;
 constexpr uint32_t STAGE_BYTES = 4 * BOX_BYTES;  // A rows 0-63, 64-127; B halves
-constexpr size_t SMEM_BYTES = 1024 + STAGES * (size_t)STAGE_BYTES + 2 * STAGES * 8;
 
 enum { K_MAJOR = 0, MN_MAJOR = 1 };
 
@@ -94,13 +107,48 @@ struct Sched {
   }
 };
 
+// The optional hooks (see the head comment).
+template <class E, class = void>
+struct EpiScratch {
+  static constexpr int bytes = 0;
+};
+template <class E>
+struct EpiScratch<E, std::void_t<decltype(E::SCRATCH)>> {
+  static constexpr int bytes = E::SCRATCH;
+};
+template <class E, class = void>
+struct EpiBlocks {
+  static constexpr int value = BLOCKS_PER_SM;
+};
+template <class E>
+struct EpiBlocks<E, std::void_t<decltype(E::BLOCKS_PER_SM)>> {
+  static constexpr int value = E::BLOCKS_PER_SM;
+};
+template <class E, class = void>
+struct HasABox : std::false_type {};
+template <class E>
+struct HasABox<E, std::void_t<decltype(&E::a_box)>> : std::true_type {};
+
+// gemm_kernel<..., Epi>'s blocks on an SM, its ring's stages and its dynamic
+// shared memory: the ring, its barriers and the consumer warps' epilogue
+// scratch (16-byte aligned after the barriers).
+template <class Epi>
+struct Layout {
+  static constexpr int blocks = EpiBlocks<Epi>::value;
+  static constexpr int stages = blocks == 1 ? ONE_BLOCK_STAGES : STAGES;
+  static constexpr size_t scratch_at = stages * (size_t)STAGE_BYTES + 2 * stages * 8;
+  static constexpr size_t smem = 1024 + scratch_at + 8 * (size_t)EpiScratch<Epi>::bytes;
+};
+
 // Epi: `int2 b_cols(int tn)`, the first columns of B's two halves for tile
-// column tn, and `operator()(acc, unit, row0, wq, lane)`, the epilogue of
-// one consumer's 64 rows starting at row0 (wq: warp in the warpgroup).
+// column tn, and `operator()(acc, unit, row0, wq, lane[, scratch])`, the
+// epilogue of one consumer's 64 rows starting at row0 (wq: warp in the
+// warpgroup; scratch: the warp's EpiScratch bytes).
 template <int A_MAJOR, int B_MAJOR, class Epi>
-__global__ void __launch_bounds__(NTHREADS, BLOCKS_PER_SM)
+__global__ void __launch_bounds__(NTHREADS, Layout<Epi>::blocks)
 gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
             const Sched sched, const Epi epi) {
+  constexpr int STAGES = Layout<Epi>::stages;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * (size_t)STAGE_BYTES);
@@ -132,8 +180,14 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
           uint8_t* st = smem + stage * (size_t)STAGE_BYTES;
           const int k0 = ks * BOX;
           mbar_expect_tx(&full[stage], STAGE_BYTES);
-          load_box<A_MAJOR>(st, &map_a, &full[stage], m0, k0);
-          load_box<A_MAJOR>(st + BOX_BYTES, &map_a, &full[stage], m0 + BOX, k0);
+          if constexpr (HasABox<Epi>::value) {
+            const int2 a0 = epi.a_box(m0, k0), a1 = epi.a_box(m0 + BOX, k0);
+            load_box<A_MAJOR>(st, &map_a, &full[stage], a0.x, a0.y);
+            load_box<A_MAJOR>(st + BOX_BYTES, &map_a, &full[stage], a1.x, a1.y);
+          } else {
+            load_box<A_MAJOR>(st, &map_a, &full[stage], m0, k0);
+            load_box<A_MAJOR>(st + BOX_BYTES, &map_a, &full[stage], m0 + BOX, k0);
+          }
           load_box<B_MAJOR>(st + 2 * BOX_BYTES, &map_b, &full[stage], nb.x, k0);
           load_box<B_MAJOR>(st + 3 * BOX_BYTES, &map_b, &full[stage], nb.y, k0);
           if (++stage == STAGES) {
@@ -183,9 +237,43 @@ gemm_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ C
     wgmma_wait<0>();
     fence_regs(acc);
     if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
-    epi(acc, w, w.tm * TILE + c * BOX, wq, lane);
+    if constexpr (EpiScratch<Epi>::bytes > 0)
+      epi(acc, w, w.tm * TILE + c * BOX, wq, lane,
+          smem + Layout<Epi>::scratch_at + warp * EpiScratch<Epi>::bytes);
+    else
+      epi(acc, w, w.tm * TILE + c * BOX, wq, lane);
   }
 }
+
+// out = x + bf16(acc + bo), all bf16, out and x (T, D) row-major, D % 128
+// == 0: the epilogue of the FF's second product (ff.cu) and of out_proj.
+struct BiasResidual {
+  const bf16* x;
+  const bf16* bo;
+  bf16* out;
+  int D;
+  __device__ int2 b_cols(int tn) const { return make_int2(tn * 128, tn * 128 + 64); }
+  __device__ void operator()(const float (&acc)[64], const Unit& u, int row0, int wq,
+                             int lane) const {
+    const int g = lane >> 2, t = lane & 3;
+    const long ra = row0 + 16 * wq + g;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = u.tn * 128 + 8 * j + 2 * t;
+      const float b0 = __bfloat162float(bo[col]), b1 = __bfloat162float(bo[col + 1]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long o = (ra + 8 * h) * D + col;
+        const uint32_t xv = *reinterpret_cast<const uint32_t*>(x + o);
+        const __nv_bfloat162 x2 = *reinterpret_cast<const __nv_bfloat162*>(&xv);
+        const float y0 = __bfloat162float(__float2bfloat16(acc[4 * j + 2 * h] + b0));
+        const float y1 = __bfloat162float(__float2bfloat16(acc[4 * j + 2 * h + 1] + b1));
+        *reinterpret_cast<uint32_t*>(out + o) =
+            pack_f2(__bfloat162float(x2.x) + y0, __bfloat162float(x2.y) + y1);
+      }
+    }
+  }
+};
 
 // out[c] = sum of part[r * C + c] over r = 0..R-1 (C % 32 == 0): thread
 // (ty, tx) of a block of 32 columns sums rows ty, ty + 8, ... in order, then
@@ -254,18 +342,19 @@ template <int A_MAJOR, int B_MAJOR, class Epi>
 inline int launch(const CUtensorMap& map_a, const CUtensorMap& map_b, const Sched& sched,
                   const Epi& epi, cudaStream_t s) {
   auto kernel = gemm_kernel<A_MAJOR, B_MAJOR, Epi>;
+  constexpr size_t smem = Layout<Epi>::smem;
   cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   static int per_sm = 0;  // blocks resident on one SM, read once per instantiation
   if (err == cudaSuccess && per_sm == 0)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTHREADS, SMEM_BYTES);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NTHREADS, smem);
   if (err != cudaSuccess) return (int)err;
   const int units = sched.units(), slots = (per_sm > 0 ? per_sm : 1) * num_sms();
   const int grid = units < slots ? units : slots;
-  kernel<<<grid, NTHREADS, SMEM_BYTES, s>>>(map_a, map_b, sched, epi);
+  kernel<<<grid, NTHREADS, smem, s>>>(map_a, map_b, sched, epi);
   return (int)cudaGetLastError();
 }
 

@@ -4,87 +4,96 @@
 // (launched by `_out_call`, :474). Same math: the H head-major rows of a
 // token are joined into one (H*dh) row, y = row @ W_out + b in fp32, then
 // out = res + bf16(y) in bf16. The head-major input is (G,H,N,dh) for part
-// attention and (S,H,P,N,dh) for global attention (P_layout = 1 resp. P).
+// attention and (S,H,P,N,dh) for global attention: for token t = b*L + l of
+// attention sequence b (L = N resp. P*N tokens) and head h, row (b*H + h)*L
+// + l of a (rows, dh) matrix.
 //
 // Bound on the H100 at the main path's shape (32768 tokens, D=512): 17.2
-// GFLOP against ~100 MB moved (a, residual, out), so memory bounds it (~30 us
-// at 3.35 TB/s) with tensor-core work close behind (~17 us). This is the
-// simple first design: one block gathers 64 tokens of one part into shared
-// memory once and walks the output columns 64 at a time with warp-level
-// mma.sync, W staged through shared memory in 32-row slabs.
-#include "common.cuh"
+// GFLOP against ~100 MB that must move (a, residual, out), so memory bounds
+// it (~30 us at 3.35 TB/s) with tensor-core work close behind (~17 us). One
+// GEMM on the persistent TMA + wgmma GEMM of gemm_sm90.cuh (128 x 128 tiles,
+// 64-deep k slabs, two blocks per SM so one block's epilogue runs under the
+// other's products) with the FF's residual epilogue (`BiasResidual`: out =
+// res + bf16(acc + b)). At dh = 64 a k slab is one head, and A's box for
+// tile rows m.. and slab h is 64 contiguous rows of the head-major input
+// (`a_box`; L % 128 == 0 keeps a tile inside one sequence), so the relayout
+// costs no pass of its own: a is read once, by TMA. Other head widths first
+// gather tokens(a) into a (T, D) bf16 scratch (tokens_kernel, 16-byte
+// copies: 2 x 32 MB more traffic at the main path's size), then run the
+// plain K-major GEMM.
+// Takes every shape rap_tpu's fused guard admits: D % 128 == 0, L % 128 ==
+// 0, dh % 8 == 0, dh < 128, D = H*dh (the wrapper checks; ops/fused_proj.py
+// `out_shape_error`).
+#include "gemm_sm90.cuh"
 
 namespace {
 
 using rtt::bf16;
-constexpr int BM = 64;
-constexpr int DH = 64;
-constexpr int NTHREADS = 128;
+using rtt::gemm::K_MAJOR;
+using rtt::gemm::MN_MAJOR;
 
-__global__ void __launch_bounds__(NTHREADS)
-out_kernel(const bf16* __restrict__ a, const bf16* __restrict__ res,
-           const bf16* __restrict__ w, const bf16* __restrict__ b,
-           bf16* __restrict__ out, int N, int D, int H, int P_layout) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sA = reinterpret_cast<bf16*>(smem_raw);  // BM x (D + 8)
-  __shared__ __align__(16) bf16 sB[32 * (8 * 8 + 8)];
-
-  const int lda = D + 8;
-  const int g = blockIdx.y;
-  const int n0 = blockIdx.x * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int s_idx = g / P_layout, p_idx = g % P_layout;
-
-  // ---- gather: sA[r][h*dh + c] = a[(s,h,p), n0 + r, c] (16-byte moves) ----
-  for (int i = threadIdx.x; i < BM * H * (DH / 8); i += NTHREADS) {
-    const int c = (i % (DH / 8)) * 8;
-    const int r = (i / (DH / 8)) % BM;
-    const int h = i / (BM * (DH / 8));
-    const long src = (((long)(s_idx * H + h) * P_layout + p_idx) * N + n0 + r) * DH + c;
-    *reinterpret_cast<uint4*>(sA + r * lda + h * DH + c) =
-        *reinterpret_cast<const uint4*>(a + src);
+// dh = 64: A is the head-major input viewed as (rows, 64).
+struct OutHeadMajor : rtt::gemm::BiasResidual {
+  int H, L;  // heads, tokens of one attention sequence
+  __device__ int2 a_box(int m, int k0) const {
+    const int b = m / L;
+    return make_int2((b * H + k0 / 64) * L + (m - b * L), 0);
   }
+};
 
-  const int gg = lane >> 2, t = lane & 3;
-  const long rowA = (long)g * N + n0 + warp * 16 + gg, rowB = rowA + 8;
-  for (int nc = 0; nc < D; nc += 64) {
-    float acc[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    rtt::gemm_rows16<8, NTHREADS>(acc, sA, lda, warp * 16, w, D, D, nc, sB,
-                                  lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = nc + j * 8 + 2 * t;
-      const float b0 = __bfloat162float(b[c]), b1 = __bfloat162float(b[c + 1]);
-      const long oa = rowA * D + c, ob = rowB * D + c;
-      const bf16 ya0 = __float2bfloat16(acc[j][0] + b0);
-      const bf16 ya1 = __float2bfloat16(acc[j][1] + b1);
-      const bf16 yb0 = __float2bfloat16(acc[j][2] + b0);
-      const bf16 yb1 = __float2bfloat16(acc[j][3] + b1);
-      *reinterpret_cast<uint32_t*>(out + oa) = rtt::pack_f2(
-          __bfloat162float(res[oa]) + __bfloat162float(ya0),
-          __bfloat162float(res[oa + 1]) + __bfloat162float(ya1));
-      *reinterpret_cast<uint32_t*>(out + ob) = rtt::pack_f2(
-          __bfloat162float(res[ob]) + __bfloat162float(yb0),
-          __bfloat162float(res[ob + 1]) + __bfloat162float(yb1));
-    }
+// Other head widths: A is the gathered (T, D) tokens.
+struct OutTokens : rtt::gemm::BiasResidual {};
+
+// xt[t, h*dh + c .. +7] = a[(b*H + h)*L + l, c .. +7], t = b*L + l; one
+// 16-byte chunk a thread and step.
+__global__ void __launch_bounds__(256)
+tokens_kernel(const uint4* __restrict__ a, uint4* __restrict__ xt, long chunks, int H, int dh,
+              int L) {
+  const int cpr = H * dh / 8, cph = dh / 8;  // chunks of a token row, of a head row
+  for (long i = (long)blockIdx.x * 256 + threadIdx.x; i < chunks; i += (long)gridDim.x * 256) {
+    const long t = i / cpr;
+    const int r = (int)(i - t * cpr), h = r / cph;
+    const long b = t / L;
+    xt[i] = a[((b * H + h) * L + (t - b * L)) * cph + (r - h * cph)];
   }
 }
 
 }  // namespace
 
-extern "C" int rtt_out_proj(const void* a, const void* res, const void* w,
-                            const void* b, void* out, int G, int N, int D,
-                            int H, int P_layout, void* stream) {
-  const size_t smem = (size_t)BM * (D + 8) * sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(
-      out_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(N / BM, G);
-  out_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)a, (const bf16*)res, (const bf16*)w, (const bf16*)b,
-      (bf16*)out, N, D, H, P_layout);
-  return (int)cudaGetLastError();
+// a head-major (rows, dh) bf16, res (G*N, D) bf16, w (D, D) bf16, b (D) bf16;
+// scratch xt (G*N, D) bf16 where dh != 64 (else unused); out (G*N, D) bf16.
+// L = N * P_layout tokens a sequence (P_layout = 1 for part attention, P for
+// global). a, res, w, xt 16-byte aligned.
+extern "C" int rtt_out_proj(const void* a, const void* res, const void* w, const void* b,
+                            void* xt, void* out, int G, int N, int D, int H, int P_layout,
+                            void* stream) {
+  const int T = G * N, dh = D / H, L = N * P_layout;
+  if (T == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  const rtt::gemm::BiasResidual epi{(const bf16*)res, (const bf16*)b, (bf16*)out, D};
+  const rtt::gemm::Sched sched{T / 128, D / 128, 1, D / 64};
+  CUtensorMap m_a, m_w;
+  if (!rtt::gemm::tile_map(&m_w, w, D, D)) return (int)cudaErrorInvalidValue;
+  if (dh == 64) {
+    if (!rtt::gemm::tile_map(&m_a, a, (uint64_t)T * H, 64)) return (int)cudaErrorInvalidValue;
+    return rtt::gemm::launch<K_MAJOR, MN_MAJOR>(m_a, m_w, sched, OutHeadMajor{epi, H, L}, s);
+  }
+  const long chunks = (long)T * D / 8;
+  const long blocks = (chunks + 255) / 256;
+  tokens_kernel<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
+      (const uint4*)a, (uint4*)xt, chunks, H, dh, L);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  if (!rtt::gemm::tile_map(&m_a, xt, T, D)) return (int)cudaErrorInvalidValue;
+  return rtt::gemm::launch<K_MAJOR, MN_MAJOR>(m_a, m_w, sched, OutTokens{epi}, s);
+}
+
+// Registers and local bytes of the head-major GEMM, tokens_kernel and the
+// tokens GEMM, two ints each.
+extern "C" int rtt_out_proj_attributes(int* out) {
+  int err = rtt::gemm::attributes(rtt::gemm::gemm_kernel<K_MAJOR, MN_MAJOR, OutHeadMajor>, out);
+  if (!err) err = rtt::gemm::attributes(tokens_kernel, out + 2);
+  if (!err)
+    err = rtt::gemm::attributes(rtt::gemm::gemm_kernel<K_MAJOR, MN_MAJOR, OutTokens>, out + 4);
+  return err;
 }

@@ -7,119 +7,182 @@
 // folded gains (gq*log2e, gk*sqrt(dh)) -> bf16; v is cast from the fp32 sum
 // and gets the ones column. Outputs are written straight into the head-major
 // layout the attention kernel reads: (G,H,N,dh) for part attention and
-// (S,H,P,N,dh) for global attention (P_layout = 1 resp. P below).
+// (S,H,P,N,dh) for global attention. Both are, for token t = b*L + l of
+// attention sequence b (L = N resp. P*N tokens) and head h, row (b*H + h)*L
+// + l of a (rows, dh) matrix.
 //
-// Bound on the H100 at the main path's shape (32768 tokens, D=512): the
-// product is 51.5 GFLOP against ~130 MB moved, so the tensor cores bound it
-// (~52 us at 989 TFLOP/s). This is the simple first design: one block owns
-// 64 tokens of one part, normalises them once into shared memory and walks
-// the 3H head slices of W (64 columns each, staged through shared memory in
-// 32-row slabs) with warp-level mma.sync; no TMA, no wgmma, no pipelining.
-#include "common.cuh"
+// Bound on the H100 at the main path's shape (32768 tokens, D=512, H=8):
+// the product is 51.5 GFLOP against ~100 MB that must move (x in; q, k and
+// va out), so the tensor cores bound it (~52 us at 989 TFLOP/s). Two
+// launches on one stream:
+//   1. adaln_ln_kernel: hln = bf16(LN(x)(1 + scale[g]) + shift[g]), (T, D),
+//      g = t / N (ff_common.cuh's LayerNorm row);
+//   2. hln . W on the persistent TMA + wgmma GEMM of gemm_sm90.cuh (128 x 128
+//      tiles, 64-deep k slabs). A tile's 128 columns are two head slots
+//      (dh <= 64: B's halves start at two heads' first columns, `b_cols`) or
+//      one head over both halves (64 < dh < 128); a slot's columns past its
+//      head are computed and dropped, so at dh = 64 nothing is wasted. The
+//      epilogue takes each head's sum of squares over a quad of threads
+//      (a row's columns of one half lie in the quad's 4 threads) and stores
+//      q and k from the accumulator's layout; va's (dh+1)-wide rows (130
+//      bytes at dh = 64: no TMA, no aligned vectors) go through 1936 bytes
+//      of shared memory a warp, 8 rows at a time, and out as one contiguous
+//      16-byte-aligned block (a tile's 128 rows of one head are contiguous
+//      in both layouts, L % 128 == 0). That epilogue needs more than the 96
+//      registers two blocks an SM leave a thread (every variant spilled
+//      72-104 bytes there), so the GEMM runs one block an SM (166
+//      registers) with a 6-slab ring, which the producer fills with the
+//      next tile's slabs while the consumers run the epilogue.
+// Takes every shape rap_tpu's fused guard admits: D % 128 == 0, L % 128 ==
+// 0, dh % 8 == 0, dh < 128, D = H*dh (the wrapper checks; ops/fused_proj.py
+// `proj_shape_error`). Then H is even: an odd H would make dh = D/H a
+// multiple of 128. So 3H heads fill 3H/2 tiles of two (dh <= 64).
+#include "ff_common.cuh"
+#include "gemm_sm90.cuh"
 
 namespace {
 
-using rtt::bf16;
-constexpr int BM = 64;        // tokens per block
-constexpr int DH = 64;        // head width
-constexpr int NTHREADS = 128; // 4 warps x 16 rows
+using rtt::gemm::K_MAJOR;
+using rtt::gemm::MN_MAJOR;
+using rtt::gemm::Unit;
 
-__global__ void __launch_bounds__(NTHREADS)
-proj_kernel(const bf16* __restrict__ x, const float* __restrict__ ada,
-            const bf16* __restrict__ w, const float* __restrict__ gq,
-            const float* __restrict__ gk, bf16* __restrict__ q,
-            bf16* __restrict__ k, bf16* __restrict__ va, int N, int D, int H,
-            int P_layout) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sA = reinterpret_cast<bf16*>(smem_raw);  // BM x (D + 8)
-  __shared__ __align__(16) bf16 sB[32 * (8 * 8 + 8)];
+constexpr int MAX_DH = 120;  // dh % 8 == 0 and dh < 128
 
-  const int lda = D + 8;
-  const int g = blockIdx.y;
-  const int n0 = blockIdx.x * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* scale = ada + (long)g * 2 * D;
-  const float* shift = scale + D;
-
-  // ---- stage x, LayerNorm + AdaLN, cast to bf16 (one warp per row) -------
-  for (int r = warp; r < BM; r += NTHREADS / 32) {
-    const bf16* xr = x + ((long)g * N + n0 + r) * D;
-    bf16* ar = sA + r * lda;
-    for (int c = lane; c < D; c += 32) ar[c] = xr[c];
-    __syncwarp();
-    const float2 st = rtt::row_stats(ar, D, lane, 1e-5f);
-    for (int c = lane; c < D; c += 32) {
-      const float h = (__bfloat162float(ar[c]) - st.x) * st.y;
-      ar[c] = __float2bfloat16(h * (1.f + scale[c]) + shift[c]);
-    }
-  }
-  // (gemm_rows16 begins with a block barrier)
-
-  const int gg = lane >> 2, t = lane & 3;
-  const int s_idx = g / P_layout, p_idx = g % P_layout;
-  const int rowA = warp * 16 + gg, rowB = rowA + 8;
-  for (int sl = 0; sl < 3 * H; ++sl) {
-    float acc[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    rtt::gemm_rows16<8, NTHREADS>(acc, sA, lda, warp * 16, w, 3 * D, D,
-                                  sl * DH, sB, lane);
-    const int kind = sl / H, h = sl % H;  // 0 = q, 1 = k, 2 = v
-    const long hrow = ((long)(s_idx * H + h) * P_layout + p_idx) * N + n0;
-    if (kind < 2) {
-      float ssA = 0.f, ssB = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        ssA += acc[j][0] * acc[j][0] + acc[j][1] * acc[j][1];
-        ssB += acc[j][2] * acc[j][2] + acc[j][3] * acc[j][3];
-      }
-      const float rA = rsqrtf(rtt::quad_sum(ssA) + 1e-12f);
-      const float rB = rsqrtf(rtt::quad_sum(ssB) + 1e-12f);
-      const float* gain = (kind == 0 ? gq : gk) + h * DH;
-      bf16* dst = kind == 0 ? q : k;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = j * 8 + 2 * t;
-        const float g0 = gain[c], g1 = gain[c + 1];
-        *reinterpret_cast<uint32_t*>(dst + (hrow + rowA) * DH + c) =
-            rtt::pack_f2(acc[j][0] * rA * g0, acc[j][1] * rA * g1);
-        *reinterpret_cast<uint32_t*>(dst + (hrow + rowB) * DH + c) =
-            rtt::pack_f2(acc[j][2] * rB * g0, acc[j][3] * rB * g1);
-      }
-    } else {
-      // (dh + 1)-wide rows are only 2-byte aligned: scalar stores
-      bf16* pa = va + (hrow + rowA) * (DH + 1);
-      bf16* pb = va + (hrow + rowB) * (DH + 1);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = j * 8 + 2 * t;
-        pa[c] = __float2bfloat16(acc[j][0]);
-        pa[c + 1] = __float2bfloat16(acc[j][1]);
-        pb[c] = __float2bfloat16(acc[j][2]);
-        pb[c + 1] = __float2bfloat16(acc[j][3]);
-      }
-      if (t == 0) {
-        pa[DH] = __float2bfloat16(1.f);
-        pb[DH] = __float2bfloat16(1.f);
-      }
-    }
-  }
+// hln = bf16(LN(x) * (1 + scale[g]) + shift[g]), ada (G, 2D) = (scale |
+// shift) in fp32, one warp per row. Grid: T / 8.
+__global__ void __launch_bounds__(LN_THREADS)
+adaln_ln_kernel(const bf16* __restrict__ x, const float* __restrict__ ada,
+                bf16* __restrict__ hln, int N, int D) {
+  const long row = (long)blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
+  const float* scale = ada + (row / N) * 2 * D;
+  ln_row<true>(x + row * D, scale, scale + D, hln + row * D, D, threadIdx.x & 31);
 }
+
+// The GEMM's epilogue. Heads are numbered [q heads | k heads | v heads],
+// 3H in all; tile column tn holds heads 2tn and 2tn + 1 (dh <= 64, H even)
+// or head tn (dh > 64).
+struct ProjEpi {
+  bf16* q;
+  bf16* k;
+  bf16* va;
+  const float* gq;
+  const float* gk;
+  int H, dh, L;  // heads, head width, tokens of one attention sequence
+  static constexpr int SCRATCH = 16 * (MAX_DH + 1);  // 8 va rows of dh + 1
+  static constexpr int BLOCKS_PER_SM = 1;             // see the head comment
+
+  __device__ bool wide() const { return dh > 64; }
+  __device__ int head(int tn, int s) const { return wide() ? tn : 2 * tn + s; }
+  __device__ int col0(int s) const { return wide() ? 64 * s : 0; }  // slot's first column
+  __device__ int2 b_cols(int tn) const {
+    if (wide()) return make_int2(tn * dh, tn * dh + 64);
+    return make_int2(2 * tn * dh, (2 * tn + 1) * dh);
+  }
+
+  __device__ void operator()(const float (&acc)[64], const Unit& u, int row0, int wq, int lane,
+                             uint8_t* scratch) const {
+    const int g = lane >> 2, t = lane & 3;
+    const int m = row0 + 16 * wq;  // the warp's first token: rows m + g, m + g + 8
+    const int b = m / L;
+    const long l = m - (long)b * L;
+    // r[s][h]: rsqrt of the head's sum of squares on row m + g + 8h
+    float r[2][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float ss[2];
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        float v = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (col0(s) + 8 * j < dh) {
+            const float a0 = acc[4 * (8 * s + j) + 2 * h], a1 = acc[4 * (8 * s + j) + 2 * h + 1];
+            v += a0 * a0 + a1 * a1;
+          }
+        }
+        ss[s] = rtt::quad_sum(v);
+      }
+      if (wide()) ss[0] = ss[1] = ss[0] + ss[1];
+      r[0][h] = rsqrtf(ss[0] + 1e-12f);
+      r[1][h] = rsqrtf(ss[1] + 1e-12f);
+    }
+
+    // q and k straight from the accumulators (the gains through the
+    // read-only path); va 8 rows at a time through the warp's scratch,
+    // row-major as in the output (dh + 1 values a row, the last 1), then out
+    // as one contiguous block
+    bf16* sv = reinterpret_cast<bf16*>(scratch);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int hi = head(u.tn, s);
+        const int kind = hi / H, hh = hi - kind * H;
+        if (kind < 2) {
+          const float* gain = (kind ? gk : gq) + hh * dh + col0(s) + 2 * t;
+          bf16* dst = (kind ? k : q) + ((long)(b * H + hh) * L + l + g + 8 * h) * dh + col0(s) +
+                      2 * t;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            if (col0(s) + 8 * j < dh) {
+              const float2 gv = __ldg(reinterpret_cast<const float2*>(gain + 8 * j));
+              *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+                  rtt::pack_f2(acc[4 * (8 * s + j) + 2 * h] * r[s][h] * gv.x,
+                               acc[4 * (8 * s + j) + 2 * h + 1] * r[s][h] * gv.y);
+            }
+          }
+          continue;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = col0(s) + 8 * j + 2 * t;
+          if (c < dh) {
+            sv[g * (dh + 1) + c] = __float2bfloat16(acc[4 * (8 * s + j) + 2 * h]);
+            sv[g * (dh + 1) + c + 1] = __float2bfloat16(acc[4 * (8 * s + j) + 2 * h + 1]);
+          }
+        }
+        if (t == 0) sv[g * (dh + 1) + dh] = __float2bfloat16(1.f);
+        if (wide() && s == 0) continue;  // the head's columns 64.. come with s = 1
+        __syncwarp();
+        const long row = (long)(b * H + hh) * L + l + 8 * h;  // the block's first row
+        const uint4* src = reinterpret_cast<const uint4*>(scratch);
+        uint4* out = reinterpret_cast<uint4*>(va + row * (dh + 1));
+        for (int i = lane; i < dh + 1; i += 32) out[i] = src[i];  // 8 (dh + 1) bf16
+        __syncwarp();
+      }
+    }
+  }
+};
 
 }  // namespace
 
-extern "C" int rtt_proj(const void* x, const void* ada, const void* w,
-                        const void* gq, const void* gk, void* q, void* k,
-                        void* va, int G, int N, int D, int H, int P_layout,
-                        void* stream) {
-  const size_t smem = (size_t)BM * (D + 8) * sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(
-      proj_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(N / BM, G);
-  proj_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const float*)ada, (const bf16*)w, (const float*)gq,
-      (const float*)gk, (bf16*)q, (bf16*)k, (bf16*)va, N, D, H, P_layout);
-  return (int)cudaGetLastError();
+// x (G, N, D) bf16, ada (G, 2D) fp32, w (D, 3D) bf16, gq, gk (H, dh) fp32;
+// scratch hln (G*N, D) bf16; out q, k (rows, dh) and va (rows, dh + 1) bf16,
+// head-major with L = N * P_layout tokens a sequence (P_layout = 1 for part
+// attention, P for global). x, w, hln, va 16-byte aligned.
+extern "C" int rtt_proj(const void* x, const void* ada, const void* w, const void* gq,
+                        const void* gk, void* hln, void* q, void* k, void* va, int G, int N,
+                        int D, int H, int P_layout, void* stream) {
+  const int T = G * N, dh = D / H;
+  if (T == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  adaln_ln_kernel<<<T / (LN_THREADS / 32), LN_THREADS, 0, s>>>(
+      (const bf16*)x, (const float*)ada, (bf16*)hln, N, D);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  CUtensorMap m_h, m_w;
+  if (!rtt::gemm::tile_map(&m_h, hln, T, D) || !rtt::gemm::tile_map(&m_w, w, D, 3L * D))
+    return (int)cudaErrorInvalidValue;
+  const rtt::gemm::Sched sched{T / 128, dh > 64 ? 3 * H : 3 * H / 2, 1, D / 64};
+  const ProjEpi epi{(bf16*)q, (bf16*)k, (bf16*)va, (const float*)gq, (const float*)gk,
+                    H, dh, N * P_layout};
+  return rtt::gemm::launch<K_MAJOR, MN_MAJOR>(m_h, m_w, sched, epi, s);
+}
+
+// Registers and local bytes of adaln_ln_kernel and the GEMM, two ints each.
+extern "C" int rtt_proj_attributes(int* out) {
+  int err = rtt::gemm::attributes(adaln_ln_kernel, out);
+  if (!err)
+    err = rtt::gemm::attributes(rtt::gemm::gemm_kernel<K_MAJOR, MN_MAJOR, ProjEpi>, out + 2);
+  return err;
 }

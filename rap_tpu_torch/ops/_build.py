@@ -34,8 +34,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C entry points and their argument types (pointers and the stream are
 # c_void_p so ctypes never cuts a 64-bit address to an int)
 SIGNATURES = {
-    "rtt_proj": [_P] * 8 + [_I] * 5 + [_P],
-    "rtt_out_proj": [_P] * 5 + [_I] * 5 + [_P],
+    "rtt_proj": [_P] * 9 + [_I] * 5 + [_P],
+    "rtt_out_proj": [_P] * 6 + [_I] * 5 + [_P],
     "rtt_ff": [_P] * 10 + [_I] * 3 + [_P],
     "rtt_flash_fixed": [_P] * 3 + [_F] + [_P] * 2 + [_I] * 3 + [_P],
     "rtt_flash_online": [_P] * 6 + [_I] * 4 + [_P],
@@ -52,21 +52,33 @@ SIGNATURES = {
 }
 # C entry points that launch nothing: the registers and local bytes of the
 # backward's setmaxnreg kernels (the key block's four instantiations, the dQ
-# pass's two; 4 ints each) and of every kernel behind rtt_ff and rtt_ff_bwd
-# (2 ints each, in the order of FF_KERNELS and FF_BWD_KERNELS;
-# cudaFuncGetAttributes)
+# pass's two; 4 ints each) and of every kernel behind rtt_proj,
+# rtt_out_proj, rtt_ff and rtt_ff_bwd (2 ints each, in the order of
+# QUERY_KERNELS[entry]; cudaFuncGetAttributes)
 QUERIES = {
     "rtt_flash_bwd_attributes": [_P],
     "rtt_flash_bwd_dkv_attributes": [_P],
     "rtt_flash_bwd_dq_attributes": [_P],
+    "rtt_proj_attributes": [_P],
+    "rtt_out_proj_attributes": [_P],
     "rtt_ff_attributes": [_P],
     "rtt_ff_bwd_attributes": [_P],
 }
+PROJ_KERNELS = ("adaln_ln_kernel", "gemm_kernel<K, MN, ProjEpi>")
+OUT_PROJ_KERNELS = ("gemm_kernel<K, MN, OutHeadMajor>", "tokens_kernel",
+                    "gemm_kernel<K, MN, OutTokens>")
 FF_KERNELS = ("ff_ln_kernel<false>", "gemm_kernel<K, MN, FfFwdGeglu>",
               "gemm_kernel<K, MN, FfFwdResidual>")
 FF_BWD_KERNELS = ("ff_ln_kernel<true>", "ff_bwd_geglu_kernel", "gemm_kernel<K, K, FfBwdDyln>",
                   "ff_bwd_ln_grad_kernel", "gemm_kernel<MN, MN, FfBwdWgrad>", "colsum_kernel",
                   "splitsum_kernel")
+# the kernels each attribute query reports, in its order
+QUERY_KERNELS = {
+    "rtt_proj_attributes": PROJ_KERNELS,
+    "rtt_out_proj_attributes": OUT_PROJ_KERNELS,
+    "rtt_ff_attributes": FF_KERNELS,
+    "rtt_ff_bwd_attributes": FF_BWD_KERNELS,
+}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -64,6 +64,14 @@ def require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def require_aligned(kernels: str, **tensors: torch.Tensor) -> None:
+    """TMA and 16-byte loads need 16-byte-aligned base addresses."""
+    for name, t in tensors.items():
+        require(t.data_ptr() % 16 == 0,
+                f"{name}: the {kernels} take 16-byte-aligned inputs (a view at an "
+                "offset is not); pass a contiguous copy")
+
+
 def launch(kernel: str, like: torch.Tensor, *args) -> None:
     """Call the C entry point ``rtt_<kernel>`` with ``args`` and the current
     stream of ``like``'s device, with that device current; raise on a CUDA

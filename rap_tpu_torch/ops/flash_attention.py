@@ -29,6 +29,10 @@ vectors (``backward_operands``), split once off va and [dO | -delta]
 the same arithmetic and cast points (``*_plain``), chunked over
 (batch*head, query) tiles to bound memory. The gradient of the
 bound is 0 and the ones column of va gets a zero cotangent (:321-323).
+Every kernel is 64 wide in its heads; the launchers take heads of 8 to 64,
+multiples of 8, zero-padding q, k, V and dO to 64 columns before a kernel
+and dropping the padded columns of out, dq, dk and dv after it
+(``kernel_width``, ``head_columns``).
 
 Softcap c > 0 (the TPU kernels' static ``softcap``): q is pre-scaled by
 scale/c instead of scale·log2(e) (:829-832), each logit becomes
@@ -58,6 +62,7 @@ _FWD_BLOCK = 128  # csrc/attention.cu BQ and BK: query rows per block, keys per 
 _BWD_BLOCK = 64   # csrc/attention_bwd_dkv.cuh (rows 6 and 7): queries per step
 _PLAIN_LOGITS = 2**28  # fp32 logits per chunk of the plain versions (1 GiB)
 _BWD_KEY_BLOCK = 128  # csrc/attention_bwd_dkv.cuh (rows 6 and 7): keys per block
+_KERNEL_DH = 64  # the head width of every attention kernel
 # csrc/attention_bwd_dq.cuh (row 8) owns _FWD_BLOCK queries a block and walks
 # key tiles of _FWD_BLOCK
 _FUSED_DQ_PARTIALS_CAP = 2 * 2**30  # pallas_attention.py:636
@@ -149,10 +154,27 @@ def flash_online_plain(qh, kh, vah, mask=None, heads: int = 1, softcap: float = 
     return out, lse
 
 
+def kernel_width(*tensors):
+    """The tensors zero-padded in their last dimension to the kernels' head
+    width 64 (unchanged where it is 64): the attention kernels take heads of
+    8 <= d <= 64, d % 8 == 0, as 64 wide. Exact: q·k, the row sums l, lse and
+    -delta = rowsum(dO·O) gain only zero terms, and out, dq, dk and dv are
+    the first d columns of the padded results (``head_columns``)."""
+    return tuple(t if t.shape[-1] == _KERNEL_DH else F.pad(t, (0, _KERNEL_DH - t.shape[-1]))
+                 for t in tensors)
+
+
+def head_columns(t, d: int):
+    """The first d columns of a kernel's 64-wide result, contiguous."""
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
+
+
 def _check_attention_inputs(qh, kh, vah, block: int = _BWD_BLOCK):
     BH, Tq, d = qh.shape
     Tk = kh.shape[1]
-    require(d == 64, f"attention kernel takes head width 64, got {d}")
+    require(d % 8 == 0 and 8 <= d <= _KERNEL_DH,
+            f"attention kernel takes head width 64, or a multiple of 8 below it "
+            f"(zero-padded to 64), got {d}")
     require(Tq % block == 0 and Tk % block == 0,
             f"attention kernel takes Tq, Tk multiples of {block} (keys are never "
             f"padded); got Tq={Tq}, Tk={Tk}")
@@ -177,51 +199,52 @@ def _as_kernel_mask(mask):
     return None if mask is None else mask.to(torch.int32).contiguous()
 
 
-def _forward_v(qh, kh, vah):
-    """Check the forward kernel's inputs; return v = va without its ones
-    column, (BH, Tk, 64) with 128-byte rows, the layout its TMA loads read
-    (a fresh tensor, so aligned). TMA also needs q's and k's base addresses
-    16-byte aligned."""
+def _forward_operands(qh, kh, vah):
+    """Check the forward kernel's inputs; return q, k and v = va without its
+    ones column at the kernels' width (``kernel_width``): v (BH, Tk, 64) with
+    128-byte rows, the layout its TMA loads read (a fresh tensor, so
+    aligned). TMA also needs q's and k's base addresses 16-byte aligned."""
     _check_attention_inputs(qh, kh, vah, _FWD_BLOCK)
     for name, t in (("qh", qh), ("kh", kh)):
         require(t.data_ptr() % 16 == 0,
                 f"{name}: the attention forward kernel takes 16-byte-aligned inputs "
                 f"(TMA), got data_ptr % 16 = {t.data_ptr() % 16}")
-    return vah[..., :qh.shape[-1]].contiguous()
+    q, k, v = kernel_width(qh, kh, vah[..., :qh.shape[-1]])
+    return q, k, v.contiguous()
 
 
 def flash_fixed_kernel(qh, kh, vah, bound: float, softcap: float = 0.0):
     """Launch the fixed-bound variant of csrc/attention.cu (its softcap
     variant for ``softcap`` > 0)."""
-    v = _forward_v(qh, kh, vah)
-    BH, Tq, _ = qh.shape
-    out = torch.empty_like(qh)
+    q, k, v = _forward_operands(qh, kh, vah)
+    BH, Tq, d = qh.shape
+    out = torch.empty_like(q)
     lse = torch.empty((BH, Tq), dtype=torch.float32, device=qh.device)
-    head = (qh.data_ptr(), kh.data_ptr(), v.data_ptr(), float(bound))
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), float(bound))
     tail = (out.data_ptr(), lse.data_ptr(), BH, Tq, kh.shape[1])
     if softcap > 0.0:
         launch("flash_fixed_softcap", qh, *head, _cap2(softcap), *tail)
     else:
         launch("flash_fixed", qh, *head, *tail)
-    return out, lse
+    return head_columns(out, d), lse
 
 
 def flash_online_kernel(qh, kh, vah, mask=None, heads: int = 1, softcap: float = 0.0):
     """Launch the online-softmax variant of csrc/attention.cu (its softcap
     variant for ``softcap`` > 0)."""
-    v = _forward_v(qh, kh, vah)
-    BH, Tq, _ = qh.shape
+    q, k, v = _forward_operands(qh, kh, vah)
+    BH, Tq, d = qh.shape
     Tk = kh.shape[1]
     mask_ptr = _mask_arg(mask, qh, Tk, heads)
-    out = torch.empty_like(qh)
+    out = torch.empty_like(q)
     lse = torch.empty((BH, Tq), dtype=torch.float32, device=qh.device)
-    head = (qh.data_ptr(), kh.data_ptr(), v.data_ptr(), mask_ptr)
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr)
     tail = (out.data_ptr(), lse.data_ptr(), BH, Tq, Tk, heads)
     if softcap > 0.0:
         launch("flash_online_softcap", qh, *head, _cap2(softcap), *tail)
     else:
         launch("flash_online", qh, *head, *tail)
-    return out, lse
+    return head_columns(out, d), lse
 
 
 def flash_fixed(qh, kh, vah, bound: float, softcap: float = 0.0):
@@ -428,17 +451,19 @@ def flash_bwd_kernel(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1,
     v, do, nd, ones = ops = backward_operands(vah, dout.to(qh.dtype), out)
     mask_ptr = _check_dkv_inputs(qh, kh, vah, ops, lse2, mask, heads)
     BH, Tq, d = qh.shape
-    dq_acc = torch.zeros((BH, Tq, d), dtype=torch.float32, device=qh.device)
-    dk = torch.empty_like(kh)
-    dv = torch.empty_like(kh)
+    q, k, v, do = kernel_width(qh, kh, v, do)
+    dq_acc = torch.zeros((BH, Tq, _KERNEL_DH), dtype=torch.float32, device=qh.device)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(k)
     _launch_bwd("flash_bwd", qh,
-                (qh.data_ptr(), kh.data_ptr(), v.data_ptr(), ones.data_ptr(), mask_ptr,
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), ones.data_ptr(), mask_ptr,
                  do.data_ptr(), nd.data_ptr(), lse2.data_ptr(), dq_acc.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), BH, Tq, kh.shape[1], heads), softcap)
     scale = _dk_scale(softcap)
     if scale != 1.0:
         dq_acc.mul_(scale)
-    return dq_acc.to(qh.dtype), dk, dv
+    return (head_columns(dq_acc, d).to(qh.dtype), head_columns(dk, d),
+            head_columns(dv, d))
 
 
 def _launch_dkv(qh, kh, vah, ops, lse2, mask, heads: int, softcap: float):
@@ -446,14 +471,15 @@ def _launch_dkv(qh, kh, vah, ops, lse2, mask, heads: int, softcap: float):
     (v, dO, -delta, ones): (dk, dv)."""
     v, do, nd, ones = ops
     mask_ptr = _check_dkv_inputs(qh, kh, vah, ops, lse2, mask, heads)
-    BH, Tq, _ = qh.shape
-    dk = torch.empty_like(kh)
-    dv = torch.empty_like(kh)
+    BH, Tq, d = qh.shape
+    q, k, v, do = kernel_width(qh, kh, v, do)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(k)
     _launch_bwd("flash_bwd_dkv", qh,
-                (qh.data_ptr(), kh.data_ptr(), v.data_ptr(), ones.data_ptr(), mask_ptr,
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), ones.data_ptr(), mask_ptr,
                  do.data_ptr(), nd.data_ptr(), lse2.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  BH, Tq, kh.shape[1], heads), softcap)
-    return dk, dv
+    return head_columns(dk, d), head_columns(dv, d)
 
 
 def _launch_dq(qh, kh, vah, ops, lse2, mask, heads: int, softcap: float):
@@ -461,13 +487,14 @@ def _launch_dq(qh, kh, vah, ops, lse2, mask, heads: int, softcap: float):
     (v, dO, -delta, ones): dq."""
     v, do, nd, ones = ops
     mask_ptr = _check_dq_inputs(qh, kh, vah, ops, lse2, mask, heads)
-    BH, Tq, _ = qh.shape
-    dq = torch.empty_like(qh)
+    BH, Tq, d = qh.shape
+    q, k, v, do = kernel_width(qh, kh, v, do)
+    dq = torch.empty_like(q)
     _launch_bwd("flash_bwd_dq", qh,
-                (qh.data_ptr(), kh.data_ptr(), v.data_ptr(), ones.data_ptr(), mask_ptr,
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), ones.data_ptr(), mask_ptr,
                  do.data_ptr(), nd.data_ptr(), lse2.data_ptr(), dq.data_ptr(), BH, Tq,
                  kh.shape[1], heads), softcap)
-    return dq
+    return head_columns(dq, d)
 
 
 def flash_bwd_dkv_kernel(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,

@@ -28,7 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ._common import check_input, launch, on_cpu, require
+from ._common import check_input, launch, on_cpu, require, require_aligned
 
 _TILE = 128  # rows and columns of an output tile of csrc/gemm_sm90.cuh
 _SLAB = 64   # k slab of csrc/gemm_sm90.cuh; ff_bwd_ln_grad_kernel's rows per block
@@ -74,14 +74,6 @@ def _require_shape(T: int, D: int, fh: int) -> None:
     require(err is None, err or "")
 
 
-def _require_aligned(**tensors: torch.Tensor) -> None:
-    """TMA and the kernels' 16-byte loads need 16-byte-aligned base addresses."""
-    for name, t in tensors.items():
-        require(t.data_ptr() % 16 == 0,
-                f"{name}: the ff kernels take 16-byte-aligned inputs (a view at an "
-                "offset is not); pass a contiguous copy")
-
-
 def wgrad_splits(tiles: int, nslab: int, slots: int) -> int:
     """Token splits of a weight gradient's product (csrc/ff_bwd.cu): the
     fewest splits, at most 8 and each of at least 4 slabs of 64 tokens, whose
@@ -116,7 +108,7 @@ def ff_kernel(x2, ln_scale, ln_bias, wi, bi, wo, bo):
     check_input("bi", bi, torch.bfloat16, (2 * fh,))
     check_input("wo", wo, torch.bfloat16, (fh, D))
     check_input("bo", bo, torch.bfloat16, (D,))
-    _require_aligned(x=x2, wi=wi, wo=wo)
+    require_aligned("ff kernels", x=x2, wi=wi, wo=wo)
     yln = torch.empty((T, D), dtype=torch.bfloat16, device=x2.device)
     act = torch.empty((T, fh), dtype=torch.bfloat16, device=x2.device)
     out = torch.empty_like(x2)
@@ -169,7 +161,7 @@ def ff_bwd_kernel(x2, g2, ln_scale, ln_bias, wi, bi, wo):
     check_input("wi", wi, torch.bfloat16, (D, 2 * fh))
     check_input("bi", bi, torch.float32, (2 * fh,))
     check_input("wo", wo, torch.bfloat16, (fh, D))
-    _require_aligned(x=x2, g=g2, wi=wi, wo=wo)
+    require_aligned("ff kernels", x=x2, g=g2, wi=wi, wo=wo)
     bf = dict(dtype=torch.bfloat16, device=x2.device)
     f32 = dict(dtype=torch.float32, device=x2.device)
     slots = _BLOCKS_PER_SM * _sm_count(x2.device)

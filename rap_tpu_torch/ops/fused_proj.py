@@ -8,10 +8,17 @@ and (S,H,P,N,dh+1) for global attention. q is pre-scaled by gamma_q*log2(e)
 ``attn_out`` folds those rows back into tokens: res + rows @ W_out + b.
 
 Kernels: csrc/proj.cu (TPU ``_proj_kernel``, fused_proj.py:46) and
-csrc/out_proj.cu (TPU ``_out_kernel``, fused_proj.py:458). ``proj_plain`` and
-``out_plain`` repeat the kernels' arithmetic and cast points in plain PyTorch
-(the role of ``xla_reference`` :152 and ``out_xla_reference`` :501): the
-product sums bf16 inputs in fp32, as the kernels do.
+csrc/out_proj.cu (TPU ``_out_kernel``, fused_proj.py:458), both on the TMA +
+wgmma GEMM of csrc/gemm_sm90.cuh. ``proj_plain`` and ``out_plain`` repeat the
+kernels' arithmetic and cast points in plain PyTorch (the role of
+``xla_reference`` :152 and ``out_xla_reference`` :501): the product sums bf16
+inputs in fp32, as the kernels do. Both kernels take every shape whose
+attention sequences (N tokens for part attention, P*N for global) are a
+multiple of 128 and that rap_tpu's fused guard admits (dit.py:183-195;
+``proj_shape_error``, ``out_shape_error``): all that rap_tpu's ``legal``
+rules (:440-442, :556-557) admit, and the global layouts with N % 128 != 0
+that the guard admits too. ``adaln_qkv`` and ``attn_out`` dispatch on that
+rule from the shape: a refused shape takes the plain versions.
 
 Both are ``torch.autograd.Function``s. The backward of ``adaln_qkv`` is
 csrc/proj_bwd.cu (TPU ``_proj_bwd_kernel``, fused_proj.py:184), twin
@@ -28,7 +35,9 @@ import math
 
 import torch
 
-from ._common import check_input, launch, on_cpu, require
+from ._common import check_input, launch, on_cpu, require, require_aligned
+
+_TILE = 128  # rows and columns of an output tile of csrc/gemm_sm90.cuh
 
 
 def _ln_stats(xf: torch.Tensor, eps: float = 1e-5):
@@ -79,27 +88,67 @@ def proj_plain(x, ada, w, gq_eff, gk_eff, P: int, is_global: bool):
     return tuple(_to_head_major(a, P, is_global) for a in (q, k, va))
 
 
+def _shape_error(kernel: str, G: int, N: int, D: int, H: int, dh: int, P: int,
+                 is_global: bool) -> str | None:
+    L = N * P if is_global else N
+    if D != H * dh:
+        return f"{kernel} kernel takes D = H*dh, got D={D}, H={H}, dh={dh}"
+    if D % _TILE != 0:
+        return f"{kernel} kernel takes a width D that is a multiple of 128, got {D}"
+    if dh % 8 != 0 or dh >= 128:
+        return f"{kernel} kernel takes a head width below 128 that is a multiple of 8, got {dh}"
+    if G % P != 0:
+        return f"{kernel} kernel takes G parts that are a multiple of P, got G={G}, P={P}"
+    if L % _TILE != 0:
+        return (f"{kernel} kernel takes attention sequences of a multiple of 128 tokens "
+                f"(N, or P*N for global attention), got {L}")
+    return None
+
+
+def proj_shape_error(G: int, N: int, D: int, H: int, dh: int, P: int,
+                     is_global: bool) -> str | None:
+    """Why csrc/proj.cu refuses G parts of N tokens of width D, H heads of
+    width dh, P parts a sample in the part or global layout, or None where
+    it takes them: D % 128 == 0, dh % 8 == 0, dh < 128 and an attention
+    sequence L (N, or P*N for global attention) that is a multiple of 128,
+    as rap_tpu's fused guard has them (dit.py:193-194), and G % P == 0 from
+    its ``legal`` rule (fused_proj.py:440-442). Then a tile of 128 tokens
+    lies in one sequence, and the head-major rows of one head for it are
+    contiguous. rap_tpu's rule asks a block of 128-1024 tokens to divide N
+    in both layouts: in the global layout the kernel needs only P*N."""
+    return _shape_error("proj", G, N, D, H, dh, P, is_global)
+
+
+def out_shape_error(G: int, N: int, D: int, H: int, dh: int, P: int,
+                    is_global: bool) -> str | None:
+    """Why csrc/out_proj.cu refuses a shape, or None: the rule of
+    ``proj_shape_error`` (rap_tpu's ``legal`` for it, :556-557, has no dh
+    term; the fused guard's dh % 8 == 0, dh < 128 holds for both)."""
+    return _shape_error("out_proj", G, N, D, H, dh, P, is_global)
+
+
 def proj_kernel(x, ada, w, gq_eff, gk_eff, P: int, is_global: bool):
     """Launch csrc/proj.cu on CUDA tensors."""
     G, N, D = x.shape
     H, dh = gq_eff.shape
-    require(dh == 64 and D == H * dh, f"proj kernel takes dh=64, D=H*dh; got D={D}, H={H}")
-    require(N % 64 == 0, f"proj kernel takes N % 64 == 0; got N={N}")
-    require(G % P == 0, f"G={G} is not a multiple of P={P}")
+    err = proj_shape_error(G, N, D, H, dh, P, is_global)
+    require(err is None, err or "")
     check_input("x", x, torch.bfloat16, (G, N, D))
     check_input("ada", ada, torch.float32, (G, 2 * D))
     check_input("w", w, torch.bfloat16, (D, 3 * D))
     check_input("gq_eff", gq_eff, torch.float32, (H, dh))
     check_input("gk_eff", gk_eff, torch.float32, (H, dh))
+    require_aligned("proj kernels", x=x, w=w)
     S = G // P
     lead = (S, H, P, N) if is_global else (G, H, N)
+    hln = torch.empty((G * N, D), dtype=x.dtype, device=x.device)
     q = torch.empty(lead + (dh,), dtype=x.dtype, device=x.device)
     k = torch.empty_like(q)
     va = torch.empty(lead + (dh + 1,), dtype=x.dtype, device=x.device)
     launch(
         "proj", x,
         x.data_ptr(), ada.data_ptr(), w.data_ptr(), gq_eff.data_ptr(),
-        gk_eff.data_ptr(), q.data_ptr(), k.data_ptr(), va.data_ptr(),
+        gk_eff.data_ptr(), hln.data_ptr(), q.data_ptr(), k.data_ptr(), va.data_ptr(),
         G, N, D, H, P if is_global else 1,
     )
     return q, k, va
@@ -146,7 +195,9 @@ def proj_bwd_kernel(x, ada, w, gq_eff, gk_eff, dq, dk, dva, P: int,
     ``proj_bwd_plain`` returns."""
     G, N, D = x.shape
     H, dh = gq_eff.shape
-    require(dh == 64 and D == H * dh, f"proj backward takes dh=64, D=H*dh; got D={D}, H={H}")
+    require(dh == 64 and D == H * dh,
+            "proj backward kernel (row 9) takes head width 64 only; other widths are "
+            f"open (ROADMAP C8): got D={D}, H={H}")
     require(N % 64 == 0, f"proj backward takes N % 64 == 0; got N={N}")
     require(G % P == 0, f"G={G} is not a multiple of P={P}")
     check_input("x", x, torch.bfloat16, (G, N, D))
@@ -220,10 +271,14 @@ def adaln_qkv(x, ada, w, gamma_q, gamma_k, P: int, is_global: bool,
     """Head-major (q, k, va) from tokens x (G, N, D), AdaLN (G, 2D) = (scale |
     shift), fused QKV weight w (D, 3D) and unfolded qk-norm gains (H, dh).
 
-    Differentiable. CUDA tensors launch the kernels forward and backward;
-    CPU tensors, or ``kernels=False``, take the plain versions.
+    Differentiable. CUDA tensors of a shape ``proj_shape_error`` admits
+    launch the kernels forward and backward; CPU tensors, a shape it
+    refuses, or ``kernels=False`` take the plain versions.
     """
+    G, N, D = x.shape
+    H, dh = gamma_q.shape
     gq_eff, gk_eff = fold_gains(gamma_q, gamma_k)
+    kernels = kernels and proj_shape_error(G, N, D, H, dh, P, is_global) is None
     return _AdalnQKV.apply(x, ada, w, gq_eff, gk_eff, P, is_global, kernels)
 
 
@@ -258,19 +313,22 @@ def out_kernel(a5, res, w, b, P: int, is_global: bool):
     """Launch csrc/out_proj.cu on CUDA tensors."""
     G, N, D = res.shape
     H, dh = a5.shape[1], a5.shape[-1]
-    require(dh == 64 and D == H * dh, f"out kernel takes dh=64, D=H*dh; got D={D}, H={H}")
-    require(N % 64 == 0, f"out kernel takes N % 64 == 0; got N={N}")
-    require(G % P == 0, f"G={G} is not a multiple of P={P}")
+    err = out_shape_error(G, N, D, H, dh, P, is_global)
+    require(err is None, err or "")
     lead = (G // P, H, P, N) if is_global else (G, H, N)
     check_input("a5", a5, torch.bfloat16, lead + (dh,))
     check_input("res", res, torch.bfloat16, (G, N, D))
     check_input("w", w, torch.bfloat16, (D, D))
     check_input("b", b, torch.bfloat16, (D,))
+    require_aligned("out_proj kernels", a5=a5, res=res, w=w)
+    # the gathered tokens, where a k slab is not one head
+    xt = None if dh == 64 else torch.empty((G * N, D), dtype=res.dtype, device=res.device)
     out = torch.empty_like(res)
     launch(
         "out_proj", res,
         a5.data_ptr(), res.data_ptr(), w.data_ptr(), b.data_ptr(),
-        out.data_ptr(), G, N, D, H, P if is_global else 1,
+        None if xt is None else xt.data_ptr(), out.data_ptr(), G, N, D, H,
+        P if is_global else 1,
     )
     return out
 
@@ -299,7 +357,11 @@ def attn_out(a5, res, w, b, P: int, is_global: bool, kernels: bool = True):
     """res + tokens(a5) @ w + b, with a5 head-major: part (G,H,N,dh), global
     (S,H,P,N,dh); res (G, N, D); w (H*dh, D); b (D,).
 
-    Differentiable. CUDA tensors launch the kernel; CPU tensors, or
-    ``kernels=False``, take ``out_plain``.
+    Differentiable. CUDA tensors of a shape ``out_shape_error`` admits
+    launch the kernel; CPU tensors, a shape it refuses, or ``kernels=False``
+    take ``out_plain``.
     """
+    G, N, D = res.shape
+    kernels = kernels and out_shape_error(G, N, D, a5.shape[1], a5.shape[-1], P,
+                                          is_global) is None
     return _AttnOut.apply(a5, res, w, b, P, is_global, kernels)

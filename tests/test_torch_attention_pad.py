@@ -1,0 +1,106 @@
+"""Attention at head widths below 64, through the kernels' zero-padding.
+
+Every attention kernel of rap_tpu_torch is 64 wide in its heads; the
+launchers take heads of 8 <= d < 64 (d % 8 == 0) by padding q, k, V and dO
+with zero columns to 64 (``flash_attention.kernel_width``) and keeping the
+first d columns of out, dq, dk and dv (``head_columns``). On the CPU the
+plain twins stand in for the kernels (they repeat the kernels' arithmetic):
+each twin through the padding must equal the twin on the unpadded heads,
+forward (fixed-bound, online with a key mask) and backward (fused, and the
+split dKV and dQ passes). Tolerance: 1e-5 of the largest output; the padded
+columns add exact zeros, and only the order of the fp32 sums may differ.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from rap_tpu_torch.ops import flash_attention as fa
+
+BH, HEADS, T = 4, 2, 256
+RTOL = 1e-5
+
+
+def _close(got, ref):
+    scale = max(float(ref.abs().max()), 1e-30)
+    err = float((got - ref).abs().max())
+    assert err <= RTOL * scale, f"max err {err:.3e} > {RTOL:.1e} * {scale:.3e}"
+
+
+def _operands(d, seed=0):
+    """Pre-scaled q, k (rows of norm ~3, so the logits span ~9 in base 2),
+    va with its ones column, dO, and a key mask that leaves one sequence
+    empty."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
+    q, k = f(BH, T, d) * (3 / d ** 0.5), f(BH, T, d) * (3 / d ** 0.5)
+    va = torch.cat([f(BH, T, d), torch.ones(BH, T, 1)], dim=-1)
+    mask = torch.from_numpy(rng.random((BH // HEADS, T)) > 0.3)
+    mask[1] = False
+    return q, k, va, f(BH, T, d), mask
+
+
+def _padded_va(va):
+    d = va.shape[-1] - 1
+    (v,) = fa.kernel_width(va[..., :d])
+    return torch.cat([v, va[..., d:]], dim=-1)
+
+
+@pytest.mark.parametrize("d", [8, 32, 56])
+def test_forward_twins_through_the_padding(d):
+    q, k, va, _, mask = _operands(d)
+    qp, kp = fa.kernel_width(q, k)
+    assert qp.shape[-1] == kp.shape[-1] == 64
+    vap = _padded_va(va)
+    for run in (lambda q_, k_, va_: fa.flash_fixed_plain(q_, k_, va_, 12.0),
+                lambda q_, k_, va_: fa.flash_online_plain(q_, k_, va_, mask, HEADS)):
+        out, lse = run(q, k, va)
+        out_p, lse_p = run(qp, kp, vap)
+        assert not out_p[..., d:].any()  # the padded columns of out are zero
+        _close(fa.head_columns(out_p, d), out)
+        live = lse < fa.LSE_EMPTY
+        _close(lse_p[live], lse[live])
+        assert torch.equal(lse_p[~live], lse[~live])
+
+
+@pytest.mark.parametrize("d", [8, 32, 56])
+def test_backward_twins_through_the_padding(d):
+    q, k, va, dout, mask = _operands(d, seed=1)
+    qp, kp, dop = fa.kernel_width(q, k, dout)
+    vap = _padded_va(va)
+    out, lse = fa.flash_online_plain(q, k, va, mask, HEADS)
+    (out_p,) = fa.kernel_width(out)
+    # the fused backward
+    got = fa.flash_bwd_plain(qp, kp, vap, out_p, lse, dop, mask, HEADS)
+    ref = fa.flash_bwd_plain(q, k, va, out, lse, dout, mask, HEADS)
+    for g_, r_ in zip(got, ref):
+        assert g_.shape[-1] == 64
+        _close(fa.head_columns(g_, d), r_)
+    # the split passes, on [dO | -delta] with dO padded
+    doa = fa.augment_do(dout, out)
+    doa_p = torch.cat([dop, doa[..., d:]], dim=-1)
+    dk, dv = fa.flash_bwd_dkv_plain(q, k, va, doa, lse, mask, HEADS)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(qp, kp, vap, doa_p, lse, mask, HEADS)
+    _close(fa.head_columns(dk_p, d), dk)
+    _close(fa.head_columns(dv_p, d), dv)
+    dq = fa.flash_bwd_dq_plain(q, k, va, doa, lse, mask, HEADS)
+    _close(fa.head_columns(fa.flash_bwd_dq_plain(qp, kp, vap, doa_p, lse, mask, HEADS), d), dq)
+
+
+def test_kernels_take_narrow_heads_and_refuse_others(monkeypatch):
+    """The launchers pass heads of d = 32 on to a launch, padded; d = 60
+    (not a multiple of 8) and d = 96 (wider than the kernels) are refused
+    before any launch."""
+    launched = []
+    monkeypatch.setattr(fa, "launch", lambda kernel, *a: launched.append(kernel))
+    bf = dict(dtype=torch.bfloat16)
+    for d in (32, 60, 96):
+        q = torch.zeros(BH, 128, d, **bf)
+        va = torch.zeros(BH, 128, d + 1, **bf)
+        if d == 32:
+            out, lse = fa.flash_fixed_kernel(q, q, va, 1.0)
+            assert out.shape == q.shape and out.is_contiguous()
+        else:
+            with pytest.raises(ValueError, match="head width 64, or a multiple of 8"):
+                fa.flash_fixed_kernel(q, q, va, 1.0)
+    assert launched == ["flash_fixed"]

@@ -142,6 +142,74 @@ def test_dit_forward_kernels_match_plain(gen):
     _dit_forward_matches_plain(gen, DiTConfig(num_layers=2, attn_impl="pallas"))
 
 
+def test_dit_forward_kernels_match_plain_at_head_width_32(gen):
+    """A D = 512, 16-head model (dh = 32, which rap_tpu's fused branch
+    takes): dit_forward through every forward kernel (the attention kernels
+    on heads zero-padded to 64) against the plain versions, with the checks
+    of ``test_dit_forward_kernels_match_plain``."""
+    from rap_tpu_torch.models.config import DiTConfig
+
+    _dit_forward_matches_plain(gen, DiTConfig(num_heads=16, num_layers=2, attn_impl="pallas"))
+
+
+def test_training_at_head_width_32_refuses_in_proj_backward(gen):
+    """Training a dh = 32 model runs the forward kernels and the attention
+    backward, then stops at the proj backward (csrc/proj_bwd.cu still takes
+    dh = 64 only): a ValueError naming it, before its launch. The backward
+    reaches it in the last layer's global attention block: by then the
+    forward has run 2 layers × 2 blocks of proj and out_proj, and the remat
+    has run the last layer's forward again (2 more of each), and the
+    attention backward has run once."""
+    from rap_tpu_torch.core.batch import make_regular_synthetic_batch
+    from rap_tpu_torch.models.config import DiTConfig
+    from rap_tpu_torch.models.dit import init_dit_params
+    from rap_tpu_torch.registration import RPFConfig, training_forward
+    from rap_tpu_torch.train.optim import tree_paths, tree_replace
+
+    cfg = DiTConfig(num_heads=16, num_layers=2, attn_impl="pallas")
+    params = init_dit_params(0, cfg, masters=True)
+    leaves = {k: p.detach().requires_grad_(True) for k, p in tree_paths(params)}
+    batch = make_regular_synthetic_batch(1, [[N] * P] * S, N=N, P=P)
+    x_1 = torch.randn((S * P, N, 3), generator=gen, device="cuda")
+    reset_launches()
+    loss, _ = training_forward(tree_replace(params, leaves), RPFConfig(model=cfg), batch, None,
+                               x_1=x_1, t=torch.tensor([0.3, 0.95], device="cuda"))
+    with pytest.raises(ValueError, match=r"proj backward kernel \(row 9\) takes head width 64 "
+                                         r"only.*ROADMAP C8"):
+        torch.autograd.grad(loss, list(leaves.values()))
+    counts = launch_counts()  # the forward's, and the remat's before the refusal
+    assert (counts["proj"], counts["out_proj"], counts["flash_bwd"], counts["proj_bwd"]) == \
+        (6, 6, 1, 0), counts
+
+
+# (D, H) beside the model's (512, 8): every head width class the rule takes
+_PROJ_WIDTHS = [(512, 16), (256, 8), (768, 8), (768, 12), (1024, 16), (384, 4), (1920, 16)]
+
+
+@pytest.mark.parametrize("is_global", [False, True], ids=["part", "global"])
+@pytest.mark.parametrize("width,heads", _PROJ_WIDTHS,
+                         ids=[f"D{w}-H{h}" for w, h in _PROJ_WIDTHS])
+def test_proj_out_kernels_at_every_head_width(gen, width, heads, is_global):
+    """Rows 1 and 4 at head widths 32, 64, 96 and 120 (two heads a tile, one
+    head over a tile, the gathered tokens of out_proj), against their plain
+    versions; row 1 bitwise equal on two calls."""
+    G, dh = S * P, width // heads
+    x = _randn(gen, G, N, width)
+    ada = _randn(gen, G, 2 * width, dtype=torch.float32, scale=0.1)
+    w = _randn(gen, width, 3 * width, scale=width ** -0.5)
+    gq, gk = fused_proj.fold_gains(1 + _randn(gen, heads, dh, dtype=torch.float32, scale=0.1),
+                                   1 + _randn(gen, heads, dh, dtype=torch.float32, scale=0.1))
+    args = (x, ada, w, gq, gk, P, is_global)
+    got, again = fused_proj.proj_kernel(*args), fused_proj.proj_kernel(*args)
+    for g_, r_ in zip(got, fused_proj.proj_plain(*args)):
+        _close(g_, r_)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    a5 = _randn(gen, *got[0].shape)
+    out_args = (a5, x, _randn(gen, width, width, scale=width ** -0.5),
+                _randn(gen, width, scale=0.1), P, is_global)
+    _close(fused_proj.out_kernel(*out_args), fused_proj.out_plain(*out_args))
+
+
 # --------------------------------------------------------------------------
 # the forward kernel (csrc/attention.cu) at the edges of its design: one key
 # tile (shorter than the TMA ring), an odd number of tiles, one head, and

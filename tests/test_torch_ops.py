@@ -8,6 +8,7 @@ relative to the largest output, fp32 sums taken in another order.
 """
 
 import math
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -77,6 +78,62 @@ def test_attn_out_matches_pallas(is_global):
     inp = _inputs(1)
     rng = np.random.default_rng(2)
     shape = (S, H, P, N, DH) if is_global else (G, H, N, DH)
+    a5 = rng.standard_normal(shape).astype(np.float32)
+    ref = jfp.attn_out(
+        jnp.asarray(a5), jnp.asarray(inp["x"]), jnp.asarray(inp["w_out"]),
+        jnp.asarray(inp["b_out"]), P=P, is_global=is_global, impl="pallas",
+        interpret=True,
+    )
+    got = fused_proj.attn_out(t(a5), t(inp["x"]), t(inp["w_out"]),
+                              t(inp["b_out"]), P=P, is_global=is_global)
+    _close(got.numpy(), ref)
+
+
+def _inputs_at(width, heads, seed):
+    """``_inputs``' draws at another width and head count (dh = width/heads)."""
+    rng = np.random.default_rng(seed)
+    f = lambda *s, sc=1.0: (rng.standard_normal(s) * sc).astype(np.float32)  # noqa: E731
+    dh = width // heads
+    return {
+        "x": f(G, N, width),
+        "ada": f(G, 2 * width, sc=0.2),
+        "w": f(width, 3 * width, sc=width ** -0.5),
+        "gq": 1 + f(heads, dh, sc=0.1),
+        "gk": 1 + f(heads, dh, sc=0.1),
+        "w_out": f(width, width, sc=width ** -0.5),
+        "b_out": f(width, sc=0.1),
+    }
+
+
+# (D, H): head widths 32 (two heads in a tile's head slots) and 96 (one
+# head over both halves of a tile; out_proj gathers the tokens first)
+_OTHER_HEADS = [(256, 8), (384, 4)]
+
+
+@pytest.mark.parametrize("width,heads", _OTHER_HEADS, ids=["dh32", "dh96"])
+@pytest.mark.parametrize("is_global", [False, True], ids=["part", "global"])
+def test_adaln_qkv_matches_pallas_other_head_widths(is_global, width, heads):
+    """As ``test_adaln_qkv_matches_pallas`` at head widths 32 and 96, which
+    csrc/proj.cu takes since every width rap_tpu admits is its shape rule."""
+    inp = _inputs_at(width, heads, 3)
+    jq, tq = _qkv_both(inp, is_global)
+    dh = width // heads
+    lead = (S, heads, P, N) if is_global else (G, heads, N)
+    for name, a, b in zip(("q", "k", "va"), jq, tq):
+        assert tuple(b.shape) == tuple(a.shape), name
+        assert tuple(b.shape[:-1]) == lead, name
+        _close(b.numpy(), a)
+    np.testing.assert_array_equal(tq[2][..., dh].numpy(), 1.0)
+
+
+@pytest.mark.parametrize("width,heads", _OTHER_HEADS, ids=["dh32", "dh96"])
+@pytest.mark.parametrize("is_global", [False, True], ids=["part", "global"])
+def test_attn_out_matches_pallas_other_head_widths(is_global, width, heads):
+    """As ``test_attn_out_matches_pallas`` at head widths 32 and 96."""
+    inp = _inputs_at(width, heads, 4)
+    dh = width // heads
+    rng = np.random.default_rng(5)
+    shape = (S, heads, P, N, dh) if is_global else (G, heads, N, dh)
     a5 = rng.standard_normal(shape).astype(np.float32)
     ref = jfp.attn_out(
         jnp.asarray(a5), jnp.asarray(inp["x"]), jnp.asarray(inp["w_out"]),
@@ -259,6 +316,144 @@ def test_ff_shape_contract_is_rap_tpus_legal_rule(monkeypatch, width):
         for fh in (32, 64, 96, 128, 192, 320, 512, 1024, 2048, 3072, 4096):
             legal = _rap_tpu_takes_ff_kernel(monkeypatch, T, width, fh)
             assert (fused_ff.ff_shape_error(T, width, fh) is None) == legal, (T, width, fh)
+
+
+class _Gains(_Shaped):
+    """A gain array where only its shape is read and it is scaled."""
+
+    def __mul__(self, other):
+        return self
+
+
+def _rap_tpu_takes_proj_kernels(monkeypatch, G, N, D, H, dh, P):
+    """Whether rap_tpu's adaln_qkv and attn_out (impl="auto", as on its
+    accelerator) take their fused kernels: their own ``legal`` rules, read by
+    recording the calls instead of running them."""
+    taken = []
+    monkeypatch.setattr(jfp.jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jfp, "_fused", lambda *a: taken.append("proj"))
+    monkeypatch.setattr(jfp, "xla_reference", lambda *a: None)
+    monkeypatch.setattr(jfp, "_fused_out", lambda *a: taken.append("out"))
+    monkeypatch.setattr(jfp, "out_xla_reference", lambda *a: None)
+    jfp.adaln_qkv(_Shaped(G, N, D), None, None, _Gains(H, dh), _Gains(H, dh), P, False)
+    jfp.attn_out(_Shaped(G, H, N, dh), _Shaped(G, N, D), None, None, P, False)
+    return "proj" in taken, "out" in taken
+
+
+def _fused_guard_heads(dh):
+    """The head-width terms of rap_tpu's fused guard (dit.py:193-194)."""
+    return dh % 8 == 0 and dh < 128
+
+
+@pytest.mark.parametrize("width", [64, 128, 256, 384, 512, 768, 1024, 1920, 2048])
+def test_proj_shape_contract_is_rap_tpus_legal_rule(monkeypatch, width):
+    """csrc/proj.cu and csrc/out_proj.cu take (``proj_shape_error`` /
+    ``out_shape_error`` is None, the rules ``adaln_qkv`` and ``attn_out``
+    dispatch on) exactly the shapes on which rap_tpu takes its fused kernels
+    inside its fused DiT branch, its ``legal`` rules and the guard's head
+    width, read at the attention sequence's length: N for part attention
+    (rap_tpu's rule itself) and P*N for global attention (the kernels need
+    only that there; rap_tpu asks N % 128 as well, so every shape it takes
+    the port takes). Over a grid of head counts, part lengths and parts a
+    sample, both layouts."""
+    for H in (1, 2, 4, 6, 8, 12, 16, 32, 64, 128):
+        if width % H:
+            continue
+        dh = width // H
+        guard = _fused_guard_heads(dh)
+        for N in (64, 100, 128, 192, 256, 1000, 1024, 2048, 4096):
+            for G, P in ((2, 1), (4, 2), (6, 2), (6, 3), (6, 4), (8, 2), (3, 2)):
+                at_n = _rap_tpu_takes_proj_kernels(monkeypatch, G, N, width, H, dh, P)
+                for is_global in (False, True):
+                    L = N * P if is_global else N
+                    legal_proj, legal_out = _rap_tpu_takes_proj_kernels(monkeypatch, G, L, width,
+                                                                        H, dh, P)
+                    shape = (G, N, width, H, dh, P, is_global)
+                    takes = (fused_proj.proj_shape_error(*shape) is None,
+                             fused_proj.out_shape_error(*shape) is None)
+                    assert takes == (legal_proj and guard, legal_out and guard), shape
+                    assert all(tk or not (a and guard) for tk, a in zip(takes, at_n)), shape
+
+
+@pytest.mark.parametrize("is_global,n,kernel", [(False, 192, False), (True, 96, False),
+                                                (False, 128, True), (True, 192, True)],
+                         ids=["part-192", "global-96", "part-128", "global-192"])
+def test_dispatch_follows_the_shape_rule(monkeypatch, is_global, n, kernel):
+    """adaln_qkv and attn_out choose from the shape, before any launch: a
+    refused shape (a sequence of 192 tokens, part N = 192 or global P*N =
+    192, N % 128 != 0) takes the plain versions and enters no kernel wrapper
+    even on CUDA tensors; an admitted one (part N = 128, or global N = 192
+    with P*N = 384, which rap_tpu's rule refuses and its fused guard
+    admits) takes the kernels. Either way the results are rap_tpu's at
+    fp32."""
+    taken = []
+    monkeypatch.setattr(fused_proj, "on_cpu", lambda *a: False)  # as CUDA tensors are
+    monkeypatch.setattr(fused_proj, "proj_kernel",
+                        lambda *a: taken.append("proj") or fused_proj.proj_plain(*a))
+    monkeypatch.setattr(fused_proj, "out_kernel",
+                        lambda *a: taken.append("out_proj") or fused_proj.out_plain(*a))
+    rng = np.random.default_rng(6)
+    f = lambda *s, sc=1.0: (rng.standard_normal(s) * sc).astype(np.float32)  # noqa: E731
+    x, ada, w = f(G, n, D), f(G, 2 * D, sc=0.2), f(D, 3 * D, sc=D ** -0.5)
+    gq, gk = 1 + f(H, DH, sc=0.1), 1 + f(H, DH, sc=0.1)
+    w_out, b_out = f(D, D, sc=D ** -0.5), f(D, sc=0.1)
+    jq = jfp.adaln_qkv(jnp.asarray(x), jnp.asarray(ada), jnp.asarray(w), jnp.asarray(gq),
+                       jnp.asarray(gk), P=P, is_global=is_global)  # CPU: xla_reference
+    tq = fused_proj.adaln_qkv(t(x), t(ada), t(w), t(gq), t(gk), P=P, is_global=is_global)
+    for a, b in zip(jq, tq):
+        _close(b.numpy(), a)
+    a5 = np.asarray(jq[0])
+    ref = jfp.attn_out(jnp.asarray(a5), jnp.asarray(x), jnp.asarray(w_out),
+                       jnp.asarray(b_out), P=P, is_global=is_global)
+    got = fused_proj.attn_out(t(a5), t(x), t(w_out), t(b_out), P=P, is_global=is_global)
+    _close(got.numpy(), ref)
+    assert taken == (["proj", "out_proj"] if kernel else [])
+
+
+def _proj_kernel_args(G, N, D, H, dh):
+    bf = dict(dtype=torch.bfloat16)
+    fwd = (torch.zeros(G, N, D, **bf), torch.zeros(G, 2 * D), torch.zeros(D, 3 * D, **bf),
+           torch.ones(H, dh), torch.ones(H, dh))
+    out = (torch.zeros(G, H, N, dh, **bf), torch.zeros(G, N, D, **bf),
+           torch.zeros(D, D, **bf), torch.zeros(D, **bf))
+    return fwd, out
+
+
+@pytest.mark.parametrize("G,N,D,H", [(4, 192, 256, 4), (4, 128, 320, 5), (4, 128, 256, 2),
+                                     (3, 128, 256, 4)],
+                         ids=["length", "width", "head_width", "parts"])
+def test_proj_wrappers_refuse_what_the_rule_refuses(monkeypatch, G, N, D, H):
+    """proj_kernel and out_kernel refuse a shape the rule refuses (N % 128,
+    D % 128, dh = 128 past the guard, G % P), with the rule's reason, before
+    any launch."""
+    launched = []
+    monkeypatch.setattr(fused_proj, "launch", lambda *a: launched.append(a))
+    dh = D // H
+    reason = fused_proj.proj_shape_error(G, N, D, H, dh, P, False)
+    assert reason is not None
+    fwd, out = _proj_kernel_args(G, N, D, H, dh)
+    with pytest.raises(ValueError, match=re.escape(reason)):
+        fused_proj.proj_kernel(*fwd, P, False)
+    with pytest.raises(ValueError,
+                       match=re.escape(fused_proj.out_shape_error(G, N, D, H, dh, P, False))):
+        fused_proj.out_kernel(*out, P, False)
+    assert launched == []
+
+
+@pytest.mark.parametrize("D_,H_", [(512, 8), (512, 16), (384, 4)], ids=["dh64", "dh32", "dh96"])
+def test_proj_wrappers_launch_what_the_rule_admits(monkeypatch, D_, H_):
+    """An admitted shape goes to one launch each, with the gathered tokens'
+    scratch only where a k slab is not one head (dh != 64)."""
+    launched = []
+    monkeypatch.setattr(fused_proj, "launch", lambda name, like, *a: launched.append((name, a)))
+    dh = D_ // H_
+    fwd, out = _proj_kernel_args(G, N, D_, H_, dh)
+    fused_proj.proj_kernel(*fwd, P, False)
+    fused_proj.out_kernel(*out, P, False)
+    (p_name, p_args), (o_name, o_args) = launched
+    assert (p_name, p_args[-5:]) == ("proj", (G, N, D_, H_, 1))
+    assert (o_name, o_args[-5:]) == ("out_proj", (G, N, D_, H_, 1))
+    assert (o_args[4] is None) == (dh == 64)
 
 
 def _ff_kernel_args(T, D, fh):
