@@ -9,13 +9,15 @@
 
 Phases, each printed on its own flushed line with its wall time:
 
-1. build      one nvcc call over rap_tpu_torch/csrc/*.cu into
-              rap_tpu_torch/build/ (first use builds, an unchanged tree loads);
-              the key-block backward's four instantiations (rows 6, 7 and
-              their softcap variants), the dQ pass's two (rows 8, 8s) and
+1. build      one nvcc per rap_tpu_torch/csrc/*.cu, all started together,
+              linked into rap_tpu_torch/build/ (first use builds, an
+              unchanged tree loads); the attention forward's eight
+              instantiations (rows 2, 3 and their softcap variants at head
+              widths 64 and 128), the key-block backward's four (rows 6, 7
+              and their softcap variants), the dQ pass's two (rows 8, 8s) and
               the ff backward's fused GEGLU kernel (row 10) must have the
               launch bound's 168 registers, and they and every other kernel
-              behind rows 1, 4, 5 and 10 no local memory
+              behind rows 1, 4, 5, 9 and 10 no local memory
               (cudaFuncGetAttributes).
 2. kernels    each of the ten kernels against its plain PyTorch version on
               the card, at the shapes of the paths below (D=512, H=8, dh=64,
@@ -25,12 +27,13 @@ Phases, each printed on its own flushed line with its wall time:
               both forward variants, the online one once more with a random
               key mask; the fused attention backward behind each forward
               variant, the proj backward in both layouts, the ff backward at
-              32768 tokens; row 1 bitwise equal on two calls. Rows 1 and 4
-              (csrc/proj.cu, csrc/out_proj.cu on the TMA + wgmma GEMM of
-              csrc/gemm_sm90.cuh) also at (D, H) = (512, 16), (256, 8),
-              (768, 8), (768, 12) and (1024, 16) (head widths 32, 64, 96) and
-              at one tile row (128 tokens), both layouts, row 1 bitwise
-              repeatable; and a global layout whose N = 192 is not a
+              32768 tokens; rows 1 and 9 bitwise equal on two calls. Rows 1,
+              4 and 9 (csrc/proj.cu, csrc/out_proj.cu, csrc/proj_bwd.cu on
+              the TMA + wgmma GEMM of csrc/gemm_sm90.cuh) also at (D, H) =
+              (512, 16), (256, 8), (768, 8), (768, 12), (1024, 16) and (1920,
+              16) (head widths 32, 64, 96, 120) and at one tile row (128
+              tokens), both layouts, rows 1 and 9 bitwise repeatable; and a
+              global layout whose N = 192 is not a
               multiple of 128 (P·N is): rap_tpu's rule refuses it, so the
               entry points take the reference compositions, launch nothing
               and stay within the tolerance of the kernels' twins, and the
@@ -59,7 +62,12 @@ Phases, each printed on its own flushed line with its wall time:
               queries per block, key tiles of 128) at the same edges, at
               softcap 0 and 5, masked (a batch row with every key masked
               must get dq exactly 0) and, where the mask is random,
-              unmasked, bitwise repeatable. Rows 5 and 10 (the GEGLU
+              unmasked, bitwise repeatable. Rows 2, 3, 2s and 3s at head
+              widths 96 (BH = 32, T = 8192, the global shape of a D = 768, H
+              = 8 model) and 120 (BH = 16, T = 2048), the kernel's 128-wide
+              instantiation, against their twins on the unpadded heads
+              (fixed, online, online with a key mask, softcap 5 and 50).
+              Rows 5 and 10 (the GEGLU
               feed-forward, csrc/ff.cu and csrc/ff_bwd.cu on the TMA +
               wgmma GEMM of csrc/gemm_sm90.cuh) also at the multi-view
               step's 65536 tokens, and at (D, hidden) = (256, 1024), (768,
@@ -73,7 +81,9 @@ Phases, each printed on its own flushed line with its wall time:
               the 12 attention calls per forward take the online kernel.
               Checks: finite output of the right shape, the launch counts of
               one sample, and agreement with the same call through the plain
-              versions.
+              versions. Then a 2-layer D = 768, H = 8 model (head width 96:
+              attention on heads padded to 128) serves the same batch:
+              launch counts, points, rotations and velocity against plain.
 4. sample     rap_tpu_torch.apps.sample.main, the batch-evaluation entry
               point, on configs/synth_student.yaml and demo_data/synth (one
               dense batch of 8 pairs, 6 layers, 4 Euler steps, rigidity
@@ -96,7 +106,14 @@ Phases, each printed on its own flushed line with its wall time:
               through the plain versions from the same state (loss, grad norm,
               each updated leaf's first-order loss change); the launch counts
               of one step; five more steps, finite and never skipped; the loss
-              at the fixed (t, x_1) falls over those six steps.
+              at the fixed (t, x_1) falls over those six steps. Then at 2
+              layers on the same batch: a D = 512, H = 16 model (head width
+              32) trains through every kernel, the proj backward included
+              (gradients against plain, one step's launch counts, finite);
+              a D = 768, H = 8 model (head width 96) refuses in the
+              attention backward, whose kernels take head widths up to 64
+              (ROADMAP C8), before any backward attention or proj kernel
+              launched.
 6. multiview  training on a padded multi-view batch, the shape the packer
               makes of 5-8-scan samples under configs/rap_train.yaml's
               80 000-point budget: S=2 x P=8 x N=4096, sample 0 with 8 parts,
@@ -130,7 +147,9 @@ Phases, each printed on its own flushed line with its wall time:
               c·tanh(s) and a block mask from the key mask, timed here and
               used nowhere in the port); row 7 (the dKV pass) also as the
               split pair, rows 7 and 8 in one timed call (``pair_ms``), the
-              time to hold beside the library's whole backward; rows 5 and
+              time to hold beside the library's whole backward; rows 2 and
+              3 at head widths 96 and 120 beside SDPA at the same width,
+              the bound counting the products at the unpadded width; rows 5 and
               10 also at the multi-view step's 65536 tokens, each beside the
               yardstick ``matmul_ms``: torch.matmul over the same products
               without their epilogues (two for row 5, five for row 10; one
@@ -208,6 +227,7 @@ TOL_TRAIN_SCALAR = 2e-2
 TOL_TRAIN_LEAF = 5e-2
 TOL_TRAIN_LEAF_CAP = 0.1
 TRAIN_STEPS = 5  # further kernel steps after the first
+TRAIN_CHECK_LAYERS = 2  # depth of the train phase's checks at head widths 32 and 96
 
 # multiview phase: the packer's shape for 5-8-scan samples under
 # configs/rap_train.yaml (max_points_per_batch 80000: parts round up to 8
@@ -222,11 +242,19 @@ MV_LAYERS, MV_CHECK_LAYERS = 12, 2
 # (D, hidden) of models rows 5 and 10 take beside the main path's (512,
 # 2048): rap_tpu's rule admits D % 128 == 0 and hidden % 64 == 0
 FF_WIDTHS = ((256, 1024), (768, 3072), (1024, 4096))
-# (D, H) of models rows 1 and 4 take beside the main path's (512, 8):
+# (D, H) of models rows 1, 4 and 9 take beside the main path's (512, 8):
 # rap_tpu's rule and fused guard admit D % 128 == 0, dh % 8 == 0, dh < 128;
-# head widths 32 (two heads a tile), 96 (one head a tile; out_proj gathers
-# the tokens first) and 64
-PROJ_WIDTHS = ((512, 16), (256, 8), (768, 8), (768, 12), (1024, 16))
+# head widths 32 (two heads a tile), 96 and 120 (one head a tile; out_proj
+# gathers the tokens first) and 64
+PROJ_WIDTHS = ((512, 16), (256, 8), (768, 8), (768, 12), (1024, 16), (1920, 16))
+# a model of head width 96 (D = 768, H = 8; rap_tpu's fused guard admits
+# it): served at WIDE_LAYERS layers in the main phase, refused in the
+# attention backward (ROADMAP C8) in the train phase
+WIDE_D, WIDE_LAYERS = 768, 2
+# head widths the attention forward (rows 2, 3, 2s, 3s) runs at its
+# 128-wide instantiation, (d, BH, T): d = 96 at the global shape of a D =
+# 768, H = 8 model at the main path's batch (kept for the timing phase)
+WIDE_HEADS = ((96, S * H, P * N), (120, 16, 2048))
 
 # sample phase: the batch-evaluation entry point on the shipped config and
 # data, random weights from a seed at its checkpoint's shape (6 layers,
@@ -310,20 +338,21 @@ def ops_limiter(flops: float, mufu: float) -> str:
 
 # device kernel name fragments -> what a profiled step spends the time on
 PROFILE_GROUPS = (
-    (("flash_fwd_kernel<false, false>",), "row 3: online attention forward"),
-    (("flash_fwd_kernel<true, false>",), "row 2: fixed-bound attention forward"),
+    (("flash_fwd_kernel<false, false,",), "row 3: online attention forward"),
+    (("flash_fwd_kernel<true, false,",), "row 2: fixed-bound attention forward"),
     (("dkv_kernel<true, false>",), "row 6: fused attention backward"),
     (("dkv_kernel<false, false>",), "row 7: dK, dV pass"),
     (("dq_kernel<false>",), "row 8: dQ pass"),
-    (("flash_fwd_kernel<false, true>", "flash_fwd_kernel<true, true>", "dkv_kernel<true, true>",
+    (("flash_fwd_kernel<false, true,", "flash_fwd_kernel<true, true,", "dkv_kernel<true, true>",
       "dkv_kernel<false, true>", "dq_kernel<true>"), "rows 2, 3, 6-8: softcap variants"),
     (("FfFwd", "ff_ln_kernel<false>"), "row 5: ff forward"),
-    (("ProjEpi", "adaln_ln_kernel"), "row 1: proj forward"),
+    (("ProjEpi", "adaln_ln_kernel<false>"), "row 1: proj forward"),
     (("OutHeadMajor", "OutTokens", "tokens_kernel"), "row 4: out_proj forward"),
-    (("FfBwd", "ff_bwd_", "ff_ln_kernel<true>", "colsum_kernel", "splitsum_kernel"),
+    (("ff_bwd_", "ff_ln_kernel<true>", "F32Out<10>", "ln_grad_kernel<false>"),
      "row 10: ff backward"),
-    (("proj_dy_kernel", "wgrad_kernel", "gemm_nt_f32", "ln_affine_rows", "ln_bwd_rows"),
-     "row 9: proj backward"),
+    (("ProjBwdEpi", "adaln_ln_kernel<true>", "dv_copy_kernel", "F32Out<9>",
+      "ln_grad_kernel<true>"), "row 9: proj backward"),
+    (("colsum_kernel", "splitsum_kernel"), "rows 9, 10: fixed-order reductions"),
     (("gemm", "nvjet", "cutlass", "xmma"), "cuBLAS matrix products"),
 )
 
@@ -388,8 +417,9 @@ def run_build(report, fails):
             report[f"{key}_kernel_attributes"][name] = {"registers": regs, "local_bytes": local}
             fails.check(f"{name}: {regs} registers, {local} local bytes",
                         regs == 168 and local == 0, "(need 168 and 0)")
-    # every kernel behind rows 1, 4, 5 and 10: no local memory (a stack or
-    # spills); the fused GEGLU backward's setmaxnreg needs the launch bound's 168
+    # every kernel behind rows 1-5, 9 and 10: no local memory (a stack or
+    # spills); the setmaxnreg kernels (the attention forward's eight
+    # instantiations, the fused GEGLU backward) need the launch bound's 168
     report["gemm_kernel_attributes"] = {}
     for entry, names in _build.QUERY_KERNELS.items():
         out = (ctypes.c_int * (2 * len(names)))()
@@ -397,7 +427,7 @@ def run_build(report, fails):
         for i, name in enumerate(names):
             regs, local = out[2 * i], out[2 * i + 1]
             report["gemm_kernel_attributes"][name] = {"registers": regs, "local_bytes": local}
-            need_168 = name == "ff_bwd_geglu_kernel"
+            need_168 = name == "ff_bwd_geglu_kernel" or name.startswith("flash_fwd_kernel")
             fails.check(f"{name}: {regs} registers, {local} local bytes",
                         local == 0 and (regs == 168 or not need_168),
                         "(need 168 and 0)" if need_168 else "(need 0 local bytes)")
@@ -532,9 +562,7 @@ def run_kernels(report, fails, state):
         dva[..., DH] = 0  # the attention backward's cotangent of the ones column
         args = (inp["x"], inp["ada"], inp["w_qkv"], gq_eff, gk_eff, randn(*lead, DH),
                 randn(*lead, DH), dva, P, is_global)
-        got = fp.proj_bwd_kernel(*args)
-        for nm, g_, r_ in zip(("dx", "dada", "dw", "dgq", "dgk"), got, fp.proj_bwd_plain(*args)):
-            compare("proj_bwd", f"proj_bwd[{tag}].{nm}", g_, r_)
+        compare_proj_bwd(fails, compare, f"proj_bwd[{tag}]", args)
         state["proj_bwd_args"][tag] = args
 
     ffb_args = (inp["x"].reshape(-1, D), randn(inp["tokens"], D, scale=0.1), inp["ln_s"],
@@ -547,9 +575,22 @@ def run_kernels(report, fails, state):
     run_kernels_softcap(fails, state, gen, compare, compare_lse)
     run_kernels_edges(fails, gen, compare, compare_lse)
     run_kernels_dq_edges(fails, gen, compare)
+    run_kernels_wide_heads(fails, state, gen, compare, compare_lse)
 
 
 FF_GRADS = ("dx", "dws", "dwb", "dwi", "dbi", "dwo", "dbo")
+
+
+def compare_proj_bwd(fails, compare, label, args):
+    """Row 9 against its twin, and its gradients bitwise equal on a second
+    call (every sum over tokens is added in a fixed order)."""
+    from rap_tpu_torch.ops import fused_proj as fp
+
+    got, again = fp.proj_bwd_kernel(*args), fp.proj_bwd_kernel(*args)
+    for nm, g_, r_ in zip(("dx", "dada", "dw", "dgq", "dgk"), got, fp.proj_bwd_plain(*args)):
+        compare("proj_bwd", f"{label}.{nm}", g_, r_)
+    fails.check(f"{label}: bitwise equal on two calls",
+                all(torch.equal(a, b) for a, b in zip(got, again)))
 
 
 def compare_ff_bwd(fails, compare, label, args):
@@ -580,13 +621,13 @@ def proj_inputs(gen, G: int, n: int, width: int, heads: int):
 
 
 def run_kernels_proj(fails, gen, compare):
-    """Rows 1 and 4 at the other head widths they take (4 parts of 1024
+    """Rows 1, 4 and 9 at the other head widths they take (4 parts of 1024
     tokens, 2 a sample), at one tile row (1 part of 128 tokens), both
     layouts, and at a global layout whose N is not a multiple of 128 (N =
     192, P·N = 384: rap_tpu's rule refuses it, its fused guard and the
-    kernels take it); row 1 bitwise equal on two calls. Then a part layout
-    of N = 192, which the kernels cannot take: the entry points take the
-    twins and launch nothing, and the kernels refuse it."""
+    kernels take it); rows 1 and 9 bitwise equal on two calls. Then a part
+    layout of N = 192, which the kernels cannot take: the entry points take
+    the twins and launch nothing, and the kernels refuse it."""
     from rap_tpu_torch.ops import fused_proj as fp
     from rap_tpu_torch.ops import launch_counts, reset_launches
 
@@ -609,6 +650,10 @@ def run_kernels_proj(fails, gen, compare):
             out_args = (a5, x, w_out, b_out, P_, is_global)
             compare("out_proj", f"out_proj[{tag}]", fp.out_kernel(*out_args),
                     fp.out_plain(*out_args))
+            dva = torch.randn(got[2].shape, generator=gen, device="cuda").to(torch.bfloat16)
+            cot = (a5, torch.randn(a5.shape, generator=gen, device="cuda").to(torch.bfloat16), dva)
+            compare_proj_bwd(fails, compare, f"proj_bwd[{tag}]",
+                             (x, ada, w, gq_eff, gk_eff, *cot, P_, is_global))
 
     G_, n, P_ = 4, 192, 2
     x, ada, w, gamma_q, gamma_k, w_out, b_out = proj_inputs(gen, G_, n, D, H)
@@ -948,6 +993,57 @@ def run_kernels_dq_edges(fails, gen, compare):
                                 f"{int(empty.sum())} fully masked (batch*head) rows")
 
 
+def run_kernels_wide_heads(fails, state, gen, compare, compare_lse):
+    """Rows 2, 3, 2s and 3s at head widths 64 < d < 128 (WIDE_HEADS: the
+    kernel's instantiation at 128, q, k and v zero-padded), against their
+    twins on the unpadded heads: the fixed-bound and online variants, the
+    online one with a random key mask, and the softcap variants at c = 5
+    (fixed) and 50 (online), as the guard chooses them."""
+    from rap_tpu_torch.ops import flash_attention as fa
+
+    state["wide"] = {}
+    for d, BH, T in WIDE_HEADS:
+        def rows(norm, d=d, BH=BH, T=T):
+            x = torch.randn((BH, T, d), generator=gen, device="cuda")
+            return (x / x.norm(dim=-1, keepdim=True) * norm).to(torch.bfloat16)
+
+        v = torch.randn((BH, T, d), generator=gen, device="cuda").to(torch.bfloat16)
+        va = torch.cat([v, torch.ones((BH, T, 1), dtype=torch.bfloat16, device="cuda")],
+                       -1).contiguous()
+        # qk-norm rows at unit gains, q pre-scaled by log2(e)/sqrt(d): bound
+        # log2(e) sqrt(d), the fixed variant's range
+        q, k = rows(np.log2(np.e)), rows(np.sqrt(d))
+        b2 = float(np.log2(np.e) * np.sqrt(d))
+        tag = f"d={d}, BH={BH}, T={T}"
+        mask = torch.rand((BH // H, T), generator=gen, device="cuda") > 0.3
+        for name, label, got, ref in (
+                ("flash_fixed", tag, fa.flash_fixed(q, k, va, b2),
+                 fa.flash_fixed_plain(q, k, va, b2)),
+                ("flash_online", tag, fa.flash_online(q, k, va), fa.flash_online_plain(q, k, va)),
+                ("flash_online", f"{tag}, masked", fa.flash_online(q, k, va, mask, H),
+                 fa.flash_online_plain(q, k, va, mask, H))):
+            compare(f"{name}/wide", f"{name}[{label}].out", got[0], ref[0])
+            if "masked" in label:  # a batch row may have no valid key: its lse is LSE_EMPTY
+                live = (mask.sum(1) > 0).repeat_interleave(H)
+                compare_lse(f"{name}[{label}].lse2 (live rows)", got[1][live], ref[1][live])
+            else:
+                compare_lse(f"{name}[{label}].lse2", got[1], ref[1])
+        state["wide"][d] = (q, k, va, b2)
+        for c in (5.0, 50.0):
+            qc, kc = rows(3.0 / c), rows(3.0 * np.sqrt(d))
+            b2c = fa._cap2(c)
+            if b2c <= fa.SAFE_BOUND2:
+                name = "flash_fixed_softcap"
+                got, ref = fa.flash_fixed(qc, kc, va, b2c, c), fa.flash_fixed_plain(qc, kc, va,
+                                                                                     b2c, c)
+            else:
+                name = "flash_online_softcap"
+                got, ref = (fa.flash_online(qc, kc, va, None, 1, c),
+                            fa.flash_online_plain(qc, kc, va, None, 1, c))
+            compare(f"{name}/wide", f"{name}[{tag}, c={c:g}].out", got[0], ref[0])
+            compare_lse(f"{name}[{tag}, c={c:g}].lse2", got[1], ref[1])
+
+
 def write_random_checkpoint(cfg, seed: int) -> Path:
     """fp32 random weights from ``seed`` at ``cfg``'s shape, with the gains
     of ONLINE_LAYERS raised, as an .npz in rap_tpu's layout (flat "a/b/c"
@@ -1136,6 +1232,61 @@ def run_main(report, fails, state):
     report["launches"] = counts
     state.update(params=params, batch=batch, x_1=x_1, rcfg=rcfg, serve=serve,
                  plain_cfg=plain)
+    run_main_wide_heads(report, fails, state)
+
+
+def run_main_wide_heads(report, fails, state):
+    """Serving a D = 768, 8-head model (dh = 96: the attention forward at its
+    128-wide instantiation, rows 1 and 4 one head a tile) at WIDE_LAYERS
+    layers, random weights from a seed, on the main path's batch: sample +
+    predict_poses through the kernels (its launch counts read around it)
+    against the same call through the plain versions, and the velocity at
+    t = 1."""
+    from rap_tpu_torch.models.config import DiTConfig
+    from rap_tpu_torch.models.dit import attach_bounds, dit_forward, init_dit_params
+    from rap_tpu_torch.ops import launch_counts, reset_launches
+    from rap_tpu_torch.ops.flash_attention import SAFE_BOUND2
+    from rap_tpu_torch.registration import RPFConfig, predict_poses, sample
+
+    cfg = DiTConfig(embed_dim=WIDE_D, num_heads=H, num_layers=WIDE_LAYERS)
+    params = init_dit_params(0, cfg, device="cuda")
+    lp = params["layers"][0]  # one online attention per forward
+    lp["global_q_gamma"] = lp["global_q_gamma"] * ONLINE_GAIN
+    lp["global_k_gamma"] = lp["global_k_gamma"] * ONLINE_GAIN
+    attach_bounds(params)
+    n_online = sum(b > SAFE_BOUND2 for lp in params["layers"]
+                   for b in (lp["self_bound2"], lp["global_bound2"]))
+    batch, x_1 = state["batch"], state["x_1"]
+    rcfg = RPFConfig(model=cfg, inference_sampling_steps=STEPS, rigidity_forcing=True)
+    plain = dataclasses.replace(rcfg, model=dataclasses.replace(cfg, use_kernels=False))
+
+    def serve(c):
+        pts = sample(params, c, batch, x_1=x_1, return_trajectory=False)["points"]
+        return (pts,) + tuple(predict_poses(batch, pts))
+
+    reset_launches()
+    pts, R, _ = serve(rcfg)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expected = dict.fromkeys(counts, 0)
+    L_ = WIDE_LAYERS
+    expected.update(proj=2 * L_ * STEPS, out_proj=2 * L_ * STEPS, ff=L_ * STEPS,
+                    flash_fixed=(2 * L_ - n_online) * STEPS, flash_online=n_online * STEPS)
+    log(f"  launches in one sample at D={WIDE_D}, H={H} (dh={WIDE_D // H}): {counts}")
+    fails.check(f"dh={WIDE_D // H} serving launch counts", counts == expected,
+                f"expected {expected}")
+    pts_p, R_p, _ = serve(plain)
+    ts = torch.ones(S, device="cuda")
+    with torch.no_grad():
+        v_k = dit_forward(params, cfg, x_1, ts, batch, P)
+        v_p = dit_forward(params, plain.model, x_1, ts, batch, P)
+    fails.compare(f"dh={WIDE_D // H} velocity at t=1 vs plain", v_k, v_p, tol_rel=TOL_VELOCITY)
+    fails.compare(f"dh={WIDE_D // H} points vs plain", pts, pts_p, tol_rel=TOL_POINTS)
+    err_r = float((R - R_p).abs().max())
+    fails.check(f"dh={WIDE_D // H} rotations vs plain", err_r <= TOL_ROTATION_ABS,
+                f"max_abs_err={err_r:.4e} (tol {TOL_ROTATION_ABS})")
+    report["launches_wide_heads"] = counts
+    state["wide_counts"] = counts
 
 
 def build_train_params(cfg):
@@ -1306,6 +1457,67 @@ def run_train(report, fails, state):
                        "update_rel_l2_worst": err_u}
     state.update(train_counts=counts, train_step=step_k, train_state=s, train_batch=batch,
                  train_plain=(step_p, params, opt_cfg))
+    run_train_head_widths(report, fails, batch)
+
+
+def run_train_head_widths(report, fails, batch):
+    """Training at other head widths on the dense batch, TRAIN_CHECK_LAYERS
+    layers: a D = 512, 16-head model (dh = 32, two heads a GEMM tile in rows
+    1, 4 and 9, the attention kernels on heads padded to 64): the loss and
+    every gradient leaf through the kernels against the plain versions (the
+    rule of ``check_train_gradients``), then one Muon step through the
+    kernels with its launch counts, finite and not skipped. A D = 768,
+    8-head model (dh = 96) runs the forward kernels and refuses in the
+    attention backward, whose kernels take dh <= 64 (ROADMAP C8), before any
+    attention backward or proj backward kernel launched."""
+    from rap_tpu_torch.models.config import DiTConfig
+    from rap_tpu_torch.models.dit import init_dit_params
+    from rap_tpu_torch.ops import KERNELS, launch_counts, reset_launches
+    from rap_tpu_torch.registration import RPFConfig, training_forward
+    from rap_tpu_torch.train.optim import OptimizerConfig, tree_paths, tree_replace
+    from rap_tpu_torch.train.step import TrainState, make_train_step
+
+    L_ = TRAIN_CHECK_LAYERS
+    cfg = DiTConfig(num_heads=2 * H, num_layers=L_)  # dh = 32
+    rcfg = RPFConfig(model=cfg)
+    params = init_dit_params(0, cfg, device="cuda", masters=True)
+    check_train_gradients(fails, f"dh=32 train ({L_} layers)", params, batch, rcfg)
+    opt_cfg = OptimizerConfig()
+    step = make_train_step(rcfg, opt_cfg)
+    reset_launches()
+    _, m = step(TrainState.create(params, opt_cfg, seed=7), batch)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    expected = dict.fromkeys(counts, 0)
+    expected.update(proj=4 * L_, out_proj=4 * L_, ff=2 * L_, flash_fixed=4 * L_,
+                    flash_bwd=2 * L_, proj_bwd=2 * L_, ff_bwd=L_)
+    log(f"  launches in one dh=32 train step ({L_} layers): {counts}")
+    fails.check("dh=32 train launch counts", counts == expected, f"expected {expected}")
+    dh32_counts = counts
+    vals = {k: float(m[k]) for k in ("loss", "grad_norm", "skipped_nonfinite")}
+    fails.check("dh=32 step finite, not skipped", np.isfinite(vals["loss"])
+                and np.isfinite(vals["grad_norm"]) and vals["skipped_nonfinite"] == 0.0,
+                str(vals))
+
+    cfg = DiTConfig(embed_dim=WIDE_D, num_heads=H, num_layers=L_)  # dh = 96
+    params = init_dit_params(0, cfg, device="cuda", masters=True)
+    leaves = {k: p_.detach().requires_grad_(True) for k, p_ in tree_paths(params)}
+    reset_launches()
+    loss, _ = training_forward(tree_replace(params, leaves), RPFConfig(model=cfg), batch,
+                               torch.Generator(device="cuda").manual_seed(7))
+    try:
+        torch.autograd.grad(loss, list(leaves.values()))
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    bwd = {k: counts[k] for k in KERNELS if "bwd" in k and k != "ff_bwd"}
+    fails.check(f"dh={WIDE_D // H} training refuses in the attention backward (ROADMAP C8)",
+                "ROADMAP C8" in refused and "got 96" in refused and not any(bwd.values())
+                and counts["proj"] > 0 and counts["flash_fixed"] > 0,
+                f"({refused or 'no error'}; backward launches {bwd})")
+    report["train_head_widths"] = {"dh32_launches": dh32_counts, "dh96_refusal": refused}
 
 
 def run_multiview(report, fails, state):
@@ -1484,6 +1696,33 @@ def kernel_rows(state, counts):
                  mufu=BH * Tn * Tn)
         if tag == "global":
             rows += [rf, ro]
+
+    # rows 2 and 3 at head width 96 (their 128-wide instantiation): the
+    # global shape of the main phase's D = 768, H = 8 model; the bound
+    # counts the products at d = 96
+    wide_counts = state.get("wide_counts", {})
+    for d, (qh, kh, vah, b2) in state.get("wide", {}).items():
+        BH, Tn, _ = qh.shape
+        v = vah[..., :d].contiguous()
+        sdpa = lambda qh=qh, kh=kh, v=v: F.scaled_dot_product_attention(  # noqa: E731
+            qh[None], kh[None], v[None], scale=float(np.log(2.0)))
+        shape = f"BH={BH}, T={Tn}, d={d} bf16 (padded to 128)"
+        serving = d == WIDE_D // H  # the main phase's D = 768 check runs this width
+        common = dict(launches=None, err_key=None, mufu=BH * Tn * Tn, head_width=d,
+                      path=f"serving at D={WIDE_D}, H={H}, {WIDE_LAYERS} layers" if serving
+                      else "kernels phase check")
+        for name, fn_k, fn_p in (
+                ("flash_fixed", lambda: fa.flash_fixed_kernel(qh, kh, vah, b2),
+                 lambda: fa.flash_fixed_plain(qh, kh, vah, b2)),
+                ("flash_online", lambda: fa.flash_online_kernel(qh, kh, vah),
+                 lambda: fa.flash_online_plain(qh, kh, vah))):
+            common.update(launches=wide_counts.get(name, 0) if serving else 0,
+                          err_key=f"{name}/wide")
+            rows.append(row(name, "rap_tpu_torch/csrc/attention.cu",
+                            "rap_tpu/ops/pallas_attention.py:" + ("188" if name == "flash_fixed"
+                                                                  else "91"),
+                            fn_k, fn_p, sdpa, 4 * BH * Tn * Tn * d,
+                            4 * BH * Tn * d * 2 + BH * Tn * 4, shape, **common))
 
     for is_global in (False, True):
         tag = "global" if is_global else "part"

@@ -27,12 +27,14 @@
 //      TMA stores (dact never leaves the chip), and the column sums of
 //      dproj over each 64 tokens (dbi's partials);
 //   3. GEMM dyln = bf16(dproj) . wi^T (K = 2FH), written fp32;
-//   4. ff_bwd_ln_grad_kernel: the LayerNorm vjp per row (dx), and the
-//      column sums of dyln xhat, dyln and g over each 64 tokens;
+//   4. ln_grad_kernel<false> (ff_common.cuh): the LayerNorm vjp per row
+//      (dx), and the column sums of dyln xhat, dyln and g over each 64
+//      tokens;
 //   5. GEMMs dwo = act^T g and dwi = yln^T dproj (A and B MN-major, K = T),
 //      split over token ranges where the tiles alone would leave SMs idle
 //      (the wrapper picks the splits), each split's fp32 partial written to
-//      scratch.
+//      scratch (gemm_sm90.cuh `weight_grad`).
+// The GEMMs' epilogues store fp32 (gemm_sm90.cuh `F32Out<10>`).
 // Every sum over tokens is added in an order fixed by the shape
 // (colsum_kernel, splitsum_kernel; no atomics), so the gradients are bitwise
 // repeatable. Takes every shape rap_tpu's `legal` rule admits: T % 128 == 0,
@@ -46,7 +48,6 @@ namespace {
 using rtt::gemm::BOX_BYTES;
 using rtt::gemm::K_MAJOR;
 using rtt::gemm::MN_MAJOR;
-using rtt::gemm::Unit;
 
 // ---- products 1 and 2 with the GEGLU vjp -----------------------------------------
 
@@ -63,14 +64,6 @@ constexpr size_t GB_SMEM =
 constexpr int PRODUCER_REGS = 40;
 constexpr int CONSUMER_REGS = 232;  // 40 + 2 x 232 = 3 x 168 (the launch bound)
 constexpr int LAUNCH_REGS = 168;
-
-// Sum over the 8 lanes that share t = lane % 4 (a column of an accumulator).
-__device__ __forceinline__ float col_sum8(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 4);
-  v += __shfl_xor_sync(0xffffffffu, v, 8);
-  v += __shfl_xor_sync(0xffffffffu, v, 16);
-  return v;
-}
 
 // Byte offset of the bf16 pair at (row r, column c even) of a 64 x 64 tile in
 // TMA's 128-byte swizzle: 16-byte chunk c / 8 of row r sits at chunk
@@ -221,7 +214,7 @@ ff_bwd_geglu_kernel(const __grid_constant__ CUtensorMap map_yln,
       }
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const float vh = col_sum8(sh[e]), vg = col_sum8(sg[e]);
+        const float vh = rtt::col_sum8(sh[e]), vg = rtt::col_sum8(sg[e]);
         if (g == 0) {
           red_w[cl + e] = vh;
           red_w[64 + cl + e] = vg;
@@ -244,161 +237,6 @@ ff_bwd_geglu_kernel(const __grid_constant__ CUtensorMap map_yln,
     }
   }
   if (i == 0) rtt::bulk_wait<0>();  // shared memory stays until the stores are done
-}
-
-// ---- the LayerNorm vjp --------------------------------------------------------------
-
-constexpr int LNB_ROWS = 64;  // rows per block
-
-// dx = bf16(g + rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat))), dxhat =
-// dyln ws, one warp per row (lane: 4 consecutive columns a step, D % 128 ==
-// 0); then part[block] = [sum dyln xhat | sum dyln | sum g] over the block's
-// 64 rows, each column summed in row order. Grid: T / 64.
-__global__ void __launch_bounds__(LN_THREADS)
-ff_bwd_ln_grad_kernel(const bf16* __restrict__ x, const float* __restrict__ dyln,
-                      const float* __restrict__ ws, const bf16* __restrict__ gr,
-                      bf16* __restrict__ dx, float* __restrict__ part, int D) {
-  __shared__ float sMu[LNB_ROWS], sRstd[LNB_ROWS];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long row0 = (long)blockIdx.x * LNB_ROWS;
-  for (int r = warp; r < LNB_ROWS; r += LN_THREADS / 32) {
-    const long row = row0 + r;
-    const bf16* xr = x + row * D;
-    const float* dyr = dyln + row * D;
-    float s = 0.f;
-    for (int c = 4 * lane; c < D; c += 128) {
-      const uint2 v = *reinterpret_cast<const uint2*>(xr + c);
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) s += __bfloat162float(e[q]);
-    }
-    const float mu = rtt::warp_sum(s) / D;
-    float v2 = 0.f;
-    for (int c = 4 * lane; c < D; c += 128) {
-      const uint2 v = *reinterpret_cast<const uint2*>(xr + c);
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float d = __bfloat162float(e[q]) - mu;
-        v2 += d * d;
-      }
-    }
-    const float rstd = rsqrtf(rtt::warp_sum(v2) / D + 1e-5f);
-    float m1 = 0.f, m2 = 0.f;
-    for (int c = 4 * lane; c < D; c += 128) {
-      const uint2 v = *reinterpret_cast<const uint2*>(xr + c);
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-      const float4 dy = *reinterpret_cast<const float4*>(dyr + c);
-      const float dyv[4] = {dy.x, dy.y, dy.z, dy.w};
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float xhat = (__bfloat162float(e[q]) - mu) * rstd;
-        const float dxhat = dyv[q] * ws[c + q];
-        m1 += dxhat;
-        m2 += dxhat * xhat;
-      }
-    }
-    m1 = rtt::warp_sum(m1) / D;
-    m2 = rtt::warp_sum(m2) / D;
-    for (int c = 4 * lane; c < D; c += 128) {
-      const uint2 v = *reinterpret_cast<const uint2*>(xr + c);
-      const uint2 gv = *reinterpret_cast<const uint2*>(gr + row * D + c);
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-      const bf16* ge = reinterpret_cast<const bf16*>(&gv);
-      const float4 dy = *reinterpret_cast<const float4*>(dyr + c);
-      const float dyv[4] = {dy.x, dy.y, dy.z, dy.w};
-      float o[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float xhat = (__bfloat162float(e[q]) - mu) * rstd;
-        const float dxhat = dyv[q] * ws[c + q];
-        o[q] = __bfloat162float(ge[q]) + rstd * (dxhat - m1 - xhat * m2);
-      }
-      uint2 out;
-      out.x = rtt::pack_f2(o[0], o[1]);
-      out.y = rtt::pack_f2(o[2], o[3]);
-      *reinterpret_cast<uint2*>(dx + row * D + c) = out;
-    }
-    if (lane == 0) {
-      sMu[r] = mu;
-      sRstd[r] = rstd;
-    }
-  }
-  __syncthreads();
-  float* pb = part + (long)blockIdx.x * 3 * D;
-  for (int k = threadIdx.x; k < D; k += LN_THREADS) {
-    float s_dx = 0.f, s_d = 0.f, s_g = 0.f;
-    for (int r = 0; r < LNB_ROWS; ++r) {
-      const long o = (row0 + r) * D + k;
-      const float xhat = (__bfloat162float(x[o]) - sMu[r]) * sRstd[r];
-      const float dy = dyln[o];
-      s_dx += dy * xhat;
-      s_d += dy;
-      s_g += __bfloat162float(gr[o]);
-    }
-    pb[k] = s_dx;
-    pb[D + k] = s_d;
-    pb[2 * D + k] = s_g;
-  }
-}
-
-// ---- the GEMMs' epilogues ------------------------------------------------------------
-
-// dyln (T, D) fp32.
-struct FfBwdDyln {
-  float* dyln;
-  int D;
-  __device__ int2 b_cols(int tn) const { return make_int2(tn * 128, tn * 128 + 64); }
-  __device__ void operator()(const float (&acc)[64], const Unit& u, int row0, int wq,
-                             int lane) const {
-    const long ra = row0 + 16 * wq + (lane >> 2);
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = u.tn * 128 + 8 * j + 2 * (lane & 3);
-      *reinterpret_cast<float2*>(dyln + ra * D + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
-      *reinterpret_cast<float2*>(dyln + (ra + 8) * D + col) =
-          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-    }
-  }
-};
-
-// A weight gradient's split: out + split * split_stride is (M, N) fp32; rows
-// past M (dwo's last tile when FH % 128 == 64) are not stored.
-struct FfBwdWgrad {
-  float* out;
-  long split_stride;
-  int M, N;
-  __device__ int2 b_cols(int tn) const { return make_int2(tn * 128, tn * 128 + 64); }
-  __device__ void operator()(const float (&acc)[64], const Unit& u, int row0, int wq,
-                             int lane) const {
-    const int ra = row0 + 16 * wq + (lane >> 2);
-    float* o = out + u.split * split_stride;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = u.tn * 128 + 8 * j + 2 * (lane & 3);
-      if (ra < M)
-        *reinterpret_cast<float2*>(o + (long)ra * N + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
-      if (ra + 8 < M)
-        *reinterpret_cast<float2*>(o + (long)(ra + 8) * N + col) =
-            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
-    }
-  }
-};
-
-// dW (M, N) = A^T B over T tokens in `splits` token ranges, A (T, M) and B (T,
-// N) row-major bf16; the splits' partials go to wpart and are then summed in
-// order into dW (one split writes dW directly).
-int weight_grad(const void* a, const void* b, float* dW, float* wpart, int T, int M, int N,
-                int splits, cudaStream_t s) {
-  CUtensorMap ma, mb;
-  if (!rtt::gemm::tile_map(&ma, a, T, M) || !rtt::gemm::tile_map(&mb, b, T, N))
-    return (int)cudaErrorInvalidValue;
-  const rtt::gemm::Sched sched{(M + 127) / 128, N / 128, splits, T / 64};
-  float* dst = splits > 1 ? wpart : dW;
-  const long n = (long)M * N;
-  int err = rtt::gemm::launch<MN_MAJOR, MN_MAJOR>(ma, mb, sched, FfBwdWgrad{dst, n, M, N}, s);
-  if (err || splits == 1) return err;
-  return rtt::gemm::launch_splitsum(wpart, dW, n, splits, s);
 }
 
 }  // namespace
@@ -454,33 +292,38 @@ extern "C" int rtt_ff_bwd(const void* x, const void* g, const void* ws, const vo
     return err;
 
   const rtt::gemm::Sched sd{T / 128, D / 128, 1, 2 * FH / 64};
-  if ((err = rtt::gemm::launch<K_MAJOR, K_MAJOR>(m_dproj, m_wi, sd, FfBwdDyln{(float*)dyln, D},
+  if ((err = rtt::gemm::launch<K_MAJOR, K_MAJOR>(m_dproj, m_wi, sd,
+                                                 rtt::gemm::F32Out<10>{(float*)dyln, 0, T, D},
                                                  s)))
     return err;
-  ff_bwd_ln_grad_kernel<<<T / LNB_ROWS, LN_THREADS, 0, s>>>(
+  ln_grad_kernel<false><<<T / LNB_ROWS, LN_THREADS, 0, s>>>(
       (const bf16*)x, (const float*)dyln, (const float*)ws, (const bf16*)g, (bf16*)dx,
-      (float*)ln_part, D);
+      (float*)ln_part, D, LNB_ROWS, T);
   if ((err = (int)cudaGetLastError())) return err;
   if ((err = rtt::gemm::launch_colsum((const float*)ln_part, (float*)sums, T / 64, 3 * D, s)))
     return err;
 
-  if ((err = weight_grad(act, g, (float*)dwo, (float*)wpart, T, FH, D, splits_wo, s)))
+  if ((err = rtt::gemm::weight_grad<10>(act, g, (float*)dwo, (float*)wpart, T, FH, D,
+                                        splits_wo, s)))
     return err;
-  return weight_grad(yln, dproj, (float*)dwi, (float*)wpart, T, D, 2 * FH, splits_wi, s);
+  return rtt::gemm::weight_grad<10>(yln, dproj, (float*)dwi, (float*)wpart, T, D, 2 * FH,
+                                    splits_wi, s);
 }
 
 // Registers and local bytes of the backward's kernels, two ints each, in the
 // order ff_ln_kernel<true>, ff_bwd_geglu_kernel, the dyln GEMM,
-// ff_bwd_ln_grad_kernel, the weight-gradient GEMM, colsum_kernel,
+// ln_grad_kernel<false>, the weight-gradient GEMM, colsum_kernel,
 // splitsum_kernel.
 extern "C" int rtt_ff_bwd_attributes(int* out) {
   int err = rtt::gemm::attributes(ff_ln_kernel<true>, out);
   if (!err) err = rtt::gemm::attributes(ff_bwd_geglu_kernel, out + 2);
   if (!err)
-    err = rtt::gemm::attributes(rtt::gemm::gemm_kernel<K_MAJOR, K_MAJOR, FfBwdDyln>, out + 4);
-  if (!err) err = rtt::gemm::attributes(ff_bwd_ln_grad_kernel, out + 6);
+    err = rtt::gemm::attributes(
+        rtt::gemm::gemm_kernel<K_MAJOR, K_MAJOR, rtt::gemm::F32Out<10>>, out + 4);
+  if (!err) err = rtt::gemm::attributes(ln_grad_kernel<false>, out + 6);
   if (!err)
-    err = rtt::gemm::attributes(rtt::gemm::gemm_kernel<MN_MAJOR, MN_MAJOR, FfBwdWgrad>, out + 8);
+    err = rtt::gemm::attributes(
+        rtt::gemm::gemm_kernel<MN_MAJOR, MN_MAJOR, rtt::gemm::F32Out<10>>, out + 8);
   if (!err) err = rtt::gemm::attributes(rtt::gemm::colsum_kernel, out + 10);
   if (!err) err = rtt::gemm::attributes(rtt::gemm::splitsum_kernel, out + 12);
   return err;

@@ -43,7 +43,9 @@
 //
 // The reductions (colsum_kernel, splitsum_kernel) add partials in an order
 // fixed by the shape alone, so every sum built from them is bitwise
-// repeatable (no atomics).
+// repeatable (no atomics). Two epilogues serve several products: the FF's
+// residual (BiasResidual) and a plain fp32 store (F32Out, with the split-K
+// weight gradient `weight_grad`).
 #pragma once
 
 #include <type_traits>
@@ -275,14 +277,44 @@ struct BiasResidual {
   }
 };
 
-// out[c] = sum of part[r * C + c] over r = 0..R-1 (C % 32 == 0): thread
-// (ty, tx) of a block of 32 columns sums rows ty, ty + 8, ... in order, then
-// the 8 row sums are added in order. Grid: C / 32 blocks of 256.
+// The tile stored in fp32, for products whose sums leave as they are:
+// out + split * split_stride is (M, N) row-major, N % 128 == 0; rows past M
+// are not stored (a last tile row half outside the matrix: TMA read zeros
+// there). ROW only names the launch (each row's products are profiled apart).
+template <int ROW>
+struct F32Out {
+  float* out;
+  long split_stride;
+  int M, N;
+  __device__ int2 b_cols(int tn) const { return make_int2(tn * 128, tn * 128 + 64); }
+  __device__ void operator()(const float (&acc)[64], const Unit& u, int row0, int wq,
+                             int lane) const {
+    const int ra = row0 + 16 * wq + (lane >> 2);
+    float* o = out + u.split * split_stride;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = u.tn * 128 + 8 * j + 2 * (lane & 3);
+      if (ra < M)
+        *reinterpret_cast<float2*>(o + (long)ra * N + col) = make_float2(acc[4 * j], acc[4 * j + 1]);
+      if (ra + 8 < M)
+        *reinterpret_cast<float2*>(o + (long)(ra + 8) * N + col) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+};
+
+// out[c] = sum of part[r * C + c] over r = 0..R-1 (C % 32 == 0), for each
+// segment y = blockIdx.y of R rows (part and out advance by R * C and C):
+// thread (ty, tx) of a block of 32 columns sums rows ty, ty + 8, ... in
+// order, then the 8 row sums are added in order. Grid: (C / 32, segments)
+// blocks of 256.
 __global__ void __launch_bounds__(256)
 colsum_kernel(const float* __restrict__ part, float* __restrict__ out, int R, int C) {
   __shared__ float red[8][33];
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
   const int c = blockIdx.x * 32 + tx;
+  part += (long)blockIdx.y * R * C;
+  out += (long)blockIdx.y * C;
   float s = 0.f;
   for (int r = ty; r < R; r += 8) s += part[(long)r * C + c];
   red[ty][tx] = s;
@@ -358,8 +390,10 @@ inline int launch(const CUtensorMap& map_a, const CUtensorMap& map_b, const Sche
   return (int)cudaGetLastError();
 }
 
-inline int launch_colsum(const float* part, float* out, int R, int C, cudaStream_t s) {
-  colsum_kernel<<<C / 32, 256, 0, s>>>(part, out, R, C);
+// out (segments, C) = the column sums of each segment of R rows of part.
+inline int launch_colsum(const float* part, float* out, int R, int C, cudaStream_t s,
+                         int segments = 1) {
+  colsum_kernel<<<dim3(C / 32, segments), 256, 0, s>>>(part, out, R, C);
   return (int)cudaGetLastError();
 }
 
@@ -369,6 +403,23 @@ inline int launch_splitsum(const float* part, float* out, long n, int splits, cu
   splitsum_kernel<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
       reinterpret_cast<const float4*>(part), reinterpret_cast<float4*>(out), n4, splits);
   return (int)cudaGetLastError();
+}
+
+// dW (M, N) = A^T B over T tokens in `splits` token ranges, A (T, M) and B (T,
+// N) row-major bf16 (both MN-major operands, T % 64 == 0); the splits'
+// partials go to wpart and are then summed in order into dW (one split
+// writes dW directly). ROW names the launch (F32Out).
+template <int ROW>
+int weight_grad(const void* a, const void* b, float* dW, float* wpart, int T, int M, int N,
+                int splits, cudaStream_t s) {
+  CUtensorMap ma, mb;
+  if (!tile_map(&ma, a, T, M) || !tile_map(&mb, b, T, N)) return (int)cudaErrorInvalidValue;
+  const Sched sched{(M + 127) / 128, N / 128, splits, T / 64};
+  float* dst = splits > 1 ? wpart : dW;
+  const long n = (long)M * N;
+  int err = launch<MN_MAJOR, MN_MAJOR>(ma, mb, sched, F32Out<ROW>{dst, n, M, N}, s);
+  if (err || splits == 1) return err;
+  return launch_splitsum(wpart, dW, n, splits, s);
 }
 
 // Registers and local (stack + spill) bytes of a kernel: out[0], out[1].

@@ -14,11 +14,12 @@
 // - wgmma: shared-memory descriptors for tiles in the 128-byte swizzle that
 //   TMA's CU_TENSOR_MAP_SWIZZLE_128B writes (rows of 64 bf16 = 128 bytes,
 //   8-row groups 1024 bytes apart, tile bases 1024-byte aligned), and the
-//   products of flash attention at head width 64: the forward's two,
+//   products of flash attention: the forward's,
 //     m64n128k16, A and B from shared memory, both K-major (S = Q K^T; the
 //     GEMMs of gemm_sm90.cuh take either operand MN-major);
 //     m64n72k16, A from registers, B from shared memory MN-major (O += P V,
-//     with 8 more columns of B for the row sums of P);
+//     with 8 more columns of B for the row sums of P), after m64n64k16 with
+//     A from registers on the first 64 columns of a 128-wide V;
 //   and the backward's: m64n64k16 with A and B from shared memory, either
 //   of them K-major or MN-major (S^T = K Q^T, dQ = dS K, the dQ pass's
 //   S = Q K^T), and with A from registers and B MN-major (dV += P^T dO,
@@ -332,20 +333,27 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A tensor map over a row-major (rows, 64) bf16 matrix, boxes of box_rows x 64
-// in the 128-byte swizzle. Returns false if the driver refuses it.
-inline bool bf16_rows64_map(CUtensorMap* map, const void* base, uint64_t rows,
-                            uint32_t box_rows) {
+// A tensor map over a row-major (rows, cols) bf16 matrix (cols % 64 == 0),
+// boxes of box_rows x 64 in the 128-byte swizzle. Returns false if the driver
+// refuses it.
+inline bool bf16_box64_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                           uint32_t box_rows) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {64, rows};
-  const cuuint64_t strides[1] = {64 * 2};
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 2};
   const cuuint32_t box[2] = {64, box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The same over a (rows, 64) matrix.
+inline bool bf16_rows64_map(CUtensorMap* map, const void* base, uint64_t rows,
+                            uint32_t box_rows) {
+  return bf16_box64_map(map, base, rows, 64, box_rows);
 }
 
 // A tensor map over a row-major (rows, 64) fp32 matrix, boxes of box_rows x 32

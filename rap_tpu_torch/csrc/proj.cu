@@ -15,8 +15,8 @@
 // the product is 51.5 GFLOP against ~100 MB that must move (x in; q, k and
 // va out), so the tensor cores bound it (~52 us at 989 TFLOP/s). Two
 // launches on one stream:
-//   1. adaln_ln_kernel: hln = bf16(LN(x)(1 + scale[g]) + shift[g]), (T, D),
-//      g = t / N (ff_common.cuh's LayerNorm row);
+//   1. adaln_ln_kernel<false>: hln = bf16(LN(x)(1 + scale[g]) + shift[g]),
+//      (T, D), g = t / N (ff_common.cuh);
 //   2. hln . W on the persistent TMA + wgmma GEMM of gemm_sm90.cuh (128 x 128
 //      tiles, 64-deep k slabs). A tile's 128 columns are two head slots
 //      (dh <= 64: B's halves start at two heads' first columns, `b_cols`) or
@@ -47,16 +47,6 @@ using rtt::gemm::MN_MAJOR;
 using rtt::gemm::Unit;
 
 constexpr int MAX_DH = 120;  // dh % 8 == 0 and dh < 128
-
-// hln = bf16(LN(x) * (1 + scale[g]) + shift[g]), ada (G, 2D) = (scale |
-// shift) in fp32, one warp per row. Grid: T / 8.
-__global__ void __launch_bounds__(LN_THREADS)
-adaln_ln_kernel(const bf16* __restrict__ x, const float* __restrict__ ada,
-                bf16* __restrict__ hln, int N, int D) {
-  const long row = (long)blockIdx.x * (LN_THREADS / 32) + (threadIdx.x >> 5);
-  const float* scale = ada + (row / N) * 2 * D;
-  ln_row<true>(x + row * D, scale, scale + D, hln + row * D, D, threadIdx.x & 31);
-}
 
 // The GEMM's epilogue. Heads are numbered [q heads | k heads | v heads],
 // 3H in all; tile column tn holds heads 2tn and 2tn + 1 (dh <= 64, H even)
@@ -166,7 +156,7 @@ extern "C" int rtt_proj(const void* x, const void* ada, const void* w, const voi
   const int T = G * N, dh = D / H;
   if (T == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  adaln_ln_kernel<<<T / (LN_THREADS / 32), LN_THREADS, 0, s>>>(
+  adaln_ln_kernel<false><<<T / (LN_THREADS / 32), LN_THREADS, 0, s>>>(
       (const bf16*)x, (const float*)ada, (bf16*)hln, N, D);
   int err = (int)cudaGetLastError();
   if (err) return err;
@@ -179,9 +169,9 @@ extern "C" int rtt_proj(const void* x, const void* ada, const void* w, const voi
   return rtt::gemm::launch<K_MAJOR, MN_MAJOR>(m_h, m_w, sched, epi, s);
 }
 
-// Registers and local bytes of adaln_ln_kernel and the GEMM, two ints each.
+// Registers and local bytes of adaln_ln_kernel<false> and the GEMM, two ints each.
 extern "C" int rtt_proj_attributes(int* out) {
-  int err = rtt::gemm::attributes(adaln_ln_kernel, out);
+  int err = rtt::gemm::attributes(adaln_ln_kernel<false>, out);
   if (!err)
     err = rtt::gemm::attributes(rtt::gemm::gemm_kernel<K_MAJOR, MN_MAJOR, ProjEpi>, out + 2);
   return err;

@@ -1,13 +1,15 @@
-"""Build and load the port's CUDA kernels: one ``nvcc`` call, bound with ctypes.
+"""Build and load the port's CUDA kernels with ``nvcc``, bound with ctypes.
 
-Every ``csrc/*.cu`` file is compiled by a single
-``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC`` into ``rap_tpu_torch/build/librtt_<hash>.so``, where the
-hash covers the sources, the headers and the flags, so a changed source
-rebuilds and an unchanged one loads at once. The build happens at first use,
-never at import: the CPU tests import every module of the port on a machine
-with no ``nvcc``. No source includes a PyTorch header, so the build takes
-seconds; each C entry point returns ``cudaGetLastError()`` after its launch.
+Every ``csrc/*.cu`` file is compiled to an object by its own
+``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler
+-fPIC -c``, all started together, and the objects are linked by one ``nvcc
+-shared`` into ``rap_tpu_torch/build/librtt_<hash>.so``, where the hash
+covers the sources, the headers and the flags, so a changed source rebuilds
+and an unchanged one loads at once. The build happens at first use, never
+at import: the CPU tests import every module of the port on a machine with
+no ``nvcc``. No source includes a PyTorch header, so the build takes
+seconds (the slowest source's); each C entry point returns
+``cudaGetLastError()`` after its launch.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -37,25 +39,26 @@ SIGNATURES = {
     "rtt_proj": [_P] * 9 + [_I] * 5 + [_P],
     "rtt_out_proj": [_P] * 6 + [_I] * 5 + [_P],
     "rtt_ff": [_P] * 10 + [_I] * 3 + [_P],
-    "rtt_flash_fixed": [_P] * 3 + [_F] + [_P] * 2 + [_I] * 3 + [_P],
-    "rtt_flash_online": [_P] * 6 + [_I] * 4 + [_P],
+    "rtt_flash_fixed": [_P] * 3 + [_F] + [_P] * 2 + [_I] * 4 + [_P],
+    "rtt_flash_online": [_P] * 6 + [_I] * 5 + [_P],
     "rtt_flash_bwd": [_P] * 11 + [_I] * 4 + [_P],
     "rtt_flash_bwd_dkv": [_P] * 10 + [_I] * 4 + [_P],
     "rtt_flash_bwd_dq": [_P] * 9 + [_I] * 4 + [_P],
-    "rtt_flash_fixed_softcap": [_P] * 3 + [_F] * 2 + [_P] * 2 + [_I] * 3 + [_P],
-    "rtt_flash_online_softcap": [_P] * 4 + [_F] + [_P] * 2 + [_I] * 4 + [_P],
+    "rtt_flash_fixed_softcap": [_P] * 3 + [_F] * 2 + [_P] * 2 + [_I] * 4 + [_P],
+    "rtt_flash_online_softcap": [_P] * 4 + [_F] + [_P] * 2 + [_I] * 5 + [_P],
     "rtt_flash_bwd_softcap": [_P] * 11 + [_I] * 4 + [_F] * 2 + [_P],
     "rtt_flash_bwd_dkv_softcap": [_P] * 10 + [_I] * 4 + [_F] * 2 + [_P],
     "rtt_flash_bwd_dq_softcap": [_P] * 9 + [_I] * 4 + [_F] * 2 + [_P],
-    "rtt_proj_bwd": [_P] * 16 + [_I] * 5 + [_P],
+    "rtt_proj_bwd": [_P] * 18 + [_I] * 7 + [_P],
     "rtt_ff_bwd": [_P] * 19 + [_I] * 5 + [_P],
 }
 # C entry points that launch nothing: the registers and local bytes of the
 # backward's setmaxnreg kernels (the key block's four instantiations, the dQ
-# pass's two; 4 ints each) and of every kernel behind rtt_proj,
-# rtt_out_proj, rtt_ff and rtt_ff_bwd (2 ints each, in the order of
-# QUERY_KERNELS[entry]; cudaFuncGetAttributes)
+# pass's two; 4 ints each) and of every kernel behind rtt_flash_* forward,
+# rtt_proj, rtt_out_proj, rtt_ff, rtt_ff_bwd and rtt_proj_bwd (2 ints each,
+# in the order of QUERY_KERNELS[entry]; cudaFuncGetAttributes)
 QUERIES = {
+    "rtt_flash_fwd_attributes": [_P],
     "rtt_flash_bwd_attributes": [_P],
     "rtt_flash_bwd_dkv_attributes": [_P],
     "rtt_flash_bwd_dq_attributes": [_P],
@@ -63,21 +66,33 @@ QUERIES = {
     "rtt_out_proj_attributes": [_P],
     "rtt_ff_attributes": [_P],
     "rtt_ff_bwd_attributes": [_P],
+    "rtt_proj_bwd_attributes": [_P],
 }
-PROJ_KERNELS = ("adaln_ln_kernel", "gemm_kernel<K, MN, ProjEpi>")
+# the forward attention kernel's eight instantiations (FIXED_BOUND, SOFTCAP,
+# head width), which setmaxnreg needs at the launch bound's 168 registers
+FLASH_FWD_KERNELS = tuple(f"flash_fwd_kernel<{fixed}, {cap}, {d}>"
+                          for fixed, cap in (("true", "false"), ("false", "false"),
+                                             ("true", "true"), ("false", "true"))
+                          for d in (64, 128))
+PROJ_KERNELS = ("adaln_ln_kernel<false>", "gemm_kernel<K, MN, ProjEpi>")
 OUT_PROJ_KERNELS = ("gemm_kernel<K, MN, OutHeadMajor>", "tokens_kernel",
                     "gemm_kernel<K, MN, OutTokens>")
 FF_KERNELS = ("ff_ln_kernel<false>", "gemm_kernel<K, MN, FfFwdGeglu>",
               "gemm_kernel<K, MN, FfFwdResidual>")
-FF_BWD_KERNELS = ("ff_ln_kernel<true>", "ff_bwd_geglu_kernel", "gemm_kernel<K, K, FfBwdDyln>",
-                  "ff_bwd_ln_grad_kernel", "gemm_kernel<MN, MN, FfBwdWgrad>", "colsum_kernel",
+FF_BWD_KERNELS = ("ff_ln_kernel<true>", "ff_bwd_geglu_kernel", "gemm_kernel<K, K, F32Out<10>>",
+                  "ln_grad_kernel<false>", "gemm_kernel<MN, MN, F32Out<10>>", "colsum_kernel",
                   "splitsum_kernel")
+PROJ_BWD_KERNELS = ("adaln_ln_kernel<true>", "gemm_kernel<K, MN, ProjBwdEpi>", "dv_copy_kernel",
+                    "gemm_kernel<K, K, F32Out<9>>", "ln_grad_kernel<true>",
+                    "gemm_kernel<MN, MN, F32Out<9>>")
 # the kernels each attribute query reports, in its order
 QUERY_KERNELS = {
+    "rtt_flash_fwd_attributes": FLASH_FWD_KERNELS,
     "rtt_proj_attributes": PROJ_KERNELS,
     "rtt_out_proj_attributes": OUT_PROJ_KERNELS,
     "rtt_ff_attributes": FF_KERNELS,
     "rtt_ff_bwd_attributes": FF_BWD_KERNELS,
+    "rtt_proj_bwd_attributes": PROJ_BWD_KERNELS,
 }
 
 
@@ -122,16 +137,28 @@ def load() -> KernelLibrary:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        objs = [so.with_name(f"{so.stem}.{os.getpid()}.{src.stem}.o") for src in sources]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [(src, subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True))
+                 for src, obj in zip(sources, objs)]
+        logs = [(src, proc.communicate()[0], proc.returncode) for src, proc in procs]
+        log = "".join(f"== {src.name}\n{out}" for src, out, _ in logs)
+        failed = [src.name for src, _, rc in logs if rc != 0]
+        if not failed:
+            link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                                  capture_output=True, text=True)
+            log += link.stdout + link.stderr
+            if link.returncode != 0:
+                failed = ["the link"]
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}"
-            )
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
         os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
         (BUILD_DIR / "nvcc.log").write_text(log)
     lib = ctypes.CDLL(str(so))

@@ -29,10 +29,13 @@ vectors (``backward_operands``), split once off va and [dO | -delta]
 the same arithmetic and cast points (``*_plain``), chunked over
 (batch*head, query) tiles to bound memory. The gradient of the
 bound is 0 and the ones column of va gets a zero cotangent (:321-323).
-Every kernel is 64 wide in its heads; the launchers take heads of 8 to 64,
-multiples of 8, zero-padding q, k, V and dO to 64 columns before a kernel
-and dropping the padded columns of out, dq, dk and dv after it
-(``kernel_width``, ``head_columns``).
+The forward kernels are 64 or 128 wide in their heads, the backward
+kernels 64: the launchers take heads of 8 <= d < 128, multiples of 8, for
+the forward and of 8 <= d <= 64 for the backward, zero-padding q, k, V and
+dO to the kernel's width before a kernel and dropping the padded columns of
+out, dq, dk and dv after it (``kernel_width``, ``head_columns``). The
+backward at 64 < d < 128 is open (ROADMAP C8): its launchers refuse it
+before any launch.
 
 Softcap c > 0 (the TPU kernels' static ``softcap``): q is pre-scaled by
 scale/c instead of scale·log2(e) (:829-832), each logit becomes
@@ -62,7 +65,8 @@ _FWD_BLOCK = 128  # csrc/attention.cu BQ and BK: query rows per block, keys per 
 _BWD_BLOCK = 64   # csrc/attention_bwd_dkv.cuh (rows 6 and 7): queries per step
 _PLAIN_LOGITS = 2**28  # fp32 logits per chunk of the plain versions (1 GiB)
 _BWD_KEY_BLOCK = 128  # csrc/attention_bwd_dkv.cuh (rows 6 and 7): keys per block
-_KERNEL_DH = 64  # the head width of every attention kernel
+_KERNEL_DH = 64  # the head width of the backward kernels, and the forward's narrower one
+_FWD_MAX_DH = 128  # the forward's wider head width (csrc/attention.cu at D = 128)
 # csrc/attention_bwd_dq.cuh (row 8) owns _FWD_BLOCK queries a block and walks
 # key tiles of _FWD_BLOCK
 _FUSED_DQ_PARTIALS_CAP = 2 * 2**30  # pallas_attention.py:636
@@ -154,27 +158,42 @@ def flash_online_plain(qh, kh, vah, mask=None, heads: int = 1, softcap: float = 
     return out, lse
 
 
+def padded_width(d: int) -> int:
+    """The head width a kernel runs a head of width d at: 64 for d <= 64,
+    128 for 64 < d < 128 (the forward only; the backward takes d <= 64)."""
+    return _KERNEL_DH if d <= _KERNEL_DH else _FWD_MAX_DH
+
+
 def kernel_width(*tensors):
     """The tensors zero-padded in their last dimension to the kernels' head
-    width 64 (unchanged where it is 64): the attention kernels take heads of
-    8 <= d <= 64, d % 8 == 0, as 64 wide. Exact: q·k, the row sums l, lse and
+    width (``padded_width``; unchanged where it is 64 or 128): the attention
+    kernels take heads of 8 <= d <= 64, d % 8 == 0, as 64 wide, and the
+    forward 64 < d < 128 as 128 wide. Exact: q·k, the row sums l, lse and
     -delta = rowsum(dO·O) gain only zero terms, and out, dq, dk and dv are
     the first d columns of the padded results (``head_columns``)."""
-    return tuple(t if t.shape[-1] == _KERNEL_DH else F.pad(t, (0, _KERNEL_DH - t.shape[-1]))
-                 for t in tensors)
+    return tuple(F.pad(t, (0, padded_width(t.shape[-1]) - t.shape[-1]))
+                 if t.shape[-1] != padded_width(t.shape[-1]) else t for t in tensors)
 
 
 def head_columns(t, d: int):
-    """The first d columns of a kernel's 64-wide result, contiguous."""
+    """The first d columns of a kernel's padded result, contiguous."""
     return t if t.shape[-1] == d else t[..., :d].contiguous()
 
 
-def _check_attention_inputs(qh, kh, vah, block: int = _BWD_BLOCK):
+def _check_attention_inputs(qh, kh, vah, block: int, backward: bool):
+    """Check q, k, va's shapes and dtypes: the forward takes heads of 8 <= d
+    < 128, the backward of 8 <= d <= 64, multiples of 8; Tq, Tk multiples of
+    ``block``."""
     BH, Tq, d = qh.shape
     Tk = kh.shape[1]
-    require(d % 8 == 0 and 8 <= d <= _KERNEL_DH,
-            f"attention kernel takes head width 64, or a multiple of 8 below it "
-            f"(zero-padded to 64), got {d}")
+    if backward:
+        require(d % 8 == 0 and 8 <= d <= _KERNEL_DH,
+                f"attention backward kernels take head width 64, or a multiple of 8 below "
+                f"it (zero-padded to 64); 64 < d < 128 is open (ROADMAP C8), got {d}")
+    else:
+        require(d % 8 == 0 and 8 <= d < _FWD_MAX_DH,
+                f"attention forward kernels take a head width below 128 that is a multiple "
+                f"of 8 (zero-padded to 64 or 128), got {d}")
     require(Tq % block == 0 and Tk % block == 0,
             f"attention kernel takes Tq, Tk multiples of {block} (keys are never "
             f"padded); got Tq={Tq}, Tk={Tk}")
@@ -201,10 +220,11 @@ def _as_kernel_mask(mask):
 
 def _forward_operands(qh, kh, vah):
     """Check the forward kernel's inputs; return q, k and v = va without its
-    ones column at the kernels' width (``kernel_width``): v (BH, Tk, 64) with
-    128-byte rows, the layout its TMA loads read (a fresh tensor, so
-    aligned). TMA also needs q's and k's base addresses 16-byte aligned."""
-    _check_attention_inputs(qh, kh, vah, _FWD_BLOCK)
+    ones column at the kernels' width (``kernel_width``): v (BH, Tk, 64 or
+    128) with 16-byte-aligned rows, the layout its TMA loads read (a fresh
+    tensor, so aligned). TMA also needs q's and k's base addresses 16-byte
+    aligned."""
+    _check_attention_inputs(qh, kh, vah, _FWD_BLOCK, backward=False)
     for name, t in (("qh", qh), ("kh", kh)):
         require(t.data_ptr() % 16 == 0,
                 f"{name}: the attention forward kernel takes 16-byte-aligned inputs "
@@ -221,7 +241,7 @@ def flash_fixed_kernel(qh, kh, vah, bound: float, softcap: float = 0.0):
     out = torch.empty_like(q)
     lse = torch.empty((BH, Tq), dtype=torch.float32, device=qh.device)
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), float(bound))
-    tail = (out.data_ptr(), lse.data_ptr(), BH, Tq, kh.shape[1])
+    tail = (out.data_ptr(), lse.data_ptr(), BH, Tq, kh.shape[1], q.shape[-1])
     if softcap > 0.0:
         launch("flash_fixed_softcap", qh, *head, _cap2(softcap), *tail)
     else:
@@ -239,7 +259,7 @@ def flash_online_kernel(qh, kh, vah, mask=None, heads: int = 1, softcap: float =
     out = torch.empty_like(q)
     lse = torch.empty((BH, Tq), dtype=torch.float32, device=qh.device)
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr)
-    tail = (out.data_ptr(), lse.data_ptr(), BH, Tq, Tk, heads)
+    tail = (out.data_ptr(), lse.data_ptr(), BH, Tq, Tk, heads, q.shape[-1])
     if softcap > 0.0:
         launch("flash_online_softcap", qh, *head, _cap2(softcap), *tail)
     else:
@@ -402,7 +422,7 @@ def _check_bwd_operands(qh, kh, vah, ops, lse2, block: int):
     """Check what a backward kernel reads: q, k, va's shape, lse2 and the
     pieces (v, dO, -delta, ones) of ``backward_operands``. TMA and the bulk
     copies need every one of them 16-byte aligned."""
-    _check_attention_inputs(qh, kh, vah, block)
+    _check_attention_inputs(qh, kh, vah, block, backward=True)
     v, do, nd, ones = ops
     BH, Tq, d = qh.shape
     Tk = kh.shape[1]

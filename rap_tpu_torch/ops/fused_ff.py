@@ -31,7 +31,7 @@ import torch.nn.functional as F
 from ._common import check_input, launch, on_cpu, require, require_aligned
 
 _TILE = 128  # rows and columns of an output tile of csrc/gemm_sm90.cuh
-_SLAB = 64   # k slab of csrc/gemm_sm90.cuh; ff_bwd_ln_grad_kernel's rows per block
+_SLAB = 64   # k slab of csrc/gemm_sm90.cuh; ln_grad_kernel's rows per block
 _BLOCKS_PER_SM = 2  # csrc/gemm_sm90.cuh BLOCKS_PER_SM: the GEMM's blocks on one SM
 _MAX_SPLITS = 8
 

@@ -21,9 +21,10 @@ that the guard admits too. ``adaln_qkv`` and ``attn_out`` dispatch on that
 rule from the shape: a refused shape takes the plain versions.
 
 Both are ``torch.autograd.Function``s. The backward of ``adaln_qkv`` is
-csrc/proj_bwd.cu (TPU ``_proj_bwd_kernel``, fused_proj.py:184), twin
-``proj_bwd_plain``; its dW comes back in the caller's weight dtype straight
-from the fp32 sums (fp32 masters in training, :375-381). The backward of
+csrc/proj_bwd.cu (TPU ``_proj_bwd_kernel``, fused_proj.py:184), on the same
+GEMM, launched wherever the forward launched csrc/proj.cu (it takes the same
+shapes), twin ``proj_bwd_plain``; its dW comes back in the caller's weight
+dtype straight from the fp32 sums (fp32 masters in training, :375-381). The backward of
 ``attn_out`` is the plain vjp of the reference composition in the
 residual's dtype (``_fused_out_bwd`` :525 has no kernel either), so its dW is
 rounded to that dtype before it reaches an fp32 master.
@@ -36,6 +37,7 @@ import math
 import torch
 
 from ._common import check_input, launch, on_cpu, require, require_aligned
+from .fused_ff import _BLOCKS_PER_SM, _sm_count, wgrad_splits
 
 _TILE = 128  # rows and columns of an output tile of csrc/gemm_sm90.cuh
 
@@ -189,17 +191,33 @@ def proj_bwd_plain(x, ada, w, gq_eff, gk_eff, dq, dk, dva, P: int,
     return dx, dada, dw, dgq, dgk
 
 
+def ln_block_rows(N: int) -> int:
+    """Rows of a block of csrc/proj_bwd.cu's LayerNorm vjp: the largest power
+    of two up to 64 that divides N, so a block lies in one part and its
+    column sums are one part's."""
+    return math.gcd(N, 64)
+
+
+def _carve(nbytes: list[int], device) -> tuple[torch.Tensor, list[int]]:
+    """One workspace for the scratch buffers of ``nbytes`` bytes each, every
+    buffer 256-byte aligned: (the workspace, each buffer's address)."""
+    offsets, at = [], 0
+    for n in nbytes:
+        offsets.append(at)
+        at += -(-n // 256) * 256
+    ws = torch.empty((max(at, 1) + 256,), dtype=torch.uint8, device=device)
+    base = -(-ws.data_ptr() // 256) * 256
+    return ws, [base + o for o in offsets]
+
+
 def proj_bwd_kernel(x, ada, w, gq_eff, gk_eff, dq, dk, dva, P: int,
                     is_global: bool):
     """Launch csrc/proj_bwd.cu on CUDA tensors; returns what
-    ``proj_bwd_plain`` returns."""
+    ``proj_bwd_plain`` returns. Takes the shapes of ``proj_shape_error``."""
     G, N, D = x.shape
     H, dh = gq_eff.shape
-    require(dh == 64 and D == H * dh,
-            "proj backward kernel (row 9) takes head width 64 only; other widths are "
-            f"open (ROADMAP C8): got D={D}, H={H}")
-    require(N % 64 == 0, f"proj backward takes N % 64 == 0; got N={N}")
-    require(G % P == 0, f"G={G} is not a multiple of P={P}")
+    err = proj_shape_error(G, N, D, H, dh, P, is_global)
+    require(err is None, err or "")
     check_input("x", x, torch.bfloat16, (G, N, D))
     check_input("ada", ada, torch.float32, (G, 2 * D))
     check_input("w", w, torch.bfloat16, (D, 3 * D))
@@ -209,25 +227,26 @@ def proj_bwd_kernel(x, ada, w, gq_eff, gk_eff, dq, dk, dva, P: int,
     check_input("dq", dq, torch.bfloat16, lead + (dh,))
     check_input("dk", dk, torch.bfloat16, lead + (dh,))
     check_input("dva", dva, torch.bfloat16, lead + (dh + 1,))
-    T = G * N
+    require_aligned("proj backward kernels", x=x, w=w, dq=dq, dk=dk)
+    T, R = G * N, ln_block_rows(N)
+    slots = _BLOCKS_PER_SM * _sm_count(x.device)
+    splits = wgrad_splits((D // _TILE) * (3 * D // _TILE), T // 64, slots)
+    # hln, dy (bf16); dhid, the gain, LN and dW partials (fp32)
+    ws, (hln, dy, dhid, gpart, lnpart, wpart) = _carve(
+        [T * D * 2, T * 3 * D * 2, T * D * 4, T // 64 * 2 * D * 4, T // R * 2 * D * 4,
+         (splits * D * 3 * D if splits > 1 else 0) * 4], x.device)
     f32 = dict(dtype=torch.float32, device=x.device)
-    hbuf = torch.empty((T, D), dtype=x.dtype, device=x.device)
-    dybuf = torch.empty((T, 3 * D), dtype=x.dtype, device=x.device)
-    dhid = torch.empty((T, D), **f32)
     dx = torch.empty_like(x)
-    dsc, dsh = torch.zeros((G, D), **f32), torch.zeros((G, D), **f32)
-    dw = torch.zeros((D, 3 * D), **f32)
-    dgain = torch.zeros((2 * D,), **f32)
+    dada, dw, dgain = (torch.empty((G, 2 * D), **f32), torch.empty((D, 3 * D), **f32),
+                       torch.empty((2 * D,), **f32))
     launch(
         "proj_bwd", x,
         x.data_ptr(), ada.data_ptr(), w.data_ptr(), gq_eff.data_ptr(),
-        gk_eff.data_ptr(), dq.data_ptr(), dk.data_ptr(), dva.data_ptr(),
-        hbuf.data_ptr(), dybuf.data_ptr(), dhid.data_ptr(), dx.data_ptr(),
-        dsc.data_ptr(), dsh.data_ptr(), dw.data_ptr(), dgain.data_ptr(),
-        G, N, D, H, P if is_global else 1,
+        gk_eff.data_ptr(), dq.data_ptr(), dk.data_ptr(), dva.data_ptr(), hln, dy, dhid,
+        gpart, lnpart, wpart, dx.data_ptr(), dada.data_ptr(), dw.data_ptr(),
+        dgain.data_ptr(), G, N, D, H, P if is_global else 1, R, splits,
     )
-    return (dx, torch.cat([dsc, dsh], dim=-1), dw, dgain[:D].reshape(H, dh),
-            dgain[D:].reshape(H, dh))
+    return dx, dada, dw, dgain[:D].reshape(H, dh), dgain[D:].reshape(H, dh)
 
 
 def fold_gains(gamma_q, gamma_k):

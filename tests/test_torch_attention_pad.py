@@ -1,14 +1,17 @@
-"""Attention at head widths below 64, through the kernels' zero-padding.
+"""Attention at head widths other than 64, through the kernels' zero-padding.
 
-Every attention kernel of rap_tpu_torch is 64 wide in its heads; the
-launchers take heads of 8 <= d < 64 (d % 8 == 0) by padding q, k, V and dO
-with zero columns to 64 (``flash_attention.kernel_width``) and keeping the
-first d columns of out, dq, dk and dv (``head_columns``). On the CPU the
-plain twins stand in for the kernels (they repeat the kernels' arithmetic):
-each twin through the padding must equal the twin on the unpadded heads,
-forward (fixed-bound, online with a key mask) and backward (fused, and the
-split dKV and dQ passes). Tolerance: 1e-5 of the largest output; the padded
-columns add exact zeros, and only the order of the fp32 sums may differ.
+The attention forward kernels of rap_tpu_torch are 64 or 128 wide in their
+heads, the backward kernels 64; the launchers take heads of 8 <= d < 128
+(forward) and 8 <= d <= 64 (backward), d % 8 == 0, by padding q, k, V and
+dO with zero columns to the kernel's width (``flash_attention.kernel_width``:
+64 for d <= 64, 128 above) and keeping the first d columns of out, dq, dk
+and dv (``head_columns``). On the CPU the plain twins stand in for the
+kernels (they repeat the kernels' arithmetic): each twin through the padding
+must equal the twin on the unpadded heads, forward (fixed-bound, online
+with a key mask) and backward (fused, and the split dKV and dQ passes).
+Tolerance: 1e-5 of the largest output; the padded columns add exact zeros,
+and only the order of the fp32 sums may differ. The backward launchers
+refuse 64 < d < 128 (ROADMAP C8) before any launch.
 """
 
 import numpy as np
@@ -46,11 +49,11 @@ def _padded_va(va):
     return torch.cat([v, va[..., d:]], dim=-1)
 
 
-@pytest.mark.parametrize("d", [8, 32, 56])
+@pytest.mark.parametrize("d", [8, 32, 56, 72, 96, 120])
 def test_forward_twins_through_the_padding(d):
     q, k, va, _, mask = _operands(d)
     qp, kp = fa.kernel_width(q, k)
-    assert qp.shape[-1] == kp.shape[-1] == 64
+    assert qp.shape[-1] == kp.shape[-1] == (64 if d <= 64 else 128)
     vap = _padded_va(va)
     for run in (lambda q_, k_, va_: fa.flash_fixed_plain(q_, k_, va_, 12.0),
                 lambda q_, k_, va_: fa.flash_online_plain(q_, k_, va_, mask, HEADS)):
@@ -88,19 +91,46 @@ def test_backward_twins_through_the_padding(d):
 
 
 def test_kernels_take_narrow_heads_and_refuse_others(monkeypatch):
-    """The launchers pass heads of d = 32 on to a launch, padded; d = 60
-    (not a multiple of 8) and d = 96 (wider than the kernels) are refused
-    before any launch."""
+    """The forward launchers pass heads of d = 32 and d = 96 on to a launch,
+    padded to 64 and 128 (the kernel's width is the launch's last integer);
+    d = 60 (not a multiple of 8) and d = 128 (wider than the kernels) are
+    refused before any launch."""
     launched = []
-    monkeypatch.setattr(fa, "launch", lambda kernel, *a: launched.append(kernel))
+    monkeypatch.setattr(fa, "launch", lambda kernel, *a: launched.append((kernel, a[-1])))
     bf = dict(dtype=torch.bfloat16)
-    for d in (32, 60, 96):
+    for d in (32, 60, 96, 128):
         q = torch.zeros(BH, 128, d, **bf)
         va = torch.zeros(BH, 128, d + 1, **bf)
-        if d == 32:
+        if d in (32, 96):
             out, lse = fa.flash_fixed_kernel(q, q, va, 1.0)
             assert out.shape == q.shape and out.is_contiguous()
         else:
-            with pytest.raises(ValueError, match="head width 64, or a multiple of 8"):
+            with pytest.raises(ValueError, match="head width below 128 that is a multiple of 8"):
                 fa.flash_fixed_kernel(q, q, va, 1.0)
-    assert launched == ["flash_fixed"]
+    assert launched == [("flash_fixed", 64), ("flash_fixed", 128)]
+
+
+@pytest.mark.parametrize("d", [72, 96, 120])
+def test_backward_launchers_refuse_wide_heads(monkeypatch, d):
+    """Every backward launcher (the fused pass, the split dKV and dQ passes,
+    and attention_backward's split branch, which splits the operands once)
+    refuses 64 < d < 128 with a message naming ROADMAP C8, before any
+    launch; the forward takes the same heads."""
+    launched = []
+    monkeypatch.setattr(fa, "launch", lambda kernel, *a: launched.append(kernel))
+    bf = dict(dtype=torch.bfloat16)
+    q = torch.zeros(BH, 128, d, **bf)
+    va = torch.zeros(BH, 128, d + 1, **bf)
+    lse = torch.zeros(BH, 128)
+    doa = torch.zeros(BH, 128, d + 1, **bf)
+    calls = (lambda: fa.flash_bwd_kernel(q, q, va, q, lse, q),
+             lambda: fa.flash_bwd_dkv_kernel(q, q, va, doa, lse),
+             lambda: fa.flash_bwd_dq_kernel(q, q, va, doa, lse),
+             lambda: fa.attention_backward(q, q, va, q, lse, q, None, 1, True, True))
+    monkeypatch.setattr(fa, "on_cpu", lambda *a: False)  # as CUDA tensors are
+    for call in calls:
+        with pytest.raises(ValueError, match=r"64 < d < 128 is open \(ROADMAP C8\)"):
+            call()
+    assert launched == []
+    fa.flash_online_kernel(q, q, va)
+    assert launched == ["flash_online"]

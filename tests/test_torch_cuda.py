@@ -152,21 +152,45 @@ def test_dit_forward_kernels_match_plain_at_head_width_32(gen):
     _dit_forward_matches_plain(gen, DiTConfig(num_heads=16, num_layers=2, attn_impl="pallas"))
 
 
-def test_training_at_head_width_32_refuses_in_proj_backward(gen):
-    """Training a dh = 32 model runs the forward kernels and the attention
-    backward, then stops at the proj backward (csrc/proj_bwd.cu still takes
-    dh = 64 only): a ValueError naming it, before its launch. The backward
-    reaches it in the last layer's global attention block: by then the
-    forward has run 2 layers × 2 blocks of proj and out_proj, and the remat
-    has run the last layer's forward again (2 more of each), and the
-    attention backward has run once."""
+def test_dit_forward_kernels_match_plain_at_head_width_96(gen):
+    """A D = 768, 8-head model (dh = 96, which rap_tpu's fused branch takes):
+    dit_forward through every forward kernel (the attention kernels on
+    heads zero-padded to 128) against the plain versions, with the checks
+    of ``test_dit_forward_kernels_match_plain``."""
+    from rap_tpu_torch.models.config import DiTConfig
+
+    _dit_forward_matches_plain(gen, DiTConfig(embed_dim=768, num_heads=8, num_layers=2,
+                                              attn_impl="pallas"))
+
+
+def test_training_at_head_width_32_runs_through_every_kernel(gen):
+    """Training a D = 512, 16-head model (dh = 32): training_forward +
+    autograd through every kernel, the proj backward (row 9) among them
+    (``_training_gradients`` checks the launch counts and the loss), every
+    gradient leaf against the plain path by the rule of
+    ``test_training_gradients_kernels_match_plain``; one Muon step finite."""
+    from rap_tpu_torch.models.config import DiTConfig
+
+    cfg = DiTConfig(num_heads=16, num_layers=2, attn_impl="pallas")
+    (gk, gp, g32, params, batch), rel = _training_gradients(gen, cfg), _rel_l2
+    for k, ref in gp.items():
+        assert rel(gk[k], ref) <= max(5e-2, 2 * rel(ref, g32[k])), (k, rel(gk[k], ref),
+                                                                  rel(ref, g32[k]))
+    _one_step_is_finite(cfg, params, batch)
+
+
+def test_training_at_head_width_96_refuses_in_attention_backward(gen):
+    """Training a D = 768, 8-head model (dh = 96) runs the forward kernels
+    (attention padded to 128), then stops at the first attention backward
+    (its kernels take dh <= 64, ROADMAP C8): a ValueError naming C8, raised
+    before any attention backward kernel or the proj backward launched."""
     from rap_tpu_torch.core.batch import make_regular_synthetic_batch
     from rap_tpu_torch.models.config import DiTConfig
     from rap_tpu_torch.models.dit import init_dit_params
     from rap_tpu_torch.registration import RPFConfig, training_forward
     from rap_tpu_torch.train.optim import tree_paths, tree_replace
 
-    cfg = DiTConfig(num_heads=16, num_layers=2, attn_impl="pallas")
+    cfg = DiTConfig(embed_dim=768, num_heads=8, num_layers=2, attn_impl="pallas")
     params = init_dit_params(0, cfg, masters=True)
     leaves = {k: p.detach().requires_grad_(True) for k, p in tree_paths(params)}
     batch = make_regular_synthetic_batch(1, [[N] * P] * S, N=N, P=P)
@@ -174,12 +198,12 @@ def test_training_at_head_width_32_refuses_in_proj_backward(gen):
     reset_launches()
     loss, _ = training_forward(tree_replace(params, leaves), RPFConfig(model=cfg), batch, None,
                                x_1=x_1, t=torch.tensor([0.3, 0.95], device="cuda"))
-    with pytest.raises(ValueError, match=r"proj backward kernel \(row 9\) takes head width 64 "
-                                         r"only.*ROADMAP C8"):
+    assert launch_counts()["proj"] == 4 and launch_counts()["flash_fixed"] > 0
+    with pytest.raises(ValueError, match=r"attention backward kernels take head width 64.*"
+                                         r"64 < d < 128 is open \(ROADMAP C8\), got 96"):
         torch.autograd.grad(loss, list(leaves.values()))
-    counts = launch_counts()  # the forward's, and the remat's before the refusal
-    assert (counts["proj"], counts["out_proj"], counts["flash_bwd"], counts["proj_bwd"]) == \
-        (6, 6, 1, 0), counts
+    counts = launch_counts()
+    assert all(counts[k] == 0 for k in KERNELS if "bwd" in k and k != "ff_bwd"), counts
 
 
 # (D, H) beside the model's (512, 8): every head width class the rule takes
@@ -278,6 +302,42 @@ def test_forward_kernel_edges(gen, variant, edge):
     assert float((got[1][live] - ref[1][live]).abs().max()) < 2e-2
 
 
+@pytest.mark.parametrize("d", [72, 96, 120])
+@pytest.mark.parametrize("variant", _FWD_VARIANTS)
+def test_forward_kernels_at_wide_heads(gen, variant, d):
+    """Each forward variant at a head width 64 < d < 128 (the kernel's
+    instantiation at 128, q, k and v zero-padded) against its plain twin on
+    the unpadded heads, BH = 4, Tq = Tk = 384, softcap 5 for the softcap
+    variants: out within TOL, lse2 within 2e-2 on live rows, one launch."""
+    BH, T, heads = 4, 384, 2
+    c = 5.0 if variant.endswith("softcap") else 0.0
+    q, k = _randn(gen, BH, T, d, scale=0.4), _randn(gen, BH, T, d, scale=0.4)
+    if c > 0.0:
+        q = q * (3.0 / c)
+    va = torch.cat([_randn(gen, BH, T, d), torch.ones(BH, T, 1, device="cuda",
+                                                      dtype=torch.bfloat16)], -1)
+    reset_launches()
+    mask = None
+    if variant.startswith("fixed"):
+        b2 = fa._cap2(c) if c > 0.0 else float((q.float() @ k.float().transpose(1, 2)).max())
+        got = fa.flash_fixed_kernel(q, k, va, b2, c)
+        ref = fa.flash_fixed_plain(q, k, va, b2, c)
+    else:
+        mask = _edge_mask(gen, BH // heads, T, "random") if "masked" in variant else None
+        got = fa.flash_online_kernel(q, k, va, mask, heads, c)
+        ref = fa.flash_online_plain(q, k, va, None if mask is None else mask.bool(), heads, c)
+    name = ("flash_fixed" if variant.startswith("fixed") else "flash_online") + (
+        "_softcap" if c > 0.0 else "")
+    assert launch_counts() == _counts(**{name: 1})
+    assert got[0].shape == q.shape
+    _close(got[0], ref[0])
+    live = torch.ones(BH, dtype=torch.bool, device="cuda")
+    if mask is not None:
+        live = (mask.sum(1) > 0).repeat_interleave(heads)
+        assert (got[0][~live] == 0).all() and (got[1][~live] == fa.LSE_EMPTY).all()
+    assert float((got[1][live] - ref[1][live]).abs().max()) < 2e-2
+
+
 # --------------------------------------------------------------------------
 # backward kernels (tolerance: 1/64 of the largest output, as above)
 # --------------------------------------------------------------------------
@@ -300,22 +360,37 @@ def test_flash_bwd_kernel(gen, variant):
         _close(g_, r_)
 
 
-@pytest.mark.parametrize("is_global", [False, True], ids=["part", "global"])
-def test_proj_bwd_kernel(gen, is_global):
-    G = S * P
-    x = _randn(gen, G, N, D)
-    ada = _randn(gen, G, 2 * D, dtype=torch.float32, scale=0.1)
-    w = _randn(gen, D, 3 * D, scale=D ** -0.5)
-    gq, gk = fused_proj.fold_gains(1 + _randn(gen, H, DH, dtype=torch.float32, scale=0.1),
-                                   1 + _randn(gen, H, DH, dtype=torch.float32, scale=0.1))
-    lead = (S, H, P, N) if is_global else (G, H, N)
-    dq, dk = _randn(gen, *lead, DH), _randn(gen, *lead, DH)
-    dva = _randn(gen, *lead, DH + 1)
+# (D, H, N, layouts): the model's shape, every width of _PROJ_WIDTHS, and a
+# global layout whose N = 192 is not a multiple of 128 (P*N is)
+_PROJ_BWD_CASES = ([(D, H, N, g) for g in (False, True)]
+                   + [(w, h, N, g) for w, h in _PROJ_WIDTHS for g in (False, True)]
+                   + [(D, H, 192, True)])
+
+
+@pytest.mark.parametrize("width,heads,n,is_global", _PROJ_BWD_CASES,
+                         ids=[f"D{w}-H{h}-N{n}-{'global' if g else 'part'}"
+                              for w, h, n, g in _PROJ_BWD_CASES])
+def test_proj_bwd_kernel(gen, width, heads, n, is_global):
+    """Row 9 (csrc/proj_bwd.cu) at every head width the forward takes: its
+    five outputs against proj_bwd_plain within TOL, one launch, and bitwise
+    equal on two calls (no atomics)."""
+    G, dh = S * P, width // heads
+    x = _randn(gen, G, n, width)
+    ada = _randn(gen, G, 2 * width, dtype=torch.float32, scale=0.1)
+    w = _randn(gen, width, 3 * width, scale=width ** -0.5)
+    gq, gk = fused_proj.fold_gains(1 + _randn(gen, heads, dh, dtype=torch.float32, scale=0.1),
+                                   1 + _randn(gen, heads, dh, dtype=torch.float32, scale=0.1))
+    lead = (S, heads, P, n) if is_global else (G, heads, n)
+    dq, dk = _randn(gen, *lead, dh), _randn(gen, *lead, dh)
+    dva = _randn(gen, *lead, dh + 1)
     args = (x, ada, w, gq, gk, dq, dk, dva, P, is_global)
+    reset_launches()
     got = fused_proj.proj_bwd_kernel(*args)
+    assert launch_counts() == _counts(proj_bwd=1)
     for g_, r_ in zip(got, fused_proj.proj_bwd_plain(*args)):
         assert g_.dtype == r_.dtype and g_.shape == r_.shape
         _close(g_, r_)
+    assert all(torch.equal(a, b) for a, b in zip(got, fused_proj.proj_bwd_kernel(*args)))
 
 
 def test_ff_bwd_kernel(gen):

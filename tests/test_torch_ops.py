@@ -375,6 +375,42 @@ def test_proj_shape_contract_is_rap_tpus_legal_rule(monkeypatch, width):
                     assert all(tk or not (a and guard) for tk, a in zip(takes, at_n)), shape
 
 
+@pytest.mark.parametrize("width", [64, 128, 256, 384, 512, 768, 1024, 1920, 2048])
+def test_proj_backward_shape_rule_is_the_forwards(monkeypatch, width):
+    """csrc/proj_bwd.cu (row 9) takes exactly the shapes csrc/proj.cu takes:
+    over the grid of ``test_proj_shape_contract_is_rap_tpus_legal_rule``,
+    proj_bwd_kernel launches once where ``proj_shape_error`` is None and
+    otherwise raises its reason before any launch (the launch recorded
+    instead of made; the tensors are uninitialised, only their shapes are
+    read)."""
+    launched = []
+    monkeypatch.setattr(fused_proj, "launch", lambda name, like, *a: launched.append(a[-7:]))
+    monkeypatch.setattr(fused_proj, "_sm_count", lambda device: 132)
+    bf = dict(dtype=torch.bfloat16)
+    for H in (1, 2, 4, 6, 8, 12, 16, 32, 64, 128):
+        if width % H:
+            continue
+        dh = width // H
+        for N in (64, 100, 128, 192, 256, 1000, 1024, 2048, 4096):
+            for G, P in ((2, 1), (4, 2), (6, 2), (6, 3), (6, 4), (8, 2), (3, 2)):
+                for is_global in (False, True):
+                    lead = (G // P, H, P, N) if is_global and G % P == 0 else (G, H, N)
+                    args = (torch.empty(G, N, width, **bf), torch.empty(G, 2 * width),
+                            torch.empty(width, 3 * width, **bf), torch.empty(H, dh),
+                            torch.empty(H, dh), torch.empty(lead + (dh,), **bf),
+                            torch.empty(lead + (dh,), **bf), torch.empty(lead + (dh + 1,), **bf))
+                    reason = fused_proj.proj_shape_error(G, N, width, H, dh, P, is_global)
+                    launched.clear()
+                    if reason is None:
+                        fused_proj.proj_bwd_kernel(*args, P, is_global)
+                        assert launched[0][:5] == (G, N, width, H, P if is_global else 1)
+                        assert N % launched[0][5] == 0 and launched[0][5] <= 64
+                    else:
+                        with pytest.raises(ValueError, match=re.escape(reason)):
+                            fused_proj.proj_bwd_kernel(*args, P, is_global)
+                        assert launched == []
+
+
 @pytest.mark.parametrize("is_global,n,kernel", [(False, 192, False), (True, 96, False),
                                                 (False, 128, True), (True, 192, True)],
                          ids=["part-192", "global-96", "part-128", "global-192"])

@@ -137,23 +137,35 @@ def test_attention_backward_raises_beyond_the_dq_slab(monkeypatch):
 # AdaLN + QKV projection, attention out-projection
 # --------------------------------------------------------------------------
 
-def _proj_inputs(seed=0):
+def _proj_inputs(seed=0, width=D, heads=H):
     f = _rng_f32(seed)
-    return (f(G, N, D), f(G, 2 * D, sc=0.2), f(D, 3 * D, sc=D ** -0.5),
-            1 + f(H, DH, sc=0.1), 1 + f(H, DH, sc=0.1))
+    dh = width // heads
+    return (f(G, N, width), f(G, 2 * width, sc=0.2), f(width, 3 * width, sc=width ** -0.5),
+            1 + f(heads, dh, sc=0.1), 1 + f(heads, dh, sc=0.1))
 
 
-def _proj_cotangents(is_global, seed=5):
+def _proj_cotangents(is_global, seed=5, heads=H, dh=DH):
     f = _rng_f32(seed)
-    lead = (S, H, P, N) if is_global else (G, H, N)
-    dva = f(*lead, DH + 1)
-    dva[..., DH] = 0.0  # what the attention backward gives the ones column
-    return f(*lead, DH), f(*lead, DH), dva
+    lead = (S, heads, P, N) if is_global else (G, heads, N)
+    dva = f(*lead, dh + 1)
+    dva[..., dh] = 0.0  # what the attention backward gives the ones column
+    return f(*lead, dh), f(*lead, dh), dva
 
 
+# (D, H): the model's width and heads (dh = 64), two heads a GEMM tile of
+# csrc/proj_bwd.cu (dh = 32) and one head over a tile (dh = 96)
+_PROJ_BWD_WIDTHS = [(512, 8), (256, 8), (384, 4)]
+
+
+@pytest.mark.parametrize("width,heads", _PROJ_BWD_WIDTHS, ids=["dh64", "dh32", "dh96"])
 @pytest.mark.parametrize("is_global", [False, True], ids=["part", "global"])
-def test_proj_backward_matches_pallas(is_global):
-    inputs, cots = _proj_inputs(), _proj_cotangents(is_global)
+def test_proj_backward_matches_pallas(is_global, width, heads):
+    """rap_tpu's backward here is its Pallas kernel ``_proj_bwd_kernel`` in
+    interpret mode in every case: N = 128 gives its ``bblock`` rule
+    (fused_proj.py:402-403) a block of 128 and D % 128 == 0, so it never
+    takes its XLA vjp."""
+    inputs = _proj_inputs(width=width, heads=heads)
+    cots = _proj_cotangents(is_global, heads=heads, dh=width // heads)
     _, vjp = jax.vjp(lambda *a: jfp.adaln_qkv(*a, P=P, is_global=is_global, impl="pallas",
                                               interpret=True), *map(jnp.asarray, inputs))
     ref = vjp(tuple(map(jnp.asarray, cots)))
