@@ -13,9 +13,10 @@ Phases, each printed on its own flushed line with its wall time:
               linked into rap_tpu_torch/build/ (first use builds, an
               unchanged tree loads); the attention forward's eight
               instantiations (rows 2, 3 and their softcap variants at head
-              widths 64 and 128), the key-block backward's four (rows 6, 7
-              and their softcap variants), the dQ pass's two (rows 8, 8s) and
-              the ff backward's fused GEGLU kernel (row 10) must have the
+              widths 64 and 128), the key-block backward's eight (rows 6, 7
+              and their softcap variants at head widths 64 and 128), the dQ
+              pass's four (rows 8, 8s at 64 and 128) and the ff backward's
+              fused GEGLU kernel (row 10) must have the
               launch bound's 168 registers, and they and every other kernel
               behind rows 1, 4, 5, 9 and 10 no local memory
               (cudaFuncGetAttributes).
@@ -67,6 +68,18 @@ Phases, each printed on its own flushed line with its wall time:
               = 8 model) and 120 (BH = 16, T = 2048), the kernel's 128-wide
               instantiation, against their twins on the unpadded heads
               (fixed, online, online with a key mask, softcap 5 and 50).
+              The attention backward at head widths 96, 120 and 128 (rows 6,
+              7, 8 and their softcap variants at c = 5: the 128-wide key
+              block and dQ pass, csrc/attention_bwd_dkv128.cuh and
+              csrc/attention_bwd_dq128.cuh) behind the masked online forward
+              (rows 3, 3s, held to their twins at d = 128, the width only
+              the masked path takes), with a random key mask and without,
+              against their twins on the unpadded heads (96 and 128 at BH =
+              32, T = 8192, 120 and the softcap variants at BH = 16, T =
+              2048); the split passes bitwise repeatable, masked keys and
+              fully masked batch rows exactly zero; the dQ pass's edges at
+              head width 128 too, with the 128-wide key block (fused and
+              split) on the same inputs.
               Rows 5 and 10 (the GEGLU
               feed-forward, csrc/ff.cu and csrc/ff_bwd.cu on the TMA +
               wgmma GEMM of csrc/gemm_sm90.cuh) also at the multi-view
@@ -81,9 +94,11 @@ Phases, each printed on its own flushed line with its wall time:
               the 12 attention calls per forward take the online kernel.
               Checks: finite output of the right shape, the launch counts of
               one sample, and agreement with the same call through the plain
-              versions. Then a 2-layer D = 768, H = 8 model (head width 96:
-              attention on heads padded to 128) serves the same batch:
-              launch counts, points, rotations and velocity against plain.
+              versions. Then 2-layer D = 768 and D = 1024, H = 8 models
+              (head widths 96: the fused branch, attention on heads padded
+              to 128; and 128: the unfused branch, the masked online
+              forward) serve the same batch: launch counts, points,
+              rotations and velocity against plain.
 4. sample     rap_tpu_torch.apps.sample.main, the batch-evaluation entry
               point, on configs/synth_student.yaml and demo_data/synth (one
               dense batch of 8 pairs, 6 layers, 4 Euler steps, rigidity
@@ -96,7 +111,17 @@ Phases, each printed on its own flushed line with its wall time:
               through the plain versions: the launch counts, the metric
               table, every metric finite, points and rotations against the
               plain run, generation ms per batch and the loader's wait; at
-              softcap 5 the output must move away from softcap 0's.
+              softcap 5 the output must move away from softcap 0's. Then one
+              run at softcap 0 with 3 generations and every evaluation option
+              on (correspondence RMSE, overlap, part accuracy, ECDF, ICP,
+              the artifacts with per-part PLYs and trajectory PCDs, into a
+              temporary directory), after one without options: the metric
+              keys equal rap_tpu's (a literal list), every metric finite,
+              the artifact tree complete and read back by the port's
+              readers, points and rotations against the same run through
+              the plain versions, the generation ms within the no-option
+              run's spread, and the time metrics and artifacts take per
+              batch (outside the timed window).
 5. train      one Muon step of the same model (fp32 random masters from a
               seed, the same raised gains, so 6 online and 6 fixed attention
               calls per forward) on 4 x 2 x 4096 points, remat on. Checks: at
@@ -108,12 +133,12 @@ Phases, each printed on its own flushed line with its wall time:
               of one step; five more steps, finite and never skipped; the loss
               at the fixed (t, x_1) falls over those six steps. Then at 2
               layers on the same batch: a D = 512, H = 16 model (head width
-              32) trains through every kernel, the proj backward included
-              (gradients against plain, one step's launch counts, finite);
-              a D = 768, H = 8 model (head width 96) refuses in the
-              attention backward, whose kernels take head widths up to 64
-              (ROADMAP C8), before any backward attention or proj kernel
-              launched.
+              32), a D = 768, H = 8 model (head width 96, the fused branch:
+              the attention backward at 128 wide) and a D = 1024, H = 8
+              model (head width 128, the unfused branch: the masked forward,
+              the attention backward at 128 wide, the FF kernels at D = 1024)
+              each train through the kernels (gradients against plain, one
+              step's launch counts, finite).
 6. multiview  training on a padded multi-view batch, the shape the packer
               makes of 5-8-scan samples under configs/rap_train.yaml's
               80 000-point budget: S=2 x P=8 x N=4096, sample 0 with 8 parts,
@@ -149,7 +174,10 @@ Phases, each printed on its own flushed line with its wall time:
               split pair, rows 7 and 8 in one timed call (``pair_ms``), the
               time to hold beside the library's whole backward; rows 2 and
               3 at head widths 96 and 120 beside SDPA at the same width,
-              the bound counting the products at the unpadded width; rows 5 and
+              the bound counting the products at the unpadded width; rows 3
+              (masked), 6, 7 and 8 at head widths 96 and 128 (BH = 32, T =
+              8192) beside SDPA at the same width (memory-efficient with the
+              mask for row 3, the flash backward for rows 6-8); rows 5 and
               10 also at the multi-view step's 65536 tokens, each beside the
               yardstick ``matmul_ms``: torch.matmul over the same products
               without their epilogues (two for row 5, five for row 10; one
@@ -247,14 +275,22 @@ FF_WIDTHS = ((256, 1024), (768, 3072), (1024, 4096))
 # head widths 32 (two heads a tile), 96 and 120 (one head a tile; out_proj
 # gathers the tokens first) and 64
 PROJ_WIDTHS = ((512, 16), (256, 8), (768, 8), (768, 12), (1024, 16), (1920, 16))
-# a model of head width 96 (D = 768, H = 8; rap_tpu's fused guard admits
-# it): served at WIDE_LAYERS layers in the main phase, refused in the
-# attention backward (ROADMAP C8) in the train phase
-WIDE_D, WIDE_LAYERS = 768, 2
+# models of head width 96 (D = 768, H = 8; rap_tpu's fused guard admits it)
+# and 128 (D = 1024, H = 8; the guard needs dh < 128, so the unfused branch
+# with the masked attention path, as in rap_tpu): each served at WIDE_LAYERS
+# layers in the main phase and trained at TRAIN_CHECK_LAYERS in the train
+# phase
+WIDE_D, WIDEST_D, WIDE_LAYERS = 768, 1024, 2
 # head widths the attention forward (rows 2, 3, 2s, 3s) runs at its
 # 128-wide instantiation, (d, BH, T): d = 96 at the global shape of a D =
 # 768, H = 8 model at the main path's batch (kept for the timing phase)
 WIDE_HEADS = ((96, S * H, P * N), (120, 16, 2048))
+# (d, BH, T): head widths the attention backward (rows 6-8, 6s-8s) and the
+# masked online forward (rows 3, 3s at d = 128) run at their 128-wide
+# instantiations: d = 96 and 128 at the global shape of a D = 768 or 1024,
+# H = 8 model at the main path's batch (kept for the timing phase), d = 120
+# at a smaller one
+WIDE_BWD = ((96, S * H, P * N), (120, 16, 2048), (128, S * H, P * N))
 
 # sample phase: the batch-evaluation entry point on the shipped config and
 # data, random weights from a seed at its checkpoint's shape (6 layers,
@@ -266,6 +302,28 @@ SAMPLE_CONFIG = "configs/synth_student.yaml"
 SAMPLE_DATA = "demo_data/synth"
 SAMPLE_SEED = 42
 SOFTCAPS = (0.0, 5.0, 50.0)
+# the every-option evaluation run: rap_tpu's eval options on (artifacts
+# included), 3 generations, softcap 0
+SAMPLE_OPTIONS = ("rmse_eval_on", "overlap_eval_on", "part_acc_eval_on", "ecdf_eval_on",
+                  "use_icp", "save_results", "save_pointcloud_parts",
+                  "save_merged_pointcloud_steps")
+SAMPLE_OPTION_GENERATIONS = 3
+# rap_tpu's metric names with every option on (rap_tpu.apps.sample.run_eval
+# on demo_data/synth, configs/synth_student.yaml): each under the average
+# section (unprefixed) and the best-of-3, rigidity-selected and
+# overlap-selected sections
+SAMPLE_OPTION_METRICS = (
+    "average_rotation_error (deg)", "average_translation_error (m)", "chamfer_l2 (m)",
+    "correspondence_ratio", "correspondence_rmse (m)", "ecdf_rotation_at_10deg",
+    "ecdf_rotation_at_30deg", "ecdf_rotation_at_3deg", "ecdf_rotation_at_45deg",
+    "ecdf_rotation_at_5deg", "ecdf_translation_at_0.05m", "ecdf_translation_at_0.1m",
+    "ecdf_translation_at_0.25m", "ecdf_translation_at_0.5m", "ecdf_translation_at_0.75m",
+    "object_chamfer", "overlap_ratio_at_0.5%", "overlap_ratio_at_1%", "overlap_ratio_at_2%",
+    "part_accuracy", "recall_at_10deg_0.2m (nss)", "recall_at_10deg_5m (map)",
+    "recall_at_15deg_0.3m (indoor_bufferx)", "recall_at_5deg_2m (outdoor_bufferx)",
+    "recall_at_chamfer_0.2m", "recall_at_rmse_0.2m", "recall_at_transform_error_rmse_0.2m",
+    "rigidity_rmse (m)", "transform_error_rmse (m)")
+SAMPLE_OPTION_SECTIONS = ("", "best_of_3/", "rigidity_selected/", "overlap_ratio_selected/")
 MV_SOFTCAP = 5.0  # the multi-view softcap training check
 SAMPLE_TIMING_RUNS = 3
 
@@ -401,18 +459,20 @@ def run_build(report, fails):
                 or "error" in line.lower() or "warning" in line.lower():
             log(f"  ptxas: {line.strip()}")
     report["build_seconds"] = lib.build_seconds
-    # the key-block backward (rows 6, 7) and the dQ pass (row 8): setmaxnreg
-    # needs the launch bound's 168 registers; local memory would be a stack or
-    # spills
+    # the key-block backward (rows 6, 7) and the dQ pass (row 8), at head
+    # widths 64 and 128: setmaxnreg needs the launch bound's 168 registers;
+    # local memory would be a stack or spills
     report["dkv_kernel_attributes"] = {}
     report["dq_kernel_attributes"] = {}
-    for entry, key, kernel in (("rtt_flash_bwd_attributes", "dkv", "dkv_kernel<true, {}>"),
-                               ("rtt_flash_bwd_dkv_attributes", "dkv", "dkv_kernel<false, {}>"),
-                               ("rtt_flash_bwd_dq_attributes", "dq", "dq_kernel<{}>")):
-        out = (ctypes.c_int * 4)()
+    for entry, key, kernel in (("rtt_flash_bwd_attributes", "dkv", "dkv{}_kernel<true, {}>"),
+                               ("rtt_flash_bwd_dkv_attributes", "dkv",
+                                "dkv{}_kernel<false, {}>"),
+                               ("rtt_flash_bwd_dq_attributes", "dq", "dq{}_kernel<{}>")):
+        out = (ctypes.c_int * 8)()
         _build.check(getattr(lib.lib, entry)(out), entry)
-        for i, softcap in enumerate(("false", "true")):
-            name = kernel.format(softcap)
+        for i, (width, softcap) in enumerate((w, c) for w in ("", "128")
+                                             for c in ("false", "true")):
+            name = kernel.format(width, softcap)
             regs, local = out[2 * i], out[2 * i + 1]
             report[f"{key}_kernel_attributes"][name] = {"registers": regs, "local_bytes": local}
             fails.check(f"{name}: {regs} registers, {local} local bytes",
@@ -576,6 +636,7 @@ def run_kernels(report, fails, state):
     run_kernels_edges(fails, gen, compare, compare_lse)
     run_kernels_dq_edges(fails, gen, compare)
     run_kernels_wide_heads(fails, state, gen, compare, compare_lse)
+    run_kernels_wide_backward(fails, state, gen, compare, compare_lse)
 
 
 FF_GRADS = ("dx", "dws", "dwb", "dwi", "dbi", "dwo", "dbo")
@@ -714,16 +775,16 @@ def run_kernels_ff(fails, state, gen, compare):
             state["ff_mv"] = (fwd, bwd)
 
 
-def multiview_attention_inputs(gen, BH: int, T: int):
+def multiview_attention_inputs(gen, BH: int, T: int, d: int = DH):
     """q, k, va as the masked branch hands them to the kernels: rows of norm
     sqrt(dh) (qk-norm at unit gains), q pre-scaled by log2(e)/sqrt(dh)."""
     def rows(scale):
-        x = torch.randn((BH, T, DH), generator=gen, device="cuda")
+        x = torch.randn((BH, T, d), generator=gen, device="cuda")
         return (x / x.norm(dim=-1, keepdim=True) * scale).to(torch.bfloat16)
 
-    v = torch.randn((BH, T, DH), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((BH, T, d), generator=gen, device="cuda").to(torch.bfloat16)
     va = torch.cat([v, torch.ones((BH, T, 1), dtype=torch.bfloat16, device="cuda")], -1)
-    return rows(np.log2(np.e)), rows(np.sqrt(DH)), va.contiguous()
+    return rows(np.log2(np.e)), rows(np.sqrt(d)), va.contiguous()
 
 
 def run_kernels_multiview(fails, state, gen, compare):
@@ -822,17 +883,18 @@ def sample_attention_shapes() -> dict[str, tuple[int, int]]:
     return {"part": (batch.G * H, batch.N), "global": (batch.S * H, P_ * batch.N)}
 
 
-def softcap_attention_inputs(gen, BH: int, T: int, softcap: float, gain: float = 3.0):
+def softcap_attention_inputs(gen, BH: int, T: int, softcap: float, gain: float = 3.0,
+                             d: int = DH):
     """q, k, va as the unfused branch hands them to the softcap kernels:
     qk-norm rows at gain ``gain`` (norm gain·sqrt(dh)), q pre-scaled by
     scale/c, so |q·k| <= gain²·sqrt(dh)/c and the cap bites."""
     def rows(norm):
-        x = torch.randn((BH, T, DH), generator=gen, device="cuda")
+        x = torch.randn((BH, T, d), generator=gen, device="cuda")
         return (x / x.norm(dim=-1, keepdim=True) * norm).to(torch.bfloat16)
 
-    v = torch.randn((BH, T, DH), generator=gen, device="cuda").to(torch.bfloat16)
+    v = torch.randn((BH, T, d), generator=gen, device="cuda").to(torch.bfloat16)
     va = torch.cat([v, torch.ones((BH, T, 1), dtype=torch.bfloat16, device="cuda")], -1)
-    return rows(gain / softcap), rows(gain * np.sqrt(DH)), va.contiguous()
+    return rows(gain / softcap), rows(gain * np.sqrt(d)), va.contiguous()
 
 
 def run_kernels_softcap(fails, state, gen, compare, compare_lse):
@@ -958,39 +1020,56 @@ def run_kernels_edges(fails, gen, compare, compare_lse):
 
 
 def run_kernels_dq_edges(fails, gen, compare):
-    """The dQ pass (rows 8, 8s: csrc/attention_bwd_dq.cuh) at the edges of
-    its design, FWD_EDGES' cases: one key tile (shorter than the TMA ring),
-    an odd number of tiles, one head, and masks that leave only the first or
-    the last key tile live; each at softcap 0 and 5 against
-    flash_bwd_dq_plain, with the key mask (a batch row whose keys are all
-    masked must get dq exactly 0: the kernel writes it, the caller does not
-    zero-fill) and, where the mask is random, without one; bitwise
-    repeatable."""
+    """The dQ pass (rows 8, 8s: csrc/attention_bwd_dq.cuh, and at head width
+    128 csrc/attention_bwd_dq128.cuh) at the edges of its design, FWD_EDGES'
+    cases: one key tile (shorter than the TMA ring), an odd number of tiles,
+    one head, and masks that leave only the first or the last key tile live;
+    each at softcap 0 and 5 against flash_bwd_dq_plain, with the key mask (a
+    batch row whose keys are all masked must get dq exactly 0: the kernel
+    writes it, the caller does not zero-fill) and, where the mask is random,
+    without one; bitwise repeatable. At head width 128 (d = 128) the key
+    block's 128-wide instantiation too (rows 6, 7 and their softcap
+    variants, csrc/attention_bwd_dkv128.cuh), whose ring of 2 stages is
+    longer than one key tile's 128 queries take."""
     from rap_tpu_torch.ops import flash_attention as fa
 
-    for label, BH, Tq, Tk, heads, live in FWD_EDGES:
-        for c in (0.0, 5.0):
-            if c > 0.0:
-                q, k, va = softcap_attention_inputs(gen, BH, max(Tq, Tk), c)
-            else:
-                q, k, va = multiview_attention_inputs(gen, BH, max(Tq, Tk))
-            q, k, va = q[:, :Tq].contiguous(), k[:, :Tk].contiguous(), va[:, :Tk].contiguous()
-            dout = torch.randn((BH, Tq, DH), generator=gen, device="cuda").to(torch.bfloat16)
-            sfx = "_softcap" if c > 0.0 else ""
-            mask = edge_mask(gen, BH // heads, Tk, live)
-            for tag, m in (("masked", mask), ("unmasked", None))[:1 if live else 2]:
-                out, lse = fa.flash_online(q, k, va, m, heads, c)
-                args = (q, k, va, fa.augment_do(dout, out).contiguous(), lse, m, heads, c)
-                name = f"flash_bwd_dq{sfx}"
-                what = f"{name}[edge {label}, BH={BH}, Tq={Tq}, Tk={Tk}, c={c:g}, {tag}]"
-                dq = fa.flash_bwd_dq(*args)
-                compare(f"{name}/edges", f"{what}.dq", dq, fa.flash_bwd_dq_plain(*args))
-                fails.check(f"{what} bitwise repeatable", torch.equal(dq, fa.flash_bwd_dq(*args)))
-                if m is not None:
-                    empty = (m.sum(1) == 0).repeat_interleave(heads)
-                    fails.check(f"{what} fully masked rows: dq exactly 0",
-                                not bool(dq[empty].any()),
-                                f"{int(empty.sum())} fully masked (batch*head) rows")
+    for d in (DH, 128):
+        for label, BH, Tq, Tk, heads, live in FWD_EDGES:
+            for c in (0.0, 5.0):
+                if c > 0.0:
+                    q, k, va = softcap_attention_inputs(gen, BH, max(Tq, Tk), c, d=d)
+                else:
+                    q, k, va = multiview_attention_inputs(gen, BH, max(Tq, Tk), d)
+                q, k, va = q[:, :Tq].contiguous(), k[:, :Tk].contiguous(), va[:, :Tk].contiguous()
+                dout = torch.randn((BH, Tq, d), generator=gen, device="cuda").to(torch.bfloat16)
+                sfx = "_softcap" if c > 0.0 else ""
+                mask = edge_mask(gen, BH // heads, Tk, live)
+                for tag, m in (("masked", mask), ("unmasked", None))[:1 if live else 2]:
+                    out, lse = fa.flash_online(q, k, va, m, heads, c)
+                    args = (q, k, va, fa.augment_do(dout, out).contiguous(), lse, m, heads, c)
+                    name = f"flash_bwd_dq{sfx}"
+                    what = (f"{name}[edge {label}, BH={BH}, Tq={Tq}, Tk={Tk}, d={d}, c={c:g}, "
+                            f"{tag}]")
+                    dq = fa.flash_bwd_dq(*args)
+                    compare(f"{name}/edges", f"{what}.dq", dq, fa.flash_bwd_dq_plain(*args))
+                    fails.check(f"{what} bitwise repeatable",
+                                torch.equal(dq, fa.flash_bwd_dq(*args)))
+                    if m is not None:
+                        empty = (m.sum(1) == 0).repeat_interleave(heads)
+                        fails.check(f"{what} fully masked rows: dq exactly 0",
+                                    not bool(dq[empty].any()),
+                                    f"{int(empty.sum())} fully masked (batch*head) rows")
+                    if d == DH:
+                        continue
+                    what = what.replace(name, f"flash_bwd_dkv{sfx}")
+                    for nm, g_, r_ in zip(("dk", "dv"), fa.flash_bwd_dkv(*args),
+                                          fa.flash_bwd_dkv_plain(*args)):
+                        compare(f"flash_bwd_dkv{sfx}/edges", f"{what}.{nm}", g_, r_)
+                    what = what.replace(f"flash_bwd_dkv{sfx}", f"flash_bwd{sfx}")
+                    fused = (q, k, va, out, lse, dout, m, heads, c)
+                    for nm, g_, r_ in zip(("dq", "dk", "dv"), fa.flash_bwd(*fused),
+                                          fa.flash_bwd_plain(*fused)):
+                        compare(f"flash_bwd{sfx}/edges", f"{what}.{nm}", g_, r_)
 
 
 def run_kernels_wide_heads(fails, state, gen, compare, compare_lse):
@@ -1042,6 +1121,73 @@ def run_kernels_wide_heads(fails, state, gen, compare, compare_lse):
                             fa.flash_online_plain(qc, kc, va, None, 1, c))
             compare(f"{name}/wide", f"{name}[{tag}, c={c:g}].out", got[0], ref[0])
             compare_lse(f"{name}[{tag}, c={c:g}].lse2", got[1], ref[1])
+
+
+def run_kernels_wide_backward(fails, state, gen, compare, compare_lse):
+    """The attention backward (rows 6, 7, 8 and their softcap variants at c
+    = 5) at head widths 96, 120 and 128 (WIDE_BWD: csrc/attention_bwd_dkv128.cuh
+    and csrc/attention_bwd_dq128.cuh, q, k, V and dO zero-padded to 128),
+    behind the masked online forward (rows 3, 3s, checked here at d = 128,
+    the width only this path takes), with a random key mask (one batch row
+    fully masked) and without one, against the plain versions on the
+    unpadded heads: the fused pass, the split dKV and dQ passes (bitwise
+    repeatable; a fully masked batch row gets dq exactly 0, a masked key
+    zero dk, dv). The softcap variants at (BH, T) = (16, 2048). The unmasked
+    inputs of d = 96 and 128 at softcap 0 are kept for the timing phase."""
+    from rap_tpu_torch.ops import flash_attention as fa
+
+    state["wide_bwd"] = {}
+    for d, BH0, T0 in WIDE_BWD:
+        for c in (0.0, 5.0):
+            BH, T = (BH0, T0) if c == 0.0 else (16, 2048)
+            if c > 0.0:
+                q, k, va = softcap_attention_inputs(gen, BH, T, c, d=d)
+            else:
+                q, k, va = multiview_attention_inputs(gen, BH, T, d)
+            dout = torch.randn((BH, T, d), generator=gen, device="cuda").to(torch.bfloat16)
+            mask = torch.rand((BH // H, T), generator=gen, device="cuda") > 0.3
+            mask[-1] = False
+            sfx = "_softcap" if c > 0.0 else ""
+            for tag, m in (("masked", mask), ("unmasked", None)):
+                what = f"d={d}, BH={BH}, T={T}, c={c:g}, {tag}"
+                out, lse = fa.flash_online(q, k, va, m, H, c)
+                if d == 128:
+                    ref = fa.flash_online_plain(q, k, va, m, H, c)
+                    compare(f"flash_online{sfx}/wide", f"flash_online{sfx}[{what}].out", out,
+                            ref[0])
+                    live = (torch.ones(BH, dtype=torch.bool, device="cuda") if m is None
+                            else (m.sum(1) > 0).repeat_interleave(H))
+                    compare_lse(f"flash_online{sfx}[{what}].lse2 (live rows)", lse[live],
+                                ref[1][live])
+                fused = (q, k, va, out, lse, dout, m, H, c)
+                got = fa.flash_bwd(*fused)
+                for nm, g_, r_ in zip(("dq", "dk", "dv"), got, fa.flash_bwd_plain(*fused)):
+                    compare(f"flash_bwd{sfx}/wide", f"flash_bwd{sfx}[{what}].{nm}", g_, r_)
+                doa = fa.augment_do(dout, out).contiguous()
+                args = (q, k, va, doa, lse, m, H, c)
+                dk, dv = fa.flash_bwd_dkv(*args)
+                dq = fa.flash_bwd_dq(*args)
+                for nm, g_, r_ in zip(("dk", "dv"), (dk, dv), fa.flash_bwd_dkv_plain(*args)):
+                    compare(f"flash_bwd_dkv{sfx}/wide", f"flash_bwd_dkv{sfx}[{what}].{nm}", g_,
+                            r_)
+                compare(f"flash_bwd_dq{sfx}/wide", f"flash_bwd_dq{sfx}[{what}].dq", dq,
+                        fa.flash_bwd_dq_plain(*args))
+                fails.check(f"flash_bwd_dkv/dq{sfx}[{what}] bitwise repeatable",
+                            torch.equal(dq, fa.flash_bwd_dq(*args))
+                            and all(torch.equal(a, b) for a, b in
+                                    zip((dk, dv), fa.flash_bwd_dkv(*args))))
+                if m is not None:
+                    empty = (m.sum(1) == 0).repeat_interleave(H)
+                    masked_keys = (m == 0).repeat_interleave(H, dim=0)
+                    fails.check(f"flash_bwd{sfx}[{what}] fully masked rows and masked keys: "
+                                "zero gradient",
+                                not bool(dq[empty].any()) and not bool(got[0][empty].any())
+                                and not bool(dk[masked_keys].any())
+                                and not bool(dv[masked_keys].any())
+                                and not bool(got[1][masked_keys].any())
+                                and not bool(got[2][masked_keys].any()))
+                elif c == 0.0 and d in (96, 128):
+                    state["wide_bwd"][d] = (q, k, va, out, lse, dout, doa, mask)
 
 
 def write_random_checkpoint(cfg, seed: int) -> Path:
@@ -1145,6 +1291,137 @@ def run_sample(report, fails, state):
     report["sample"] = {str(c): {k: v for k, v in r.items() if k != "metrics"}
                         for c, r in runs.items()}
     state["sample_ckpt"] = ckpt
+    run_sample_options(report, fails, ckpt)
+
+
+def option_argv(ckpt, out_dir, kernels: bool = True, options: bool = True) -> list[str]:
+    """The sample command line at softcap 0 with SAMPLE_OPTION_GENERATIONS
+    generations and, with ``options``, every SAMPLE_OPTIONS on, artifacts
+    into ``out_dir``."""
+    argv = sample_argv(ckpt, 0.0, kernels) + [
+        "-o", f"pipeline.n_generations={SAMPLE_OPTION_GENERATIONS}",
+        "-o", f"eval.output_dir={out_dir}"]
+    for name in SAMPLE_OPTIONS if options else ():
+        argv += ["-o", f"eval.{name}=true"]
+    return argv
+
+
+def check_artifacts(fails, root: Path, names, generations: int, steps: int) -> int:
+    """The artifact tree of one dataset: for every sample and generation,
+    rap_tpu's files (metrics JSON, pose, transform and global transform
+    files, merged and per-part PLYs, the merged input and every trajectory
+    step as PCDs), each read back by the port's readers; the merged PLY
+    holds the parts' points, every PCD as many coloured points as the
+    merged input. Returns the number of files."""
+    from rap_tpu_torch.utils import ply as plyio
+
+    found = {p.relative_to(root).as_posix() for p in root.rglob("*") if p.is_file()}
+    expected = set()
+    for name in names:
+        for g in range(generations):
+            d = f"synth/{name}/generation_{g}"
+            expected |= {f"{d}/{f}" for f in (
+                "metrics.json", "global_transform.txt", "merged_pred.ply",
+                "generation/merged_input.pcd",
+                *(f"part{p:02d}_{kind}" for p in range(P)
+                  for kind in ("pose.txt", "transform.txt", "pred.ply")),
+                *(f"generation/{sub}/step_{k}.pcd" for sub in ("endpoint", "midpoint")
+                  for k in range(steps)))}
+    fails.check("every-option run: the artifact tree is rap_tpu's", found == expected,
+                f"{len(found)} files, expected {len(expected)}; missing "
+                f"{sorted(expected - found)[:4]}, unexpected {sorted(found - expected)[:4]}")
+    readable = True
+    for name in names:
+        for g in range(generations):
+            d = root / "synth" / name / f"generation_{g}"
+            merged = len(plyio.read_ply_points(d / "merged_pred.ply"))
+            parts = sum(len(plyio.read_ply_points(d / f"part{p:02d}_pred.ply")) for p in range(P))
+            metrics = json.loads((d / "metrics.json").read_text())
+            transforms_ok = all(np.loadtxt(f).shape == (4, 4) for f in d.glob("*.txt"))
+            n_in = len(plyio.read_pcd(d / "generation" / "merged_input.pcd")["points"])
+            steps_ok = all(
+                plyio.read_pcd(p)["colors"].shape == (n_in, 3)
+                for p in (d / "generation").rglob("step_*.pcd"))
+            readable &= (merged == parts == n_in > 0 and steps_ok and transforms_ok
+                         and set(metrics) == set(SAMPLE_OPTION_METRICS) | {"scale"})
+    fails.check("every-option run: the port's readers read every artifact", readable)
+    return len(found)
+
+
+def run_sample_options(report, fails, ckpt):
+    """apps.sample.main at softcap 0 with every SAMPLE_OPTIONS on and
+    SAMPLE_OPTION_GENERATIONS generations, artifacts into a temporary
+    directory, through the kernels and through the plain versions, after one
+    run of the same generations without the options: the table's keys equal
+    rap_tpu's (SAMPLE_OPTION_METRICS under SAMPLE_OPTION_SECTIONS), every
+    metric finite (as rap_tpu's are on this data), the artifact tree
+    complete and readable, points and rotations against the plain run by
+    the evaluation rule, and the generation ms (per generation, the timed
+    window) within the no-option run's range widened by its spread and 5%.
+    The time metrics and artifacts take per batch is printed: it is outside
+    the timed window."""
+    import tempfile
+
+    from rap_tpu_torch.apps import sample as app
+    from rap_tpu_torch.config import load_config
+    from rap_tpu_torch.ops import launch_counts, reset_launches
+
+    steps = load_config(ROOT / SAMPLE_CONFIG).pipeline.inference_sampling_steps
+    recs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, kernels, options in (("no options", True, False), ("kernels", True, True),
+                                        ("plain", False, True)):
+            log(f"  -- apps.sample.main, softcap 0, {SAMPLE_OPTION_GENERATIONS} generations, "
+                f"{'every option' if options else 'no option'}, "
+                f"{'kernels' if kernels else 'plain versions'}")
+            rec = {}
+            reset_launches()
+            res = app.main(option_argv(ckpt, Path(tmp) / label, kernels, options), record=rec)
+            torch.cuda.synchronize()
+            recs[label] = (res, rec, launch_counts())
+        res, rec, counts = recs["kernels"]
+        fails.check("every-option run went through the kernels",
+                    counts["proj"] > 0 and counts["ff"] > 0 and counts["flash_fixed"] > 0)
+        fails.check("every-option plain run launched no kernel",
+                    sum(recs["plain"][2].values()) == 0)
+        want = {sec + m for sec in SAMPLE_OPTION_SECTIONS for m in SAMPLE_OPTION_METRICS}
+        got = set(res["synth"])
+        fails.check(f"every-option run: metric keys are rap_tpu's ({len(want)})", got == want,
+                    f"missing {sorted(want - got)[:4]}, unexpected {sorted(got - want)[:4]}")
+        bad = [k for k, v in res["synth"].items() if not np.isfinite(v)]
+        fails.check(f"every-option run: every metric finite ({len(got)})", not bad, str(bad))
+        names = [n for names, _ in rec["outputs"] for n in names]
+        n_files = check_artifacts(fails, Path(tmp) / "kernels", names,
+                                  SAMPLE_OPTION_GENERATIONS, steps)
+    worst_p = worst_r = 0.0
+    for (names, gens), (_, gens_p) in zip(rec["outputs"], recs["plain"][1]["outputs"],
+                                          strict=True):
+        for (pts, R, _), (pts_p, R_p, _) in zip(gens, gens_p, strict=True):
+            worst_p = max(worst_p, fails.compare(
+                f"every-option run points vs plain ({len(names)} samples)", pts, pts_p,
+                tol_rel=TOL_POINTS))
+            worst_r = max(worst_r, float((R - R_p).abs().max()))
+    fails.check("every-option run rotations vs plain", worst_r <= TOL_ROTATION_ABS,
+                f"max_abs_err={worst_r:.4e} (tol {TOL_ROTATION_ABS})")
+    base = recs["no options"][1]["gen_ms"]
+    lo, hi = min(base), max(base)
+    slack = (hi - lo) + 0.05 * float(np.median(base))
+    med = float(np.median(rec["gen_ms"]))
+    fails.check("every-option run: generation ms within the no-option run's spread",
+                lo - slack <= med <= hi + slack,
+                f"median {med:.2f} ms a generation (all {[round(x, 2) for x in rec['gen_ms']]});"
+                f" without options {[round(x, 2) for x in base]} (+- {slack:.2f})")
+    log(f"  every-option run: generation {', '.join(f'{x:.2f}' for x in rec['batch_gen_ms'])} "
+        f"ms per batch ({SAMPLE_OPTION_GENERATIONS} generations; without options "
+        f"{', '.join(f'{x:.2f}' for x in recs['no options'][1]['batch_gen_ms'])}); metrics, "
+        f"aggregation and artifacts {', '.join(f'{x:.2f}' for x in rec['post_ms'])} ms per "
+        f"batch (without options {', '.join(f'{x:.2f}' for x in recs['no options'][1]['post_ms'])}"
+        f"; outside the timed window); {n_files} artifact files")
+    report["sample_options"] = {
+        "batch_ms": rec["batch_gen_ms"], "gen_ms": rec["gen_ms"], "post_ms": rec["post_ms"],
+        "no_option_gen_ms": base, "no_option_post_ms": recs["no options"][1]["post_ms"],
+        "plain_batch_ms": recs["plain"][1]["batch_gen_ms"], "points_err": worst_p,
+        "rotation_err": worst_r, "artifact_files": n_files, "metrics": res["synth"]}
 
 
 def build_main_params(cfg):
@@ -1235,58 +1512,76 @@ def run_main(report, fails, state):
     run_main_wide_heads(report, fails, state)
 
 
-def run_main_wide_heads(report, fails, state):
-    """Serving a D = 768, 8-head model (dh = 96: the attention forward at its
-    128-wide instantiation, rows 1 and 4 one head a tile) at WIDE_LAYERS
-    layers, random weights from a seed, on the main path's batch: sample +
-    predict_poses through the kernels (its launch counts read around it)
-    against the same call through the plain versions, and the velocity at
-    t = 1."""
+def wide_model(width: int, layers: int, masters: bool = False):
+    """(cfg, params) of a WIDE_LAYERS-deep model of ``width`` at H heads,
+    random weights from a seed, the qk gains of layer 0's global attention
+    raised past the guard (one online attention a forward on the fused
+    branch)."""
     from rap_tpu_torch.models.config import DiTConfig
-    from rap_tpu_torch.models.dit import attach_bounds, dit_forward, init_dit_params
+    from rap_tpu_torch.models.dit import attach_bounds, init_dit_params
+
+    cfg = DiTConfig(embed_dim=width, num_heads=H, num_layers=layers)
+    params = init_dit_params(0, cfg, device="cuda", masters=masters)
+    lp = params["layers"][0]
+    lp["global_q_gamma"] = lp["global_q_gamma"] * ONLINE_GAIN
+    lp["global_k_gamma"] = lp["global_k_gamma"] * ONLINE_GAIN
+    return cfg, params if masters else attach_bounds(params)
+
+
+def run_main_wide_heads(report, fails, state):
+    """Serving a D = 768 (dh = 96: the fused branch, the attention forward at
+    its 128-wide instantiation, rows 1 and 4 one head a tile) and a D = 1024
+    (dh = 128: the unfused branch, whose attention takes the masked online
+    forward, row 3, at 128 wide) 8-head model at WIDE_LAYERS layers on the
+    main path's batch: sample + predict_poses through the kernels (its
+    launch counts read around it) against the same call through the plain
+    versions, and the velocity at t = 1."""
+    from rap_tpu_torch.models.dit import dit_forward
     from rap_tpu_torch.ops import launch_counts, reset_launches
     from rap_tpu_torch.ops.flash_attention import SAFE_BOUND2
     from rap_tpu_torch.registration import RPFConfig, predict_poses, sample
 
-    cfg = DiTConfig(embed_dim=WIDE_D, num_heads=H, num_layers=WIDE_LAYERS)
-    params = init_dit_params(0, cfg, device="cuda")
-    lp = params["layers"][0]  # one online attention per forward
-    lp["global_q_gamma"] = lp["global_q_gamma"] * ONLINE_GAIN
-    lp["global_k_gamma"] = lp["global_k_gamma"] * ONLINE_GAIN
-    attach_bounds(params)
-    n_online = sum(b > SAFE_BOUND2 for lp in params["layers"]
-                   for b in (lp["self_bound2"], lp["global_bound2"]))
+    state["wide_counts"], report["launches_wide_heads"] = {}, {}
     batch, x_1 = state["batch"], state["x_1"]
-    rcfg = RPFConfig(model=cfg, inference_sampling_steps=STEPS, rigidity_forcing=True)
-    plain = dataclasses.replace(rcfg, model=dataclasses.replace(cfg, use_kernels=False))
+    for width in (WIDE_D, WIDEST_D):
+        dh = width // H
+        cfg, params = wide_model(width, WIDE_LAYERS)
+        rcfg = RPFConfig(model=cfg, inference_sampling_steps=STEPS, rigidity_forcing=True)
+        plain = dataclasses.replace(rcfg, model=dataclasses.replace(cfg, use_kernels=False))
 
-    def serve(c):
-        pts = sample(params, c, batch, x_1=x_1, return_trajectory=False)["points"]
-        return (pts,) + tuple(predict_poses(batch, pts))
+        def serve(c, params=params):
+            pts = sample(params, c, batch, x_1=x_1, return_trajectory=False)["points"]
+            return (pts,) + tuple(predict_poses(batch, pts))
 
-    reset_launches()
-    pts, R, _ = serve(rcfg)
-    torch.cuda.synchronize()
-    counts = launch_counts()
-    expected = dict.fromkeys(counts, 0)
-    L_ = WIDE_LAYERS
-    expected.update(proj=2 * L_ * STEPS, out_proj=2 * L_ * STEPS, ff=L_ * STEPS,
-                    flash_fixed=(2 * L_ - n_online) * STEPS, flash_online=n_online * STEPS)
-    log(f"  launches in one sample at D={WIDE_D}, H={H} (dh={WIDE_D // H}): {counts}")
-    fails.check(f"dh={WIDE_D // H} serving launch counts", counts == expected,
-                f"expected {expected}")
-    pts_p, R_p, _ = serve(plain)
-    ts = torch.ones(S, device="cuda")
-    with torch.no_grad():
-        v_k = dit_forward(params, cfg, x_1, ts, batch, P)
-        v_p = dit_forward(params, plain.model, x_1, ts, batch, P)
-    fails.compare(f"dh={WIDE_D // H} velocity at t=1 vs plain", v_k, v_p, tol_rel=TOL_VELOCITY)
-    fails.compare(f"dh={WIDE_D // H} points vs plain", pts, pts_p, tol_rel=TOL_POINTS)
-    err_r = float((R - R_p).abs().max())
-    fails.check(f"dh={WIDE_D // H} rotations vs plain", err_r <= TOL_ROTATION_ABS,
-                f"max_abs_err={err_r:.4e} (tol {TOL_ROTATION_ABS})")
-    report["launches_wide_heads"] = counts
-    state["wide_counts"] = counts
+        reset_launches()
+        pts, R, _ = serve(rcfg)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        expected = dict.fromkeys(counts, 0)
+        L_ = WIDE_LAYERS
+        if dh < 128:
+            n_online = sum(b > SAFE_BOUND2 for lp in params["layers"]
+                           for b in (lp["self_bound2"], lp["global_bound2"]))
+            expected.update(proj=2 * L_ * STEPS, out_proj=2 * L_ * STEPS, ff=L_ * STEPS,
+                            flash_fixed=(2 * L_ - n_online) * STEPS,
+                            flash_online=n_online * STEPS)
+        else:  # the unfused branch: every attention call the masked online forward
+            expected.update(ff=L_ * STEPS, flash_online=2 * L_ * STEPS)
+        log(f"  launches in one sample at D={width}, H={H} (dh={dh}): {counts}")
+        fails.check(f"dh={dh} serving launch counts", counts == expected,
+                    f"expected {expected}")
+        pts_p, R_p, _ = serve(plain)
+        ts = torch.ones(S, device="cuda")
+        with torch.no_grad():
+            v_k = dit_forward(params, cfg, x_1, ts, batch, P)
+            v_p = dit_forward(params, plain.model, x_1, ts, batch, P)
+        fails.compare(f"dh={dh} velocity at t=1 vs plain", v_k, v_p, tol_rel=TOL_VELOCITY)
+        fails.compare(f"dh={dh} points vs plain", pts, pts_p, tol_rel=TOL_POINTS)
+        err_r = float((R - R_p).abs().max())
+        fails.check(f"dh={dh} rotations vs plain", err_r <= TOL_ROTATION_ABS,
+                    f"max_abs_err={err_r:.4e} (tol {TOL_ROTATION_ABS})")
+        report["launches_wide_heads"][dh] = counts
+        state["wide_counts"][dh] = counts
 
 
 def build_train_params(cfg):
@@ -1457,67 +1752,73 @@ def run_train(report, fails, state):
                        "update_rel_l2_worst": err_u}
     state.update(train_counts=counts, train_step=step_k, train_state=s, train_batch=batch,
                  train_plain=(step_p, params, opt_cfg))
-    run_train_head_widths(report, fails, batch)
+    run_train_head_widths(report, fails, state, batch)
 
 
-def run_train_head_widths(report, fails, batch):
-    """Training at other head widths on the dense batch, TRAIN_CHECK_LAYERS
-    layers: a D = 512, 16-head model (dh = 32, two heads a GEMM tile in rows
-    1, 4 and 9, the attention kernels on heads padded to 64): the loss and
-    every gradient leaf through the kernels against the plain versions (the
-    rule of ``check_train_gradients``), then one Muon step through the
-    kernels with its launch counts, finite and not skipped. A D = 768,
-    8-head model (dh = 96) runs the forward kernels and refuses in the
-    attention backward, whose kernels take dh <= 64 (ROADMAP C8), before any
-    attention backward or proj backward kernel launched."""
-    from rap_tpu_torch.models.config import DiTConfig
-    from rap_tpu_torch.models.dit import init_dit_params
-    from rap_tpu_torch.ops import KERNELS, launch_counts, reset_launches
-    from rap_tpu_torch.registration import RPFConfig, training_forward
-    from rap_tpu_torch.train.optim import OptimizerConfig, tree_paths, tree_replace
+def train_step_check(fails, what, params, batch, rcfg, expected):
+    """One Muon step through the kernels from ``params``: its launch counts
+    against ``expected``, finite and not skipped. Returns the counts."""
+    from rap_tpu_torch.ops import launch_counts, reset_launches
+    from rap_tpu_torch.train.optim import OptimizerConfig
     from rap_tpu_torch.train.step import TrainState, make_train_step
 
-    L_ = TRAIN_CHECK_LAYERS
-    cfg = DiTConfig(num_heads=2 * H, num_layers=L_)  # dh = 32
-    rcfg = RPFConfig(model=cfg)
-    params = init_dit_params(0, cfg, device="cuda", masters=True)
-    check_train_gradients(fails, f"dh=32 train ({L_} layers)", params, batch, rcfg)
     opt_cfg = OptimizerConfig()
     step = make_train_step(rcfg, opt_cfg)
     reset_launches()
     _, m = step(TrainState.create(params, opt_cfg, seed=7), batch)
     torch.cuda.synchronize()
     counts = launch_counts()
-    expected = dict.fromkeys(counts, 0)
-    expected.update(proj=4 * L_, out_proj=4 * L_, ff=2 * L_, flash_fixed=4 * L_,
-                    flash_bwd=2 * L_, proj_bwd=2 * L_, ff_bwd=L_)
-    log(f"  launches in one dh=32 train step ({L_} layers): {counts}")
-    fails.check("dh=32 train launch counts", counts == expected, f"expected {expected}")
-    dh32_counts = counts
+    want = dict.fromkeys(counts, 0)
+    want.update(expected)
+    log(f"  launches in one {what} step: {counts}")
+    fails.check(f"{what} launch counts", counts == want, f"expected {want}")
     vals = {k: float(m[k]) for k in ("loss", "grad_norm", "skipped_nonfinite")}
-    fails.check("dh=32 step finite, not skipped", np.isfinite(vals["loss"])
+    fails.check(f"{what} step finite, not skipped", np.isfinite(vals["loss"])
                 and np.isfinite(vals["grad_norm"]) and vals["skipped_nonfinite"] == 0.0,
                 str(vals))
+    return counts
 
-    cfg = DiTConfig(embed_dim=WIDE_D, num_heads=H, num_layers=L_)  # dh = 96
+
+def run_train_head_widths(report, fails, state, batch):
+    """Training at other head widths on the dense batch, TRAIN_CHECK_LAYERS
+    layers: a D = 512, 16-head model (dh = 32, two heads a GEMM tile in rows
+    1, 4 and 9, the attention kernels on heads padded to 64); a D = 768,
+    8-head model (dh = 96: the fused branch, the attention forward and
+    backward on heads padded to 128, one attention call a forward online);
+    a D = 1024, 8-head model (dh = 128: the unfused branch, the masked
+    online forward and the attention backward at 128 wide, rows 5 and 10
+    at D = 1024). Each: the loss and every gradient leaf through the
+    kernels against the plain versions (the rule of
+    ``check_train_gradients``), then one Muon step through the kernels with
+    its launch counts, finite and not skipped."""
+    from rap_tpu_torch.models.config import DiTConfig
+    from rap_tpu_torch.models.dit import init_dit_params
+    from rap_tpu_torch.registration import RPFConfig
+
+    L_ = TRAIN_CHECK_LAYERS
+    cfg = DiTConfig(num_heads=2 * H, num_layers=L_)  # dh = 32
     params = init_dit_params(0, cfg, device="cuda", masters=True)
-    leaves = {k: p_.detach().requires_grad_(True) for k, p_ in tree_paths(params)}
-    reset_launches()
-    loss, _ = training_forward(tree_replace(params, leaves), RPFConfig(model=cfg), batch,
-                               torch.Generator(device="cuda").manual_seed(7))
-    try:
-        torch.autograd.grad(loss, list(leaves.values()))
-        refused = ""
-    except ValueError as e:
-        refused = str(e)
-    torch.cuda.synchronize()
-    counts = launch_counts()
-    bwd = {k: counts[k] for k in KERNELS if "bwd" in k and k != "ff_bwd"}
-    fails.check(f"dh={WIDE_D // H} training refuses in the attention backward (ROADMAP C8)",
-                "ROADMAP C8" in refused and "got 96" in refused and not any(bwd.values())
-                and counts["proj"] > 0 and counts["flash_fixed"] > 0,
-                f"({refused or 'no error'}; backward launches {bwd})")
-    report["train_head_widths"] = {"dh32_launches": dh32_counts, "dh96_refusal": refused}
+    rcfg = RPFConfig(model=cfg)
+    check_train_gradients(fails, f"dh=32 train ({L_} layers)", params, batch, rcfg)
+    counts = {32: train_step_check(
+        fails, f"dh=32 train ({L_} layers)", params, batch, rcfg,
+        dict(proj=4 * L_, out_proj=4 * L_, ff=2 * L_, flash_fixed=4 * L_, flash_bwd=2 * L_,
+             proj_bwd=2 * L_, ff_bwd=L_))}
+    for width in (WIDE_D, WIDEST_D):
+        dh = width // H
+        cfg, params = wide_model(width, L_, masters=True)
+        rcfg = RPFConfig(model=cfg)
+        what = f"dh={dh} train ({L_} layers)"
+        check_train_gradients(fails, what, params, batch, rcfg)
+        if dh < 128:  # one online attention a forward (layer 0's global), remat
+            expected = dict(proj=4 * L_, out_proj=4 * L_, ff=2 * L_,
+                            flash_fixed=2 * (2 * L_ - 1), flash_online=2, flash_bwd=2 * L_,
+                            proj_bwd=2 * L_, ff_bwd=L_)
+        else:  # the unfused branch: the masked online forward, below the dQ slab
+            expected = dict(ff=2 * L_, flash_online=4 * L_, flash_bwd=2 * L_, ff_bwd=L_)
+        counts[dh] = train_step_check(fails, what, params, batch, rcfg, expected)
+    report["train_head_widths"] = {f"dh{dh}_launches": c for dh, c in counts.items()}
+    state["train_wide_counts"] = counts
 
 
 def run_multiview(report, fails, state):
@@ -1700,7 +2001,7 @@ def kernel_rows(state, counts):
     # rows 2 and 3 at head width 96 (their 128-wide instantiation): the
     # global shape of the main phase's D = 768, H = 8 model; the bound
     # counts the products at d = 96
-    wide_counts = state.get("wide_counts", {})
+    wide_counts = state.get("wide_counts", {}).get(WIDE_D // H, {})
     for d, (qh, kh, vah, b2) in state.get("wide", {}).items():
         BH, Tn, _ = qh.shape
         v = vah[..., :d].contiguous()
@@ -1798,6 +2099,8 @@ def kernel_rows(state, counts):
                         matmul_ms=cuda_time_ms(ff_matmuls(fwd, bwd)[1], 10)))
     if "mv_attn" in state:
         rows += multiview_kernel_rows(state, row)
+    if "wide_bwd" in state:
+        rows += wide_backward_kernel_rows(state, row)
     if "softcap" in state:
         rows += softcap_kernel_rows(state, row)
     return rows
@@ -2040,12 +2343,12 @@ def sdpa_masked_ms(qh, kh, vah, dout, mask, heads: int):
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    BH, T, _ = qh.shape
+    BH, T, d = qh.shape
     B = BH // heads
-    q_, k_, v_ = (a.reshape(B, heads, T, DH).detach().clone().requires_grad_(True)
-                  for a in (qh, kh, vah[..., :DH].contiguous()))
+    q_, k_, v_ = (a.reshape(B, heads, T, d).detach().clone().requires_grad_(True)
+                  for a in (qh, kh, vah[..., :d].contiguous()))
     bias = mask.bool()[:, None, None, :]
-    do = dout.reshape(B, heads, T, DH)
+    do = dout.reshape(B, heads, T, d)
 
     def fwd():
         with torch.no_grad():
@@ -2131,6 +2434,80 @@ def multiview_kernel_rows(state, row):
         launches=mv_counts.get("flash_bwd_dq", 0), mufu=T * valid,
         bound_all_tiles_ms=bound(6 * T * T * DH * BH, 0, T * T * BH)[0],
         library_backward_ms=sdpa["global"][1]))
+    return rows
+
+
+def wide_backward_kernel_rows(state, row):
+    """Rows 3 (masked), 6, 7 and 8 at head widths 96 and 128 (their
+    128-wide instantiations) at the global shape of a D = 768 or 1024, H = 8
+    model at the main path's batch (BH = 32, T = 8192): the masked forward
+    with the kernels phase's random key mask beside SDPA's memory-efficient
+    backend with the same mask, the backward passes unmasked beside SDPA's
+    flash backward (forward+backward minus forward) at the same width. The
+    bound counts the products at the unpadded width and, for the masked
+    forward, the keys the mask leaves. Launches: the D = 1024 serving
+    check's masked forwards at d = 128, and the D = 768 / 1024 training
+    checks' backward launches."""
+    import torch.nn.functional as F
+
+    from rap_tpu_torch.ops import flash_attention as fa
+
+    rows = []
+    serving = state.get("wide_counts", {})
+    training = state.get("train_wide_counts", {})
+    for d, (qh, kh, vah, out, lse, dout, doa, mask) in state["wide_bwd"].items():
+        BH, T, _ = qh.shape
+        valid = float(mask.sum()) * H
+        common = dict(head_width=d, reps=5)
+        sdpa = sdpa_masked_ms(qh, kh, vah, dout, mask, H)
+        rows.append(row(
+            "flash_online", "rap_tpu_torch/csrc/attention.cu",
+            "rap_tpu/ops/pallas_attention.py:91",
+            lambda: fa.flash_online_kernel(qh, kh, vah, mask.to(torch.int32), H),
+            lambda: fa.flash_online_plain(qh, kh, vah, mask, H), None,
+            4 * T * d * valid,
+            BH * T * (d * 2 + (d + 1) * 2 + d * 2 + d * 2 + 4) + mask.numel() * 4,
+            f"BH={BH}, T={T}, d={d} bf16 (padded to 128), key mask", lib_ms=sdpa[0],
+            launches=serving.get(d, {}).get("flash_online", 0),
+            err_key="flash_online/wide", variant="masked", mufu=T * valid, **common))
+        q_, k_, v_ = (a[None].detach().clone().requires_grad_(True)
+                      for a in (qh, kh, vah[..., :d].contiguous()))
+
+        def sdpa_fwd(q_=q_, k_=k_, v_=v_):
+            with torch.no_grad():
+                F.scaled_dot_product_attention(q_, k_, v_, scale=float(np.log(2.0)))
+
+        def sdpa_fwd_bwd(q_=q_, k_=k_, v_=v_, dout=dout):
+            o = F.scaled_dot_product_attention(q_, k_, v_, scale=float(np.log(2.0)))
+            torch.autograd.grad(o, (q_, k_, v_), dout[None])
+
+        lib = cuda_time_ms(sdpa_fwd_bwd, 10) - cuda_time_ms(sdpa_fwd, 10)
+        shape = f"dense global: BH={BH}, T={T}, d={d} bf16 (padded to 128)"
+        reads = BH * T * (4 * d * 2 + 3 * 4)
+        launched = training.get(d, {})
+        rows.append(row(
+            "flash_bwd", "rap_tpu_torch/csrc/attention_bwd_dkv128.cuh",
+            "rap_tpu/ops/pallas_attention.py:506",
+            lambda: fa.flash_bwd_kernel(qh, kh, vah, out, lse, dout),
+            lambda: fa.flash_bwd_plain(qh, kh, vah, out, lse, dout), None,
+            10 * BH * T * T * d, reads + 3 * BH * T * d * 2, shape, lib_ms=lib,
+            launches=launched.get("flash_bwd", 0), err_key="flash_bwd/wide",
+            mufu=BH * T * T, **common))
+        args = (qh, kh, vah, doa, lse, None, 1)
+        rows.append(row(
+            "flash_bwd_dkv", "rap_tpu_torch/csrc/attention_bwd_dkv128.cuh",
+            "rap_tpu/ops/pallas_attention.py:426",
+            lambda: fa.flash_bwd_dkv_kernel(*args), lambda: fa.flash_bwd_dkv_plain(*args), None,
+            8 * BH * T * T * d, reads + 2 * BH * T * d * 2, shape,
+            launches=launched.get("flash_bwd_dkv", 0), err_key="flash_bwd_dkv/wide",
+            mufu=BH * T * T, library_backward_ms=lib, pair_ms=split_pair_ms(args), **common))
+        rows.append(row(
+            "flash_bwd_dq", "rap_tpu_torch/csrc/attention_bwd_dq128.cuh",
+            "rap_tpu/ops/pallas_attention.py:471",
+            lambda: fa.flash_bwd_dq_kernel(*args), lambda: fa.flash_bwd_dq_plain(*args), None,
+            6 * BH * T * T * d, reads + BH * T * d * 2, shape,
+            launches=launched.get("flash_bwd_dq", 0), err_key="flash_bwd_dq/wide",
+            mufu=BH * T * T, library_backward_ms=lib, **common))
     return rows
 
 

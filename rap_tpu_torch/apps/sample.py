@@ -3,20 +3,28 @@
     python -m rap_tpu_torch.apps.sample --config configs/synth_student.yaml
     python -m rap_tpu_torch.apps.sample --config configs/synth_student.yaml \\
         -o model.softcap=5.0 -o checkpoint= --device cpu
+    python -m rap_tpu_torch.apps.sample --config configs/synth_student.yaml \\
+        -o pipeline.n_generations=3 -o eval.save_results=true \\
+        -o eval.output_dir=/tmp/results --profile-dir /tmp/trace
 
 Per batch of the loader, ``pipeline.n_generations`` generations through
 ``registration.sample`` (with trajectories when the rigidity selection
-averages over them) and ``predict_poses``, the evaluator's metrics, their
-aggregation over generations, and one table per section at the end.
-Timing follows rap_tpu's contract (sample.py:128-135): the generation only,
-closed by ``torch.cuda.synchronize()`` on the card; metrics are not timed.
-The noise of generation g of batch b comes from a ``torch.Generator`` on the
-run's device seeded from (``trainer.seed``, b, g); it is not jax.random's.
+averages over them or the per-step artifacts need them) and
+``predict_poses``, the evaluator's metrics (every ``eval.*`` option of
+rap_tpu), each generation's artifacts with ``eval.save_results``
+(sample.py:143-165), their aggregation over generations (average,
+best-of-N, rigidity- and overlap-selected), and one table per section at
+the end. Timing follows rap_tpu's contract (sample.py:128-135): the
+generation only, closed by ``torch.cuda.synchronize()`` on the card;
+metrics and artifacts are not timed (``record['post_ms']`` holds their time
+per batch). The noise of generation g of batch b comes from a
+``torch.Generator`` on the run's device seeded from (``trainer.seed``, b,
+g); it is not jax.random's. ``--profile-dir`` writes a torch.profiler
+Chrome trace of the whole run there (rap_tpu's writes a jax.profiler one).
 
 Runs on the card (``--device cuda``, the default) unless the CPU is asked
 for. Not ported (each raises): ``.ckpt``/``.pth`` and orbax checkpoints
-(ROADMAP A4), ``visualize`` (A9), the evaluator's optional metrics and
-artifacts (A2), rap_tpu's ``--profile-dir``.
+(ROADMAP A4), ``visualize`` (A9).
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import argparse
 import logging
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -101,10 +110,11 @@ def run_eval(cfg: Config, params=None, device="cuda", record: dict | None = None
     logger.info("model %s: %.1fM params", cfg.model_name, n_params / 1e6)
     evaluator = Evaluator(cfg.eval)
     meter = MetricsMeter()
-    need_traj = cfg.eval.use_average_rigidity_rmse
+    steps_saved = cfg.eval.save_results and cfg.eval.save_merged_pointcloud_steps
+    need_traj = steps_saved or cfg.eval.use_average_rigidity_rmse
     generate = make_generate_fn(cfg, return_trajectory=need_traj)
     rec = record if record is not None else {}
-    rec.update(batch_gen_ms=[], gen_ms=[], load_ms=[], pairs=0, outputs=[])
+    rec.update(batch_gen_ms=[], gen_ms=[], load_ms=[], post_ms=[], pairs=0, outputs=[])
 
     for ds_cfg in cfg.data.datasets:
         ds = PointCloudDataset(ds_cfg)
@@ -121,33 +131,51 @@ def run_eval(cfg: Config, params=None, device="cuda", record: dict | None = None
             batch, names, ds_name = item
             rec["load_ms"].append((time.perf_counter() - t_load0) * 1e3)
             gen_results, trajs, gens = [], [], []
-            t_batch = 0.0
+            t_batch = t_post = 0.0
             for g in range(cfg.pipeline.n_generations):
                 gen = generation_generator(cfg.trainer.seed, b_idx, g, device)
                 _sync(device)
                 t_gen0 = time.perf_counter()
                 out, R, t = generate(params, batch, generator=gen)
                 _sync(device)
-                dt = time.perf_counter() - t_gen0
+                t_post0 = time.perf_counter()
+                dt = t_post0 - t_gen0
                 rec["gen_ms"].append(dt * 1e3)
                 t_batch += dt
-                gen_results.append(evaluator.compute_metrics(batch, out["points"], R, t))
+                md = evaluator.compute_metrics(batch, out["points"], R, t)
+                gen_results.append(md)
                 if "end_point_trajectory" in out:
                     trajs.append(out["end_point_trajectory"])
                 gens.append((out["points"], R, t))
+                if cfg.eval.save_results:
+                    host = lambda x: x.detach().cpu().numpy()  # noqa: E731
+                    evaluator.save_sample_results(
+                        batch, host(out["points"]), host(R), host(t),
+                        {k: host(v) for k, v in md.items()}, sample_names=names,
+                        dataset_name=ds_name, generation_idx=g,
+                        trajectory=(host(out["end_point_trajectory"])
+                                    if steps_saved and "end_point_trajectory" in out else None),
+                        midpoint_trajectory=(host(out["trajectory"])
+                                             if steps_saved and "trajectory" in out else None))
+                _sync(device)
+                t_post += time.perf_counter() - t_post0
             rec["batch_gen_ms"].append(t_batch * 1e3)
             rec["pairs"] += int(batch.sample_valid.sum())
             rec["outputs"].append((names, gens))
+            t_post0 = time.perf_counter()
             agg = evaluator.aggregate_generations(batch, gen_results, trajs)
             valid = batch.sample_valid.cpu().numpy()
             nparts = batch.part_valid.reshape(batch.S, -1).sum(1).cpu().numpy()
             meter.add_metrics(ds_name, agg["avg"], valid, nparts)
-            for section in (f"best_of_{cfg.pipeline.n_generations}", "rigidity_selected"):
+            for section in (f"best_of_{cfg.pipeline.n_generations}", "rigidity_selected",
+                            "overlap_ratio_selected"):
                 if section in agg:
                     meter.add_metrics(ds_name, {f"{section}/{k}": v
                                                 for k, v in agg[section].items()}, valid)
+            rec["post_ms"].append((t_post + time.perf_counter() - t_post0) * 1e3)
             b_idx += 1
         logger.info("%s padding: %s", ds_cfg.dataset_name, loader.padding_stats.summary())
+        ds.close()
 
     meter.reduce_across_hosts([d.dataset_name for d in cfg.data.datasets])
     results = meter.compute_average()
@@ -185,12 +213,26 @@ def main(argv=None, record: dict | None = None) -> dict:
     ap.add_argument("-o", "--override", action="append", default=[], help="key.sub=value")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu (the plain versions)")
+    ap.add_argument("--profile-dir", default="",
+                    help="write a torch.profiler trace (Chrome format) to this dir")
     args = ap.parse_args(argv)
     device = resolve_device(args.device)
     cfg = load_config(args.config, args.override)
     if not cfg.data.datasets:
         ap.error("no datasets configured (set data.datasets)")
-    return run_eval(cfg, device=device, record=record)
+    if not args.profile_dir:
+        return run_eval(cfg, device=device, record=record)
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
+                                           if device.type == "cuda" else [])
+    with profile(activities=activities) as prof:
+        results = run_eval(cfg, device=device, record=record)
+    out = Path(args.profile_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / "trace.json"))
+    logger.info("profiler trace written to %s", out / "trace.json")
+    return results
 
 
 if __name__ == "__main__":

@@ -400,7 +400,7 @@ inline int launch_dkv(const void* q, const void* k, const void* v, const void* o
       !bf16_rows64_map(&map_k, k, (uint64_t)BH * Tk, KV_BK) ||
       !bf16_rows64_map(&map_v, v, (uint64_t)BH * Tk, KV_BK) ||
       !bf16_rows64_map(&map_do, dout, (uint64_t)BH * Tq, KV_BQ) ||
-      (FUSED_DQ && !f32_rows64_map(&map_dq, dq_acc, (uint64_t)BH * Tq, KV_BQ)))
+      (FUSED_DQ && !f32_box32_map(&map_dq, dq_acc, (uint64_t)BH * Tq, D, KV_BQ)))
     return (int)cudaErrorInvalidValue;
   auto kernel = dkv_kernel<FUSED_DQ, SOFTCAP>;
   const int err = (int)cudaFuncSetAttribute(

@@ -22,7 +22,7 @@
 //     A from registers on the first 64 columns of a 128-wide V;
 //   and the backward's: m64n64k16 with A and B from shared memory, either
 //   of them K-major or MN-major (S^T = K Q^T, dQ = dS K, the dQ pass's
-//   S = Q K^T), and with A from registers and B MN-major (dV += P^T dO,
+//   S = Q K^T; m64n32k16 for the 128-wide key block's dQ halves), and with A from registers and B MN-major (dV += P^T dO,
 //   dK += dS^T Q, the dQ pass's dQ += dS K) or K-major (the dQ pass's
 //   dP = dO V^T).
 //   The accumulator of an m64nNk16 product puts, in warp w of the warpgroup,
@@ -287,6 +287,23 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, 
       : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
 }
 
+// d (64 x 32, fp32) = (accumulate ? d : 0) + A (64 x 16) B (16 x 32), A and
+// B from shared memory; TRANS_A / TRANS_B as for m64n64k16. An MN-major B's
+// columns 32-63 of a 64-column box start 64 bytes into its rows.
+template <int TRANS_A, int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_A), "n"(TRANS_B));
+}
+
 // d (64 x 64, fp32) = (accumulate ? d : 0) + A (64 x 16, bf16 fragments in
 // registers) B, with B (16 x 64) in shared memory; TRANS_B 1: MN-major (the
 // transpose bit), 0: K-major.
@@ -356,15 +373,16 @@ inline bool bf16_rows64_map(CUtensorMap* map, const void* base, uint64_t rows,
   return bf16_box64_map(map, base, rows, 64, box_rows);
 }
 
-// A tensor map over a row-major (rows, 64) fp32 matrix, boxes of box_rows x 32
-// (128 bytes a row) in the 128-byte swizzle: the 16-byte chunk k of a box's
-// row r sits at chunk k ^ (r % 8). Returns false if the driver refuses it.
-inline bool f32_rows64_map(CUtensorMap* map, const void* base, uint64_t rows,
-                           uint32_t box_rows) {
+// A tensor map over a row-major (rows, cols) fp32 matrix (cols % 32 == 0),
+// boxes of box_rows x 32 (128 bytes a row) in the 128-byte swizzle: the
+// 16-byte chunk k of a box's row r sits at chunk k ^ (r % 8). Returns false
+// if cuTensorMapEncodeTiled refuses it.
+inline bool f32_box32_map(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                          uint32_t box_rows) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {64, rows};
-  const cuuint64_t strides[1] = {64 * 4};
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * 4};
   const cuuint32_t box[2] = {32, box_rows};
   const cuuint32_t elem[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides,

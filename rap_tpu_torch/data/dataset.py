@@ -1,19 +1,22 @@
-"""Multi-part point-cloud dataset on a PLY folder, with augmentation
-(counterpart of rap_tpu/data/dataset.py).
+"""Multi-part point-cloud dataset on a PLY folder or an HDF5 file, with
+augmentation (counterpart of rap_tpu/data/dataset.py).
 
 Folder layout (rap_tpu's, dataset.py:1-20): ``<root>/data_split/{split}
 [_random].txt`` lists fragment folders; each ``<root>/<frag>/`` holds
 ``*.ply`` parts with optional ``features_<part>.npy``; optional
-``<root>/num_points/{split}.txt``. The split fallback, the part-count
-filter, ``limit_val_samples`` and ``min_points_per_part`` are rap_tpu's.
+``<root>/num_points/{split}.txt``. HDF5 layout (:333-337, :377-408,
+:447-455): ``data_split/<dataset_name>/{split}[_random]`` lists fragment
+groups, each group ``<frag>/<part>/vertices`` (and optional ``features``),
+optional ``num_points/<dataset_name>/{split}[_random]``; ``h5py`` is
+imported only when a ``data_path`` is a file. The split fallback, the
+part-count filter, ``limit_val_samples`` and ``min_points_per_part`` are
+rap_tpu's.
 
 ``augment_sample`` is rap_tpu's label contract (dataset.py:86-247) with the
 same numpy/scipy draws in the same order from a per-sample
 ``np.random.default_rng(SeedSequence([seed, epoch, index]))``, so one scene
-gives the same arrays in both packages. Not ported (ROADMAP A2): the HDF5
-storage of rap_tpu (dataset.py:333-337), where a ``data_path`` that is not a
-folder raises, and surface normals, which rap_tpu carries for storage
-parity and nothing in the evaluation reads.
+gives the same arrays in both packages. Not carried: surface normals,
+which rap_tpu keeps for storage parity and nothing in the evaluation reads.
 """
 
 from __future__ import annotations
@@ -177,15 +180,13 @@ class DatasetConfig:
 
 
 class PointCloudDataset:
-    """Loads fragments from a PLY folder and augments them."""
+    """Loads fragments from a PLY folder or an HDF5 file and augments them."""
 
     def __init__(self, cfg: DatasetConfig):
-        if not os.path.isdir(cfg.data_path):
-            raise NotImplementedError(
-                f"{cfg.data_path!r} is not a PLY folder; the HDF5 storage of rap_tpu "
-                "(data/dataset.py:333-337) is not ported (ROADMAP A2)")
         self.cfg = cfg
         self.data_path = cfg.data_path
+        self.use_folder = os.path.isdir(cfg.data_path)
+        self._h5 = None
         self.effective_random = self._determine_split_type()
         self.fragments, self.part_counts, self.precomputed_num_points = (
             self._build_fragment_list())
@@ -195,9 +196,22 @@ class PointCloudDataset:
         return Path(self.data_path) / "data_split" / f"{split}{suffix}.txt"
 
     def _split_available(self, random_split: bool) -> bool:
+        if not self.use_folder:
+            h5, ds = self._get_h5(), self.cfg.dataset_name
+            if "data_split" not in h5 or ds not in h5["data_split"]:
+                return False
+            suffix = "_random" if random_split else ""
+            return all(f"{s}{suffix}" in h5["data_split"][ds] for s in ("train", "val"))
         return all(self._split_file(s, random_split).is_file()
                    and self._split_file(s, random_split).stat().st_size > 0
                    for s in ("train", "val"))
+
+    def _get_h5(self):
+        import h5py
+
+        if self._h5 is None:
+            self._h5 = h5py.File(self.data_path, "r", libver="latest", swmr=True)
+        return self._h5
 
     def _determine_split_type(self) -> bool:
         """True: random splits; the bidirectional fallback of dataset.py:315."""
@@ -212,6 +226,50 @@ class PointCloudDataset:
         return False
 
     def _build_fragment_list(self):
+        kept, counts, npts = (self._folder_fragments() if self.use_folder
+                              else self._h5_fragments())
+        cfg = self.cfg
+        if (cfg.limit_val_samples > 0 and len(kept) > cfg.limit_val_samples
+                and cfg.split.startswith("val")):
+            step = len(kept) // cfg.limit_val_samples
+            kept, counts, npts = (a[::step][: cfg.limit_val_samples]
+                                  for a in (kept, counts, npts))
+        return kept, counts, npts
+
+    def _h5_fragments(self):
+        cfg = self.cfg
+        h5, ds = self._get_h5(), cfg.dataset_name
+        split_key = cfg.split + ("_random" if self.effective_random else "")
+        alt_key = cfg.split + ("" if self.effective_random else "_random")
+        splits = h5["data_split"][ds] if "data_split" in h5 and ds in h5["data_split"] else {}
+        if split_key not in splits:
+            if alt_key not in splits:
+                logger.error("no split '%s' (or '%s') for dataset %s in %s",
+                             split_key, alt_key, ds, self.data_path)
+                return [], [], []
+            split_key = alt_key
+        frags = [r.decode() if isinstance(r, bytes) else str(r)
+                 for r in splits[split_key][:]]
+        if "num_points" in h5 and ds in h5["num_points"] and split_key in h5["num_points"][ds]:
+            num_points = list(h5["num_points"][ds][split_key][:])
+        else:
+            num_points = [0] * len(frags)
+        if len(num_points) != len(frags):
+            logger.warning("h5 num_points[%s][%s] has %d entries for %d fragments; "
+                           "ignoring it", ds, split_key, len(num_points), len(frags))
+            num_points = [0] * len(frags)
+        kept, counts, npts = [], [], []
+        for frag, npnt in zip(frags, num_points):
+            if frag not in h5:
+                continue
+            n = len(h5[frag].keys())
+            if cfg.min_parts <= n <= cfg.max_parts:
+                kept.append(frag)
+                counts.append(n)
+                npts.append(int(npnt))
+        return kept, counts, npts
+
+    def _folder_fragments(self):
         cfg = self.cfg
         split_key = cfg.split + ("_random" if self.effective_random else "")
         sf = self._split_file(cfg.split, self.effective_random)
@@ -237,11 +295,6 @@ class PointCloudDataset:
                 kept.append(frag)
                 counts.append(n)
                 npts.append(npnt)
-        if (cfg.limit_val_samples > 0 and len(kept) > cfg.limit_val_samples
-                and cfg.split.startswith("val")):
-            step = len(kept) // cfg.limit_val_samples
-            kept, counts, npts = (a[::step][: cfg.limit_val_samples]
-                                  for a in (kept, counts, npts))
         return kept, counts, npts
 
     def __len__(self) -> int:
@@ -249,12 +302,19 @@ class PointCloudDataset:
 
     def _load_parts(self, frag: str):
         parts_gt, feats = [], []
-        folder = os.path.join(self.data_path, frag)
-        for ply_path in sorted(glob.glob(os.path.join(folder, "*.ply"))):
-            parts_gt.append(plyio.read_ply_points(ply_path).astype(np.float64))
-            stem = os.path.splitext(os.path.basename(ply_path))[0]
-            fpath = os.path.join(folder, f"features_{stem}.npy")
-            feats.append(np.load(fpath) if os.path.exists(fpath) else None)
+        if self.use_folder:
+            folder = os.path.join(self.data_path, frag)
+            for ply_path in sorted(glob.glob(os.path.join(folder, "*.ply"))):
+                parts_gt.append(plyio.read_ply_points(ply_path).astype(np.float64))
+                stem = os.path.splitext(os.path.basename(ply_path))[0]
+                fpath = os.path.join(folder, f"features_{stem}.npy")
+                feats.append(np.load(fpath) if os.path.exists(fpath) else None)
+        else:
+            group = self._get_h5()[frag]
+            for part in sorted(group.keys()):
+                sub = group[part]
+                parts_gt.append(np.asarray(sub["vertices"][:], np.float64))
+                feats.append(np.asarray(sub["features"][:]) if "features" in sub else None)
         if not self.cfg.load_features or any(f is None for f in feats):
             feats = None
         if self.cfg.min_points_per_part > 0:
@@ -292,3 +352,9 @@ class PointCloudDataset:
 
     def __getitem__(self, index: int) -> Sample:
         return self.get(index)
+
+    def close(self):
+        """Close the HDF5 file, if one is open."""
+        if self._h5 is not None:
+            self._h5.close()
+            self._h5 = None

@@ -41,20 +41,20 @@ SIGNATURES = {
     "rtt_ff": [_P] * 10 + [_I] * 3 + [_P],
     "rtt_flash_fixed": [_P] * 3 + [_F] + [_P] * 2 + [_I] * 4 + [_P],
     "rtt_flash_online": [_P] * 6 + [_I] * 5 + [_P],
-    "rtt_flash_bwd": [_P] * 11 + [_I] * 4 + [_P],
-    "rtt_flash_bwd_dkv": [_P] * 10 + [_I] * 4 + [_P],
-    "rtt_flash_bwd_dq": [_P] * 9 + [_I] * 4 + [_P],
+    "rtt_flash_bwd": [_P] * 11 + [_I] * 5 + [_P],
+    "rtt_flash_bwd_dkv": [_P] * 10 + [_I] * 5 + [_P],
+    "rtt_flash_bwd_dq": [_P] * 9 + [_I] * 5 + [_P],
     "rtt_flash_fixed_softcap": [_P] * 3 + [_F] * 2 + [_P] * 2 + [_I] * 4 + [_P],
     "rtt_flash_online_softcap": [_P] * 4 + [_F] + [_P] * 2 + [_I] * 5 + [_P],
-    "rtt_flash_bwd_softcap": [_P] * 11 + [_I] * 4 + [_F] * 2 + [_P],
-    "rtt_flash_bwd_dkv_softcap": [_P] * 10 + [_I] * 4 + [_F] * 2 + [_P],
-    "rtt_flash_bwd_dq_softcap": [_P] * 9 + [_I] * 4 + [_F] * 2 + [_P],
+    "rtt_flash_bwd_softcap": [_P] * 11 + [_I] * 5 + [_F] * 2 + [_P],
+    "rtt_flash_bwd_dkv_softcap": [_P] * 10 + [_I] * 5 + [_F] * 2 + [_P],
+    "rtt_flash_bwd_dq_softcap": [_P] * 9 + [_I] * 5 + [_F] * 2 + [_P],
     "rtt_proj_bwd": [_P] * 18 + [_I] * 7 + [_P],
     "rtt_ff_bwd": [_P] * 19 + [_I] * 5 + [_P],
 }
 # C entry points that launch nothing: the registers and local bytes of the
-# backward's setmaxnreg kernels (the key block's four instantiations, the dQ
-# pass's two; 4 ints each) and of every kernel behind rtt_flash_* forward,
+# backward's setmaxnreg kernels (the key block's eight instantiations, the dQ
+# pass's four, at head widths 64 and 128; 8 ints each) and of every kernel behind rtt_flash_* forward,
 # rtt_proj, rtt_out_proj, rtt_ff, rtt_ff_bwd and rtt_proj_bwd (2 ints each,
 # in the order of QUERY_KERNELS[entry]; cudaFuncGetAttributes)
 QUERIES = {

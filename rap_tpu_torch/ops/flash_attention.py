@@ -22,20 +22,21 @@ Forward kernels: csrc/attention.cu (TPU ``_flash_fwd_full_kernel`` :188 and
 slab stays within 2 GiB, else csrc/attention_bwd_split.cu (TPU
 ``_flash_bwd_dkv_kernel`` :426 and ``_flash_bwd_dq_kernel`` :471). The fused
 kernel and the dKV pass are one key-block kernel (csrc/attention_bwd_dkv.cuh),
-the dQ pass its mirror (csrc/attention_bwd_dq.cuh), all TMA + wgmma. They
-read V and dO with 64-value rows and -delta and va's ones column as fp32
-vectors (``backward_operands``), split once off va and [dO | -delta]
+the dQ pass its mirror (csrc/attention_bwd_dq.cuh), all TMA + wgmma, each
+with a 128-wide counterpart (csrc/attention_bwd_dkv128.cuh,
+csrc/attention_bwd_dq128.cuh). They read V and dO with rows of the
+kernel's width and -delta and va's ones column as fp32 vectors
+(``backward_operands``), split once off va and [dO | -delta]
 (``augment_do``) for both split passes. Each has a plain twin here with
 the same arithmetic and cast points (``*_plain``), chunked over
 (batch*head, query) tiles to bound memory. The gradient of the
 bound is 0 and the ones column of va gets a zero cotangent (:321-323).
-The forward kernels are 64 or 128 wide in their heads, the backward
-kernels 64: the launchers take heads of 8 <= d < 128, multiples of 8, for
-the forward and of 8 <= d <= 64 for the backward, zero-padding q, k, V and
-dO to the kernel's width before a kernel and dropping the padded columns of
-out, dq, dk and dv after it (``kernel_width``, ``head_columns``). The
-backward at 64 < d < 128 is open (ROADMAP C8): its launchers refuse it
-before any launch.
+Every kernel is 64 or 128 wide in its heads: the launchers take heads of
+8 <= d <= 128, multiples of 8 (the fixed-bound forward d < 128, as
+rap_tpu's no-padding path does: a d = 128 head takes the masked path),
+zero-padding q, k, V and dO to the kernel's width before a kernel and
+dropping the padded columns of out, dq, dk and dv after it
+(``kernel_width``, ``head_columns``).
 
 Softcap c > 0 (the TPU kernels' static ``softcap``): q is pre-scaled by
 scale/c instead of scale·log2(e) (:829-832), each logit becomes
@@ -65,8 +66,8 @@ _FWD_BLOCK = 128  # csrc/attention.cu BQ and BK: query rows per block, keys per 
 _BWD_BLOCK = 64   # csrc/attention_bwd_dkv.cuh (rows 6 and 7): queries per step
 _PLAIN_LOGITS = 2**28  # fp32 logits per chunk of the plain versions (1 GiB)
 _BWD_KEY_BLOCK = 128  # csrc/attention_bwd_dkv.cuh (rows 6 and 7): keys per block
-_KERNEL_DH = 64  # the head width of the backward kernels, and the forward's narrower one
-_FWD_MAX_DH = 128  # the forward's wider head width (csrc/attention.cu at D = 128)
+_NARROW_DH = 64  # the kernels' narrower head width
+_WIDE_DH = 128  # their wider one, also the widest head they take
 # csrc/attention_bwd_dq.cuh (row 8) owns _FWD_BLOCK queries a block and walks
 # key tiles of _FWD_BLOCK
 _FUSED_DQ_PARTIALS_CAP = 2 * 2**30  # pallas_attention.py:636
@@ -160,15 +161,15 @@ def flash_online_plain(qh, kh, vah, mask=None, heads: int = 1, softcap: float = 
 
 def padded_width(d: int) -> int:
     """The head width a kernel runs a head of width d at: 64 for d <= 64,
-    128 for 64 < d < 128 (the forward only; the backward takes d <= 64)."""
-    return _KERNEL_DH if d <= _KERNEL_DH else _FWD_MAX_DH
+    128 for 64 < d <= 128."""
+    return _NARROW_DH if d <= _NARROW_DH else _WIDE_DH
 
 
 def kernel_width(*tensors):
     """The tensors zero-padded in their last dimension to the kernels' head
     width (``padded_width``; unchanged where it is 64 or 128): the attention
-    kernels take heads of 8 <= d <= 64, d % 8 == 0, as 64 wide, and the
-    forward 64 < d < 128 as 128 wide. Exact: q·k, the row sums l, lse and
+    kernels take heads of 8 <= d <= 64, d % 8 == 0, as 64 wide, and 64 < d
+    <= 128 as 128 wide. Exact: q·k, the row sums l, lse and
     -delta = rowsum(dO·O) gain only zero terms, and out, dq, dk and dv are
     the first d columns of the padded results (``head_columns``)."""
     return tuple(F.pad(t, (0, padded_width(t.shape[-1]) - t.shape[-1]))
@@ -180,20 +181,20 @@ def head_columns(t, d: int):
     return t if t.shape[-1] == d else t[..., :d].contiguous()
 
 
-def _check_attention_inputs(qh, kh, vah, block: int, backward: bool):
-    """Check q, k, va's shapes and dtypes: the forward takes heads of 8 <= d
-    < 128, the backward of 8 <= d <= 64, multiples of 8; Tq, Tk multiples of
+def _check_attention_inputs(qh, kh, vah, block: int, fixed: bool = False):
+    """Check q, k, va's shapes and dtypes: heads of 8 <= d <= 128, multiples
+    of 8 (the fixed-bound forward ``fixed``: d < 128); Tq, Tk multiples of
     ``block``."""
     BH, Tq, d = qh.shape
     Tk = kh.shape[1]
-    if backward:
-        require(d % 8 == 0 and 8 <= d <= _KERNEL_DH,
-                f"attention backward kernels take head width 64, or a multiple of 8 below "
-                f"it (zero-padded to 64); 64 < d < 128 is open (ROADMAP C8), got {d}")
-    else:
-        require(d % 8 == 0 and 8 <= d < _FWD_MAX_DH,
+    if fixed:
+        require(d % 8 == 0 and 8 <= d < _WIDE_DH,
                 f"attention forward kernels take a head width below 128 that is a multiple "
                 f"of 8 (zero-padded to 64 or 128), got {d}")
+    else:
+        require(d % 8 == 0 and 8 <= d <= _WIDE_DH,
+                f"attention kernels take a head width of at most 128 that is a multiple of 8 "
+                f"(zero-padded to 64 or 128), got {d}")
     require(Tq % block == 0 and Tk % block == 0,
             f"attention kernel takes Tq, Tk multiples of {block} (keys are never "
             f"padded); got Tq={Tq}, Tk={Tk}")
@@ -218,13 +219,13 @@ def _as_kernel_mask(mask):
     return None if mask is None else mask.to(torch.int32).contiguous()
 
 
-def _forward_operands(qh, kh, vah):
-    """Check the forward kernel's inputs; return q, k and v = va without its
-    ones column at the kernels' width (``kernel_width``): v (BH, Tk, 64 or
-    128) with 16-byte-aligned rows, the layout its TMA loads read (a fresh
-    tensor, so aligned). TMA also needs q's and k's base addresses 16-byte
-    aligned."""
-    _check_attention_inputs(qh, kh, vah, _FWD_BLOCK, backward=False)
+def _forward_operands(qh, kh, vah, fixed: bool):
+    """Check the forward kernel's inputs (``fixed``: the fixed-bound
+    variant's); return q, k and v = va without its ones column at the
+    kernels' width (``kernel_width``): v (BH, Tk, 64 or 128) with
+    16-byte-aligned rows, the layout its TMA loads read (a fresh tensor, so
+    aligned). TMA also needs q's and k's base addresses 16-byte aligned."""
+    _check_attention_inputs(qh, kh, vah, _FWD_BLOCK, fixed)
     for name, t in (("qh", qh), ("kh", kh)):
         require(t.data_ptr() % 16 == 0,
                 f"{name}: the attention forward kernel takes 16-byte-aligned inputs "
@@ -236,7 +237,7 @@ def _forward_operands(qh, kh, vah):
 def flash_fixed_kernel(qh, kh, vah, bound: float, softcap: float = 0.0):
     """Launch the fixed-bound variant of csrc/attention.cu (its softcap
     variant for ``softcap`` > 0)."""
-    q, k, v = _forward_operands(qh, kh, vah)
+    q, k, v = _forward_operands(qh, kh, vah, fixed=True)
     BH, Tq, d = qh.shape
     out = torch.empty_like(q)
     lse = torch.empty((BH, Tq), dtype=torch.float32, device=qh.device)
@@ -252,7 +253,7 @@ def flash_fixed_kernel(qh, kh, vah, bound: float, softcap: float = 0.0):
 def flash_online_kernel(qh, kh, vah, mask=None, heads: int = 1, softcap: float = 0.0):
     """Launch the online-softmax variant of csrc/attention.cu (its softcap
     variant for ``softcap`` > 0)."""
-    q, k, v = _forward_operands(qh, kh, vah)
+    q, k, v = _forward_operands(qh, kh, vah, fixed=False)
     BH, Tq, d = qh.shape
     Tk = kh.shape[1]
     mask_ptr = _mask_arg(mask, qh, Tk, heads)
@@ -327,8 +328,8 @@ def _split_last(xa):
 
 
 def backward_operands(vah, dout, out):
-    """(v, dO, -delta, ones): the operands of the key-block backward kernel
-    (csrc/attention_bwd_dkv.cuh, rows 6 and 7), whose TMA loads need 16-byte
+    """(v, dO, -delta, ones): the operands of the backward kernels (rows 6-8),
+    whose TMA loads need 16-byte
     row strides where va and [dO | -delta] have d+1 values a row. v and dO
     are (BH, T, d) in their dtype; -delta and va's ones column are (BH, T)
     fp32 vectors holding exactly ``augment_do(dout, out)[..., d]`` and
@@ -422,7 +423,7 @@ def _check_bwd_operands(qh, kh, vah, ops, lse2, block: int):
     """Check what a backward kernel reads: q, k, va's shape, lse2 and the
     pieces (v, dO, -delta, ones) of ``backward_operands``. TMA and the bulk
     copies need every one of them 16-byte aligned."""
-    _check_attention_inputs(qh, kh, vah, block, backward=True)
+    _check_attention_inputs(qh, kh, vah, block)
     v, do, nd, ones = ops
     BH, Tq, d = qh.shape
     Tk = kh.shape[1]
@@ -472,13 +473,14 @@ def flash_bwd_kernel(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1,
     mask_ptr = _check_dkv_inputs(qh, kh, vah, ops, lse2, mask, heads)
     BH, Tq, d = qh.shape
     q, k, v, do = kernel_width(qh, kh, v, do)
-    dq_acc = torch.zeros((BH, Tq, _KERNEL_DH), dtype=torch.float32, device=qh.device)
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=qh.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(k)
     _launch_bwd("flash_bwd", qh,
                 (q.data_ptr(), k.data_ptr(), v.data_ptr(), ones.data_ptr(), mask_ptr,
                  do.data_ptr(), nd.data_ptr(), lse2.data_ptr(), dq_acc.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), BH, Tq, kh.shape[1], heads), softcap)
+                 dk.data_ptr(), dv.data_ptr(), BH, Tq, kh.shape[1], heads, q.shape[-1]),
+                softcap)
     scale = _dk_scale(softcap)
     if scale != 1.0:
         dq_acc.mul_(scale)
@@ -498,7 +500,7 @@ def _launch_dkv(qh, kh, vah, ops, lse2, mask, heads: int, softcap: float):
     _launch_bwd("flash_bwd_dkv", qh,
                 (q.data_ptr(), k.data_ptr(), v.data_ptr(), ones.data_ptr(), mask_ptr,
                  do.data_ptr(), nd.data_ptr(), lse2.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 BH, Tq, kh.shape[1], heads), softcap)
+                 BH, Tq, kh.shape[1], heads, q.shape[-1]), softcap)
     return head_columns(dk, d), head_columns(dv, d)
 
 
@@ -513,7 +515,7 @@ def _launch_dq(qh, kh, vah, ops, lse2, mask, heads: int, softcap: float):
     _launch_bwd("flash_bwd_dq", qh,
                 (q.data_ptr(), k.data_ptr(), v.data_ptr(), ones.data_ptr(), mask_ptr,
                  do.data_ptr(), nd.data_ptr(), lse2.data_ptr(), dq.data_ptr(), BH, Tq,
-                 kh.shape[1], heads), softcap)
+                 kh.shape[1], heads, q.shape[-1]), softcap)
     return head_columns(dq, d)
 
 

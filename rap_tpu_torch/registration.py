@@ -73,7 +73,7 @@ def training_forward(
     if cfg.model.dropout_rate > 0.0:
         raise NotImplementedError(
             "FF dropout in training takes the unfused FF (rap_tpu/models/dit.py:"
-            "281), which is not ported yet (ROADMAP section A2)")
+            "281), which is not ported yet (ROADMAP A5.3)")
     if cfg.pose_loss_weight > 0.0:
         raise NotImplementedError(
             "the pose loss needs the gradient of the batched 3x3 SVD, which is "

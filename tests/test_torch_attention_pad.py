@@ -1,17 +1,18 @@
 """Attention at head widths other than 64, through the kernels' zero-padding.
 
-The attention forward kernels of rap_tpu_torch are 64 or 128 wide in their
-heads, the backward kernels 64; the launchers take heads of 8 <= d < 128
-(forward) and 8 <= d <= 64 (backward), d % 8 == 0, by padding q, k, V and
-dO with zero columns to the kernel's width (``flash_attention.kernel_width``:
-64 for d <= 64, 128 above) and keeping the first d columns of out, dq, dk
-and dv (``head_columns``). On the CPU the plain twins stand in for the
-kernels (they repeat the kernels' arithmetic): each twin through the padding
-must equal the twin on the unpadded heads, forward (fixed-bound, online
-with a key mask) and backward (fused, and the split dKV and dQ passes).
+The attention kernels of rap_tpu_torch are 64 or 128 wide in their heads;
+the launchers take heads of 8 <= d <= 128, d % 8 == 0 (the fixed-bound
+forward d < 128), by padding q, k, V and dO with zero columns to the
+kernel's width (``flash_attention.kernel_width``: 64 for d <= 64, 128
+above) and keeping the first d columns of out, dq, dk and dv
+(``head_columns``). On the CPU the plain twins stand in for the kernels
+(they repeat the kernels' arithmetic): each twin through the padding must
+equal the twin on the unpadded heads, forward (fixed-bound, online with a
+key mask) and backward (fused, and the split dKV and dQ passes).
 Tolerance: 1e-5 of the largest output; the padded columns add exact zeros,
-and only the order of the fp32 sums may differ. The backward launchers
-refuse 64 < d < 128 (ROADMAP C8) before any launch.
+and only the order of the fp32 sums may differ. The launchers pass every
+such width on to a launch at the kernel's width and refuse others before
+any launch.
 """
 
 import numpy as np
@@ -66,7 +67,7 @@ def test_forward_twins_through_the_padding(d):
         assert torch.equal(lse_p[~live], lse[~live])
 
 
-@pytest.mark.parametrize("d", [8, 32, 56])
+@pytest.mark.parametrize("d", [8, 32, 56, 72, 96, 120, 128])
 def test_backward_twins_through_the_padding(d):
     q, k, va, dout, mask = _operands(d, seed=1)
     qp, kp, dop = fa.kernel_width(q, k, dout)
@@ -77,7 +78,7 @@ def test_backward_twins_through_the_padding(d):
     got = fa.flash_bwd_plain(qp, kp, vap, out_p, lse, dop, mask, HEADS)
     ref = fa.flash_bwd_plain(q, k, va, out, lse, dout, mask, HEADS)
     for g_, r_ in zip(got, ref):
-        assert g_.shape[-1] == 64
+        assert g_.shape[-1] == fa.padded_width(d)
         _close(fa.head_columns(g_, d), r_)
     # the split passes, on [dO | -delta] with dO padded
     doa = fa.augment_do(dout, out)
@@ -114,23 +115,35 @@ def test_kernels_take_narrow_heads_and_refuse_others(monkeypatch):
 def test_backward_launchers_refuse_wide_heads(monkeypatch, d):
     """Every backward launcher (the fused pass, the split dKV and dQ passes,
     and attention_backward's split branch, which splits the operands once)
-    refuses 64 < d < 128 with a message naming ROADMAP C8, before any
-    launch; the forward takes the same heads."""
+    passes heads of 64 < d <= 128 on to a launch at the kernels' 128-wide
+    instantiation (the launch's last integer), d = 128 as well; it refuses
+    d = 136 (wider than the kernels) and d + 4 (not a multiple of 8) before
+    any launch. The online forward takes the same heads."""
     launched = []
-    monkeypatch.setattr(fa, "launch", lambda kernel, *a: launched.append(kernel))
-    bf = dict(dtype=torch.bfloat16)
-    q = torch.zeros(BH, 128, d, **bf)
-    va = torch.zeros(BH, 128, d + 1, **bf)
-    lse = torch.zeros(BH, 128)
-    doa = torch.zeros(BH, 128, d + 1, **bf)
-    calls = (lambda: fa.flash_bwd_kernel(q, q, va, q, lse, q),
-             lambda: fa.flash_bwd_dkv_kernel(q, q, va, doa, lse),
-             lambda: fa.flash_bwd_dq_kernel(q, q, va, doa, lse),
-             lambda: fa.attention_backward(q, q, va, q, lse, q, None, 1, True, True))
+    monkeypatch.setattr(fa, "launch", lambda kernel, *a: launched.append((kernel, a[-1])))
     monkeypatch.setattr(fa, "on_cpu", lambda *a: False)  # as CUDA tensors are
-    for call in calls:
-        with pytest.raises(ValueError, match=r"64 < d < 128 is open \(ROADMAP C8\)"):
+    bf = dict(dtype=torch.bfloat16)
+
+    def calls(w):
+        q = torch.zeros(BH, 128, w, **bf)
+        va = torch.zeros(BH, 128, w + 1, **bf)
+        lse = torch.zeros(BH, 128)
+        doa = torch.zeros(BH, 128, w + 1, **bf)
+        return (lambda: fa.flash_bwd_kernel(q, q, va, q, lse, q),
+                lambda: fa.flash_bwd_dkv_kernel(q, q, va, doa, lse),
+                lambda: fa.flash_bwd_dq_kernel(q, q, va, doa, lse),
+                lambda: fa.attention_backward(q, q, va, q, lse, q, None, 1, True, True),
+                lambda: fa.flash_online_kernel(q, q, va))
+
+    for w in (d, 128):
+        for call in calls(w):
             call()
-    assert launched == []
-    fa.flash_online_kernel(q, q, va)
-    assert launched == ["flash_online"]
+    one = [("flash_bwd", 128), ("flash_bwd_dkv", 128), ("flash_bwd_dq", 128),
+           ("flash_bwd_dkv", 128), ("flash_bwd_dq", 128), ("flash_online", 128)]
+    assert launched == one * 2
+    for w in (136, d + 4):
+        for call in calls(w):
+            with pytest.raises(ValueError, match="head width of at most 128 that is a "
+                                                 "multiple of 8"):
+                call()
+    assert launched == one * 2

@@ -180,30 +180,76 @@ def test_training_at_head_width_32_runs_through_every_kernel(gen):
 
 
 def test_training_at_head_width_96_refuses_in_attention_backward(gen):
-    """Training a D = 768, 8-head model (dh = 96) runs the forward kernels
-    (attention padded to 128), then stops at the first attention backward
-    (its kernels take dh <= 64, ROADMAP C8): a ValueError naming C8, raised
-    before any attention backward kernel or the proj backward launched."""
-    from rap_tpu_torch.core.batch import make_regular_synthetic_batch
+    """Training a D = 768, 8-head model (dh = 96), which the attention
+    backward once refused (ROADMAP C8), now runs through every kernel, the
+    attention forward and backward at their 128-wide instantiations on heads
+    zero-padded to 128: the launch counts and loss of ``_training_gradients``,
+    every gradient leaf against the plain path by the rule of
+    ``test_training_gradients_kernels_match_plain``; one Muon step finite."""
     from rap_tpu_torch.models.config import DiTConfig
-    from rap_tpu_torch.models.dit import init_dit_params
-    from rap_tpu_torch.registration import RPFConfig, training_forward
-    from rap_tpu_torch.train.optim import tree_paths, tree_replace
 
     cfg = DiTConfig(embed_dim=768, num_heads=8, num_layers=2, attn_impl="pallas")
-    params = init_dit_params(0, cfg, masters=True)
-    leaves = {k: p.detach().requires_grad_(True) for k, p in tree_paths(params)}
-    batch = make_regular_synthetic_batch(1, [[N] * P] * S, N=N, P=P)
-    x_1 = torch.randn((S * P, N, 3), generator=gen, device="cuda")
+    (gk, gp, g32, params, batch), rel = _training_gradients(gen, cfg), _rel_l2
+    for k, ref in gp.items():
+        assert rel(gk[k], ref) <= max(5e-2, 2 * rel(ref, g32[k])), (k, rel(gk[k], ref),
+                                                                  rel(ref, g32[k]))
+    _one_step_is_finite(cfg, params, batch)
+
+
+def test_training_at_head_width_128_runs_through_every_kernel(gen):
+    """Training a D = 1024, 8-head model (dh = 128): rap_tpu's fused guard
+    needs dh < 128, so the unfused branch, whose attention takes the masked
+    online forward and the fused attention backward at 128 wide, and the
+    GEGLU kernels at D = 1024; the gradient rule as above; one Muon step."""
+    from rap_tpu_torch.models.config import DiTConfig
+
+    cfg = DiTConfig(embed_dim=1024, num_heads=8, num_layers=2, attn_impl="pallas")
+    (gk, gp, g32, params, batch), rel = _training_gradients(
+        gen, cfg, _counts(flash_online=8, ff=4, flash_bwd=4, ff_bwd=2)), _rel_l2
+    for k, ref in gp.items():
+        assert rel(gk[k], ref) <= max(5e-2, 2 * rel(ref, g32[k])), (k, rel(gk[k], ref),
+                                                                  rel(ref, g32[k]))
+    _one_step_is_finite(cfg, params, batch)
+
+
+@pytest.mark.parametrize("c", [0.0, 5.0], ids=["softcap0", "softcap5"])
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+@pytest.mark.parametrize("d", [72, 96, 120, 128])
+def test_backward_kernels_at_wide_heads(gen, d, masked, c):
+    """The fused backward and the split dKV and dQ passes at a head width 64
+    < d <= 128 (csrc/attention_bwd_dkv128.cuh, csrc/attention_bwd_dq128.cuh,
+    on heads zero-padded to 128) behind the masked online forward, against
+    their plain twins on the unpadded heads, BH = 4, T = 384 (an odd number
+    of key tiles), a random key mask with one batch row fully masked or
+    none; one launch each; the split passes bitwise repeatable."""
+    BH, T, heads = 4, 384, 2
+    q, k = _randn(gen, BH, T, d, scale=0.4), _randn(gen, BH, T, d, scale=0.4)
+    if c > 0.0:
+        q = q * (3.0 / c)
+    va = torch.cat([_randn(gen, BH, T, d), torch.ones(BH, T, 1, device="cuda",
+                                                      dtype=torch.bfloat16)], -1)
+    mask = _edge_mask(gen, BH // heads, T, "random") if masked else None
+    out, lse = fa.flash_online_kernel(q, k, va, mask, heads, c)
+    dout = _randn(gen, BH, T, d)
+    sfx = "_softcap" if c > 0.0 else ""
     reset_launches()
-    loss, _ = training_forward(tree_replace(params, leaves), RPFConfig(model=cfg), batch, None,
-                               x_1=x_1, t=torch.tensor([0.3, 0.95], device="cuda"))
-    assert launch_counts()["proj"] == 4 and launch_counts()["flash_fixed"] > 0
-    with pytest.raises(ValueError, match=r"attention backward kernels take head width 64.*"
-                                         r"64 < d < 128 is open \(ROADMAP C8\), got 96"):
-        torch.autograd.grad(loss, list(leaves.values()))
-    counts = launch_counts()
-    assert all(counts[k] == 0 for k in KERNELS if "bwd" in k and k != "ff_bwd"), counts
+    got = fa.flash_bwd_kernel(q, k, va, out, lse, dout, mask, heads, c)
+    doa = fa.augment_do(dout, out).contiguous()
+    args = (q, k, va, doa, lse, mask, heads, c)
+    dk, dv = fa.flash_bwd_dkv_kernel(*args)
+    dq = fa.flash_bwd_dq_kernel(*args)
+    assert launch_counts() == _counts(**{f"flash_bwd{sfx}": 1, f"flash_bwd_dkv{sfx}": 1,
+                                         f"flash_bwd_dq{sfx}": 1})
+    pmask = None if mask is None else mask.bool()
+    for g_, r_ in zip(got, fa.flash_bwd_plain(q, k, va, out, lse, dout, pmask, heads, c)):
+        assert g_.shape == q.shape
+        _close(g_, r_)
+    pargs = (q, k, va, doa, lse, pmask, heads, c)
+    for g_, r_ in zip((dk, dv), fa.flash_bwd_dkv_plain(*pargs)):
+        _close(g_, r_)
+    _close(dq, fa.flash_bwd_dq_plain(*pargs))
+    assert torch.equal(dq, fa.flash_bwd_dq_kernel(*args))
+    assert all(torch.equal(a, b) for a, b in zip((dk, dv), fa.flash_bwd_dkv_kernel(*args)))
 
 
 # (D, H) beside the model's (512, 8): every head width class the rule takes
@@ -429,12 +475,13 @@ def _rel_l2(a, b):
     return float((a - b).norm()) / max(float(b.norm()), 1e-30)
 
 
-def _training_gradients(gen, cfg):
+def _training_gradients(gen, cfg, launches=None):
     """Every gradient leaf of training_forward for a 2-layer model of
-    ``cfg`` (one online attention per forward) through the kernels, the
-    plain versions and the plain fp32 path at the same draws: (kernels,
-    plain, fp32), the parameters and the batch, after checking the kernel
-    launches and the loss (within 2e-2 relative of the plain path's)."""
+    ``cfg`` (one online attention per forward on the fused branch) through
+    the kernels, the plain versions and the plain fp32 path at the same
+    draws: (kernels, plain, fp32), the parameters and the batch, after
+    checking the kernel launches (the fused branch's, or ``launches``) and
+    the loss (within 2e-2 relative of the plain path's)."""
     import dataclasses
 
     from rap_tpu_torch.core.batch import make_regular_synthetic_batch
@@ -459,8 +506,8 @@ def _training_gradients(gen, cfg):
         grads = torch.autograd.grad(loss, list(leaves.values()))
         out[name] = (float(loss.detach()), dict(zip(leaves, grads)), launch_counts())
     (lk, gk, ck), (lp, gp, cp), (_, g32, _) = out["kernels"], out["plain"], out["fp32"]
-    assert ck == _counts(proj=8, flash_fixed=6, flash_online=2, out_proj=8, ff=4,
-                         flash_bwd=4, proj_bwd=4, ff_bwd=2)
+    assert ck == (launches or _counts(proj=8, flash_fixed=6, flash_online=2, out_proj=8,
+                                      ff=4, flash_bwd=4, proj_bwd=4, ff_bwd=2))
     assert sum(cp.values()) == 0
     assert abs(lk - lp) <= 2e-2 * abs(lp)
     return gk, gp, g32, params, batch

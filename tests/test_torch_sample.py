@@ -9,12 +9,13 @@ the same inputs:
   fields the port leaves out are at rap_tpu's defaults in every file);
 - the dataset on ``demo_data/synth``, with eval (identity) augmentation and
   with the seeded rotations of ``augment_eval`` (yaw and full SO(3)), every
-  array equal; the packer's plans and collated batches, padded points
+  array equal, and on a tiny HDF5 file in rap_tpu's layout; the packer's plans and collated batches, padded points
   included, every ``PartBatch`` field equal; the loader's batches, names and
   padding statistics; the loader's thread has ended when an epoch ends or
   is closed early;
 - each metric and ``aggregate_generations`` at fp32 (1e-5 of the largest
-  value), and ``MetricsMeter``;
+  value), and ``MetricsMeter`` (the evaluator's options:
+  test_torch_eval_options.py);
 - one generation with the committed ``reflow_student.npz`` on a scene of
   ``demo_data/synth`` (one scene and one of the config's 4 Euler steps, to
   keep the CPU time down), the same noise on both sides, fp32: points within 1e-4 of
@@ -66,8 +67,6 @@ OVERRIDES = ["model.softcap=5.0", "model.num_layers=2", "pipeline.n_generations=
 # rap_tpu's config fields that no shipped config sets and the port leaves out
 OMITTED = {"data": ("max_samples_per_epoch",), "pipeline": ("prune_factor",),
            "trainer": ("keep_last", "log_every_n_steps", "remat", "log_file"),
-           "eval": ("part_acc_threshold", "save_pointcloud_parts",
-                    "max_artifact_samples_per_batch", "folder_suffix"),
            "": ("n_devices",)}
 
 
@@ -134,9 +133,49 @@ def test_dataset_matches_rap_tpu(aug):
         _sample_equal(tds.get(i, epoch=2), jds.get(i, epoch=2))
 
 
-def test_dataset_refuses_hdf5(tmp_path):
-    with pytest.raises(NotImplementedError, match="HDF5"):
-        PointCloudDataset(DatasetConfig(data_path=str(tmp_path / "data.h5")))
+def _write_h5(path, rng):
+    """rap_tpu's HDF5 layout: data_split/<name>/<split> fragment lists (the
+    val list names one missing fragment and one with too few parts),
+    num_points for train, fragment groups of parts with vertices and
+    features for all but one."""
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        frags = [f"scene_{i}" for i in range(6)]
+        for i, frag in enumerate(frags):
+            for p in range(1 if i == 5 else 2 + i % 3):
+                g = f.create_group(f"{frag}/part_{p}")
+                n = int(rng.integers(80, 200))
+                g["vertices"] = rng.standard_normal((n, 3)) * (1 + p)
+                if i != 3:
+                    g["features"] = rng.standard_normal((n, 32)).astype(np.float32)
+        split = f.create_group("data_split/synth_h5")
+        split["train"] = np.array(frags[:3], dtype="S")
+        split["val"] = np.array(frags[2:] + ["missing"], dtype="S")
+        f["num_points/synth_h5/train"] = np.array([400, 500, 600])
+
+
+@pytest.mark.parametrize("aug", ["eval", "full"])
+def test_dataset_refuses_hdf5(tmp_path, aug):
+    """The HDF5 storage against rap_tpu's on a tiny file: the fragment list
+    (a missing fragment and one of too few parts dropped, num_points read
+    where present), the split fallback, and every sample's arrays equal."""
+    path = str(tmp_path / "data.h5")
+    _write_h5(path, np.random.default_rng(5))
+    kw = {"eval": {}, "full": {"augment_eval": True, "seed": 4}}[aug]
+    for split in ("train", "val"):
+        cfgs = [C(data_path=path, dataset_name="synth_h5", split=split, use_random_split=True,
+                  **kw) for C in (JaxDatasetConfig, DatasetConfig)]
+        jds, tds = JaxDataset(cfgs[0]), PointCloudDataset(cfgs[1])
+        assert (tds.fragments, tds.part_counts, tds.precomputed_num_points) == (
+            jds.fragments, jds.part_counts, jds.precomputed_num_points)
+        assert tds.effective_random == jds.effective_random is False
+        assert len(tds) == (3 if split == "train" else 3)
+        for i in range(len(tds)):
+            _sample_equal(tds.get(i, epoch=1), jds.get(i, epoch=1))
+        tds.close()
+        jds.close()
+        assert tds._h5 is None
 
 
 def _batches_equal(tb, jb):
@@ -280,9 +319,12 @@ def test_evaluator_matches_rap_tpu():
     for sec in ("avg", "best_of_3", "rigidity_selected"):
         for k in ref[sec]:
             _rel(got[sec][k], ref[sec][k], f"{sec}/{k}")
+    # the options that raised before they were ported now run
+    p_g = t(pred)
     for flag in ("use_icp", "overlap_eval_on", "save_results"):
-        with pytest.raises(NotImplementedError, match="A2"):
-            Evaluator(dataclasses.replace(tev.cfg, **{flag: True}))
+        ev = Evaluator(dataclasses.replace(tev.cfg, **{flag: True}))
+        assert set(ev.compute_metrics(tb, p_g, t(R), t(t_))) >= set(
+            tev.compute_metrics(tb, p_g, t(R), t(t_)))
 
 
 def test_meter_matches_rap_tpu():

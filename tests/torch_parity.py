@@ -34,9 +34,10 @@ def max_err(a, b) -> float:
     return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
 
 
-def tiny_pallas_models(seed: int = 1):
-    """(jax cfg, port cfg, jax params, port params): D=128, 2 layers, 2 heads,
-    fp32, the fused branch on both sides (``attn_impl="pallas"``: rap_tpu's
+def tiny_pallas_models(seed: int = 1, embed_dim: int = 128, num_heads: int = 2):
+    """(jax cfg, port cfg, jax params, port params): D=128, 2 layers, 2 heads
+    (or ``embed_dim`` and ``num_heads``), fp32, the fused branch on both
+    sides where the head width is below 128 (``attn_impl="pallas"``: rap_tpu's
     Pallas kernels in interpret mode, the port's plain twins), qk gains
     near 1 except layer 0's global attention, raised past the guard bound so
     that both attention variants run."""
@@ -46,15 +47,16 @@ def tiny_pallas_models(seed: int = 1):
     from rap_tpu.models.dit import init_dit_params
     from rap_tpu_torch.models.config import DiTConfig
 
-    jcfg = JaxDiTConfig(embed_dim=128, num_layers=2, num_heads=2,
+    jcfg = JaxDiTConfig(embed_dim=embed_dim, num_layers=2, num_heads=num_heads,
                         compute_dtype=jnp.float32, attn_impl="pallas", ff_impl="pallas")
-    tcfg = DiTConfig(embed_dim=128, num_layers=2, num_heads=2, compute_dtype=torch.float32,
-                     attn_impl="pallas", ff_impl="pallas")
+    tcfg = DiTConfig(embed_dim=embed_dim, num_layers=2, num_heads=num_heads,
+                     compute_dtype=torch.float32, attn_impl="pallas", ff_impl="pallas")
     jp = init_dit_params(jax.random.key(seed), jcfg)
     rng = np.random.default_rng(0)
     layers = dict(jp["layers"])
     for name in ("self_q_gamma", "self_k_gamma", "global_q_gamma", "global_k_gamma"):
-        layers[name] = jnp.asarray(1 + 0.1 * rng.standard_normal((2, 2, 64)), jnp.float32)
+        layers[name] = jnp.asarray(
+            1 + 0.1 * rng.standard_normal((2, num_heads, embed_dim // num_heads)), jnp.float32)
     layers["global_q_gamma"] = layers["global_q_gamma"].at[0].multiply(3.0)
     layers["global_k_gamma"] = layers["global_k_gamma"].at[0].multiply(3.0)
     jp = {**jp, "layers": layers}
