@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive rap_tpu_torch's serving, evaluation and training paths on one CUDA card, check them.
+"""Drive rap_tpu_torch's serving, evaluation, demo and training paths on one CUDA card, check them.
 
     python3 chip_smoke.py              # every phase, as the check runs it
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,kernels,sample
+    python3 chip_smoke.py --phases build,kernels,demo
     python3 chip_smoke.py --phases build,kernels,train
     python3 chip_smoke.py --phases build,kernels,multiview
 
@@ -98,7 +99,13 @@ Phases, each printed on its own flushed line with its wall time:
               (head widths 96: the fused branch, attention on heads padded
               to 128; and 128: the unfused branch, the masked online
               forward) serve the same batch: launch counts, points,
-              rotations and velocity against plain.
+              rotations and velocity against plain. And the pruned sampler
+              (bench.py's BENCH_PRUNE=1:4 of the JAX package): the first of
+              the 2 steps on 1024 of the 4096 points of every part (one
+              sorted index set from a seed), the exact switch to full
+              resolution, the second step, with the transformer features:
+              launch counts, points, rotations and features against the
+              same call through the plain versions (same noise and set).
 4. sample     rap_tpu_torch.apps.sample.main, the batch-evaluation entry
               point, on configs/synth_student.yaml and demo_data/synth (one
               dense batch of 8 pairs, 6 layers, 4 Euler steps, rigidity
@@ -122,7 +129,26 @@ Phases, each printed on its own flushed line with its wall time:
               the plain versions, the generation ms within the no-option
               run's spread, and the time metrics and artifacts take per
               batch (outside the timed window).
-5. train      one Muon step of the same model (fp32 random masters from a
+5. demo       rap_tpu_torch.apps.demo.main in-process at rap_12 (12
+              layers, D=512, H=8, random weights from the config's seed)
+              with its CLI defaults (10 steps, adaptive parameters): the
+              bundled demo_data/pair with zero, geometric and SpinNet
+              features (random SpinNet weights from a seed; 3 generations,
+              ICP with 4 yaw starts, the generated clouds written) and
+              without rigidity forcing, then a six-view scene the phase
+              writes (20 000 points a view, each in its own rigid frame:
+              8 part slots). Each run through the kernels and through the
+              plain versions (-o model.use_kernels=false): the launch counts
+              (rows 3 and 5 only: the batch is padded, so the masked
+              branch; attention over fewer than 1024 keys takes the dense
+              route as in rap_tpu), each generation's points and rotations,
+              every part{i}_transform.txt where both runs kept the same
+              generation (rotation 2e-2 abs, translation 2e-2 of the scene's
+              extent), the registered PLYs read back with the originals'
+              counts, the SpinNet descriptors against the same module on the
+              CPU (1e-4 abs); rows 3 (masked) and 5 at the demo batches'
+              shapes against their twins.
+6. train      one Muon step of the same model (fp32 random masters from a
               seed, the same raised gains, so 6 online and 6 fixed attention
               calls per forward) on 4 x 2 x 4096 points, remat on. Checks: at
               the step's draws, the loss and every gradient leaf through the
@@ -139,7 +165,7 @@ Phases, each printed on its own flushed line with its wall time:
               the attention backward at 128 wide, the FF kernels at D = 1024)
               each train through the kernels (gradients against plain, one
               step's launch counts, finite).
-6. multiview  training on a padded multi-view batch, the shape the packer
+7. multiview  training on a padded multi-view batch, the shape the packer
               makes of 5-8-scan samples under configs/rap_train.yaml's
               80 000-point budget: S=2 x P=8 x N=4096, sample 0 with 8 parts,
               sample 1 with 6 (two empty slots), part sizes uniform in
@@ -157,7 +183,8 @@ Phases, each printed on its own flushed line with its wall time:
               masked forward, row 6 and rows 7-8, with their launch counts);
               five more 12-layer steps, finite and never skipped, with the
               loss at a fixed (t, x_1) falling.
-7. timing     median ms per batch and pairs/s; the sample path's median
+8. timing     median ms per batch and pairs/s, and the pruned sampler's
+              with and without the features; the sample path's median
               generation ms per batch and pairs/s at each softcap over three
               more runs; median ms per train step and
               tokens/s; median ms per multi-view step with valid points/s and
@@ -182,14 +209,20 @@ Phases, each printed on its own flushed line with its wall time:
               yardstick ``matmul_ms``: torch.matmul over the same products
               without their epilogues (two for row 5, five for row 10; one
               for rows 1 and 4, three for row 9), timed here and used
-              nowhere in the port.
+              nowhere in the port. Rows 6s, 7s and 8s at head width 128
+              (BH = 16, T = 2048, c = 5) beside flex_attention's backward.
+              The demo: three more runs of each scene
+              with zero features (registration ms per generation,
+              preprocessing s) and one under torch.profiler; rows 3 and 5 at
+              the demo shapes, their launches those of one generation.
 
 Then it prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. Any failed
 check exits non-zero. The script imports torch, numpy, the standard library
 and rap_tpu_torch only, resolves every path from this file, needs no
 checkpoint and no network, and needs one CUDA card. It writes its random
-checkpoint and the kernel library under rap_tpu_torch/build/.
+checkpoint, the six-view scene and the kernel library under
+rap_tpu_torch/build/.
 """
 
 from __future__ import annotations
@@ -207,7 +240,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "main", "sample", "train", "multiview", "timing")
+PHASES = ("build", "kernels", "main", "sample", "demo", "train", "multiview", "timing")
 
 # main path (bench.py:151-157 of the JAX package: 4 pairs of 2 x 4096 points)
 S, P, N = 4, 2, 4096
@@ -217,6 +250,10 @@ LAYERS, STEPS = 6, 2
 ONLINE_LAYERS = {(0, "self"), (1, "self"), (2, "self"),
                  (0, "global"), (1, "global"), (4, "global")}
 ONLINE_GAIN = 3.0  # gq = gk = 3 -> bound2 = log2(e)*8*9 = 103.9 > 60
+# pruned serving (bench.py's BENCH_PRUNE=1:4 of the JAX package): the first
+# of the STEPS Euler steps on a 1/4 subsample of every part (N/4 = 1024
+# points: the fused branch still takes it), then the exact switch
+PRUNE_COARSE, PRUNE_FACTOR = 1, 4
 
 # H100 SXM published dense peaks (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
@@ -325,6 +362,20 @@ SAMPLE_OPTION_METRICS = (
     "rigidity_rmse (m)", "transform_error_rmse (m)")
 SAMPLE_OPTION_SECTIONS = ("", "best_of_3/", "rigidity_selected/", "overlap_ratio_selected/")
 MV_SOFTCAP = 5.0  # the multi-view softcap training check
+# demo phase: rap_tpu_torch.apps.demo.main at rap_12 (12 layers, D=512, H=8,
+# random weights from the config's seed) and its CLI defaults (10 steps,
+# adaptive parameters), on the bundled pair four ways and on a six-view
+# scene this script writes (~20 000 points a view, each under its own rigid
+# pose: P = 8 part slots, the map-merging use)
+DEMO_PAIR = "demo_data/pair"
+DEMO_RUNS = (("zero", ["--features", "zero"]),
+             ("geometric", ["--features", "geometric"]),
+             ("spinnet", ["--features", "spinnet", "--n-generations", "3", "--icp-refine",
+                          "--icp-restarts", "4", "--output-generated"]),
+             ("no-forcing", ["--no-rigidity-forcing"]))
+DEMO_VIEWS, DEMO_VIEW_POINTS, DEMO_SEED = 6, 20_000, 31
+TOL_DEMO_TRANSLATION = 2e-2    # of the scene's bounding box
+TOL_SPINNET_ABS = 1e-4         # descriptors on the card against the CPU
 SAMPLE_TIMING_RUNS = 3
 
 
@@ -1188,6 +1239,8 @@ def run_kernels_wide_backward(fails, state, gen, compare, compare_lse):
                                 and not bool(got[2][masked_keys].any()))
                 elif c == 0.0 and d in (96, 128):
                     state["wide_bwd"][d] = (q, k, va, out, lse, dout, doa, mask)
+                elif d == 128:
+                    state["wide_bwd_softcap"] = (q, k, va, out, lse, dout, doa, c)
 
 
 def write_random_checkpoint(cfg, seed: int) -> Path:
@@ -1424,6 +1477,194 @@ def run_sample_options(report, fails, ckpt):
         "rotation_err": worst_r, "artifact_files": n_files, "metrics": res["synth"]}
 
 
+def write_six_view_scene(root: Path, seed: int = DEMO_SEED) -> Path:
+    """DEMO_VIEWS overlapping scans of one surface scene (a 30 x 12 m
+    undulating ground with boxes), DEMO_VIEW_POINTS points each with 1 cm
+    noise, each in its own frame (a random rigid pose), as PLYs in
+    ``root``; returns ``root``."""
+    from rap_tpu_torch.utils import ply as plyio
+
+    rng = np.random.default_rng(seed)
+
+    def height(xy):
+        return 0.4 * np.sin(xy[..., 0] / 3.0) * np.cos(xy[..., 1] / 2.0) + 0.05 * xy[..., 0]
+
+    xy = rng.uniform([0, 0], [30, 12], (400_000, 2))
+    parts = [np.column_stack([xy, height(xy)])]
+    for _ in range(12):  # boxes: 4 walls and a lid each
+        c, size = rng.uniform([1, 1], [29, 11]), rng.uniform(0.5, 2.0, 3)
+        u = rng.uniform(-0.5, 0.5, (8000, 3))
+        face = rng.integers(0, 5, len(u))
+        u[face == 0, 2] = 0.5
+        for f, axis, side in ((1, 0, 0.5), (2, 0, -0.5), (3, 1, 0.5), (4, 1, -0.5)):
+            u[face == f, axis] = side
+        parts.append(u * size + [c[0], c[1], size[2] / 2 + height(c)])
+    scene = np.concatenate(parts)
+    root.mkdir(parents=True, exist_ok=True)
+    for v in range(DEMO_VIEWS):
+        center = np.array([3.0 + v * 24.0 / (DEMO_VIEWS - 1), 6.0])
+        near = scene[np.linalg.norm(scene[:, :2] - center, axis=1) < 7.0]
+        pts = near[rng.choice(len(near), DEMO_VIEW_POINTS, replace=False)]
+        pts = pts + rng.normal(0.0, 0.01, pts.shape)
+        q = rng.normal(size=4)
+        w, x, y, z = q / np.linalg.norm(q)
+        R = np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+                      [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+                      [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]])
+        plyio.write_ply(root / f"view_{v}.ply", (pts - rng.uniform(-5, 5, 3)) @ R)
+    return root
+
+
+def demo_argv(inp: Path, out: Path, extra, kernels: bool = True) -> list[str]:
+    return (["-i", str(inp), "-out", str(out), *extra]
+            + ([] if kernels else ["-o", "model.use_kernels=false"]))
+
+
+def demo_expected_launches(rec) -> dict:
+    """Row 3 (masked online attention, each call whose key sequence is
+    >= 1024: part attention at N, global at P·N; shorter ones take the dense
+    route, as in rap_tpu) and row 5, per layer of every forward."""
+    from rap_tpu_torch.ops import KERNELS
+
+    batch, cfg = rec["batch"], rec["config"]
+    G, Nb = batch.points.shape[:2]
+    L = cfg.model.num_layers
+    forwards = len(rec["gen_ms"]) * cfg.pipeline.inference_sampling_steps
+    expected = dict.fromkeys(KERNELS, 0)
+    expected.update(flash_online=L * forwards * ((Nb >= 1024) + (G * Nb >= 1024)),
+                    ff=L * forwards)
+    return expected
+
+
+def check_demo_kernels(fails, state, label: str, batch) -> None:
+    """Rows 3 (masked) and 5 at the demo batch's shapes, with its masks,
+    against their plain versions; kept for the timing phase."""
+    from rap_tpu_torch.ops import flash_attention as fa
+    from rap_tpu_torch.ops import fused_ff as ff
+
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    errs = state.setdefault("max_abs_err", {})
+    G, Nb = batch.points.shape[:2]
+    masks = {"part": batch.point_mask.to(torch.int32),
+             "global": batch.point_mask.reshape(1, G * Nb).to(torch.int32)}
+    for tag, mask in masks.items():
+        if mask.shape[1] < 1024:
+            continue  # the dense route, no kernel
+        qh, kh, vah = multiview_attention_inputs(gen, mask.shape[0] * H, mask.shape[1])
+        got = fa.flash_online(qh, kh, vah, mask, heads=H)[0]
+        err = fails.compare(f"flash_online[demo {label} {tag}, masked]", got,
+                            fa.flash_online_plain(qh, kh, vah, mask, H)[0])
+        errs["flash_online_masked"] = max(errs.get("flash_online_masked", 0.0), err)
+        state.setdefault("demo_attn", {})[f"{label} {tag}"] = (qh, kh, vah, mask)
+    fwd, _ = ff_inputs(gen, G * Nb, D, FH)
+    err = fails.compare(f"ff[demo {label}: T={G * Nb}]", ff.ff_kernel(*fwd), ff.ff_plain(*fwd))
+    errs["ff"] = max(errs.get("ff", 0.0), err)
+    state.setdefault("demo_ff", {})[label] = fwd
+
+
+def run_demo(report, fails, state):
+    """rap_tpu_torch.apps.demo.main on the card at rap_12 with random
+    weights: the bundled pair four ways (DEMO_RUNS) and the six-view scene,
+    each through the kernels and through the plain versions (the same
+    noise, the same preprocessing)."""
+    import tempfile
+
+    from rap_tpu_torch.apps import demo
+    from rap_tpu_torch.ops import launch_counts, reset_launches
+    from rap_tpu_torch.spinnet import build_feature_extractor
+    from rap_tpu_torch.utils import ply as plyio
+
+    report["demo"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        scenes = [("pair", ROOT / DEMO_PAIR, DEMO_RUNS),
+                  ("six-view", write_six_view_scene(ROOT / "rap_tpu_torch" / "build" / "six_view"),
+                   (("zero", []),))]
+        for scene, inp, runs in scenes:
+            files = sorted(inp.glob("*.ply"))
+            originals = [plyio.read_ply_points(f) for f in files]
+            allpts = np.concatenate(originals)
+            bbox = float((allpts.max(0) - allpts.min(0)).max())
+            for name, extra in runs:
+                label = f"{scene} {name}"
+                log(f"  -- apps.demo.main, {label}: kernels, then plain versions")
+                rec, rec_p = {}, {}
+                reset_launches()
+                rc = demo.main(demo_argv(inp, tmp / label, extra), record=rec)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+                reset_launches()
+                rc_p = demo.main(demo_argv(inp, tmp / f"{label} plain", extra, kernels=False),
+                                 record=rec_p)
+                torch.cuda.synchronize()
+                fails.check(f"demo {label}: both runs exit 0", rc == rc_p == 0)
+                fails.check(f"demo {label}: plain path launched no kernel",
+                            sum(launch_counts().values()) == 0)
+                batch = rec["batch"]
+                G, Nb = batch.points.shape[:2]
+                fails.check(f"demo {label}: a padded batch (the masked branch)",
+                            not batch.no_padding)
+                expected = demo_expected_launches(rec)
+                log(f"  launches: {counts}")
+                fails.check(f"demo {label} launch counts", counts == expected,
+                            f"expected {expected}")
+                for g, (a, b) in enumerate(zip(rec["generations"], rec_p["generations"],
+                                               strict=True)):
+                    fails.compare(f"demo {label} generation {g} points vs plain", a[0], b[0],
+                                  tol_rel=TOL_POINTS)
+                    err_r = float((a[1] - b[1]).abs().max())
+                    fails.check(f"demo {label} generation {g} rotations vs plain",
+                                err_r <= TOL_ROTATION_ABS,
+                                f"max_abs_err={err_r:.4e} (tol {TOL_ROTATION_ABS})")
+                if rec["pick"] == rec_p["pick"]:
+                    for p, (T, T_p) in enumerate(zip(rec["transforms"], rec_p["transforms"])):
+                        err_r = float(np.abs(T[:3, :3] - T_p[:3, :3]).max())
+                        err_t = float(np.abs(T[:3, 3] - T_p[:3, 3]).max())
+                        fails.check(f"demo {label} part{p}_transform vs plain",
+                                    err_r <= TOL_ROTATION_ABS
+                                    and err_t <= TOL_DEMO_TRANSLATION * bbox,
+                                    f"rotation {err_r:.4e} (tol {TOL_ROTATION_ABS}), "
+                                    f"translation {err_t:.4e} m (tol "
+                                    f"{TOL_DEMO_TRANSLATION * bbox:.4e})")
+                else:  # rigid to ~1e-7, the pick between generations is float noise
+                    log(f"  kept generation {rec['pick']} (plain: {rec_p['pick']}); "
+                        "the generations are compared one by one above")
+                written = [len(plyio.read_ply_points(tmp / label / "registered" / f.name))
+                           for f in files]
+                fails.check(f"demo {label}: registered PLYs read back",
+                            written == [len(o) for o in originals], f"{written}")
+                if name == "spinnet":
+                    norms = np.concatenate([np.linalg.norm(f, axis=1) for f in rec["features"]])
+                    fails.check(f"demo {label}: SpinNet descriptors are unit vectors",
+                                bool(np.abs(norms - 1.0).max() <= 1e-4),
+                                f"norms in [{norms.min():.6f}, {norms.max():.6f}]")
+                    cpu = build_feature_extractor("", device="cpu")
+                    err = max(float(np.abs(f - cpu(c, k, rec["des_r"])).max())
+                              for c, k, f in zip(rec["clouds"], rec["keypoints"],
+                                                 rec["features"]))
+                    fails.check(f"demo {label}: SpinNet descriptors on the card vs the CPU",
+                                err <= TOL_SPINNET_ABS,
+                                f"max_abs_err={err:.4e} (tol {TOL_SPINNET_ABS})")
+                if name == "zero":
+                    check_demo_kernels(fails, state, scene, batch)
+                    state.setdefault("demo_counts", {})[scene] = {
+                        k: v // len(rec["gen_ms"]) for k, v in counts.items()}
+                    state.setdefault("demo_inputs", {})[scene] = inp
+                log(f"  {label}: keypoints per part {[len(k) for k in rec['keypoints']]}; "
+                    f"batch (S, P, N) = (1, {G}, {Nb}); preprocessing "
+                    f"{rec['preprocess_s']:.3f} s; features "
+                    f"{', '.join(f'{x:.2f}' for x in rec['feature_ms']) or 'none'} ms per part; "
+                    f"registration {', '.join(f'{x:.2f}' for x in rec['gen_ms'])} ms per "
+                    f"generation (plain {', '.join(f'{x:.2f}' for x in rec_p['gen_ms'])}); "
+                    f"ICP {rec['icp_ms']:.2f} ms")
+                report["demo"][label] = {
+                    "launches": counts, "keypoints": [len(k) for k in rec["keypoints"]],
+                    "batch": [1, G, Nb], "preprocess_s": rec["preprocess_s"],
+                    "feature_ms": rec["feature_ms"], "gen_ms": rec["gen_ms"],
+                    "plain_gen_ms": rec_p["gen_ms"], "icp_ms": rec["icp_ms"],
+                    "pick": [rec["pick"], rec_p["pick"]]}
+
+
 def build_main_params(cfg):
     from rap_tpu_torch.models.dit import attach_bounds, init_dit_params
 
@@ -1509,7 +1750,77 @@ def run_main(report, fails, state):
     report["launches"] = counts
     state.update(params=params, batch=batch, x_1=x_1, rcfg=rcfg, serve=serve,
                  plain_cfg=plain)
+    run_main_pruned(report, fails, state, n_online)
     run_main_wide_heads(report, fails, state)
+
+
+def run_main_pruned(report, fails, state, n_online: int):
+    """Serving with the pruned sampler (PRUNE_COARSE coarse steps on a
+    1/PRUNE_FACTOR subsample, one index set drawn from a seed) and the
+    transformer features, through the kernels and through the plain
+    versions on the same noise and index set: the launch counts of one
+    batch, points, rotations and features."""
+    from rap_tpu_torch.models.dit import dit_forward
+    from rap_tpu_torch.ops import launch_counts, reset_launches
+    from rap_tpu_torch.registration import predict_poses, prune_size, sample
+
+    params, batch, x_1 = state["params"], state["batch"], state["x_1"]
+    n_sub = prune_size(N, PRUNE_FACTOR)
+    idx = torch.randperm(N, generator=torch.Generator(device="cuda").manual_seed(3),
+                         device="cuda")[:n_sub].sort().values
+    rcfg = dataclasses.replace(state["rcfg"], prune_coarse_steps=PRUNE_COARSE,
+                               prune_factor=PRUNE_FACTOR)
+    plain = dataclasses.replace(rcfg, model=state["plain_cfg"].model)
+
+    def serve(c, features=True):
+        out = sample(params, c, batch, x_1=x_1, return_trajectory=False,
+                     return_transformer_features=features, prune_index=idx)
+        R, t = predict_poses(batch, out["points"])
+        return out["points"], R, t, out.get("transformer_features")
+
+    reset_launches()
+    pts, R, _, feats = serve(rcfg)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    # STEPS forwards of the ODE (the coarse ones on n_sub tokens a part) and
+    # one for the features, each through the fused branch
+    forwards = STEPS + 1
+    expected = dict.fromkeys(counts, 0)
+    expected.update(proj=2 * LAYERS * forwards, out_proj=2 * LAYERS * forwards,
+                    ff=LAYERS * forwards, flash_fixed=(2 * LAYERS - n_online) * forwards,
+                    flash_online=n_online * forwards)
+    log(f"  pruned serving ({PRUNE_COARSE} of {STEPS} steps on {n_sub} of {N} points a "
+        f"part, transformer features): launches {counts}")
+    fails.check("pruned serving launch counts", counts == expected, f"expected {expected}")
+    reset_launches()
+    pts_p, R_p, _, feats_p = serve(plain)
+    torch.cuda.synchronize()
+    fails.check("pruned serving: plain path launched no kernel",
+                sum(launch_counts().values()) == 0)
+    fails.check("pruned serving: finite output and features",
+                bool(torch.isfinite(pts).all() & torch.isfinite(feats).all()))
+    fails.check("pruned serving: feature shape", tuple(feats.shape) == (S * P, N, D))
+    fails.compare("pruned serving points vs plain", pts, pts_p, tol_rel=TOL_POINTS)
+    err_r = float((R - R_p).abs().max())
+    fails.check("pruned serving rotations vs plain", err_r <= TOL_ROTATION_ABS,
+                f"max_abs_err={err_r:.4e} (tol {TOL_ROTATION_ABS})")
+    # the features are one more forward at the final state, t = 1/STEPS;
+    # the two runs' final states differ by bf16 noise (the points above),
+    # which this random DiT moves its last residual stream by far more than
+    # its velocity, so kernels and plain versions are compared at one state
+    ts = torch.full((S,), 1.0 / STEPS, device="cuda")
+    with torch.no_grad():
+        own = dit_forward(params, rcfg.model, pts, ts, batch, P, return_features=True)[1]
+        f_k = dit_forward(params, rcfg.model, pts_p, ts, batch, P, return_features=True)[1]
+        f_p = dit_forward(params, plain.model, pts_p, ts, batch, P, return_features=True)[1]
+    fails.check("pruned serving: the features are the forward's at the final state",
+                torch.equal(feats, own))
+    fails.compare("pruned serving transformer features vs plain, at one state", f_k, f_p,
+                  tol_rel=TOL_VELOCITY)
+    log(f"  (features of the two runs' own final states: max_abs_err "
+        f"{float((feats - feats_p).abs().max()):.4e} of max {float(feats_p.abs().max()):.3e})")
+    report["launches_pruned"] = state["pruned_counts"] = counts
+    state.update(serve_pruned=serve, rcfg_pruned=rcfg)
 
 
 def wide_model(width: int, layers: int, masters: bool = False):
@@ -1936,6 +2247,8 @@ def kernel_rows(state, counts):
     rows = []
 
     mv_counts = state.get("mv_counts", {})
+    pruned_counts = state.get("pruned_counts", {})
+    demo_counts = state.get("demo_counts", {})
 
     def row(name, source, replaces, fn_k, fn_p, fn_lib, flops, nbytes, shape, reps=10,
             lib_ms=None, launches=None, err_key=None, mufu=0.0, **extra):
@@ -1954,6 +2267,8 @@ def kernel_rows(state, counts):
         r = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches, "train_launches": train_counts.get(name, 0),
              "multiview_launches": mv_counts.get(name, 0),
+             "pruned_launches": pruned_counts.get(name, 0),
+             "demo_launches_per_generation": {k: c.get(name, 0) for k, c in demo_counts.items()},
              "max_abs_err": state["max_abs_err"][err_key or name],
              "ms": ms, "plain_ms": plain_ms,
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "shape": shape,
@@ -2099,6 +2414,8 @@ def kernel_rows(state, counts):
                         matmul_ms=cuda_time_ms(ff_matmuls(fwd, bwd)[1], 10)))
     if "mv_attn" in state:
         rows += multiview_kernel_rows(state, row)
+    if "demo_attn" in state:
+        rows += demo_kernel_rows(state, row)
     if "wide_bwd" in state:
         rows += wide_backward_kernel_rows(state, row)
     if "softcap" in state:
@@ -2165,10 +2482,12 @@ def ff_matmuls(fwd, bwd=None):
     return row5, row10
 
 
-def flex_softcap_ms(qh, kh, vah, c: float, mask=None, heads: int = 1, dout=None, out=None):
+def flex_softcap_ms(qh, kh, vah, c: float, mask=None, heads: int = 1, dout=None, out=None,
+                    d: int = DH):
     """torch.compile(flex_attention) on the same head-major q, k, v (and dO):
     the logit c·tanh(q·k) (q is pre-scaled, so scale 1) as its score_mod,
-    the key mask as a block mask (built once, outside the timing). Returns
+    the key mask as a block mask (built once, outside the timing), at head
+    width ``d`` (the unpadded columns of q, k and va). Returns
     (forward ms, backward ms as forward+backward minus forward or None
     without ``dout``, max |flex out - out| over the rows with a valid key);
     (None, None, None) if the library refuses the call. Timed here only: the
@@ -2183,8 +2502,8 @@ def flex_softcap_ms(qh, kh, vah, c: float, mask=None, heads: int = 1, dout=None,
     flex = torch.compile(flex_attention, fullgraph=True, dynamic=False)
     BH, T, _ = qh.shape
     B = BH // heads
-    q_, k_, v_ = (a.reshape(B, heads, T, DH).detach().clone().requires_grad_(dout is not None)
-                  for a in (qh, kh, vah[..., :DH].contiguous()))
+    q_, k_, v_ = (a[..., :d].reshape(B, heads, T, d).detach().clone()
+                  .requires_grad_(dout is not None) for a in (qh, kh, vah))
 
     def score_mod(score, b, h, q_idx, kv_idx):
         return c * torch.tanh(score)
@@ -2204,15 +2523,15 @@ def flex_softcap_ms(qh, kh, vah, c: float, mask=None, heads: int = 1, dout=None,
             return flex(q_, k_, v_, score_mod=score_mod, block_mask=block_mask, scale=1.0)
 
     try:
-        got = fwd().reshape(BH, T, DH)
+        got = fwd().reshape(BH, T, d)
         err = None
         if out is not None:
-            d = (got.float() - out.float()).abs().reshape(B, heads, T, DH)
-            err = float((d if rows_ok is None else d[rows_ok]).max())
+            diff = (got.float() - out.float()).abs().reshape(B, heads, T, d)
+            err = float((diff if rows_ok is None else diff[rows_ok]).max())
         f_ms = cuda_time_ms(fwd, 5)
         if dout is None:
             return f_ms, None, err
-        do = dout.reshape(B, heads, T, DH)
+        do = dout.reshape(B, heads, T, d)
 
         def fwd_bwd():
             o = flex(q_, k_, v_, score_mod=score_mod, block_mask=block_mask, scale=1.0)
@@ -2437,6 +2756,38 @@ def multiview_kernel_rows(state, row):
     return rows
 
 
+def demo_kernel_rows(state, row):
+    """Rows 3 (masked) and 5 at the demo scenes' shapes; their launches are
+    those of one demo generation (10 steps, rap_12's 12 layers)."""
+    from rap_tpu_torch.ops import flash_attention as fa
+    from rap_tpu_torch.ops import fused_ff as ff
+
+    rows = []
+    for label, (qh, kh, vah, mask) in state["demo_attn"].items():
+        BH, T, _ = qh.shape
+        valid = float(mask.sum()) * H
+        launched = state["demo_counts"][label.split()[0]]
+        rows.append(row(
+            "flash_online", "rap_tpu_torch/csrc/attention.cu",
+            "rap_tpu/ops/pallas_attention.py:91",
+            lambda qh=qh, kh=kh, vah=vah, mask=mask: fa.flash_online_kernel(qh, kh, vah, mask, H),
+            lambda qh=qh, kh=kh, vah=vah, mask=mask: fa.flash_online_plain(qh, kh, vah, mask, H),
+            None, 4 * T * DH * valid,
+            BH * T * (DH * 2 + (DH + 1) * 2 + DH * 2 + DH * 2 + 4) + mask.numel() * 4,
+            f"demo {label}: BH={BH}, T={T}, d={DH} bf16, key mask",
+            lib_ms=sdpa_masked_ms(qh, kh, vah, torch.zeros_like(qh), mask, H)[0],
+            launches=launched.get("flash_online", 0), err_key="flash_online_masked",
+            variant="masked", mufu=T * valid))
+    for label, fwd in state["demo_ff"].items():
+        Tn = fwd[0].shape[0]
+        rows.append(row("ff", "rap_tpu_torch/csrc/ff.cu", "rap_tpu/ops/fused_ff.py:55",
+                        lambda fwd=fwd: ff.ff_kernel(*fwd), lambda fwd=fwd: ff.ff_plain(*fwd),
+                        None, *ff_work(Tn), f"demo {label}: tokens {Tn}, D={D}, hidden {FH} bf16",
+                        launches=state["demo_counts"][label].get("ff", 0),
+                        matmul_ms=cuda_time_ms(ff_matmuls(fwd)[0], 10)))
+    return rows
+
+
 def wide_backward_kernel_rows(state, row):
     """Rows 3 (masked), 6, 7 and 8 at head widths 96 and 128 (their
     128-wide instantiations) at the global shape of a D = 768 or 1024, H = 8
@@ -2508,7 +2859,47 @@ def wide_backward_kernel_rows(state, row):
             6 * BH * T * T * d, reads + BH * T * d * 2, shape,
             launches=launched.get("flash_bwd_dq", 0), err_key="flash_bwd_dq/wide",
             mufu=BH * T * T, library_backward_ms=lib, **common))
+    if "wide_bwd_softcap" in state:
+        rows += wide_softcap_backward_rows(state, row)
     return rows
+
+
+def wide_softcap_backward_rows(state, row):
+    """Rows 6s, 7s and 8s at head width 128 (the 128-wide key block and dQ
+    pass with their softcap flag), unmasked, at the kernels phase's (BH, T)
+    = (16, 2048), beside torch.compile(flex_attention)'s backward
+    (forward+backward minus forward) with the same cap. No model path runs
+    them (no shipped config sets a softcap), so no launches."""
+    from rap_tpu_torch.ops import flash_attention as fa
+
+    qh, kh, vah, out, lse, dout, doa, c = state["wide_bwd_softcap"]
+    BH, T, _ = qh.shape
+    d = 128
+    _, lib_b, _ = flex_softcap_ms(qh, kh, vah, c, None, H, dout, out, d=d)
+    shape = f"BH={BH}, T={T}, d={d} bf16, softcap {c:g}"
+    reads = BH * T * (4 * d * 2 + 3 * 4)
+    common = dict(head_width=d, reps=5, softcap=c, launches=0, mufu=2 * BH * T * T,
+                  tanh_ops=BH * T * T, library="flex_attention", path="kernels phase check")
+    args = (qh, kh, vah, doa, lse, None, H)
+    return [
+        row("flash_bwd_softcap", "rap_tpu_torch/csrc/attention_bwd_dkv128.cuh",
+            "rap_tpu/ops/pallas_attention.py:506",
+            lambda: fa.flash_bwd_kernel(qh, kh, vah, out, lse, dout, None, H, c),
+            lambda: fa.flash_bwd_plain(qh, kh, vah, out, lse, dout, None, H, c), None,
+            10 * BH * T * T * d, reads + 3 * BH * T * d * 2, shape, lib_ms=lib_b,
+            err_key="flash_bwd_softcap/wide", **common),
+        row("flash_bwd_dkv_softcap", "rap_tpu_torch/csrc/attention_bwd_dkv128.cuh",
+            "rap_tpu/ops/pallas_attention.py:426",
+            lambda: fa.flash_bwd_dkv_kernel(*args, c), lambda: fa.flash_bwd_dkv_plain(*args, c),
+            None, 8 * BH * T * T * d, reads + 2 * BH * T * d * 2, shape,
+            err_key="flash_bwd_dkv_softcap/wide", library_backward_ms=lib_b,
+            pair_ms=split_pair_ms(args, c), **common),
+        row("flash_bwd_dq_softcap", "rap_tpu_torch/csrc/attention_bwd_dq128.cuh",
+            "rap_tpu/ops/pallas_attention.py:471",
+            lambda: fa.flash_bwd_dq_kernel(*args, c), lambda: fa.flash_bwd_dq_plain(*args, c),
+            None, 6 * BH * T * T * d, reads + BH * T * d * 2, shape,
+            err_key="flash_bwd_dq_softcap/wide", library_backward_ms=lib_b, **common),
+    ]
 
 
 def run_timing(report, fails, state):
@@ -2534,6 +2925,7 @@ def run_timing(report, fails, state):
     report["batch_ms"] = per_batch * 1e3
     report["pairs_per_s"] = S / per_batch
     report["plain_batch_ms"] = plain_batch * 1e3
+    time_pruned(report, state, per_batch)
 
     step, s, batch = state["train_step"], state["train_state"], state["train_batch"]
     s, _ = step(s, batch)  # warm-up
@@ -2583,11 +2975,66 @@ def run_timing(report, fails, state):
     report["multiview_valid_points_per_s"] = n_valid / per_step
     report["multiview_slots_per_s"] = slots / per_step
     time_sample(report, state)
+    time_demo(report, state)
     profile_paths(report, state)
     counts = report.get("launches", {})
     reset_launches()
     report["kernels"] = kernel_rows(state, counts)
     reset_launches()  # timing launches are not main-path launches
+
+
+def time_pruned(report, state, per_batch: float) -> None:
+    """Pruned serving (the main phase's call) as a median over 5, without
+    and with the transformer features, beside unpruned serving."""
+    serve, rcfg = state["serve_pruned"], state["rcfg_pruned"]
+    out = {}
+    for features in (False, True):
+        serve(rcfg, features)  # warm-up
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            serve(rcfg, features)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["features" if features else "plain"] = times
+    med = float(np.median(out["plain"]))
+    log(f"  pruned serving ({PRUNE_COARSE} of {STEPS} steps on 1/{PRUNE_FACTOR} of the "
+        f"points): median {med:.2f} ms over 5 (all: "
+        f"{', '.join(f'{x:.2f}' for x in out['plain'])}) -> {S / med * 1e3:.3f} pairs/s; "
+        f"with transformer features {float(np.median(out['features'])):.2f} ms; unpruned "
+        f"{per_batch * 1e3:.2f} ms")
+    report["pruned_batch_ms"] = med
+    report["pruned_batch_ms_all"] = out["plain"]
+    report["pruned_features_batch_ms_all"] = out["features"]
+
+
+def time_demo(report, state) -> None:
+    """apps.demo.main on each demo scene with zero features, three more runs
+    (registration ms per generation, preprocessing s; the runs of the demo
+    phase were the first at their shapes), then one under the profiler."""
+    import tempfile
+
+    from rap_tpu_torch.apps import demo
+
+    report["demo_timing"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for scene, inp in state.get("demo_inputs", {}).items():
+            gen_ms, pre_s = [], []
+            for i in range(3):
+                rec = {}
+                demo.main(demo_argv(inp, Path(tmp) / f"{scene}{i}", []), record=rec)
+                gen_ms += rec["gen_ms"]
+                pre_s.append(rec["preprocess_s"])
+            log(f"  demo {scene} (zero features, {len(rec['keypoints'])} parts, "
+                f"(S, P, N) = (1, {', '.join(map(str, rec['batch'].points.shape[:2]))})): "
+                f"registration median {float(np.median(gen_ms)):.2f} ms per generation (all: "
+                f"{', '.join(f'{x:.2f}' for x in gen_ms)}); preprocessing "
+                f"{', '.join(f'{x:.3f}' for x in pre_s)} s")
+            prof = device_profile(f"one apps.demo.main run, {scene}, zero features",
+                                  lambda: demo.main(demo_argv(inp, Path(tmp) / "prof", [])))
+            report["demo_timing"][scene] = {"gen_ms": gen_ms, "preprocess_s": pre_s,
+                                            "profile": prof}
 
 
 def time_sample(report, state) -> None:
@@ -2685,7 +3132,7 @@ def main(argv=None) -> int:
         ap.error(f"unknown phases {sorted(phases - set(PHASES))}")
     phases.add("build")  # every other phase runs the kernels
     if "timing" in phases:  # times the inputs and the paths of the phases before
-        phases |= {"kernels", "main", "sample", "train", "multiview"}
+        phases |= {"kernels", "main", "sample", "demo", "train", "multiview"}
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke test runs on the card",
@@ -2707,6 +3154,7 @@ def main(argv=None) -> int:
              "kernels": lambda: run_kernels(report, fails, state),
              "main": lambda: run_main(report, fails, state),
              "sample": lambda: run_sample(report, fails, state),
+             "demo": lambda: run_demo(report, fails, state),
              "train": lambda: run_train(report, fails, state),
              "multiview": lambda: run_multiview(report, fails, state),
              "timing": lambda: run_timing(report, fails, state)}

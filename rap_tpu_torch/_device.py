@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -15,3 +17,17 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
             "pass device='cpu' to run the plain versions on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def fp32_exact():
+    """Full-fp32 matrix products and convolutions on the card inside the
+    block (cuDNN convolutions default to TF32), the precision rap_tpu states
+    for these computations (``Precision.HIGHEST``). The previous settings
+    come back on exit."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved

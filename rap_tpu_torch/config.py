@@ -11,8 +11,8 @@ by name (``float32``, ``bfloat16``, ``float16``). The ``visualizer`` keys
 are parsed and kept; ``visualize: true`` raises in ``apps.sample`` (the
 visualizer waits for ROADMAP A9). rap_tpu's fields that no shipped config
 sets and nothing of the port reads (training-loop options, the loader's
-per-epoch cap, the pruned sampler's factor, artifact options) are left out:
-a key naming one raises ``KeyError``.
+per-epoch cap, artifact options) are left out: a key naming one raises
+``KeyError``.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """ODE samplers for rectified point flow (counterpart of
-rap_tpu/core/sampler.py:34-147).
+rap_tpu/core/sampler.py:34-159).
 
 t runs 1 -> 0 over a timestep grid; each step evaluates the velocity field,
 forms the end-point estimate x0_hat = x_t - v*t and steps x_t. With rigidity
@@ -55,16 +55,22 @@ def flow_sampler(
     method: str = "euler",
     schedule: str = "uniform",
     x_start: torch.Tensor | None = None,
+    ts=None,
 ) -> SampleResult:
     """Integrate the learned flow from noise ``x_1`` (t=1) to the scene (t=0).
 
     velocity_fn: (x_t (G,N,3), t float) -> v (G,N,3). method: 'euler' |
-    'rk2' | 'rk4'. x_start: optional start state at t=1 (default x_1); under
-    rigidity forcing x_1 stays the noise the re-interpolation blends with.
+    'rk2' | 'rk4'. ts: optional explicit timestep grid (fp32 values from
+    ts[0] down to ts[-1]) that overrides num_steps and schedule, so that one
+    ODE can be split into segments on the same query points. x_start:
+    optional start state at t = ts[0] (default x_1); under rigidity forcing
+    x_1 stays the noise the re-interpolation blends with.
     """
     if method not in ("euler", "rk2", "rk4"):
         raise ValueError(f"Unknown sampler: {method}. Available: ['euler', 'rk2', 'rk4']")
-    ts = [float(t) for t in make_schedule(num_steps, schedule)]
+    if ts is None:
+        ts = make_schedule(num_steps, schedule)
+    ts = [float(t) for t in np.asarray(ts, np.float32)]
     x_t = x_1 if x_start is None else x_start
     ends, xs = [], []
     for t, t_next in zip(ts[:-1], ts[1:]):
@@ -93,3 +99,11 @@ def flow_sampler(
     if return_trajectory:
         return SampleResult(x_t, torch.stack(ends), torch.stack(xs))
     return SampleResult(x_t, None, None)
+
+
+def compute_linearity(trajectory: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Ratio of straight-line to path length per point (sampler.py:150):
+    trajectory (steps, G, N, 3) -> (G, N); masked points get 0."""
+    straight = torch.linalg.vector_norm(trajectory[0] - trajectory[-1], dim=-1)
+    path = torch.linalg.vector_norm(torch.diff(trajectory, dim=0), dim=-1).sum(0)
+    return torch.where(mask, straight / path.clamp_min(1e-12), 0.0)

@@ -1,29 +1,30 @@
 """Rectified Point Flow training forward, sampling and pose fitting
-(counterpart of rap_tpu/registration.py:34-287).
+(counterpart of rap_tpu/registration.py:34-381).
 
 Ported: ``RPFConfig``, ``training_forward`` (velocity loss, norms and the
 t-binned losses), ``velocity_fn``, ``sample`` (euler/rk2/rk4, any schedule,
-rigidity forcing, trajectories) and ``predict_poses``. The caller may pass
-the noise ``x_1`` (and, to training, the timesteps ``t``), so the same draws
-can drive both packages.
+rigidity forcing, trajectories, the pruned coarse-then-fine sampler and the
+transformer features), ``predict_poses`` and ``refine_poses_icp``. The
+caller may pass the noise ``x_1`` (and, to training, the timesteps ``t``;
+to the pruned sampler, its index set), so the same draws can drive both
+packages.
 Dense and padded batches both run (the DiT takes its masked branch for the
 latter). Not ported yet: the pose loss (``pose_loss_weight > 0`` raises: it
-needs the gradient of the batched 3x3 SVD), FF dropout in training, the
-pruned coarse-then-fine sampler (registration.py:193-245: ``sample`` raises
-only where rap_tpu would prune, and otherwise runs the plain sampler as
-rap_tpu does), transformer features and ring attention.
+needs the gradient of the batched 3x3 SVD), FF dropout in training and ring
+attention (ROADMAP A8).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
 
 from .core import flow, procrustes
 from .core.batch import PartBatch
-from .core.sampler import flow_sampler
+from .core.sampler import flow_sampler, make_schedule
 from .models.config import DiTConfig
 from .models.dit import attention_bounds, dit_forward
 
@@ -42,7 +43,11 @@ class RPFConfig:
     n_generations: int = 1  # generations per batch in apps.sample
     rigidity_forcing: bool = True
     return_end_point_trajectory: bool = True
-    prune_coarse_steps: int = 0  # the pruned sampler is not ported: raises where it would run
+    # the first ``prune_coarse_steps`` ODE steps run on a 1/prune_factor
+    # subsample of every part, and the full-resolution state is rebuilt
+    # exactly at the switch (registration.py:55-70); needs rigidity forcing
+    prune_coarse_steps: int = 0
+    prune_factor: int = 4
 
 
 def parts_per_sample(batch: PartBatch) -> int:
@@ -128,42 +133,99 @@ def sample(
     generator: torch.Generator | None = None,
     x_1: torch.Tensor | None = None,
     return_trajectory: bool = True,
+    return_transformer_features: bool = False,
     num_steps: int | None = None,
     schedule: str | None = None,
+    prune_index: torch.Tensor | None = None,
 ) -> dict[str, Any]:
     """Generate a registered scene by integrating the learned flow.
 
     ``x_1`` (G, N, 3) fp32 is the noise; without it, noise is drawn with
     ``generator`` on the batch's device. Returns a dict with 'points' and,
-    with trajectories, 'end_point_trajectory' and 'trajectory'.
+    with trajectories, 'end_point_trajectory' and 'trajectory'; with
+    ``return_transformer_features``, 'transformer_features' (G, N, D) fp32
+    from one more forward at the final state and t = 1/steps.
+
+    Where rap_tpu prunes (``prune_coarse_steps`` > 0 with rigidity forcing,
+    no trajectory, more than one step), the first steps run on a sorted
+    subsample of ``n_sub`` points per part, the same set for every part:
+    ``prune_index`` (n_sub,) long, or drawn after the noise from
+    ``generator`` (rap_tpu draws it from its key, which the port cannot
+    reproduce). ``n_sub`` is N / prune_factor rounded up, then down to a
+    multiple of 128, at least 128 and at most N.
     """
     if x_1 is None:
         x_1 = torch.randn(batch.points.shape, generator=generator,
                           dtype=torch.float32, device=batch.device)
     steps = num_steps or cfg.inference_sampling_steps
     return_trajectory = return_trajectory and cfg.return_end_point_trajectory
-    if (min(cfg.prune_coarse_steps, steps - 1) > 0 and cfg.rigidity_forcing
-            and not return_trajectory):
-        raise NotImplementedError(
-            "the pruned coarse-then-fine sampler (rap_tpu/registration.py:"
-            "193-245) is not ported yet; set prune_coarse_steps=0"
+    schedule = schedule or cfg.inference_schedule
+    vfn = velocity_fn(params, cfg, batch)
+    coarse = min(cfg.prune_coarse_steps, steps - 1)
+    if coarse > 0 and cfg.rigidity_forcing and not return_trajectory:
+        res = _sample_pruned(params, cfg, batch, vfn, x_1, make_schedule(steps, schedule),
+                             coarse, generator, prune_index)
+    else:
+        res = flow_sampler(
+            vfn,
+            x_1=x_1,
+            condition=batch.points,
+            point_mask=batch.point_mask,
+            num_steps=steps,
+            rigidity_forcing=cfg.rigidity_forcing,
+            return_trajectory=return_trajectory,
+            method=cfg.inference_sampler,
+            schedule=schedule,
         )
-    res = flow_sampler(
-        velocity_fn(params, cfg, batch),
-        x_1=x_1,
-        condition=batch.points,
-        point_mask=batch.point_mask,
-        num_steps=steps,
-        rigidity_forcing=cfg.rigidity_forcing,
-        return_trajectory=return_trajectory,
-        method=cfg.inference_sampler,
-        schedule=schedule or cfg.inference_schedule,
-    )
     out: dict[str, Any] = {"points": res.x_final}
     if return_trajectory:
         out["end_point_trajectory"] = res.end_point_trajectory
         out["trajectory"] = res.trajectory
+    if return_transformer_features:
+        ts = torch.full((batch.S,), 1.0 / steps, dtype=torch.float32, device=batch.device)
+        _, out["transformer_features"] = dit_forward(
+            params, cfg.model, res.x_final, ts, batch,
+            parts_per_sample=parts_per_sample(batch), return_features=True)
     return out
+
+
+def prune_size(N: int, prune_factor: int) -> int:
+    """Points per part in the pruned sampler's coarse segment (registration.py:201)."""
+    return min(max(-(-N // prune_factor) // 128 * 128, 128), N)
+
+
+def _sample_pruned(params, cfg: RPFConfig, batch: PartBatch, vfn, x_1, ts, coarse: int,
+                   generator, prune_index):
+    """The coarse segment on the subsample, the exact switch to full
+    resolution, the fine segment (registration.py:193-245)."""
+    N = batch.N
+    n_sub = prune_size(N, cfg.prune_factor)
+    if prune_index is None:
+        prune_index = torch.randperm(N, generator=generator, device=batch.device)[:n_sub]
+        prune_index = prune_index.sort().values
+    idx = prune_index.to(device=batch.device, dtype=torch.long)
+    if tuple(idx.shape) != (n_sub,):
+        raise ValueError(f"prune_index has shape {tuple(idx.shape)}, expected ({n_sub},)")
+    sub = dataclasses.replace(
+        batch, points=batch.points[:, idx], points_gt=batch.points_gt[:, idx],
+        local_feats=batch.local_feats[:, idx], point_mask=batch.point_mask[:, idx])
+    x_1_sub = x_1[:, idx]
+    res1 = flow_sampler(velocity_fn(params, cfg, sub), x_1=x_1_sub, condition=sub.points,
+                        point_mask=sub.point_mask, rigidity_forcing=True,
+                        return_trajectory=False, method=cfg.inference_sampler,
+                        ts=ts[:coarse + 1])
+    # invert the forcing blend to the rigid endpoint, fit its per-part pose
+    # (exact: the cloud is rigid by construction) and re-apply it at full
+    # resolution
+    t_s = float(ts[coarse])
+    x0_rigid_sub = (res1.x_final - t_s * x_1_sub) / (1.0 - t_s)
+    R, tr = procrustes.fit_transformations(sub.points, x0_rigid_sub, sub.point_mask)
+    x0_full = procrustes.transform_points(R, tr, batch.points)
+    x_switch = (1.0 - t_s) * x0_full + t_s * x_1
+    return flow_sampler(vfn, x_1=x_1, x_start=x_switch, condition=batch.points,
+                        point_mask=batch.point_mask, rigidity_forcing=True,
+                        return_trajectory=False, method=cfg.inference_sampler,
+                        ts=ts[coarse:])
 
 
 def predict_poses(batch: PartBatch, predicted_points: torch.Tensor):
@@ -171,3 +233,69 @@ def predict_poses(batch: PartBatch, predicted_points: torch.Tensor):
     return procrustes.fit_transformations(
         batch.points, predicted_points, batch.point_mask
     )
+
+
+@torch.no_grad()
+def refine_poses_icp(
+    batch: PartBatch,
+    rotations: torch.Tensor,     # (G, 3, 3)
+    translations: torch.Tensor,  # (G, 3)
+    iters: int = 30,
+    trim_fraction: float = 0.7,
+    yaw_restarts: int = 1,
+):
+    """Trimmed-ICP pose refinement (registration.py:289-381): each valid
+    non-anchor part, posed, is aligned onto its sample's posed anchor part,
+    keeping the closest ``trim_fraction`` of correspondences each step; the
+    ICP delta is composed with the input pose. ``yaw_restarts`` > 1 also
+    tries K yaw rotations about each part's posed centroid (evenly spaced
+    over 2 pi) and keeps, per part, the result with the lowest trimmed
+    residual (the first of equal ones). Anchor and invalid parts are
+    returned unchanged."""
+    from .eval.metrics import icp_point_to_point
+
+    S, P, N = batch.S, parts_per_sample(batch), batch.N
+    Rv = rotations.float().reshape(S, P, 3, 3)
+    tv = translations.float().reshape(S, P, 3)
+    pts = batch.points.float().reshape(S, P, N, 3)
+    mask = batch.point_mask.reshape(S, P, N)
+    a_idx = batch.anchor_part.reshape(S, P).float().argmax(1)           # (S,)
+    rows = torch.arange(S, device=a_idx.device)
+    aR, at = Rv[rows, a_idx], tv[rows, a_idx]
+    a_pts = torch.einsum("sij,snj->sni", aR, pts[rows, a_idx]) + at[:, None]
+    a_mask = mask[rows, a_idx]
+
+    src = (torch.einsum("spij,spnj->spni", Rv, pts) + tv[:, :, None]).reshape(S * P, N, 3)
+    src_m = mask.reshape(S * P, N)
+    tgt = a_pts[:, None].expand(S, P, N, 3).reshape(S * P, N, 3)
+    tgt_m = a_mask[:, None].expand(S, P, N).reshape(S * P, N)
+
+    if yaw_restarts <= 1:
+        dR, dt = icp_point_to_point(src, src_m, tgt, tgt_m, iters=iters,
+                                    trim_fraction=trim_fraction)
+    else:
+        cnt = src_m.sum(-1, keepdim=True).clamp_min(1)
+        c = torch.where(src_m[..., None], src, 0.0).sum(1) / cnt         # (G, 3)
+        angles = torch.arange(yaw_restarts, dtype=torch.float32) * (2.0 * math.pi / yaw_restarts)
+        Rk, tk, resk = [], [], []
+        for delta in angles:
+            ca, sa = torch.cos(delta), torch.sin(delta)
+            Rz = torch.tensor([[ca, -sa, 0.0], [sa, ca, 0.0], [0.0, 0.0, 1.0]],
+                              device=src.device)
+            R0 = Rz.expand(src.shape[0], 3, 3)
+            t0 = c - torch.einsum("ij,gj->gi", Rz, c)
+            R_, t_, r_ = icp_point_to_point(src, src_m, tgt, tgt_m, iters=iters,
+                                            trim_fraction=trim_fraction, init=(R0, t0),
+                                            return_residual=True)
+            Rk.append(R_)
+            tk.append(t_)
+            resk.append(r_)
+        best = torch.stack(resk).argmin(0)                              # (G,)
+        g = torch.arange(src.shape[0], device=src.device)
+        dR, dt = torch.stack(Rk)[best, g], torch.stack(tk)[best, g]
+
+    R_new = torch.einsum("gij,gjk->gik", dR, rotations.float())
+    t_new = torch.einsum("gij,gj->gi", dR, translations.float()) + dt
+    keep = batch.anchor_part | ~batch.part_valid
+    return (torch.where(keep[:, None, None], rotations.float(), R_new),
+            torch.where(keep[:, None], translations.float(), t_new))

@@ -13,6 +13,10 @@ training recomputes from the current gains every step.
 rap_tpu/train/checkpoint.py:save_params_npz (:111-128): flat "a/b/c" keys,
 with bf16 arrays stored as uint16 bits under a "BF16:" prefix, decoded here
 with numpy alone.
+
+``spinnet_params_from_jax`` carries rap_tpu's MiniSpinNet parameters
+(rap_tpu/spinnet/model.py ``init_spinnet_params``) into a state dict of the
+port's ``MiniSpinNet``, in the reference checkpoints' names.
 """
 
 from __future__ import annotations
@@ -95,3 +99,33 @@ def load_params_npz(path: str | Path, device="cuda",
     device = resolve_device(device)
     params = params_from_jax(unflatten(read_npz(path)))
     return to_device(params, device, compute_dtype)
+
+
+# rap_tpu's MiniSpinNet parameter names -> the reference's module names
+_SPINNET_CONVS = {"pnt_conv": "pnt_layer.0", "conv3d": "conv_net.ops.0",
+                  "pool_conv1": "pool_layer.0", "pool_conv2": "pool_layer.3",
+                  **{f"conv2d_{i}": f"conv_net.ops.{3 + 3 * i}" for i in range(7)}}
+_SPINNET_BNS = {"pnt_bn": "pnt_layer.1", "conv3d_bn": "conv_net.ops.1",
+                "pool_bn1": "pool_layer.1", "pool_bn2": "pool_layer.4",
+                **{f"conv2d_{i}_bn": f"conv_net.ops.{4 + 3 * i}" for i in range(6)}}
+
+
+def spinnet_params_from_jax(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """rap_tpu MiniSpinNet params (numpy leaves; conv kernels (*k, in, out))
+    -> a state dict for ``spinnet.MiniSpinNet`` (kernels (out, in, *k),
+    BatchNorm running statistics, affines and batch counters)."""
+    sd: dict[str, torch.Tensor] = {}
+    for jname, tname in _SPINNET_CONVS.items():
+        k = np.asarray(tree[jname]["kernel"], np.float32)
+        perm = (k.ndim - 1, k.ndim - 2) + tuple(range(k.ndim - 2))
+        sd[f"{tname}.weight"] = torch.from_numpy(k.transpose(perm).copy())
+        sd[f"{tname}.bias"] = torch.from_numpy(np.array(tree[jname]["bias"], np.float32))
+    for jname, tname in _SPINNET_BNS.items():
+        p = tree[jname]
+        sd[f"{tname}.running_mean"] = torch.from_numpy(np.array(p["mean"], np.float32))
+        sd[f"{tname}.running_var"] = torch.from_numpy(np.array(p["var"], np.float32))
+        sd[f"{tname}.num_batches_tracked"] = torch.tensor(0)
+        if "scale" in p:
+            sd[f"{tname}.weight"] = torch.from_numpy(np.array(p["scale"], np.float32))
+            sd[f"{tname}.bias"] = torch.from_numpy(np.array(p["bias"], np.float32))
+    return sd

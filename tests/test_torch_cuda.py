@@ -863,3 +863,75 @@ def test_dq_pass_edges(gen, edge, c):
         if m is not None:
             empty = (m.sum(1) == 0).repeat_interleave(heads)
             assert not dq[empty].any()
+
+
+# --------------------------------------------------------------------------
+# the demo path: point ops and MiniSpinNet on the card against the CPU, and
+# apps.demo through the kernels (rows 3 and 5) against the plain versions
+# --------------------------------------------------------------------------
+
+def test_point_ops_on_card_match_cpu(gen):
+    """kNN, ball query and FPS on the card: indices equal to the CPU's,
+    squared distances within 1e-5."""
+    from rap_tpu_torch.ops import points as pts_ops
+
+    g = torch.Generator().manual_seed(1)
+    pts = torch.rand((3000, 3), generator=g)
+    mask = torch.rand(3000, generator=g) < 0.9
+    q = pts[:700]
+    d2, idx = pts_ops.knn(q, pts, mask, 8, chunk=256)
+    d2_c, idx_c = pts_ops.knn(q.cuda(), pts.cuda(), mask.cuda(), 8, chunk=256)
+    assert torch.equal(idx_c.cpu(), idx)
+    assert float((d2_c.cpu() - d2).abs().max()) <= 1e-5
+    for a, b in zip(pts_ops.ball_query(q, pts, mask, 0.05, 32),
+                    pts_ops.ball_query(q.cuda(), pts.cuda(), mask.cuda(), 0.05, 32)):
+        assert torch.equal(b.cpu(), a)
+    parts, pmask = pts.reshape(3, 1000, 3), mask.reshape(3, 1000)
+    assert torch.equal(pts_ops.farthest_point_sampling(parts.cuda(), pmask.cuda(), 64).cpu(),
+                       pts_ops.farthest_point_sampling(parts, pmask, 64))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_spinnet_on_card_matches_cpu_with_tf32_on(gen, aligned):
+    """MiniSpinNet states full fp32 itself: with TF32 allowed globally its
+    descriptors on the card stay within 1e-4 of the CPU's."""
+    import dataclasses
+
+    import numpy as np
+
+    from rap_tpu_torch.spinnet import SpinNetConfig, extract_features, init_spinnet
+
+    cfg = dataclasses.replace(SpinNetConfig(), is_aligned_to_global_z=aligned)
+    cloud = np.random.default_rng(2).uniform(-1, 1, (4000, 3)).astype(np.float32)
+    kps = cloud[::20]
+    ref = extract_features(init_spinnet(1, cfg, device="cpu"), cloud, kps, 0.4)
+    assert np.abs(np.linalg.norm(ref, axis=1) - 1.0).max() <= 1e-4
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = extract_features(init_spinnet(1, cfg, device="cuda"), cloud, kps, 0.4)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    assert float(np.abs(got - ref).max()) <= 1e-4
+
+
+def test_demo_runs_through_rows_3_and_5(gen, tmp_path):
+    """apps.demo on the bundled pair at rap_12's width (one layer, 2 steps):
+    the masked online attention (row 3) and the FF (row 5) launch, the plain
+    run launches nothing, and the transforms agree within 2e-2."""
+    import numpy as np
+
+    from rap_tpu_torch.apps import demo
+
+    argv = ["--num-steps", "2", "-o", "model.num_layers=1", "--features", "geometric"]
+    reset_launches()
+    assert demo.main(argv + ["-out", str(tmp_path / "k")]) == 0
+    counts = launch_counts()
+    assert counts["flash_online"] > 0 and counts["ff"] > 0
+    reset_launches()
+    assert demo.main(argv + ["-out", str(tmp_path / "p"), "-o", "model.use_kernels=false"]) == 0
+    assert sum(launch_counts().values()) == 0
+    for p in range(2):
+        got = np.loadtxt(tmp_path / "k" / f"part{p}_transform.txt")
+        ref = np.loadtxt(tmp_path / "p" / f"part{p}_transform.txt")
+        assert np.abs(got[:3, :3] - ref[:3, :3]).max() <= 2e-2

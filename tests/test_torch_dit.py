@@ -135,18 +135,6 @@ def test_padded_batch_is_refused():
     assert max_err(got.numpy(), ref) <= 1e-5 * np.abs(ref).max()
 
 
-def test_pruned_sampler_is_refused():
-    """The port refuses the pruned sampler only where rap_tpu would run it:
-    prune_coarse_steps > 0 with rigidity forcing and no trajectory."""
-    _, tcfg, _, tp = _tiny()
-    b = make_regular_synthetic_batch(0, [[128, 128]], N=128, P=P,
-                                     feat_dim=tcfg.local_feat_dim, device="cpu")
-    cfg = RPFConfig(model=tcfg, prune_coarse_steps=1, inference_sampling_steps=2)
-    with pytest.raises(NotImplementedError, match="pruned"):
-        sample(tp, cfg, b, generator=torch.Generator().manual_seed(0),
-               return_trajectory=False)
-
-
 @pytest.mark.parametrize("why", ["trajectory", "one_step", "no_forcing"])
 def test_unpruned_sampler_fallback_matches_jax(why):
     """Where rap_tpu does not prune despite prune_coarse_steps > 0 (a

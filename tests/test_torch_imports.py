@@ -164,3 +164,31 @@ def test_collate_defaults_to_cuda():
                  0, 1.0, np.eye(3, dtype=np.float32), np.zeros(3, np.float32))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         collate_to_part_batch([smp], N=4, P=2)
+
+
+def test_demo_slice_modules_are_covered_and_import_scipy_lazily():
+    """The demo slice's modules are in MODULES (the fresh interpreter above
+    imports them), and those that need scipy import it inside the function,
+    as rap_tpu's do."""
+    demo_slice = {"rap_tpu_torch.ops.points", "rap_tpu_torch.spinnet",
+                  "rap_tpu_torch.spinnet.model", "rap_tpu_torch.apps.demo",
+                  "rap_tpu_torch.data.synthetic_scenes"}
+    assert demo_slice <= set(MODULES)
+    for rel in ("ops/points.py", "spinnet/model.py", "data/synthetic_scenes.py",
+                "apps/demo.py"):
+        tree = ast.parse((PKG / rel).read_text())
+        top = {a.name.split(".")[0] for node in tree.body if isinstance(node, ast.Import)
+               for a in node.names}
+        top |= {node.module.split(".")[0] for node in tree.body
+                if isinstance(node, ast.ImportFrom) and node.level == 0}
+        assert "scipy" not in top, rel
+
+
+def test_spinnet_defaults_to_cuda():
+    from rap_tpu_torch.spinnet import build_feature_extractor, init_spinnet
+
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_spinnet(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_feature_extractor()

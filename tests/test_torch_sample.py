@@ -65,7 +65,7 @@ OVERRIDES = ["model.softcap=5.0", "model.num_layers=2", "pipeline.n_generations=
 
 
 # rap_tpu's config fields that no shipped config sets and the port leaves out
-OMITTED = {"data": ("max_samples_per_epoch",), "pipeline": ("prune_factor",),
+OMITTED = {"data": ("max_samples_per_epoch",),
            "trainer": ("keep_last", "log_every_n_steps", "remat", "log_file"),
            "": ("n_devices",)}
 
