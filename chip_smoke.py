@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,kernels,demo
     python3 chip_smoke.py --phases build,kernels,train
     python3 chip_smoke.py --phases build,kernels,multiview
+    python3 chip_smoke.py --phases build,kernels,trainer
 
 Phases, each printed on its own flushed line with its wall time:
 
@@ -128,14 +129,22 @@ Phases, each printed on its own flushed line with its wall time:
               readers, points and rotations against the same run through
               the plain versions, the generation ms within the no-option
               run's spread, and the time metrics and artifacts take per
-              batch (outside the timed window).
+              batch (outside the timed window). Then real weights: the
+              committed reflow_student.npz on its config, through the
+              kernels and the plain versions (object_chamfer under 0.15, the
+              bar of tests/test_bundled_student.py, and the points against
+              the plain run), and the same weights exported as a torch .pth
+              and read back through checkpoint=<file>.pth (every metric
+              within 1e-5 of the .npz run's).
 5. demo       rap_tpu_torch.apps.demo.main in-process at rap_12 (12
               layers, D=512, H=8, random weights from the config's seed)
               with its CLI defaults (10 steps, adaptive parameters): the
               bundled demo_data/pair with zero, geometric and SpinNet
               features (random SpinNet weights from a seed; 3 generations,
               ICP with 4 yaw starts, the generated clouds written) and
-              without rigidity forcing, then a six-view scene the phase
+              without rigidity forcing, and once with the committed
+              reflow_student.npz (configs/synth_student.yaml: 6 layers, 4
+              steps) and geometric features, then a six-view scene the phase
               writes (20 000 points a view, each in its own rigid frame:
               8 part slots). Each run through the kernels and through the
               plain versions (-o model.use_kernels=false): the launch counts
@@ -183,7 +192,37 @@ Phases, each printed on its own flushed line with its wall time:
               masked forward, row 6 and rows 7-8, with their launch counts);
               five more 12-layer steps, finite and never skipped, with the
               loss at a fixed (t, x_1) falling.
-8. timing     median ms per batch and pairs/s, and the pruned sampler's
+8. trainer    rap_tpu_torch.apps.train.main on configs/rap_train.yaml
+              (rap_12, Muon, remat, 80 000 points a batch, 20-step
+              validation) with overrides only, on a dataset it writes under
+              rap_tpu_torch/build/trainer_data: 12 samples of 5-8 scans of
+              2500-4096 points cut from a surface scene each (two samples a
+              2 x 8 x 4096 batch, so 6 steps an epoch) and a val split
+              linking the 8 demo_data/synth scenes. Run 1: two epochs, with
+              validation and checkpoints each epoch; every step finite and
+              never skipped, the launch counts of every step and every
+              validation pass, metrics.jsonl's train/ and val/ rows,
+              config.json, code_snapshot.zip, best/ and last/. Run 2: resumed
+              from last/ for a third epoch; the restored state (parameters,
+              optimizer state, step, generator) equal to run 1's last state
+              bit for bit, the run at epoch 2 with the step count carried on,
+              best/ rewritten only on a better monitor. Then the options at 2
+              layers of the same width on the multiview phase's batch (on
+              the trainer's scans the qk gains' bf16 floor passes the rule's
+              cap, options or not: scripts/option_floors.py): the pose loss
+              (0.1) and FF dropout (0.1), loss and gradients through the
+              kernels against the plain versions (the train phase's rule;
+              the same generator state gives both the same keep masks), rows
+              5 and 10 launched 0 times, the pose loss finite on a batch with
+              1- and 2-point parts, no more host syncs in a pose-loss forward
+              and backward than without it (CUDA's sync debug mode), wandb
+              never imported. Printed: ms a step (wall, synchronised, and
+              the device's in one profiled step), valid points/s, the
+              loader's wait a step, ms a validation pass, each checkpoint
+              save's ms and bytes, the restore's ms, launches a step and a
+              validation pass, and at rap_12 the step with the pose loss,
+              dropout or both beside the step without.
+9. timing     median ms per batch and pairs/s, and the pruned sampler's
               with and without the features; the sample path's median
               generation ms per batch and pairs/s at each softcap over three
               more runs; median ms per train step and
@@ -220,9 +259,11 @@ Then it prints the card's name and power limit, one JSON line describing the
 kernels, and as its last line {"ok": true, "device": {...}}. Any failed
 check exits non-zero. The script imports torch, numpy, the standard library
 and rap_tpu_torch only, resolves every path from this file, needs no
-checkpoint and no network, and needs one CUDA card. It writes its random
-checkpoint, the six-view scene and the kernel library under
-rap_tpu_torch/build/.
+network, and needs one CUDA card. It reads one committed checkpoint,
+demo_data/ckpts/reflow_student.npz (the sample phase's real-weight runs and
+one demo run), and writes its random checkpoint, the student's .pth export,
+the six-view scene, the trainer's data and checkpoints and the kernel
+library under rap_tpu_torch/build/.
 """
 
 from __future__ import annotations
@@ -240,7 +281,8 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "main", "sample", "demo", "train", "multiview", "timing")
+PHASES = ("build", "kernels", "main", "sample", "demo", "train", "multiview", "trainer",
+          "timing")
 
 # main path (bench.py:151-157 of the JAX package: 4 pairs of 2 x 4096 points)
 S, P, N = 4, 2, 4096
@@ -368,15 +410,38 @@ MV_SOFTCAP = 5.0  # the multi-view softcap training check
 # scene this script writes (~20 000 points a view, each under its own rigid
 # pose: P = 8 part slots, the map-merging use)
 DEMO_PAIR = "demo_data/pair"
+STUDENT_PATH = "demo_data/ckpts/reflow_student.npz"
 DEMO_RUNS = (("zero", ["--features", "zero"]),
              ("geometric", ["--features", "geometric"]),
              ("spinnet", ["--features", "spinnet", "--n-generations", "3", "--icp-refine",
                           "--icp-restarts", "4", "--output-generated"]),
-             ("no-forcing", ["--no-rigidity-forcing"]))
+             ("no-forcing", ["--no-rigidity-forcing"]),
+             ("student geometric", ["--config", str(ROOT / "configs" / "synth_student.yaml"),
+                                    "--checkpoint", str(ROOT / STUDENT_PATH),
+                                    "--features", "geometric", "--num-steps", "4"]))
 DEMO_VIEWS, DEMO_VIEW_POINTS, DEMO_SEED = 6, 20_000, 31
 TOL_DEMO_TRANSLATION = 2e-2    # of the scene's bounding box
 TOL_SPINNET_ABS = 1e-4         # descriptors on the card against the CPU
 SAMPLE_TIMING_RUNS = 3
+# real weights: the committed reflow student on its own config and data
+# (configs/synth_student.yaml, demo_data/synth), the quality bar of
+# tests/test_bundled_student.py:74, and the metrics of its .pth export
+# against the .npz run
+STUDENT_CHAMFER = 0.15
+TOL_ROUND_TRIP_METRIC = 1e-5
+# trainer phase: rap_tpu_torch.apps.train.main on configs/rap_train.yaml
+# (rap_12, Muon, remat, 80 000 points a batch, 20-step validation) with
+# overrides only: TRAINER_SAMPLES samples of 5-8 scans of 2500-4096 points
+# each (the multiview phase's distribution: two samples a 2 x 8 x 4096
+# batch), cut from a surface scene per sample and written under the build
+# directory, a val split linking the 8 demo_data/synth scenes; two epochs,
+# then a resume for a third; then the training options (pose loss, FF
+# dropout) at TRAINER_OPTION_LAYERS layers against the plain versions
+TRAINER_CONFIG = "configs/rap_train.yaml"
+TRAINER_SAMPLES, TRAINER_SCANS, TRAINER_SEED = 12, (5, 8), 41
+TRAINER_EPOCHS = 2
+TRAINER_POSE_WEIGHT, TRAINER_DROPOUT = 0.1, 0.1
+TRAINER_OPTION_LAYERS = 2
 
 
 def log(msg: str) -> None:
@@ -1345,6 +1410,53 @@ def run_sample(report, fails, state):
                         for c, r in runs.items()}
     state["sample_ckpt"] = ckpt
     run_sample_options(report, fails, ckpt)
+    run_sample_student(report, fails)
+
+
+def run_sample_student(report, fails):
+    """apps.sample.main on configs/synth_student.yaml with its committed
+    reflow_student.npz, through the kernels and through the plain versions:
+    object_chamfer under STUDENT_CHAMFER, the points within TOL_POINTS of the
+    plain run's; then the same weights exported as a torch .pth
+    (export_torch_state_dict, through save_torch_checkpoint) and evaluated
+    through ``checkpoint=<file>.pth``: every metric within
+    TOL_ROUND_TRIP_METRIC of the .npz run's."""
+    from rap_tpu_torch.apps import sample as app
+    from rap_tpu_torch.config import load_config
+    from rap_tpu_torch.train.checkpoint import save_torch_checkpoint
+
+    npz = ROOT / STUDENT_PATH
+    recs, results = {}, {}
+    for label, kernels in (("kernels", True), ("plain", False)):
+        log(f"  -- apps.sample.main, {STUDENT_PATH}, {label}")
+        recs[label] = {}
+        results[label] = app.main(sample_argv(npz, 0.0, kernels), record=recs[label])
+        torch.cuda.synchronize()
+    pth = ROOT / "rap_tpu_torch" / "build" / "reflow_student.pth"
+    cfg = load_config(ROOT / SAMPLE_CONFIG, [f"checkpoint={npz}"])
+    save_torch_checkpoint(pth, app.load_params(cfg, "cuda"))
+    log(f"  -- apps.sample.main, {pth.name} ({pth.stat().st_size} bytes), kernels")
+    recs["pth"] = {}
+    results["pth"] = app.main(sample_argv(pth, 0.0), record=recs["pth"])
+    chamfer = results["kernels"]["overall"]["object_chamfer"]
+    fails.check(f"reflow_student object_chamfer < {STUDENT_CHAMFER}", chamfer < STUDENT_CHAMFER,
+                f"{chamfer:.6f} (plain versions {results['plain']['overall']['object_chamfer']:.6f})")
+    for (names, gens), (_, gens_p) in zip(recs["kernels"]["outputs"], recs["plain"]["outputs"],
+                                          strict=True):
+        for (pts, R, _), (pts_p, R_p, _) in zip(gens, gens_p, strict=True):
+            fails.compare(f"reflow_student points vs plain ({len(names)} samples)", pts, pts_p,
+                          tol_rel=TOL_POINTS)
+    worst = max(abs(results["pth"]["overall"][k] - v)
+                for k, v in results["kernels"]["overall"].items())
+    fails.check("reflow_student .pth round trip: the same metrics",
+                set(results["pth"]["overall"]) == set(results["kernels"]["overall"])
+                and worst <= TOL_ROUND_TRIP_METRIC,
+                f"worst |difference| {worst:.3e} (tol {TOL_ROUND_TRIP_METRIC})")
+    log(f"  reflow_student on demo_data/synth: {', '.join(f'{k} {v:.6f}' for k, v in sorted(results['kernels']['overall'].items()))}")
+    report["sample_student"] = {
+        "metrics": results["kernels"]["overall"], "plain_metrics": results["plain"]["overall"],
+        "pth_metrics": results["pth"]["overall"], "pth_worst_abs_diff": worst,
+        "batch_ms": recs["kernels"]["batch_gen_ms"], "plain_batch_ms": recs["plain"]["batch_gen_ms"]}
 
 
 def option_argv(ckpt, out_dir, kernels: bool = True, options: bool = True) -> list[str]:
@@ -1477,6 +1589,26 @@ def run_sample_options(report, fails, ckpt):
         "rotation_err": worst_r, "artifact_files": n_files, "metrics": res["synth"]}
 
 
+def surface_scene(rng, ground_points: int = 400_000, boxes: int = 12) -> np.ndarray:
+    """A 30 x 12 m undulating ground with ``boxes`` boxes (4 walls and a
+    lid each, 8000 points a box), drawn from ``rng``: (M, 3) points."""
+
+    def height(xy):
+        return 0.4 * np.sin(xy[..., 0] / 3.0) * np.cos(xy[..., 1] / 2.0) + 0.05 * xy[..., 0]
+
+    xy = rng.uniform([0, 0], [30, 12], (ground_points, 2))
+    parts = [np.column_stack([xy, height(xy)])]
+    for _ in range(boxes):
+        c, size = rng.uniform([1, 1], [29, 11]), rng.uniform(0.5, 2.0, 3)
+        u = rng.uniform(-0.5, 0.5, (8000, 3))
+        face = rng.integers(0, 5, len(u))
+        u[face == 0, 2] = 0.5
+        for f, axis, side in ((1, 0, 0.5), (2, 0, -0.5), (3, 1, 0.5), (4, 1, -0.5)):
+            u[face == f, axis] = side
+        parts.append(u * size + [c[0], c[1], size[2] / 2 + height(c)])
+    return np.concatenate(parts)
+
+
 def write_six_view_scene(root: Path, seed: int = DEMO_SEED) -> Path:
     """DEMO_VIEWS overlapping scans of one surface scene (a 30 x 12 m
     undulating ground with boxes), DEMO_VIEW_POINTS points each with 1 cm
@@ -1485,21 +1617,7 @@ def write_six_view_scene(root: Path, seed: int = DEMO_SEED) -> Path:
     from rap_tpu_torch.utils import ply as plyio
 
     rng = np.random.default_rng(seed)
-
-    def height(xy):
-        return 0.4 * np.sin(xy[..., 0] / 3.0) * np.cos(xy[..., 1] / 2.0) + 0.05 * xy[..., 0]
-
-    xy = rng.uniform([0, 0], [30, 12], (400_000, 2))
-    parts = [np.column_stack([xy, height(xy)])]
-    for _ in range(12):  # boxes: 4 walls and a lid each
-        c, size = rng.uniform([1, 1], [29, 11]), rng.uniform(0.5, 2.0, 3)
-        u = rng.uniform(-0.5, 0.5, (8000, 3))
-        face = rng.integers(0, 5, len(u))
-        u[face == 0, 2] = 0.5
-        for f, axis, side in ((1, 0, 0.5), (2, 0, -0.5), (3, 1, 0.5), (4, 1, -0.5)):
-            u[face == f, axis] = side
-        parts.append(u * size + [c[0], c[1], size[2] / 2 + height(c)])
-    scene = np.concatenate(parts)
+    scene = surface_scene(rng)
     root.mkdir(parents=True, exist_ok=True)
     for v in range(DEMO_VIEWS):
         center = np.array([3.0 + v * 24.0 / (DEMO_VIEWS - 1), 6.0])
@@ -2231,6 +2349,303 @@ def run_multiview(report, fails, state):
     state.update(mv_counts=counts, mv_step=step, mv_state=s, mv_batch=batch)
 
 
+def write_trainer_data(root: Path, seed: int = TRAINER_SEED) -> Path:
+    """The trainer phase's dataset under ``root``: a train split of
+    TRAINER_SAMPLES samples, each TRAINER_SCANS scans of one surface scene
+    (its own draw), a scan every few metres along the scene, 2500-4096 of the
+    points within 7 m of its centre with 1 cm noise, in the scene's frame (the
+    registered parts: the loader's training augmentation poses each scan at
+    random), with num_points totals; a val split linking the 8 committed
+    demo_data/synth scenes."""
+    import shutil
+
+    from rap_tpu_torch.utils import ply as plyio
+
+    rng = np.random.default_rng(seed)
+    shutil.rmtree(root, ignore_errors=True)
+    names, totals = [], []
+    lo, hi = MV_PART_POINTS
+    for i in range(TRAINER_SAMPLES):
+        scene = surface_scene(rng, ground_points=100_000, boxes=6)
+        scans = int(rng.integers(TRAINER_SCANS[0], TRAINER_SCANS[1], endpoint=True))
+        d = root / f"train_{i:03d}"
+        d.mkdir(parents=True)
+        total = 0
+        for v in range(scans):
+            center = np.array([3.0 + v * 24.0 / (scans - 1), 6.0])
+            near = scene[np.linalg.norm(scene[:, :2] - center, axis=1) < 7.0]
+            m = int(rng.integers(lo, hi, endpoint=True))
+            pts = near[rng.choice(len(near), m, replace=False)] + rng.normal(0, 0.01, (m, 3))
+            plyio.write_ply(d / f"scan_{v:02d}.ply", pts.astype(np.float32))
+            total += m
+        names.append(d.name)
+        totals.append(total)
+    synth = ROOT / SAMPLE_DATA
+    val = (synth / "data_split" / "val.txt").read_text().split()
+    for name in val:
+        (root / name).symlink_to(synth / name, target_is_directory=True)
+    (root / "data_split").mkdir()
+    (root / "num_points").mkdir()
+    (root / "data_split" / "train.txt").write_text("\n".join(names) + "\n")
+    (root / "data_split" / "val.txt").write_text("\n".join(val) + "\n")
+    (root / "num_points" / "train.txt").write_text("\n".join(map(str, totals)) + "\n")
+    shutil.copy(synth / "num_points" / "val.txt", root / "num_points" / "val.txt")
+    return root
+
+
+def trainer_argv(data: Path, ckpt_dir: Path, *extra) -> list[str]:
+    """The command line of ``rap_tpu_torch.apps.train`` on TRAINER_CONFIG:
+    overrides only."""
+    ov = [f"data.datasets=[{{'data_path': '{data}', 'dataset_name': 'scans', 'split': 'train'}},"
+          f" {{'data_path': '{data}', 'dataset_name': 'synth', 'split': 'val'}}]",
+          f"trainer.max_epochs={TRAINER_EPOCHS}", "trainer.val_every_n_epochs=1",
+          "trainer.log_every_n_steps=1", f"trainer.checkpoint_dir={ckpt_dir}", *extra]
+    return ["--config", str(ROOT / TRAINER_CONFIG)] + [a for o in ov for a in ("-o", o)]
+
+
+def trainer_expected(L: int, steps: int) -> tuple[dict, dict]:
+    """Launches of one trainer step on a padded 2 x 8 x 4096 batch (the
+    masked branch, remat: row 3 at part and global attention twice a layer,
+    row 5 twice, the fused backward for part attention and the split one for
+    global attention past the dQ slab, row 10) and of one validation pass
+    over the dense synth batch (the fused branch at each of ``steps``
+    forwards: rows 1 and 4 twice a layer, row 2 or 3 twice, row 5 once)."""
+    from rap_tpu_torch.ops import KERNELS
+
+    step = dict.fromkeys(KERNELS, 0)
+    step.update(flash_online=4 * L, ff=2 * L, flash_bwd=L, ff_bwd=L, flash_bwd_dkv=L,
+                flash_bwd_dq=L)
+    val = dict.fromkeys(KERNELS, 0)
+    val.update(proj=2 * L * steps, out_proj=2 * L * steps, ff=L * steps)
+    return step, val
+
+
+def run_trainer(report, fails, state):
+    """rap_tpu_torch.apps.train.main on the card: run 1 (TRAINER_EPOCHS
+    epochs, validation and checkpoints each epoch), run 2 (resume from
+    ``last`` for one more epoch), then the options (pose loss, FF dropout)
+    against the plain versions; times and launches per step and per
+    validation pass."""
+    import shutil
+
+    from rap_tpu_torch.apps import train as app
+    from rap_tpu_torch.config import load_config
+    from rap_tpu_torch.core.batch import make_regular_synthetic_batch
+    from rap_tpu_torch.models.dit import init_dit_params
+    from rap_tpu_torch.ops import launch_counts, reset_launches
+    from rap_tpu_torch.registration import RPFConfig
+    from rap_tpu_torch.train.checkpoint import load_metadata, train_state_tensors
+    from rap_tpu_torch.train.optim import OptimizerConfig
+    from rap_tpu_torch.train.step import TrainState, make_train_step
+
+    build = ROOT / "rap_tpu_torch" / "build"
+    t0 = time.perf_counter()
+    data = write_trainer_data(build / "trainer_data")
+    ckdir = build / "trainer_run"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    log(f"  dataset written in {time.perf_counter() - t0:.2f} s: {TRAINER_SAMPLES} train "
+        f"samples, 8 val scenes, under {data.relative_to(ROOT)}")
+    cfg = load_config(ROOT / TRAINER_CONFIG)
+    L, vsteps = cfg.model.num_layers, cfg.pipeline.inference_sampling_steps
+    want_step, want_val = trainer_expected(L, vsteps)
+
+    # run 1
+    log(f"  -- apps.train.main, {TRAINER_EPOCHS} epochs")
+    rec = {}
+    reset_launches()
+    s1 = app.main(trainer_argv(data, ckdir), record=rec)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    n1 = len(rec["step_ms"])
+    fails.check("trainer run 1: every step finite, none skipped",
+                n1 > 0 and all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+                               and m["skipped_nonfinite"] == 0.0 for m in rec["metrics"]),
+                f"{n1} steps, losses {[round(m['loss'], 5) for m in rec['metrics']]}")
+    fails.check("trainer run 1: the state counted every step", int(s1.step) == n1)
+    bad = [c for c in rec["step_launches"] if c != want_step]
+    fails.check("trainer step launch counts", not bad, f"expected {want_step}, got {bad[:1]}")
+    for c in rec["val_launches"]:
+        attn = c["flash_fixed"] + c["flash_online"]
+        fails.check("trainer validation launch counts",
+                    {k: v for k, v in c.items() if k not in ("flash_fixed", "flash_online")}
+                    == {k: v for k, v in want_val.items()
+                        if k not in ("flash_fixed", "flash_online")}
+                    and attn == 2 * L * vsteps, f"{c}")
+    run_kernels = {k for k, v in counts.items() if v}
+    fails.check("trainer run 1 launched each kernel of its path",
+                run_kernels >= {k for k, v in want_step.items() if v} | {"proj", "out_proj"},
+                f"{counts}")
+    rows = [json.loads(x) for x in (ckdir / "metrics.jsonl").read_text().splitlines()]
+    fails.check("trainer: metrics.jsonl has train/ and val/ rows",
+                sum("train/loss" in r for r in rows) == n1
+                and sum(any(k.startswith("val/") for k in r) for r in rows) == TRAINER_EPOCHS,
+                f"{len(rows)} rows")
+    fails.check("trainer: the wandb mirror is off by default, wandb never imported (it "
+                "reaches the network)", "wandb" not in sys.modules)
+    fails.check("trainer: config.json, code_snapshot.zip, best/, last/",
+                all((ckdir / f).exists() for f in ("config.json", "code_snapshot.zip",
+                                                   "best", "last")))
+    saved = train_state_tensors(s1)
+    best1 = load_metadata(ckdir / "best")
+    best_mtime = (ckdir / "best" / "train_state.pt").stat().st_mtime_ns
+
+    # run 2: the resume
+    log("  -- apps.train.main, resumed from last/ for one more epoch")
+    rec2 = {}
+    s2 = app.main(trainer_argv(data, ckdir, f"checkpoint={ckdir / 'last'}",
+                               f"trainer.max_epochs={TRAINER_EPOCHS + 1}"), record=rec2)
+    restored = rec2["restored"]
+    diff = [k for k in saved if not torch.equal(saved[k], restored[k])]
+    fails.check("trainer resume: the restored state equals the saved one bit for bit",
+                set(saved) == set(restored) and not diff,
+                f"{len(saved)} tensors (params, optimizer state, step, generator); differ: "
+                f"{diff[:4]}")
+    n2 = len(rec2["step_ms"])
+    fails.check("trainer resume: starts at epoch 2, the step count carries on",
+                rec2["epochs"] == [TRAINER_EPOCHS] and int(s2.step) == n1 + n2
+                and rec2["best_monitor_start"] == best1["monitor"],
+                f"epochs {rec2['epochs']}, step {int(s2.step)} = {n1} + {n2}")
+    mon2 = rec2["val_results"][0]["overall"]["object_chamfer"]
+    best2 = load_metadata(ckdir / "best")
+    if mon2 < best1["monitor"]:
+        ok = best2 == {"epoch": TRAINER_EPOCHS + 1, "monitor": mon2}
+    else:
+        ok = best2 == best1 and (ckdir / "best" / "train_state.pt").stat().st_mtime_ns == best_mtime
+    fails.check("trainer resume: best/ rewritten only on a better monitor", ok,
+                f"monitor {best1['monitor']:.6f} -> {mon2:.6f}; best {best2}")
+    fails.check("trainer run 2: every step finite, none skipped",
+                all(np.isfinite(m["loss"]) and m["skipped_nonfinite"] == 0.0
+                    for m in rec2["metrics"]))
+
+    # run 3: the options, 2 layers at full width, kernels vs plain, on the
+    # multiview phase's batch: on the trainer's scans the qk gains' bf16
+    # floor is 0.09-0.18 with the options off or on (scripts/option_floors.py),
+    # past TOL_TRAIN_LEAF_CAP, so the rule could not see a fault there
+    batch = rec["last_batch"]
+    mv_batch = make_regular_synthetic_batch(MV_SEED, multiview_parts(), N=MV_N, P=MV_P,
+                                            S=MV_S, device="cuda")
+    small = dataclasses.replace(cfg.model, num_layers=TRAINER_OPTION_LAYERS,
+                                dropout_rate=TRAINER_DROPOUT)
+    rcfg = RPFConfig(model=small, pose_loss_weight=TRAINER_POSE_WEIGHT)
+    params = init_dit_params(0, small, device="cuda", masters=True)
+    reset_launches()
+    check_train_gradients(fails, f"trainer options ({TRAINER_OPTION_LAYERS} layers, pose loss "
+                          f"{TRAINER_POSE_WEIGHT:g}, dropout {TRAINER_DROPOUT:g}, the multiview "
+                          "batch)", params, mv_batch, rcfg)
+    torch.cuda.synchronize()
+    opt_counts = launch_counts()
+    fails.check("trainer options: rows 5 and 10 not launched with dropout on",
+                opt_counts["ff"] == opt_counts["ff_bwd"] == 0 and opt_counts["flash_online"] > 0,
+                f"{opt_counts}")
+    deg = make_regular_synthetic_batch(TRAINER_SEED, [[4096, 2, 3000, 2500], [1, 4096, 3500]],
+                                       N=4096, P=4, S=2, device="cuda")
+    step = make_train_step(rcfg, OptimizerConfig())
+    reset_launches()
+    _, m = step(TrainState.create(params, OptimizerConfig(), seed=3), deg)
+    vals = {k: float(v) for k, v in m.items()}
+    fails.check("trainer options: pose loss finite with 1- and 2-point parts",
+                all(np.isfinite(vals[k]) for k in ("loss", "pose_loss", "grad_norm"))
+                and vals["skipped_nonfinite"] == 0.0,
+                f"loss {vals['loss']:.6f} pose_loss {vals['pose_loss']:.6f} "
+                f"grad_norm {vals['grad_norm']:.6f}")
+    syncs = trainer_pose_syncs(rcfg, params, batch)
+    fails.check("trainer options: the pose loss adds no host sync to a training forward and "
+                "backward", syncs["pose"] == syncs["plain"], f"{syncs}")
+
+    # times: the options' step beside the plain step at rap_12, from run 2's
+    # state on run 1's last batch, and one profiled step
+    option_ms = {}
+    dropped = dataclasses.replace(cfg.model, dropout_rate=TRAINER_DROPOUT)
+    for label, c in (("no options", cfg.pipeline),
+                     ("pose loss", dataclasses.replace(cfg.pipeline,
+                                                       pose_loss_weight=TRAINER_POSE_WEIGHT)),
+                     ("dropout", dataclasses.replace(cfg.pipeline, model=dropped)),
+                     ("pose loss + dropout", dataclasses.replace(
+                         cfg.pipeline, pose_loss_weight=TRAINER_POSE_WEIGHT, model=dropped))):
+        st = make_train_step(c, cfg.optimizer)
+        s_ = TrainState(s2.step, s2.params, s2.opt_state, torch.Generator(device="cuda")
+                        .manual_seed(9))
+        times = []
+        for i in range(4):
+            t0 = time.perf_counter()
+            s_, m_ = st(s_, batch)
+            float(m_["loss"])
+            if i:
+                times.append((time.perf_counter() - t0) * 1e3)
+        option_ms[label] = times
+    step_full = make_train_step(cfg.pipeline, cfg.optimizer)
+    prof = device_profile("one trainer step (rap_12, 2 x 8 x 4096, Muon, remat)",
+                          lambda: float(step_full(TrainState(s2.step, s2.params, s2.opt_state,
+                                                             torch.Generator(device="cuda")
+                                                             .manual_seed(9)), batch)[1]["loss"]))
+    step_ms = rec["step_ms"][1:] + rec2["step_ms"]
+    load_ms = rec["load_ms"] + rec2["load_ms"]
+    valid = int(batch.point_mask.sum())
+    med = float(np.median(step_ms))
+    saves = rec["saves"] + rec2["saves"]
+    log(f"  trainer step (rap_12, batches of {batch.S} x {batch.G // batch.S} x {batch.N} "
+        f"slots, Muon, remat): median {med:.2f} ms over "
+        f"{len(step_ms)} (first {rec['step_ms'][0]:.2f}; all "
+        f"{', '.join(f'{x:.2f}' for x in step_ms)}) -> {valid / med * 1e3:.1f} valid points/s "
+        f"(last batch); device {prof['device_ms']:.2f} ms of a {prof['wall_ms']:.2f} ms "
+        f"profiled step")
+    log(f"  loader wait per step: median {float(np.median(load_ms)):.2f} ms (all "
+        f"{', '.join(f'{x:.2f}' for x in load_ms)})")
+    log(f"  validation ({vsteps} steps, {L} layers, the 8 synth pairs): "
+        f"{', '.join(f'{x:.2f}' for x in rec['val_ms'] + rec2['val_ms'])} ms per pass; "
+        f"object_chamfer {[round(r['overall']['object_chamfer'], 5) for r in rec['val_results'] + rec2['val_results']]}")
+    log("  checkpoints: " + "; ".join(f"{x['name']} (epoch {x['epoch']}) {x['ms']:.2f} ms, "
+                                       f"{x['bytes']} bytes" for x in saves)
+        + f"; restore {rec2['restore_ms']:.2f} ms")
+    log(f"  launches per trainer step: {rec['step_launches'][0]}")
+    log(f"  launches per validation pass: {rec['val_launches'][0]}")
+    log("  options step (rap_12, same batch): "
+        + "; ".join(f"{k} {float(np.median(v)):.2f} ms ({', '.join(f'{x:.2f}' for x in v)})"
+                    for k, v in option_ms.items())
+        + f"; host syncs in a pose-loss step {syncs['pose']} (without {syncs['plain']})")
+    report["trainer"] = {
+        "steps": [n1, n2], "step_ms": step_ms, "first_step_ms": rec["step_ms"][0],
+        "step_ms_median": med, "valid_points": valid, "valid_points_per_s": valid / med * 1e3,
+        "load_ms": load_ms, "val_ms": rec["val_ms"] + rec2["val_ms"],
+        "val_object_chamfer": [r["overall"]["object_chamfer"]
+                               for r in rec["val_results"] + rec2["val_results"]],
+        "saves": saves, "restore_ms": rec2["restore_ms"],
+        "step_launches": rec["step_launches"][0], "val_launches": rec["val_launches"][0],
+        "losses": [m["loss"] for m in rec["metrics"] + rec2["metrics"]],
+        "option_step_ms": option_ms, "option_launches": opt_counts, "pose_syncs": syncs,
+        "profile": {k: v for k, v in prof.items() if k != "kernels"}}
+    state["trainer_counts"] = rec["step_launches"][0]
+    state["trainer_val_counts"] = rec["val_launches"][0]
+
+
+def trainer_pose_syncs(rcfg, params, batch) -> dict:
+    """Host syncs CUDA's sync debug mode reports in one training forward and
+    backward with and without the pose loss."""
+    import warnings
+
+    from rap_tpu_torch.registration import training_forward
+    from rap_tpu_torch.train.optim import tree_paths, tree_replace
+
+    out = {}
+    for label, c in (("pose", rcfg), ("plain", dataclasses.replace(rcfg, pose_loss_weight=0.0))):
+        leaves = {k: p.detach().requires_grad_(True) for k, p in tree_paths(params)}
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                loss, _ = training_forward(tree_replace(params, leaves), c, batch, gen)
+                torch.autograd.grad(loss, list(leaves.values()))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        # the mode's own one-time warning ("a prototype feature ... does not
+        # yet detect all synchronizing operations") is not a sync
+        out[label] = sum("synchroniz" in str(w.message).lower()
+                         and "prototype" not in str(w.message) for w in caught)
+    return out
+
+
 def kernel_rows(state, counts):
     """Time each kernel, its plain version and a library call; bounds."""
     import torch.nn.functional as F
@@ -2268,6 +2683,8 @@ def kernel_rows(state, counts):
              "launches": launches, "train_launches": train_counts.get(name, 0),
              "multiview_launches": mv_counts.get(name, 0),
              "pruned_launches": pruned_counts.get(name, 0),
+             "trainer_step_launches": state.get("trainer_counts", {}).get(name, 0),
+             "trainer_val_launches": state.get("trainer_val_counts", {}).get(name, 0),
              "demo_launches_per_generation": {k: c.get(name, 0) for k, c in demo_counts.items()},
              "max_abs_err": state["max_abs_err"][err_key or name],
              "ms": ms, "plain_ms": plain_ms,
@@ -3157,6 +3574,7 @@ def main(argv=None) -> int:
              "demo": lambda: run_demo(report, fails, state),
              "train": lambda: run_train(report, fails, state),
              "multiview": lambda: run_multiview(report, fails, state),
+             "trainer": lambda: run_trainer(report, fails, state),
              "timing": lambda: run_timing(report, fails, state)}
     for name in PHASES:
         if name in phases:

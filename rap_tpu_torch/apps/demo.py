@@ -27,8 +27,10 @@ Runs on the card (``--device cuda``, the default) unless the CPU is asked
 for. The noise of generation g comes from a ``torch.Generator`` on the
 run's device seeded with ``--seed`` + g (rap_tpu's from
 ``jax.random.key(seed + g)``); ``run_demo``'s ``noise`` takes the noise
-tensors instead. Not ported (each raises): ``--sequence-sharded`` (ROADMAP
-A8), ``--render-results`` (A9), ``.ckpt``/``.pth`` DiT checkpoints (A4).
+tensors instead. ``--checkpoint`` takes what ``apps.sample.load_params``
+reads: an ``.npz`` export, a torch ``.ckpt``/``.pth``/``.pt`` or a
+train-state directory. Not ported (each raises): ``--sequence-sharded``
+(ROADMAP A8), ``--render-results`` (A9).
 """
 
 from __future__ import annotations
@@ -309,7 +311,9 @@ def main(argv=None, noise: list[torch.Tensor] | None = None, record: dict | None
                     help="folder of part PLYs (default: the bundled demo pair)")
     ap.add_argument("-out", "--output", default="demo_output")
     ap.add_argument("--config", default=str(REPO / "configs" / "rap_inference.yaml"))
-    ap.add_argument("--checkpoint", default="", help=".npz parameters; none: random weights")
+    ap.add_argument("--checkpoint", default="",
+                    help=".npz parameters, a torch .ckpt/.pth/.pt or a train-state "
+                         "directory; none: random weights")
     ap.add_argument("--model", default="rap_12")
     ap.add_argument("--num-steps", type=int, default=10)
     ap.add_argument("--n-generations", type=int, default=1)

@@ -23,8 +23,11 @@ g); it is not jax.random's. ``--profile-dir`` writes a torch.profiler
 Chrome trace of the whole run there (rap_tpu's writes a jax.profiler one).
 
 Runs on the card (``--device cuda``, the default) unless the CPU is asked
-for. Not ported (each raises): ``.ckpt``/``.pth`` and orbax checkpoints
-(ROADMAP A4), ``visualize`` (A9).
+for. ``checkpoint`` may be a committed ``.npz`` export, a torch
+``.ckpt``/``.pth``/``.pt`` of the reference (a path, or an artifact name
+found in the local cache), or a train-state directory of
+``rap_tpu_torch.apps.train``. Not ported (each raises): rap_tpu's orbax
+directories (orbax needs jax), ``visualize`` (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -44,30 +47,54 @@ from ..data import BatchLoader, LoaderConfig, PointCloudDataset
 from ..eval import Evaluator, MetricsMeter
 from ..eval.meter import print_eval_table
 from ..models.dit import init_dit_params
-from ..registration import predict_poses, sample
+from ..registration import predict_poses, sample, seeded_generator
 from ..weights import load_params_npz
 
 logger = logging.getLogger("rap_tpu_torch.sample")
 
 
 def load_params(cfg: Config, device="cuda"):
-    """The model's parameters on ``device``: a committed ``.npz`` export, or
-    random weights from ``trainer.seed`` when no checkpoint is given."""
+    """The model's parameters on ``device`` (sample.py:38-62): from an
+    ``.npz`` export, a torch ``.ckpt``/``.pth``/``.pt`` (resolved through
+    ``train.weights.resolve_checkpoint``), or a train-state directory; random
+    weights from ``trainer.seed`` when no checkpoint is given."""
+    from ..models.dit import attach_bounds, to_device
+    from ..train.checkpoint import (convert_torch_state_dict, is_train_state_dir,
+                                    load_train_state_params, read_torch_checkpoint,
+                                    torch_checkpoint_layers)
+    from ..train.weights import resolve_checkpoint
+
     device = resolve_device(device)
     ckpt = cfg.checkpoint
+    L = cfg.model.num_layers
     if not ckpt:
         logger.warning("no checkpoint given — evaluating RANDOM weights")
         return init_dit_params(cfg.trainer.seed, cfg.model, device=device)
     if ckpt.endswith(".npz"):
         logger.info("loading npz params %s", ckpt)
         params = load_params_npz(ckpt, device=device, compute_dtype=cfg.model.compute_dtype)
-        if len(params["layers"]) != cfg.model.num_layers:
-            raise ValueError(f"{ckpt} has {len(params['layers'])} layers, the config "
-                             f"{cfg.model.num_layers}")
-        return params
-    raise NotImplementedError(
-        f"checkpoint {ckpt!r}: only .npz parameter exports are read; torch "
-        ".ckpt/.pth files and orbax directories wait for ROADMAP A4")
+    elif ckpt.endswith((".ckpt", ".pth", ".pt")):
+        path = resolve_checkpoint(ckpt)
+        logger.info("converting torch checkpoint %s", path)
+        sd = read_torch_checkpoint(path)
+        if torch_checkpoint_layers(sd) != L:
+            raise ValueError(f"{path} has {torch_checkpoint_layers(sd)} layers, the config {L}")
+        params = to_device(attach_bounds(convert_torch_state_dict(sd, L)), device,
+                           cfg.model.compute_dtype)
+    elif is_train_state_dir(ckpt):
+        logger.info("loading the parameters of train state %s", ckpt)
+        params = to_device(attach_bounds(load_train_state_params(ckpt)), device,
+                           cfg.model.compute_dtype)
+    elif Path(ckpt).is_dir():
+        raise NotImplementedError(
+            f"checkpoint {ckpt!r} is not a train state of the port; rap_tpu's orbax "
+            "directories need orbax and jax, which the port does not use: export the "
+            "parameters with rap_tpu's save_params_npz and pass the .npz")
+    else:
+        raise FileNotFoundError(f"checkpoint {ckpt!r} not found")
+    if len(params["layers"]) != L:
+        raise ValueError(f"{ckpt} has {len(params['layers'])} layers, the config {L}")
+    return params
 
 
 def make_generate_fn(cfg: Config, return_trajectory: bool = True):
@@ -81,13 +108,6 @@ def make_generate_fn(cfg: Config, return_trajectory: bool = True):
         return out, R, t
 
     return generate
-
-
-def generation_generator(seed: int, batch_index: int, generation: int,
-                         device) -> torch.Generator:
-    """The noise generator of one generation, on ``device``."""
-    state = np.random.SeedSequence([seed, batch_index, generation]).generate_state(1)[0]
-    return torch.Generator(device=device).manual_seed(int(state))
 
 
 def _sync(device: torch.device) -> None:
@@ -133,7 +153,7 @@ def run_eval(cfg: Config, params=None, device="cuda", record: dict | None = None
             gen_results, trajs, gens = [], [], []
             t_batch = t_post = 0.0
             for g in range(cfg.pipeline.n_generations):
-                gen = generation_generator(cfg.trainer.seed, b_idx, g, device)
+                gen = seeded_generator(device, cfg.trainer.seed, b_idx, g)
                 _sync(device)
                 t_gen0 = time.perf_counter()
                 out, R, t = generate(params, batch, generator=gen)

@@ -9,10 +9,9 @@ picks a ``MODEL_ZOO`` entry and the ``model`` keys override it;
 ``pipeline.model`` mirrors ``model``. ``model.compute_dtype`` may be given
 by name (``float32``, ``bfloat16``, ``float16``). The ``visualizer`` keys
 are parsed and kept; ``visualize: true`` raises in ``apps.sample`` (the
-visualizer waits for ROADMAP A9). rap_tpu's fields that no shipped config
-sets and nothing of the port reads (training-loop options, the loader's
-per-epoch cap, artifact options) are left out: a key naming one raises
-``KeyError``.
+visualizer waits for ROADMAP A9). Every field of rap_tpu's ``Config`` is
+here; ``apps.train`` refuses ``n_devices`` above 1: the port trains on one
+card until the mesh is ported (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -56,6 +55,7 @@ class DataConfig:
     max_points_per_batch: int = 400_000
     max_parts: int = 512
     max_points_per_part: int = 40_000
+    max_samples_per_epoch: int = 0   # per-dataset random cap a training epoch (0 = all)
     num_prefetch: int = 2
 
 
@@ -64,9 +64,13 @@ class TrainerConfig:
     max_epochs: int = 2000
     val_every_n_epochs: int = 10
     checkpoint_dir: str = "checkpoints"
+    keep_last: bool = True
     monitor: str = "val/overall/object_chamfer"
     seed: int = 42
+    log_every_n_steps: int = 50
     train_points_per_batch: int = 80_000
+    remat: bool = True
+    log_file: str = ""   # JSONL metrics log; "" = <checkpoint_dir>/metrics.jsonl
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,7 +84,10 @@ class Config:
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     visualizer: VisualizerConfig = dataclasses.field(default_factory=VisualizerConfig)
     visualize: bool = False
-    checkpoint: str = ""   # .npz parameters; "" = random weights from trainer.seed
+    # .npz parameters, a torch .ckpt/.pth/.pt, or a train-state directory
+    # (train/checkpoint.py); "" = random weights from trainer.seed
+    checkpoint: str = ""
+    n_devices: int = 0     # 0 = all; apps.train runs on one card (> 1: ROADMAP A8)
 
 
 def _resolve_type(owner, tp):

@@ -7,6 +7,16 @@ branchless det-reflection fix, and the pre-SVD identity for degenerate parts
 is fp32. The JAX code forces HIGHEST matmul precision (procrustes.py:47,
 :66); here the small products are written as elementwise multiply-and-sum,
 which never goes through TF32 whatever the global matmul setting.
+
+The SVD: where no gradient is taken (sampling, pose fits, metrics),
+``torch.linalg.svd``. On the card that is cuSOLVER, which checks its
+convergence on the host: each call synchronises the device with the host.
+A training step must not (its non-finite guard is sync-free on purpose), so
+where the cross-covariance needs a gradient (the pose loss) ``svd3`` runs
+instead: cyclic one-sided Jacobi with a fixed number of sweeps, elementwise
+on the device, and the analytic SVD backward (the formula JAX and torch
+use). For the degenerate parts' identity its backward divides by zero like
+theirs, and ``torch.where`` selects that entry away.
 """
 
 from __future__ import annotations
@@ -25,6 +35,83 @@ def _det33(m: torch.Tensor) -> torch.Tensor:
         - m[..., 0, 1] * (m[..., 1, 0] * m[..., 2, 2] - m[..., 1, 2] * m[..., 2, 0])
         + m[..., 0, 2] * (m[..., 1, 0] * m[..., 2, 1] - m[..., 1, 1] * m[..., 2, 0])
     )
+
+
+_JACOBI_SWEEPS = 6  # fp32 converges in 3-4 on 3x3 matrices
+
+
+def _jacobi_svd3(H: torch.Tensor):
+    """(U, S, V) of (..., 3, 3) matrices by cyclic one-sided Jacobi: columns
+    of H rotated pairwise until orthogonal (H V = U S), sorted by descending
+    norm; U's third column is u1 x u2 (S3 carries the sign), so U is a
+    rotation and a rank-deficient H still gets one."""
+    a = [H[..., :, i] for i in range(3)]
+    one, zero = torch.ones_like(H[..., 0, 0]), torch.zeros_like(H[..., 0, 0])
+    v = [torch.stack([one if r == i else zero for r in range(3)], -1) for i in range(3)]
+    for _ in range(_JACOBI_SWEEPS):
+        for p, q in ((0, 1), (0, 2), (1, 2)):
+            alpha, beta = (a[p] * a[p]).sum(-1), (a[q] * a[q]).sum(-1)
+            gamma = (a[p] * a[q]).sum(-1)
+            off = gamma != 0
+            zeta = (beta - alpha) / (2.0 * torch.where(off, gamma, 1.0))
+            t = torch.where(zeta >= 0, 1.0, -1.0) / (zeta.abs() + torch.sqrt(1.0 + zeta * zeta))
+            t = torch.where(off, t, 0.0)
+            c = torch.rsqrt(1.0 + t * t)
+            c, s = c[..., None], (c * t)[..., None]
+            a[p], a[q] = c * a[p] - s * a[q], s * a[p] + c * a[q]
+            v[p], v[q] = c * v[p] - s * v[q], s * v[p] + c * v[q]
+    A, V = torch.stack(a, -1), torch.stack(v, -1)
+    order = A.norm(dim=-2).argsort(-1, descending=True)[..., None, :].expand(A.shape)
+    A, V = A.gather(-1, order), V.gather(-1, order)
+    s1 = A[..., 0].norm(dim=-1, keepdim=True)
+    u1 = A[..., 0] / s1.clamp_min(1e-30)
+    s2 = A[..., 1].norm(dim=-1, keepdim=True)
+    # rank 1: any unit vector orthogonal to u1 (from the axis least along it)
+    # (a comparison, not one_hot: one_hot checks its indices on the host)
+    axis = (torch.arange(3, device=H.device) == u1.abs().argmin(-1, keepdim=True)).to(u1.dtype)
+    alt = torch.linalg.cross(u1, axis)
+    alt = alt / alt.norm(dim=-1, keepdim=True).clamp_min(1e-30)
+    u2 = torch.where(s2 > 1e-12 * s1, A[..., 1] / s2.clamp_min(1e-30), alt)
+    u3 = torch.linalg.cross(u1, u2)
+    U = torch.stack([u1, u2, u3], -1)
+    S = torch.cat([s1, (A[..., 1] * u2).sum(-1, keepdim=True),
+                   (A[..., 2] * u3).sum(-1, keepdim=True)], -1)
+    return U, S, V
+
+
+class _SVD3(torch.autograd.Function):
+    """``_jacobi_svd3`` forward; the analytic backward of H = U S V^T with
+    U, V orthogonal (torch's ``svd_backward`` for square inputs):
+    gH = U [(skew(U^T gU) / E) S + S (skew(V^T gV) / E) + diag(gS)] V^T,
+    skew(X) = X - X^T, E_jk = S_k^2 - S_j^2 off the diagonal."""
+
+    @staticmethod
+    def forward(ctx, H):
+        U, S, V = _jacobi_svd3(H)
+        ctx.save_for_backward(U, S, V)
+        return U, S, V.transpose(-1, -2)
+
+    @staticmethod
+    def backward(ctx, gU, gS, gVh):
+        U, S, V = ctx.saved_tensors
+        Ut, Vt = U.transpose(-1, -2), V.transpose(-1, -2)
+        gV = gVh.transpose(-1, -2)
+        s2 = S * S
+        E = s2[..., None, :] - s2[..., :, None]
+        eye = torch.eye(3, dtype=S.dtype, device=S.device)
+        E = torch.where(eye.bool(), 1.0, E)
+        ju, jv = _matmul33(Ut, gU), _matmul33(Vt, gV)
+        inner = ((ju - ju.transpose(-1, -2)) / E * S[..., None, :]
+                 + S[..., :, None] * ((jv - jv.transpose(-1, -2)) / E)
+                 + torch.diag_embed(gS))
+        return _matmul33(_matmul33(U, inner), Vt)
+
+
+def svd3(H: torch.Tensor):
+    """(U, S, Vh) of (..., 3, 3) fp32 matrices without a host sync,
+    differentiable (see the module docstring); S3 may be negative (U is a
+    rotation)."""
+    return _SVD3.apply(H)
 
 
 def kabsch_masked(source, target, mask, weights=None):
@@ -51,7 +138,7 @@ def kabsch_masked(source, target, mask, weights=None):
     eye = torch.eye(3, dtype=H.dtype, device=H.device).expand(H.shape)
     H = torch.where(degen[..., None, None], eye, H)
 
-    U, _, Vh = torch.linalg.svd(H)
+    U, _, Vh = svd3(H) if H.requires_grad else torch.linalg.svd(H)
     V = Vh.transpose(-1, -2)
     Ut = U.transpose(-1, -2)
     d = _det33(_matmul33(V, Ut))

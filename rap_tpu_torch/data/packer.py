@@ -3,13 +3,14 @@ of rap_tpu/data/packer.py).
 
 Every batch is a regular (S, P, N) grid: P = the largest part count and
 N = the largest part size, each rounded up a ladder of powers of two. The
-greedy packer sorts samples by (bucketed parts, bucketed size) and packs
-until the padded token count S·P·N would pass the budget (``plan_batches``
-:57, in the order rap_tpu's evaluation uses; its shuffle and S padding are
-training options and wait for apps/train, ROADMAP A2).
-``collate_to_part_batch`` (:122) builds the port's ``PartBatch`` on a
-device, with ``no_padding`` as rap_tpu computes it (:202): no padded point
-or part.
+greedy packer sorts samples by (bucketed parts, bucketed size), after a
+seeded shuffle when training asks for one, and packs until the padded token
+count S·P·N would pass the budget, S padded to a multiple of ``s_multiple``
+(``plan_batches`` :57-119). ``collate_to_part_batch`` (:122) builds the
+port's ``PartBatch`` on a device, with ``S - len(samples)`` empty sample
+slots (``sample_valid`` False, names ``_pad_<i>``) where S is given, and
+``no_padding`` as rap_tpu computes it (:202): no padded point, part or
+sample.
 """
 
 from __future__ import annotations
@@ -41,37 +42,56 @@ class BatchPlan:
     indices: list[int]
     N: int
     P: int
+    S: int  # padded sample count (>= len(indices))
+
+
+def pad_to_multiple(x: int, m: int) -> int:
+    """Ceil x up to a multiple of m."""
+    return -(-x // m) * m
 
 
 def plan_batches(
     part_counts: list[int],
     max_part_points: list[int],
     max_points_per_batch: int,
+    shuffle: bool = False,
+    seed: int = 0,
+    s_multiple: int = 1,
 ) -> list[BatchPlan]:
-    """Greedy shape-aware packing (packer.py:57-119, in rap_tpu's evaluation
-    order: no shuffle, S not padded)."""
+    """Greedy shape-aware packing (packer.py:57-119): with ``shuffle`` a
+    permutation from ``np.random.default_rng(seed)`` first, which the stable
+    sort keeps within equal (P, N) buckets; S padded to ``s_multiple``."""
+    order = np.arange(len(part_counts))
+    if shuffle:
+        order = np.random.default_rng(seed).permutation(len(part_counts))
     P_of = [_bucket(p, P_BUCKETS) for p in part_counts]
     N_of = [_bucket(max(n, 1), N_BUCKETS) for n in max_part_points]
-    order = np.argsort(np.array([p * 10**9 + n for p, n in zip(P_of, N_of)], np.int64),
-                       kind="stable")
+    keys = np.array([P_of[i] * 10**9 + N_of[i] for i in order], np.int64)
+    order = order[np.argsort(keys, kind="stable")]
+
+    def slots(n: int) -> int:
+        return pad_to_multiple(n, s_multiple)
 
     plans: list[BatchPlan] = []
     cur: list[int] = []
     cur_P = cur_N = 0
     for i in order:
         new_P, new_N = max(cur_P, P_of[i]), max(cur_N, N_of[i])
-        new_tokens = (len(cur) + 1) * new_P * new_N
-        # flush on overflow unless the padded shape is unchanged
-        if cur and new_tokens > max_points_per_batch and new_tokens != cur_P * cur_N * len(cur):
-            plans.append(BatchPlan(cur, cur_N, cur_P))
+        new_tokens = slots(len(cur) + 1) * new_P * new_N
+        # flush on overflow unless the padded shape is unchanged: the sample
+        # then fills an S slot the batch already pays for
+        if (cur and new_tokens > max_points_per_batch
+                and new_tokens != cur_P * cur_N * slots(max(len(cur), 1))):
+            plans.append(BatchPlan(cur, cur_N, cur_P, slots(len(cur))))
             cur, new_P, new_N = [], P_of[i], N_of[i]
         cur.append(int(i))
         cur_P, cur_N = new_P, new_N
-        if cur_P * cur_N * len(cur) >= max_points_per_batch:
-            plans.append(BatchPlan(cur, cur_N, cur_P))
+        if (cur_P * cur_N * slots(len(cur)) >= max_points_per_batch
+                and len(cur) % s_multiple == 0):
+            plans.append(BatchPlan(cur, cur_N, cur_P, slots(len(cur))))
             cur, cur_P, cur_N = [], 0, 0
     if cur:
-        plans.append(BatchPlan(cur, cur_N, cur_P))
+        plans.append(BatchPlan(cur, cur_N, cur_P, slots(len(cur))))
     return plans
 
 
@@ -79,13 +99,17 @@ def collate_to_part_batch(
     samples: list[Sample],
     N: int,
     P: int,
+    S: int | None = None,
     feat_dim: int | None = None,
     device="cuda",
 ) -> tuple[PartBatch, list[str]]:
-    """A regular-layout PartBatch on ``device`` from Samples (one sample slot
-    each), and the sample names. Parts larger than N are an error."""
+    """A regular-layout PartBatch on ``device`` from Samples, with ``S``
+    sample slots (default one a sample; the rest empty), and the slot
+    names. Parts larger than N are an error."""
     device = resolve_device(device)
-    S = len(samples)
+    S = len(samples) if S is None else S
+    if len(samples) > S:
+        raise ValueError(f"{len(samples)} samples do not fit S={S} slots")
     if feat_dim is None:
         feat_dim = samples[0].features[0].shape[1] if samples else 32
     G = S * P
@@ -98,7 +122,7 @@ def collate_to_part_batch(
     rots = np.tile(np.eye(3, dtype=np.float32), (G, 1, 1))
     trans = np.zeros((G, 3), np.float32)
     scale = np.ones(S, np.float32)
-    sample_valid = np.ones(S, bool)
+    sample_valid = np.zeros(S, bool)
     g_rot = np.tile(np.eye(3, dtype=np.float32), (S, 1, 1))
     g_trans = np.zeros((S, 3), np.float32)
     names: list[str] = []
@@ -120,9 +144,11 @@ def collate_to_part_batch(
             trans[g] = smp.translations[p]
             anchor[g] = p == smp.anchor_idx
         scale[s] = smp.scale
+        sample_valid[s] = True
         g_rot[s] = smp.global_rotation
         g_trans[s] = smp.global_translation
         names.append(smp.name)
+    names += [f"_pad_{i}" for i in range(S - len(samples))]
 
     arrays = {
         "points": points, "points_gt": points_gt, "local_feats": feats,
@@ -132,7 +158,7 @@ def collate_to_part_batch(
         "scale": scale, "sample_valid": sample_valid, "global_rotation": g_rot,
         "global_translation": g_trans,
     }
-    no_padding = bool(mask.all() and part_valid.all())
+    no_padding = bool(mask.all() and part_valid.all() and sample_valid.all())
     return PartBatch(**{k: torch.from_numpy(v).to(device) for k, v in arrays.items()},
                      no_padding=no_padding), names
 

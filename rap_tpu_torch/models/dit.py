@@ -34,7 +34,17 @@ amax and one host read for all layers) before the forward, and the
 recompute sees the same fixed/online choice as the first forward. A padded
 batch needs no bound.
 
-Not ported yet (each raises or is absent): ring attention, FF dropout.
+FF dropout (training only, dit.py:271-297): with ``dropout`` given, each
+layer's feed-forward takes the plain composition with inverted dropout
+between the GEGLU activation and ``ff_out`` (the fused FF kernel stays
+dropout-free, as in rap_tpu, so rows 5 and 10 do not run). ``dropout``
+holds one entry a layer: a keep mask (bool, the activation's shape), or an
+int seed from which the layer draws its mask with a fresh generator on the
+activation's device. A seed is fixed before the layer runs, so the remat
+recompute (``torch.utils.checkpoint`` restores only the default generators'
+states, never an explicit one) draws the same mask as the first forward.
+
+Not ported yet: ring attention (ROADMAP A8).
 
 Parameters are a nested dict like the JAX pytree, except that ``layers`` is
 a list of per-layer dicts (the stacked ``layers/*`` arrays split along L).
@@ -297,7 +307,9 @@ def _attention_block(lp, prefix, x, t_emb, mask, cfg: DiTConfig, S: int, P: int,
     return x + _linear(lp[f"{prefix}_out"], out.reshape(G, N, D))
 
 
-def _geglu_ff(lp, x, cfg: DiTConfig):
+def _geglu_ff(lp, x, cfg: DiTConfig, dropout=None):
+    if dropout is not None:
+        return dropout_ff(lp, x, cfg.dropout_rate, dropout)
     return fused_ff.geglu_ff(
         x, lp["ff_norm"]["scale"], lp["ff_norm"]["bias"], lp["ff_in"]["kernel"],
         lp["ff_in"]["bias"], lp["ff_out"]["kernel"], lp["ff_out"]["bias"],
@@ -305,10 +317,33 @@ def _geglu_ff(lp, x, cfg: DiTConfig):
     )
 
 
-def _layer(h, lp, t_emb, mask, cfg: DiTConfig, S: int, P: int, bounds):
+def keep_mask(shape, rate: float, seed: int, device) -> torch.Tensor:
+    """The keep mask of one layer: u < 1 - rate, u uniform from a fresh
+    generator on ``device`` seeded with ``seed`` (Philox on the card)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.rand(shape, generator=gen, device=device) < 1.0 - rate
+
+
+def dropout_ff(lp, x, rate: float, keep):
+    """x + FF(LN(x)) with inverted dropout on the GEGLU activation
+    (dit.py:281-297): the plain composition, h, proj and act in x's dtype,
+    GELU in fp32, act / (1 - rate) where ``keep`` (a bool mask, or an int
+    seed for ``keep_mask``) holds, else 0."""
+    dt = x.dtype
+    fh = lp["ff_out"]["kernel"].shape[0]
+    h = _layer_norm(x, lp["ff_norm"]["scale"], lp["ff_norm"]["bias"])
+    proj = _linear(lp["ff_in"], h)
+    act = proj[..., :fh] * F.gelu(proj[..., fh:].float(), approximate="none").to(dt)
+    if isinstance(keep, int):
+        keep = keep_mask(act.shape, rate, keep, act.device)
+    act = torch.where(keep, act / (1.0 - rate), 0.0).to(dt)
+    return x + _linear(lp["ff_out"], act)
+
+
+def _layer(h, lp, t_emb, mask, cfg: DiTConfig, S: int, P: int, bounds, dropout=None):
     h = _attention_block(lp, "self", h, t_emb, mask, cfg, S, P, False, bounds[0])
     h = _attention_block(lp, "global", h, t_emb, mask, cfg, S, P, True, bounds[1])
-    return _geglu_ff(lp, h, cfg)
+    return _geglu_ff(lp, h, cfg, dropout)
 
 
 def dit_forward(
@@ -322,6 +357,7 @@ def dit_forward(
     bounds: list[tuple[float, float]] | None = None,
     return_features: bool = False,
     latent: torch.Tensor | None = None,
+    dropout: list | None = None,
 ):
     """Predict the velocity field: (G, N, out_dim) fp32 [, features (G, N, D)
     fp32 with ``return_features``].
@@ -333,6 +369,8 @@ def dit_forward(
     ``remat``: recompute each layer's forward in the backward instead of
     keeping its activations. ``latent``: (G, N, in_dim) encoder features
     when ``cfg.in_dim > 0``; None gives zeros (dit.py:359-365).
+    ``dropout``: one keep mask or int seed a layer, at ``cfg.dropout_rate``
+    (training; see the module docstring); None runs without dropout.
     """
     G, N, _ = x.shape
     S, P = timesteps.shape[0], parts_per_sample
@@ -367,11 +405,12 @@ def dit_forward(
         bounds = [(None, None)] * len(params["layers"])
     elif bounds is None:
         bounds = [(lp["self_bound2"], lp["global_bound2"]) for lp in params["layers"]]
-    for lp, b in zip(params["layers"], bounds, strict=True):
+    drops = [None] * len(params["layers"]) if dropout is None else dropout
+    for lp, b, d in zip(params["layers"], bounds, drops, strict=True):
         if remat and torch.is_grad_enabled():
-            h = checkpoint(_layer, h, lp, t_emb, mask, cfg, S, P, b, use_reentrant=False)
+            h = checkpoint(_layer, h, lp, t_emb, mask, cfg, S, P, b, d, use_reentrant=False)
         else:
-            h = _layer(h, lp, t_emb, mask, cfg, S, P, b)
+            h = _layer(h, lp, t_emb, mask, cfg, S, P, b, d)
 
     # ---- fp32 head ----------------------------------------------------------
     hf = h.float()

@@ -9,17 +9,20 @@ caller may pass the noise ``x_1`` (and, to training, the timesteps ``t``;
 to the pruned sampler, its index set), so the same draws can drive both
 packages.
 Dense and padded batches both run (the DiT takes its masked branch for the
-latter). Not ported yet: the pose loss (``pose_loss_weight > 0`` raises: it
-needs the gradient of the batched 3x3 SVD), FF dropout in training and ring
-attention (ROADMAP A8).
+latter). Training also takes rap_tpu's two options: the auxiliary pose loss
+(``pose_loss_weight > 0``, through the gradient of the batched 3x3 SVD of
+``core.procrustes``) and FF dropout (``model.dropout_rate > 0``). Not
+ported yet: ring attention (ROADMAP A8).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 from typing import Any
 
+import numpy as np
 import torch
 
 from .core import flow, procrustes
@@ -36,7 +39,8 @@ class RPFConfig:
     model: DiTConfig = dataclasses.field(default_factory=DiTConfig)
     loss_type: str = "mse"
     timestep_sampling: str = "u_shaped"
-    pose_loss_weight: float = 0.0  # the pose loss is not ported: > 0 raises
+    # auxiliary Kabsch pose loss on the implied endpoint x0_hat = x_t - t*v_pred
+    pose_loss_weight: float = 0.0
     inference_sampling_steps: int = 10
     inference_sampler: str = "euler"
     inference_schedule: str = "uniform"
@@ -61,45 +65,53 @@ def training_forward(
     params,
     cfg: RPFConfig,
     batch: PartBatch,
-    generator: torch.Generator,
+    generator: torch.Generator | None,
     remat: bool = True,
     x_1: torch.Tensor | None = None,
     t: torch.Tensor | None = None,
+    dropout_keep: list[torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One training forward (registration.py:92-164): sample t, build the
     flow target, predict v, loss. Returns (loss with its graph, metrics
-    detached): loss, norm_v_pred, norm_v_t and the t-binned losses.
+    detached): loss (the velocity loss alone, as rap_tpu reports it),
+    norm_v_pred, norm_v_t, the t-binned losses and, with a pose loss,
+    pose_loss.
 
     ``t`` (S,) and ``x_1`` (G, N, 3) override the draws from ``generator``
-    (t first, then the noise, as rap_tpu splits its key). For a dense batch
-    the attention guard bounds are computed here from the current gains,
-    once per call; a padded batch needs none.
+    (t first, then the noise, as rap_tpu splits its key). With
+    ``model.dropout_rate > 0`` each layer's keep mask comes from
+    ``dropout_keep`` (one bool mask a layer, (G, N, FH)) or from a seed a
+    layer derived on the host from the generator's state after those draws
+    (``dropout_seeds``). For a dense batch the attention guard bounds are
+    computed here from the current gains, once per call; a padded batch
+    needs none.
     """
-    if cfg.model.dropout_rate > 0.0:
-        raise NotImplementedError(
-            "FF dropout in training takes the unfused FF (rap_tpu/models/dit.py:"
-            "281), which is not ported yet (ROADMAP A5.3)")
-    if cfg.pose_loss_weight > 0.0:
-        raise NotImplementedError(
-            "the pose loss needs the gradient of the batched 3x3 SVD, which is "
-            "not ported yet (ROADMAP section A, training)")
     if t is None:
         t = flow.sample_timesteps(generator, batch.S, cfg.timestep_sampling)
     x_0 = batch.points_gt
     if x_1 is None:
         x_1 = torch.randn(x_0.shape, generator=generator, dtype=x_0.dtype,
                           device=x_0.device)
+    dropout = None
+    if cfg.model.dropout_rate > 0.0:
+        dropout = (list(dropout_keep) if dropout_keep is not None
+                   else dropout_seeds(generator, len(params["layers"])))
     P = parts_per_sample(batch)
     t_point = batch.per_sample_to_point(t)[..., None]  # (G, N, 1)
     x_t, v_t = flow.flow_interpolate(x_0, x_1, t_point)
     bounds = attention_bounds(params) if batch.no_padding else None
     v_pred = dit_forward(params, cfg.model, x_t, t, batch, parts_per_sample=P,
-                         remat=remat, bounds=bounds)
+                         remat=remat, bounds=bounds, dropout=dropout)
     loss = flow.velocity_loss(v_pred, v_t, batch.point_mask, cfg.loss_type)
+    metrics = {"loss": loss.detach()}
+    if cfg.pose_loss_weight > 0.0:
+        pose_loss = _pose_loss(batch, x_t, t_point, v_pred)
+        loss = loss + cfg.pose_loss_weight * pose_loss
+        metrics["pose_loss"] = pose_loss.detach()
     with torch.no_grad():
         v_pred = v_pred.detach()
         n_pred, n_t = flow.velocity_norms(v_pred, v_t, batch.point_mask)
-        metrics = {"loss": loss.detach(), "norm_v_pred": n_pred, "norm_v_t": n_t}
+        metrics.update(norm_v_pred=n_pred, norm_v_t=n_t)
         mask = batch.point_mask.float()
         se = ((v_pred - v_t) ** 2 * mask[..., None]).sum((1, 2))        # (G,)
         cnt = 3.0 * mask.sum(1)
@@ -112,6 +124,46 @@ def training_forward(
             w = ((t >= lo) & (t < hi)).float() * valid
             metrics[name] = (loss_s * w).sum() / w.sum().clamp_min(1.0)
     return loss, metrics
+
+
+def seeded_generator(device, *entropy: int) -> torch.Generator:
+    """A generator on ``device`` seeded from integers (through
+    ``np.random.SeedSequence``): the noise of one generation."""
+    state = np.random.SeedSequence(list(entropy)).generate_state(1)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+def dropout_seeds(generator: torch.Generator, n: int) -> list[int]:
+    """One dropout seed a layer from the generator's state, read on the host
+    (a card generator's state is its Philox seed and offset: no sync), then
+    one draw to move the generator on, so the next call gets other seeds
+    even where its t and noise were given."""
+    if generator is None:
+        raise ValueError("FF dropout needs a generator or dropout_keep")
+    state = generator.get_state().numpy().tobytes()
+    seeds = [int.from_bytes(hashlib.blake2b(state + i.to_bytes(4, "little"),
+                                            digest_size=8).digest(), "little") >> 1
+             for i in range(n)]
+    torch.rand((1,), generator=generator, device=generator.device)
+    return seeds
+
+
+def _pose_loss(batch: PartBatch, x_t, t_point, v_pred) -> torch.Tensor:
+    """rap_tpu's auxiliary pose loss (registration.py:132-149): the masked
+    Kabsch fit of the condition to the implied endpoint x0_hat, then
+    1 - clip((tr(R_hat^T R) - 1) / 2) plus the squared translation error,
+    averaged over the valid parts of valid samples. Degenerate parts (fewer
+    than 3 points) keep a finite gradient: kabsch_masked feeds the SVD an
+    identity there and selects (torch.where, no product) its result away,
+    so the SVD backward's non-finite entries for them never reach the
+    gradient. No host read."""
+    x0_hat = x_t - t_point * v_pred.to(x_t.dtype)
+    R_hat, t_hat = procrustes.fit_transformations(batch.points, x0_hat, batch.point_mask)
+    tr = (R_hat * batch.rotations_gt).sum((-2, -1))
+    rot_l = 1.0 - ((tr - 1.0) / 2.0).clamp(-1.0, 1.0)
+    trans_l = ((t_hat - batch.translations_gt) ** 2).sum(-1)
+    pw = (batch.part_valid & batch.per_sample_to_part(batch.sample_valid)).float()
+    return ((rot_l + trans_l) * pw).sum() / pw.sum().clamp_min(1.0)
 
 
 def velocity_fn(params, cfg: RPFConfig, batch: PartBatch):

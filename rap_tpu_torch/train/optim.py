@@ -11,9 +11,10 @@ builds, in the same order and with the same step count:
      correction with count+1, eps outside the sqrt), + weight decay,
      x -lr(count)
 
-with lr the MultiStepLR schedule (:146: x gamma from each milestone on),
-milestones counted in steps (rap_tpu's ``steps_per_epoch=1``; the epoch
-conversion comes with the data loader). ``name="adamw"`` puts every leaf in
+with lr the MultiStepLR schedule (:146-150: x gamma from each milestone
+on), milestones counted in epochs of ``steps_per_epoch`` steps (milestone m
+takes effect at step m * steps_per_epoch; the default 1 counts them in
+steps, as rap_tpu's default does). ``name="adamw"`` puts every leaf in
 one AdamW group. One int32 step count stands for optax's per-transform
 counts, which always move together.
 
@@ -52,7 +53,7 @@ class OptimizerConfig:
     muon_wd_mult: float = 0.1                # muon group wd = 0.01 * 0.1
     muon_momentum: float = 0.95
     grad_clip: float = 0.5
-    lr_milestones: tuple[int, ...] = (400, 550, 700, 850, 1000)  # steps
+    lr_milestones: tuple[int, ...] = (400, 550, 700, 850, 1000)  # epochs
     lr_gamma: float = 0.5
 
 
@@ -115,10 +116,11 @@ class Optimizer:
     nested dicts of the same structure; the state holds flat dicts by path.
     """
 
-    def __init__(self, cfg: OptimizerConfig):
+    def __init__(self, cfg: OptimizerConfig, steps_per_epoch: int = 1):
         if cfg.name not in ("adamw", "muon"):
             raise ValueError(f"Unknown optimizer: {cfg.name}")
         self.cfg = cfg
+        self.steps_per_epoch = steps_per_epoch
 
     def _muon(self, path, leaf) -> bool:
         return self.cfg.name == "muon" and is_matrix(path, leaf)
@@ -127,7 +129,7 @@ class Optimizer:
         """MultiStepLR as optax.piecewise_constant_schedule, on the device."""
         v = torch.full((), base, dtype=torch.float32, device=count.device)
         for m in sorted(self.cfg.lr_milestones):
-            v = torch.where(count >= int(m), v * self.cfg.lr_gamma, v)
+            v = torch.where(count >= int(m) * self.steps_per_epoch, v * self.cfg.lr_gamma, v)
         return v
 
     def init(self, params) -> dict[str, Any]:

@@ -8,7 +8,11 @@ parameters and the optimizer state keep their old values (``torch.where`` on
 the device, no host sync) and ``metrics["skipped_nonfinite"]`` is 1. Metrics
 are 0-d tensors on the device; reading them is the caller's sync.
 
-Not ported yet: ``make_scanned_train_steps``, the mesh, checkpoints.
+``make_scanned_train_steps`` (:118) runs ``num_steps`` such steps over a
+list of batches, or a batch stacked along a leading step axis, and returns
+the per-step losses, as rap_tpu's ``lax.scan`` does; here it is a Python
+loop of the same step. Train states are saved and restored by
+``train/checkpoint.py``. Not ported yet: the mesh (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from typing import Any
 import torch
 
 from .._device import resolve_device
-from ..core.batch import PartBatch
+from ..core.batch import TENSOR_FIELDS, PartBatch
 from ..models.dit import master_params
 from ..registration import RPFConfig, training_forward
 from .optim import (Optimizer, OptimizerConfig, apply_updates, global_norm, tree_paths,
@@ -56,24 +60,28 @@ def _keep(finite: torch.Tensor, new, old):
 
 
 def make_train_step(cfg: RPFConfig, opt_cfg: OptimizerConfig, remat: bool = True,
-                    device="cuda"):
-    """``step(state, batch, x_1=None, t=None) -> (state, metrics)``.
+                    device="cuda", steps_per_epoch: int = 1):
+    """``step(state, batch, x_1=None, t=None, dropout_keep=None) -> (state,
+    metrics)``.
 
     ``x_1`` and ``t`` override the noise and the timesteps drawn from the
     state's generator (the reflow hook of rap_tpu's ``with_noise``, and the
-    way a test feeds both packages the same draws). The step runs where the
-    state lives; ``device`` (default the card) must match it.
+    way a test feeds both packages the same draws), ``dropout_keep`` the FF
+    dropout masks. The learning-rate milestones count epochs of
+    ``steps_per_epoch`` steps. The step runs where the state lives;
+    ``device`` (default the card) must match it.
     """
     device = resolve_device(device)
-    opt = Optimizer(opt_cfg)
+    opt = Optimizer(opt_cfg, steps_per_epoch)
 
-    def step(state: TrainState, batch: PartBatch, x_1=None, t=None):
+    def step(state: TrainState, batch: PartBatch, x_1=None, t=None, dropout_keep=None):
         if state.step.device.type != device.type:
             raise ValueError(f"state on {state.step.device}, step built for {device}")
         flat = dict(tree_paths(state.params))
         leaves = {k: p.detach().requires_grad_(True) for k, p in flat.items()}
         loss, metrics = training_forward(tree_replace(state.params, leaves), cfg, batch,
-                                         state.generator, remat=remat, x_1=x_1, t=t)
+                                         state.generator, remat=remat, x_1=x_1, t=t,
+                                         dropout_keep=dropout_keep)
         # a leaf the forward does not read (the qk gains with qk_norm=False)
         # gets a zero gradient, as jax.grad gives it
         grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()),
@@ -89,6 +97,31 @@ def make_train_step(cfg: RPFConfig, opt_cfg: OptimizerConfig, remat: bool = True
                           state.generator), metrics
 
     return step
+
+
+def make_scanned_train_steps(cfg: RPFConfig, opt_cfg: OptimizerConfig, num_steps: int,
+                             remat: bool = True, device="cuda", steps_per_epoch: int = 1):
+    """``scanned(state, batches) -> (state, losses)``: ``num_steps`` train
+    steps (step.py:118-147), ``batches`` a list of ``num_steps`` PartBatches
+    or one PartBatch whose fields carry a leading (num_steps, ...) axis;
+    ``losses`` (num_steps,) on the device."""
+    step = make_train_step(cfg, opt_cfg, remat=remat, device=device,
+                           steps_per_epoch=steps_per_epoch)
+
+    def scanned(state: TrainState, batches):
+        if isinstance(batches, PartBatch):  # stacked: one step's fields each
+            batches = [dataclasses.replace(batches, **{
+                f: getattr(batches, f)[i] for f in TENSOR_FIELDS
+                if getattr(batches, f) is not None}) for i in range(num_steps)]
+        if len(batches) != num_steps:
+            raise ValueError(f"{len(batches)} batches for {num_steps} steps")
+        losses = []
+        for batch in batches:
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"])
+        return state, torch.stack(losses)
+
+    return scanned
 
 
 def make_eval_step(cfg: RPFConfig):

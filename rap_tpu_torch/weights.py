@@ -14,6 +14,12 @@ rap_tpu/train/checkpoint.py:save_params_npz (:111-128): flat "a/b/c" keys,
 with bf16 arrays stored as uint16 bits under a "BF16:" prefix, decoded here
 with numpy alone.
 
+``stacked_flat`` goes the other way, the port's parameters as rap_tpu's
+flat "a/b/c" keys with the layers stacked (what ``train.checkpoint.
+save_params_npz`` writes), and ``unflatten_params`` rebuilds the port's
+parameters from its own flat paths ("layers/<i>/...", as
+``train.optim.tree_paths`` gives them; what a saved train state holds).
+
 ``spinnet_params_from_jax`` carries rap_tpu's MiniSpinNet parameters
 (rap_tpu/spinnet/model.py ``init_spinnet_params``) into a state dict of the
 port's ``MiniSpinNet``, in the reference checkpoints' names.
@@ -90,6 +96,45 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def stacked_flat(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """The port's parameters (any form, any device) as rap_tpu's flat
+    {"a/b/c": fp32 CPU tensor}, ``layers/*`` stacked along a leading L
+    axis; the host-side guard bounds are left out."""
+
+    def flat(tree, prefix):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                out.update(flat(v, f"{prefix}{k}/"))
+            elif isinstance(v, torch.Tensor):
+                out[f"{prefix}{k}"] = v.detach().float().cpu()
+        return out
+
+    out = flat({k: v for k, v in params.items() if k != "layers"}, "")
+    layers = [flat(lp, "layers/") for lp in params["layers"]]
+    out.update({k: torch.stack([lp[k] for lp in layers]) for k in layers[0]})
+    return out
+
+
+def unflatten_params(flat: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+    """{"a/b/c": tensor} with per-layer paths "layers/<i>/..." -> the port's
+    nested parameters (``layers`` a list ordered by i)."""
+    tree: dict[str, Any] = {}
+    layers: dict[int, dict[str, torch.Tensor]] = {}
+    for key, v in flat.items():
+        if key.startswith("layers/"):
+            i, rest = key[len("layers/"):].split("/", 1)
+            layers.setdefault(int(i), {})[rest] = v
+        else:
+            tree[key] = v
+    out = unflatten(tree)
+    if layers:
+        if sorted(layers) != list(range(len(layers))):
+            raise ValueError(f"layer indices are not 0..{len(layers) - 1}: {sorted(layers)}")
+        out["layers"] = [unflatten(layers[i]) for i in range(len(layers))]
+    return out
 
 
 def load_params_npz(path: str | Path, device="cuda",

@@ -153,10 +153,12 @@ def test_unported_options_raise(demo_inputs, tmp_path):
         T.main(base + ["--sequence-sharded"])
     with pytest.raises(NotImplementedError, match="A9"):
         T.main(base + ["--render-results"])
-    ckpt = tmp_path / "model.ckpt"
-    ckpt.write_bytes(b"x")
-    with pytest.raises(NotImplementedError, match="A4"):
-        T.main(base + ["--checkpoint", str(ckpt), "--no-outlier-removal"])
+    # a torch checkpoint is read now (A4); an orbax directory still raises
+    orbax = tmp_path / "orbax_dir"
+    orbax.mkdir()
+    (orbax / "_CHECKPOINT_METADATA").write_text("{}")
+    with pytest.raises(NotImplementedError, match="orbax"):
+        T.main(base + ["--checkpoint", str(orbax), "--no-outlier-removal"])
 
 
 def test_too_few_parts_is_an_error(tmp_path):

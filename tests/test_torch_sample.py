@@ -64,10 +64,9 @@ OVERRIDES = ["model.softcap=5.0", "model.num_layers=2", "pipeline.n_generations=
              "eval.use_average_rigidity_rmse=false", "optimizer.lr_milestones=[3, 5]"]
 
 
-# rap_tpu's config fields that no shipped config sets and the port leaves out
-OMITTED = {"data": ("max_samples_per_epoch",),
-           "trainer": ("keep_last", "log_every_n_steps", "remat", "log_file"),
-           "": ("n_devices",)}
+# rap_tpu's config fields that the port leaves out: none since the trainer
+# (each must then be at rap_tpu's default in every file)
+OMITTED: dict[str, tuple[str, ...]] = {}
 
 
 def _plain(x):
@@ -402,12 +401,19 @@ def test_softcap_override_runs():
     assert rec["pairs"] == 2
 
 
-def test_sample_app_defaults_to_cuda():
+def test_sample_app_defaults_to_cuda(tmp_path, monkeypatch):
+    monkeypatch.setenv("RAP_TPU_CACHE", str(tmp_path / "cache"))
     if torch.cuda.is_available():
         pytest.skip("this machine has a card: the default device works here")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         app.main(_tiny())
-    for bad in ("model.ckpt", "orbax_dir"):
-        cfg = tconfig.load_config(None, [f"checkpoint={bad}"])
-        with pytest.raises(NotImplementedError, match="A4"):
-            app.load_params(cfg, "cpu")
+    # torch checkpoints are read now (test_torch_checkpoint.py): a missing
+    # one names where it was looked for; an orbax directory still raises
+    cfg = tconfig.load_config(None, ["checkpoint=missing/model.ckpt"])
+    with pytest.raises(FileNotFoundError, match="cache"):
+        app.load_params(cfg, "cpu")
+    orbax = tmp_path / "orbax_dir"
+    orbax.mkdir()
+    cfg = tconfig.load_config(None, [f"checkpoint={orbax}"])
+    with pytest.raises(NotImplementedError, match="orbax"):
+        app.load_params(cfg, "cpu")

@@ -152,14 +152,20 @@ def test_training_forward_loss_and_gradients_match_jax(tiny):
 
 
 def test_training_forward_refuses_what_is_not_ported(tiny):
+    """The pose loss and FF dropout, refused before they were ported, now
+    run (their parity: test_torch_trainer.py); what is still refused is FF
+    dropout with neither a generator nor keep masks to draw from."""
     tb, tp = tiny["tb"], tiny["tp"]
     cfg = dataclasses.replace(tiny["tr"], pose_loss_weight=0.1)
-    with pytest.raises(NotImplementedError, match="SVD"):
-        training_forward(tp, cfg, tb, torch.Generator())
+    loss, m = training_forward(tp, cfg, tb, torch.Generator().manual_seed(0))
+    assert np.isfinite(float(loss)) and float(m["pose_loss"]) >= 0.0
+    assert float(loss) == pytest.approx(float(m["loss"]) + 0.1 * float(m["pose_loss"]), rel=1e-6)
     cfg = dataclasses.replace(tiny["tr"], model=dataclasses.replace(tiny["tr"].model,
                                                                     dropout_rate=0.1))
-    with pytest.raises(NotImplementedError, match=r"A5\.3"):
-        training_forward(tp, cfg, tb, torch.Generator())
+    loss, _ = training_forward(tp, cfg, tb, torch.Generator().manual_seed(0))
+    assert np.isfinite(float(loss))
+    with pytest.raises(ValueError, match="generator"):
+        training_forward(tp, cfg, tb, None, x_1=torch.zeros(S * P, N, 3), t=torch.ones(S))
 
 
 def test_training_bounds_follow_the_gains(tiny, monkeypatch):
