@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases build,kernels,train
     python3 chip_smoke.py --phases build,kernels,multiview
     python3 chip_smoke.py --phases build,kernels,trainer
+    python3 chip_smoke.py --phases build,multigpu
 
 Phases, each printed on its own flushed line with its wall time:
 
@@ -222,7 +223,41 @@ Phases, each printed on its own flushed line with its wall time:
               save's ms and bytes, the restore's ms, launches a step and a
               validation pass, and at rap_12 the step with the pose loss,
               dropout or both beside the step without.
-9. timing     median ms per batch and pairs/s, and the pruned sampler's
+9. multigpu   the multi-GPU layer (rap_tpu_torch/parallel/) on the one
+              card. First the world of 1 without a mesh: MG_STEPS Muon
+              steps of rap_12 on the multiview phase's batch (each step's
+              gradient at its draws and its parameters kept on disk), the
+              six-view demo, apps.sample with reflow_student.npz on
+              demo_data/synth in 2 batches. (a) A world of 1 under nccl in
+              this process: an all-reduce and a broadcast; one data-parallel
+              step (the trainer's mesh path: the loss's denominators and the
+              gradients all-reduced) against the first step without a mesh
+              (the loss, and its gradient by the same rule against repeats
+              of the step's);
+              the six-view demo with --sequence-sharded (ring attention at
+              n = 1) against the demo without it. (b) A world of 2 under
+              gloo, both ranks on cuda:0 (nccl refuses two ranks on one
+              device; gloo copies through the host), each a subprocess of
+              this file (--multigpu-rank) with its own timeout: MG_STEPS
+              data-parallel steps, each rank on its 1 x 8 x 4096 half of the
+              batch (8 and 2 parts: about 4:1 valid points): the loss against
+              the world of 1's steps; each step's global gradient against a
+              world of 1's over the same two halves from the same state and
+              draws (the training rule, its floor the largest distance
+              between MG_REPEATS repeats of that gradient), which a mean of
+              the ranks' means must fail; the parameters, one optimizer step
+              from that gradient, bitwise equal across the ranks; the six-view demo
+              with --sequence-sharded (4 parts a rank, each rank's queries
+              against 2 ring blocks) against the world of 1 (the demo rule);
+              apps.sample in stride mode (a batch a rank, the meter reduced)
+              equal to the world of 1's metrics to 1e-5; each path's
+              launches per rank (rows 3, 5, 6, 10 on the step: the global
+              attention's dQ slab at BH = 8 is not past the cap, so row 6
+              where the whole batch takes rows 7-8). Printed: ms a
+              data-parallel step and of the all-reduce alone, ms a
+              sequence-sharded generation and an evaluation batch, per rank:
+              two ranks time-sliced on one card, not a scaling measurement.
+10. timing    median ms per batch and pairs/s, and the pruned sampler's
               with and without the features; the sample path's median
               generation ms per batch and pairs/s at each softcap over three
               more runs; median ms per train step and
@@ -272,6 +307,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -282,7 +318,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "main", "sample", "demo", "train", "multiview", "trainer",
-          "timing")
+          "multigpu", "timing")
 
 # main path (bench.py:151-157 of the JAX package: 4 pairs of 2 x 4096 points)
 S, P, N = 4, 2, 4096
@@ -442,6 +478,21 @@ TRAINER_SAMPLES, TRAINER_SCANS, TRAINER_SEED = 12, (5, 8), 41
 TRAINER_EPOCHS = 2
 TRAINER_POSE_WEIGHT, TRAINER_DROPOUT = 0.1, 0.1
 TRAINER_OPTION_LAYERS = 2
+# multigpu phase: the multi-GPU layer (rap_tpu_torch/parallel/) on the one
+# card: data-parallel steps of rap_12 on the multiview phase's 2 x 8 x 4096
+# layout with the first MG_PARTS of its samples' parts (8 and 2: the two
+# ranks' halves hold about 4:1 valid points, so a mean of the ranks' means
+# is far from the global mean; the state's generator seeded MG_SEED), each
+# step's gradient held against MG_REPEATS world-of-1 computations over the
+# same two halves, the six-view demo sequence-sharded, and the stride-mode
+# evaluation of the reflow student in batches of MG_EVAL_POINTS points (4
+# pairs, so 2 batches); each rank of the world of 2 is a subprocess with
+# its own timeout
+MG_STEPS, MG_SEED = 3, 29
+MG_PARTS = (8, 2)
+MG_REPEATS = 3
+MG_EVAL_POINTS = 16384
+MG_TIMEOUT = 600  # s
 
 
 def log(msg: str) -> None:
@@ -2646,6 +2697,482 @@ def trainer_pose_syncs(rcfg, params, batch) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# multigpu: the multi-GPU layer (rap_tpu_torch/parallel/) on the one card
+# --------------------------------------------------------------------------
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def multigpu_dir() -> Path:
+    return ROOT / "rap_tpu_torch" / "build" / "multigpu"
+
+
+def multigpu_demo_argv(out: Path, sharded: bool) -> list[str]:
+    """apps.demo on the six-view scene (written once, under the build
+    directory), with its CLI defaults; ``sharded``: --sequence-sharded."""
+    scene = write_six_view_scene(ROOT / "rap_tpu_torch" / "build" / "six_view")
+    return demo_argv(scene, out, ["--sequence-sharded"] if sharded else [])
+
+
+def multigpu_eval_argv() -> list[str]:
+    """apps.sample with the committed reflow student on demo_data/synth, in
+    batches of MG_EVAL_POINTS points (4 pairs: 2 batches, one a rank)."""
+    return ["--config", str(ROOT / SAMPLE_CONFIG), "-o", f"checkpoint={ROOT / STUDENT_PATH}",
+            "-o", f"data.datasets.0.data_path={ROOT / SAMPLE_DATA}",
+            "-o", f"data.max_points_per_batch={MG_EVAL_POINTS}"]
+
+
+def multigpu_train_setup():
+    """rap_12 fp32 masters from seed 0, Muon, and the multiview phase's
+    batch with the first MG_PARTS of its samples' parts."""
+    from rap_tpu_torch.core.batch import make_regular_synthetic_batch
+    from rap_tpu_torch.models.config import MODEL_ZOO
+    from rap_tpu_torch.models.dit import init_dit_params
+    from rap_tpu_torch.registration import RPFConfig
+    from rap_tpu_torch.train.optim import OptimizerConfig
+
+    cfg = MODEL_ZOO["rap_12"]
+    parts = [sizes[:n] for sizes, n in zip(multiview_parts(), MG_PARTS, strict=True)]
+    batch = make_regular_synthetic_batch(MV_SEED, parts, N=MV_N, P=MV_P, S=MV_S,
+                                         feat_dim=cfg.local_feat_dim, device="cuda")
+    return (RPFConfig(model=cfg), OptimizerConfig(),
+            init_dit_params(0, cfg, device="cuda", masters=True), batch)
+
+
+def param_leaves(state) -> dict:
+    from rap_tpu_torch.train.optim import tree_paths
+
+    return {k: v.detach().clone() for k, v in tree_paths(state.params)}
+
+
+def step_gradients(state, rcfg, batch, mesh=None) -> dict:
+    """``train.step.train_gradients`` of a copy of ``state`` (its generator
+    copied too: the draws of the step the state is about to take)."""
+    from rap_tpu_torch.train.step import train_gradients
+
+    return train_gradients(copy_state(state), rcfg, batch, mesh=mesh)[0]
+
+
+def half_gradients(state, rcfg, batch) -> list[tuple[float, dict, float]]:
+    """A world of 1's gradients of the step the state is about to take on
+    the batch's two sample halves (the ranks' partition), with the step's
+    draws (t, then the noise, from a copy of its generator): for each half,
+    its share of the valid points, the gradient of that share times its own
+    mean loss (its term of the global mean loss, scaled as a rank's term is
+    before the backward, so that bf16 rounds the two alike) and that loss
+    (no pose loss)."""
+    from rap_tpu_torch.core import flow
+    from rap_tpu_torch.parallel.distributed import slice_local_batch
+    from rap_tpu_torch.registration import training_forward
+    from rap_tpu_torch.train.optim import tree_paths, tree_replace
+
+    gen = copy_state(state).generator
+    t = flow.sample_timesteps(gen, batch.S, rcfg.timestep_sampling)
+    x_1 = torch.randn(batch.points_gt.shape, generator=gen, dtype=batch.points_gt.dtype,
+                      device=batch.device)
+    total, out = float(batch.point_mask.sum()), []
+    for h in range(2):
+        half = slice_local_batch(batch, h, 2)
+        S, G = half.S, half.G
+        share, s = float(half.point_mask.sum()) / total, copy_state(state)
+        leaves = {k: p.detach().requires_grad_(True) for k, p in tree_paths(s.params)}
+        loss, _ = training_forward(tree_replace(s.params, leaves), rcfg, half, s.generator,
+                                   x_1=x_1[h * G:(h + 1) * G], t=t[h * S:(h + 1) * S])
+        grads = torch.autograd.grad(loss * share, list(leaves.values()), materialize_grads=True)
+        out.append((share, dict(zip(leaves, grads)), float(loss.detach())))
+    return out
+
+
+def combine_halves(halves, weights) -> tuple[dict, float]:
+    """The gradient and loss of sum_h weights[h] * (half h's mean loss):
+    with the halves' shares of the valid points, the global mean loss's; with
+    (0.5, 0.5), a mean of the ranks' means."""
+    scale = [w / share for w, (share, _, _) in zip(weights, halves)]
+    grads = {k: sum(c * g[k] for c, (_, g, _) in zip(scale, halves)) for k in halves[0][1]}
+    return grads, sum(w * loss for w, (_, _, loss) in zip(weights, halves))
+
+
+def copy_state(state):
+    """A train state with its own copies of every tensor and of the generator."""
+    from rap_tpu_torch.train.step import TrainState
+
+    def clone(tree):
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        return [clone(v) for v in tree] if isinstance(tree, list) else tree.clone()
+
+    gen = torch.Generator(device=state.generator.device)
+    gen.set_state(state.generator.get_state())
+    return TrainState(state.step.clone(), clone(state.params), clone(state.opt_state), gen)
+
+
+def gradient_check(got: dict, ref: dict, reps: list[dict]) -> dict:
+    """The training rule (PERF.md §2) on a gradient against a world of 1's
+    computed the same way from the same state and draws: each leaf within
+    TOL_TRAIN_LEAF rel L2, or within twice its floor, at most
+    TOL_TRAIN_LEAF_CAP. The floor is the largest distance between two
+    repeats of that world-of-1 gradient, ``ref`` and ``reps``: the noise of
+    row 6's dQ sums, which run in no fixed order (C4); the qk gains'
+    gradients are near-cancelling sums (C5) that it moves by 1.5-7%.
+    Returns the worst leaf's err / tol and the leaves held to their floor."""
+    out = {"ratio": 0.0, "worst": "", "floored": [], "over_cap": []}
+    runs = [ref, *reps]
+    for k, r in ref.items():
+        err = rel_l2(got[k], r)
+        floor = max(rel_l2(a[k], b[k]) for i, a in enumerate(runs) for b in runs[:i])
+        tol = min(max(TOL_TRAIN_LEAF, 2 * floor), TOL_TRAIN_LEAF_CAP)
+        if floor > TOL_TRAIN_LEAF_CAP:
+            out["over_cap"].append(f"{k} {floor:.3f}")
+        if tol > TOL_TRAIN_LEAF:
+            out["floored"].append(f"{k} {err:.3f} (floor {floor:.3f})")
+        if err / tol >= out["ratio"]:
+            out["ratio"], out["worst"] = err / tol, f"{k}: {err:.4f} of tol {tol:.4f}"
+    return out
+
+
+def passes(res: dict) -> bool:
+    return res["ratio"] <= 1.0 and not res["over_cap"]
+
+
+def check_gradients(fails, what: str, res: dict) -> None:
+    fails.check(what, passes(res),
+                f"worst leaf {res['worst']}; {len(res['floored'])} held to their floor: "
+                f"{'; '.join(res['floored']) or 'none'}"
+                + (f"; floor past the cap: {res['over_cap']}" if res["over_cap"] else ""))
+
+
+def multigpu_expected_step(L: int) -> dict:
+    """Launches of one data-parallel step on a rank's 1 x 8 x 4096 shard of
+    the multiview batch (masked branch, remat): row 3 at part and global
+    attention twice a layer, row 5 twice, row 10 once; the fused backward
+    (row 6) for part attention, and for global attention (BH = 8, T = 32768)
+    whatever the guard picks: its dQ slab is exactly 2 GiB, not past the
+    cap, so row 6 again where the whole batch (BH = 16) takes rows 7-8."""
+    from rap_tpu_torch.ops import KERNELS
+    from rap_tpu_torch.ops import flash_attention as fa
+
+    T = MV_P * MV_N
+    split = fa.masked_backward_slab_bytes(H, T, T, DH) > fa._FUSED_DQ_PARTIALS_CAP
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_online=4 * L, ff=2 * L, ff_bwd=L, flash_bwd=L + (0 if split else L),
+                flash_bwd_dkv=L if split else 0, flash_bwd_dq=L if split else 0)
+    return want
+
+
+def run_multigpu(report, fails, state):
+    """(a) A world of 1 under nccl in this process: one collective, the data-
+    parallel step (the trainer's mesh path) against the step without a mesh
+    (its gradient against repeats of the step's), the sequence-sharded demo (the ring at n = 1) against the demo without
+    it. (b) A world of 2 under gloo, both ranks on cuda:0 (nccl refuses two
+    ranks on one device; gloo's collectives copy through the host), each a
+    subprocess of this file (``--multigpu-rank``): MG_STEPS data-parallel
+    steps at rap_12 on the rank's 1 x 8 x 4096 half of the batch (about 4:1
+    valid points between the ranks) against the same steps of a world of 1
+    (the loss), each step's global gradient against a world of 1's over the
+    same two halves by the training rule, which a mean of the ranks' means
+    must fail, and the parameters bitwise equal across the ranks, the
+    six-view demo with
+    --sequence-sharded (4 parts a rank) against the world of 1 (the demo
+    rule), apps.sample in stride mode (a batch a rank, the meter reduced)
+    against the world of 1 (1e-5), and each path's launches per rank. Times
+    of (b) are two ranks time-sliced on one card: not a scaling measurement."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from rap_tpu_torch.apps import demo
+    from rap_tpu_torch.apps import sample as sample_app
+    from rap_tpu_torch.ops import launch_counts, reset_launches
+    from rap_tpu_torch.parallel import initialize, make_mesh
+    from rap_tpu_torch.parallel.mesh import all_reduce_sum, broadcast
+    from rap_tpu_torch.train.step import TrainState, make_train_step
+    from rap_tpu_torch.utils import ply as plyio
+
+    work = multigpu_dir()
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    rep = report["multigpu"] = {}
+
+    # the world of 1 without a mesh: MG_STEPS steps (the first one's
+    # gradient and parameters kept for (a)), the demo and the evaluation
+    rcfg, opt, params, batch = multigpu_train_setup()
+    L = rcfg.model.num_layers
+    step = make_train_step(rcfg, opt)
+    s = TrainState.create(params, opt, seed=MG_SEED)
+    s0 = copy_state(s)
+    grad1 = step_gradients(s0, rcfg, batch)
+    reps1 = [step_gradients(s0, rcfg, batch) for _ in range(MG_REPEATS - 1)]
+    ref_losses, ref_ms = [], []
+    for _ in range(MG_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s, m = step(s, batch)
+        ref_losses.append(float(m["loss"]))
+        ref_ms.append((time.perf_counter() - t0) * 1e3)
+    del s
+    log(f"  world of 1, no mesh: {MG_STEPS} steps of rap_12 on the {MV_S} x {MV_P} x {MV_N} "
+        f"batch, losses {[round(x, 6) for x in ref_losses]}, "
+        f"{', '.join(f'{x:.2f}' for x in ref_ms)} ms")
+    demo_rec = {}
+    fails.check("multigpu: the world-of-1 demo exits 0",
+                demo.main(multigpu_demo_argv(work / "demo_one", False), record=demo_rec) == 0)
+    originals = [plyio.read_ply_points(f) for f in sorted(
+        (ROOT / "rap_tpu_torch" / "build" / "six_view").glob("*.ply"))]
+    allpts = np.concatenate(originals)
+    extent = float((allpts.max(0) - allpts.min(0)).max())
+    reset_launches()
+    eval_rec = {}
+    eval_one = sample_app.main(multigpu_eval_argv(), record=eval_rec)
+    torch.cuda.synchronize()
+    eval_counts = launch_counts()
+
+    def demo_agrees(label, transforms, rotations):
+        for p, (T, T1) in enumerate(zip(transforms, demo_rec["transforms"], strict=True)):
+            T = np.asarray(T)
+            err_r = float(np.abs(T[:3, :3] - T1[:3, :3]).max())
+            err_t = float(np.abs(T[:3, 3] - T1[:3, 3]).max())
+            fails.check(f"multigpu {label} part{p}_transform vs the world of 1",
+                        err_r <= TOL_ROTATION_ABS and err_t <= TOL_DEMO_TRANSLATION * extent,
+                        f"rotation {err_r:.4e} (tol {TOL_ROTATION_ABS}), translation "
+                        f"{err_t:.4e} m (tol {TOL_DEMO_TRANSLATION * extent:.4e})")
+        for g, (R, gen1) in enumerate(zip(rotations, demo_rec["generations"], strict=True)):
+            err = float(np.abs(np.asarray(R) - gen1[1].cpu().numpy()).max())
+            fails.check(f"multigpu {label} generation {g} rotations vs the world of 1",
+                        err <= TOL_ROTATION_ABS, f"max_abs_err={err:.4e}")
+
+    # (a) a world of 1 under nccl
+    log("  -- (a) a world of 1 under nccl")
+    rank_world = initialize(init_method=f"file://{work / 'nccl_store'}", world_size=1, rank=0,
+                            device="cuda:0", timeout_s=MG_TIMEOUT)
+    mesh = make_mesh(1, "cuda:0")
+    fails.check("multigpu (a): joined under nccl", rank_world == (0, 1)
+                and mesh.backend == "nccl", f"{rank_world}, backend {mesh.backend}")
+    x = torch.arange(1024, dtype=torch.float32, device="cuda")
+    fails.check("multigpu (a): all_reduce and broadcast over nccl",
+                torch.equal(all_reduce_sum(x, mesh), x) and torch.equal(broadcast(x, mesh), x))
+    reset_launches()
+    _, m = make_train_step(rcfg, opt, mesh=mesh)(copy_state(s0), batch)
+    torch.cuda.synchronize()
+    counts_a = launch_counts()
+    err_l = abs(float(m["loss"]) - ref_losses[0]) / abs(ref_losses[0])
+    fails.check("multigpu (a): the data-parallel step's loss at a world of 1 vs no mesh",
+                err_l <= TOL_TRAIN_SCALAR, f"rel {err_l:.3e} (tol {TOL_TRAIN_SCALAR})")
+    res_a = gradient_check(step_gradients(s0, rcfg, batch, mesh), grad1, reps1)
+    check_gradients(fails, "multigpu (a): its gradient vs no mesh (the training rule)", res_a)
+    del m
+    rec_a = {}
+    reset_launches()
+    rc = demo.main(multigpu_demo_argv(work / "demo_a", True), record=rec_a)
+    torch.cuda.synchronize()
+    counts_demo_a = launch_counts()
+    fails.check("multigpu (a): the sequence-sharded demo exits 0", rc == 0)
+    demo_agrees("(a) ring at n = 1", rec_a["transforms"],
+                [g[1].cpu().numpy() for g in rec_a["generations"]])
+    dist.destroy_process_group()
+    rep["a"] = {"step_launches": counts_a, "demo_launches": counts_demo_a,
+                "loss_rel_err": err_l, "gradients": res_a, "demo_gen_ms": rec_a["gen_ms"]}
+    log(f"  (a) step launches {nonzero(counts_a)}; demo launches {nonzero(counts_demo_a)}, "
+        f"{', '.join(f'{x:.2f}' for x in rec_a['gen_ms'])} ms a generation")
+
+    # (b) a world of 2 under gloo, both ranks on cuda:0
+    del params, batch, step, s0, reps1, grad1
+    torch.cuda.empty_cache()
+    log("  -- (b) a world of 2 under gloo, both ranks on cuda:0 (subprocesses)")
+    env = {**os.environ, "GLOO_SOCKET_IFNAME": os.environ.get("GLOO_SOCKET_IFNAME", "lo")}
+    logs = [open(work / f"rank{r}.log", "w") for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--multigpu-rank", str(r), "--multigpu-dir", str(work)],
+                              cwd=ROOT, stdout=logs[r], stderr=subprocess.STDOUT, env=env)
+             for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=MG_TIMEOUT) for p in procs]
+    except subprocess.TimeoutExpired:
+        rcs = [None, None]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    wall_b = time.perf_counter() - t0
+    for r in range(2):
+        text = (work / f"rank{r}.log").read_text()
+        log(f"  rank {r} (exit {rcs[r]}), its output's last lines:\n"
+            + "\n".join("    " + x for x in text.splitlines()[-12:]))
+    fails.check("multigpu (b): both ranks exit 0", rcs == [0, 0], f"{rcs} after {wall_b:.1f} s")
+    if rcs != [0, 0]:
+        return
+    outs = [json.loads((work / f"out_{r}.json").read_text()) for r in range(2)]
+
+    want_step = multigpu_expected_step(L)
+    for r, out in enumerate(outs):
+        for i, st in enumerate(out["dp"]):
+            fails.check(f"multigpu (b) rank {r} step {i + 1} launch counts",
+                        st["launches"] == want_step,
+                        f"{nonzero(st['launches'])} (expected {nonzero(want_step)})")
+            err_l = abs(st["loss"] - ref_losses[i]) / abs(ref_losses[i])
+            fails.check(f"multigpu (b) rank {r} step {i + 1}: global loss vs the world of 1",
+                        err_l <= TOL_TRAIN_SCALAR and st["skipped_nonfinite"] == 0.0,
+                        f"{st['loss']:.6f} vs {ref_losses[i]:.6f}: rel {err_l:.3e} "
+                        f"(tol {TOL_TRAIN_SCALAR})")
+            if r == 0:
+                fails.check(f"multigpu (b) step {i + 1}: loss vs a world of 1's over the "
+                            "same halves", st["ref_loss_err"] <= TOL_TRAIN_SCALAR,
+                            f"rel {st['ref_loss_err']:.3e}; the halves' shares of the valid "
+                            f"points {', '.join(f'{w:.4f}' for w in st['shares'])}")
+                check_gradients(fails, f"multigpu (b) step {i + 1}: the global gradient vs a "
+                                "world of 1's over the same halves from the same state (the "
+                                "training rule)", st["gradients"])
+                fails.check(f"multigpu (b) step {i + 1}: a mean of the ranks' means fails "
+                            "that rule", not passes(st["trap"]),
+                            f"its worst leaf {st['trap']['worst']}; its loss "
+                            f"{st['trap_loss_err']:.3e} rel off")
+            fails.check(f"multigpu (b) rank {r} step {i + 1}: parameters bitwise equal to "
+                        "rank 0's", st["bitwise_equal"])
+        gen = out["demo"]
+        fails.check(f"multigpu (b) rank {r}: the sequence-sharded demo exits 0, 4 parts a rank",
+                    gen["rc"] == 0 and gen["shard_parts"] == MV_P // 2)
+        demo_agrees(f"(b) rank {r}", gen["transforms"], gen["rotations"])
+        steps = demo_rec["config"].pipeline.inference_sampling_steps
+        n_gen = len(gen["gen_ms"])
+        want = {k: 0 for k in want_step}
+        want.update(flash_online=L * steps * n_gen, ff=L * steps * n_gen)
+        fails.check(f"multigpu (b) rank {r}: demo launch counts (part attention, FF)",
+                    gen["launches"] == want,
+                    f"{nonzero(gen['launches'])} (expected {nonzero(want)})")
+        ev = out["eval"]
+        worst = max(abs(ev["results"][ds][k] - v) for ds, md in eval_one.items()
+                    for k, v in md.items())
+        fails.check(f"multigpu (b) rank {r}: stride-mode evaluation's metrics vs the world "
+                    "of 1", set(ev["results"]) == set(eval_one) and all(
+                        set(ev["results"][ds]) == set(md) for ds, md in eval_one.items())
+                    and worst <= TOL_ROUND_TRIP_METRIC,
+                    f"worst abs diff {worst:.3e} (tol {TOL_ROUND_TRIP_METRIC}); "
+                    f"{len(ev['batch_gen_ms'])} batch(es) on this rank")
+        fails.check(f"multigpu (b) rank {r}: evaluation launches, half the world of 1's",
+                    {k: 2 * v for k, v in ev["launches"].items()} == eval_counts,
+                    f"{nonzero(ev['launches'])} (world of 1: {nonzero(eval_counts)})")
+    def ms_list(xs):
+        return ", ".join(f"{x:.2f}" for x in xs)
+
+    log("  two ranks time-sliced on one card (NOT a scaling measurement):")
+    for r, out in enumerate(outs):
+        log(f"    rank {r}: data-parallel step (compute and the gloo all-reduce of the fp32 "
+            f"gradients through the host) {ms_list(st['ms'] for st in out['dp'])} ms, the "
+            f"all-reduce alone {ms_list(out['all_reduce_ms'])} ms; "
+            f"sequence-sharded generation {ms_list(out['demo']['gen_ms'])} ms; evaluation "
+            f"{ms_list(out['eval']['batch_gen_ms'])} ms a batch")
+        log(f"    rank {r} launches: step {nonzero(out['dp'][0]['launches'])}; demo "
+            f"generation {nonzero(out['demo']['launches'])}; evaluation "
+            f"{nonzero(out['eval']['launches'])}")
+    log(f"    world of 1, no mesh: step {ms_list(ref_ms)} ms; generation "
+        f"{ms_list(demo_rec['gen_ms'])} ms; evaluation {ms_list(eval_rec['batch_gen_ms'])} "
+        "ms a batch")
+    rep["b"] = {"ranks": outs, "world1_step_ms": ref_ms, "world1_losses": ref_losses,
+                "world1_demo_gen_ms": demo_rec["gen_ms"], "world1_eval_launches": eval_counts,
+                "wall_s": wall_b}
+    state["multigpu_counts"] = {f"rank {r}": {"dp step": out["dp"][0]["launches"],
+                                              "demo generation": out["demo"]["launches"],
+                                              "evaluation": out["eval"]["launches"]}
+                                for r, out in enumerate(outs)}
+
+
+def multigpu_worker(rank: int, work: Path) -> int:
+    """One rank of run_multigpu's world of 2 (gloo, cuda:0): the data-
+    parallel steps, the sequence-sharded demo, the stride-mode evaluation;
+    writes its numbers to ``work/out_<rank>.json``."""
+    import torch.distributed as dist
+
+    from rap_tpu_torch.apps import demo
+    from rap_tpu_torch.apps import sample as sample_app
+    from rap_tpu_torch.ops import launch_counts, reset_launches
+    from rap_tpu_torch.parallel import initialize, make_mesh, shard_batch
+    from rap_tpu_torch.parallel.mesh import all_reduce_sum, barrier, broadcast
+    from rap_tpu_torch.train.step import TrainState, make_train_step
+
+    initialize(init_method=f"file://{work / 'gloo_store'}", world_size=2, rank=rank,
+               backend="gloo", device="cuda:0", timeout_s=MG_TIMEOUT)
+    mesh = make_mesh(2, "cuda:0")
+    out: dict = {"rank": rank, "dp": []}
+
+    rcfg, opt, params, batch = multigpu_train_setup()
+    shard = shard_batch(batch, mesh)
+    if rank != 0:  # rank 0 keeps the whole batch for its reference steps
+        batch = None
+    step = make_train_step(rcfg, opt, mesh=mesh)
+    s = TrainState.create(params, opt, seed=MG_SEED)
+    for i in range(MG_STEPS):
+        before = copy_state(s)
+        reset_launches()
+        torch.cuda.synchronize()
+        barrier(mesh)  # rank 1 does not time its wait for rank 0's reference step
+        t0 = time.perf_counter()
+        s, m = step(s, shard)
+        metrics = {k: float(v) for k, v in m.items()}
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        cur = param_leaves(s)
+        flat = torch.cat([v.reshape(-1) for v in cur.values()])
+        st = {"loss": metrics["loss"], "skipped_nonfinite": metrics["skipped_nonfinite"],
+              "ms": ms, "launches": counts,
+              "bitwise_equal": bool(torch.equal(broadcast(flat, mesh), flat))}
+        del flat
+        # the step's global gradient again from the same state (every rank:
+        # it all-reduces), on rank 0 against a world of 1's over the same two
+        # halves (the global mean loss's), MG_REPEATS times for the floor; a
+        # mean of the ranks' means, from the same halves, must fail the rule
+        grad = step_gradients(before, rcfg, shard, mesh)
+        if rank == 0:
+            runs = [half_gradients(before, rcfg, batch) for _ in range(MG_REPEATS)]
+            shares = [w for w, _, _ in runs[0]]
+            refs = [combine_halves(h, shares) for h in runs]
+            trap, trap_loss = combine_halves(runs[0], [0.5, 0.5])
+            ref_loss = refs[0][1]
+            st.update(shares=shares, gradients=gradient_check(grad, refs[0][0],
+                                                             [g for g, _ in refs[1:]]),
+                      trap=gradient_check(trap, refs[0][0], [g for g, _ in refs[1:]]),
+                      ref_loss_err=abs(metrics["loss"] - ref_loss) / abs(ref_loss),
+                      trap_loss_err=abs(trap_loss - ref_loss) / abs(ref_loss))
+            del runs, refs, trap
+        del before, grad
+        out["dp"].append(st)
+    # the step's collective alone: the all-reduce of a buffer of the
+    # gradients' size (and the metrics'), through the host
+    buf = torch.zeros(sum(v.numel() for v in cur.values()) + 16, device="cuda")
+    out["all_reduce_ms"] = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        all_reduce_sum(buf, mesh)
+        torch.cuda.synchronize()
+        out["all_reduce_ms"].append((time.perf_counter() - t0) * 1e3)
+    del s, step, shard, cur, buf, batch
+    torch.cuda.empty_cache()
+
+    rec = {}
+    reset_launches()
+    rc = demo.main(multigpu_demo_argv(work / f"demo_rank{rank}", True), record=rec)
+    torch.cuda.synchronize()
+    out["demo"] = {"rc": rc, "gen_ms": rec["gen_ms"], "launches": launch_counts(),
+                   "shard_parts": rec["shard"].G,
+                   "transforms": [np.asarray(T).tolist() for T in rec["transforms"]],
+                   "rotations": [g[1].cpu().numpy().tolist() for g in rec["generations"]]}
+
+    rec = {}
+    reset_launches()
+    results = sample_app.main(multigpu_eval_argv(), record=rec)
+    torch.cuda.synchronize()
+    out["eval"] = {"results": results, "launches": launch_counts(),
+                   "batch_gen_ms": rec["batch_gen_ms"]}
+    (work / f"out_{rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+    return 0
+
+
 def kernel_rows(state, counts):
     """Time each kernel, its plain version and a library call; bounds."""
     import torch.nn.functional as F
@@ -2686,6 +3213,9 @@ def kernel_rows(state, counts):
              "trainer_step_launches": state.get("trainer_counts", {}).get(name, 0),
              "trainer_val_launches": state.get("trainer_val_counts", {}).get(name, 0),
              "demo_launches_per_generation": {k: c.get(name, 0) for k, c in demo_counts.items()},
+             "multigpu_launches_per_rank": {
+                 r: {k: c.get(name, 0) for k, c in paths.items()}
+                 for r, paths in state.get("multigpu_counts", {}).items()},
              "max_abs_err": state["max_abs_err"][err_key or name],
              "ms": ms, "plain_ms": plain_ms,
              "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms, "shape": shape,
@@ -3543,6 +4073,9 @@ def main(argv=None) -> int:
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--report", default=None,
                     help="also write every measurement as JSON to this path")
+    # one rank of the multigpu phase's world of 2 (the phase starts them)
+    ap.add_argument("--multigpu-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--multigpu-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = set(args.phases.split(",")) - {""}
     if phases - set(PHASES):
@@ -3561,6 +4094,8 @@ def main(argv=None) -> int:
     # state the fp32 matmul/conv precision of the plain versions: full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.multigpu_rank is not None:
+        return multigpu_worker(args.multigpu_rank, Path(args.multigpu_dir))
     t_start = time.perf_counter()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -3575,6 +4110,7 @@ def main(argv=None) -> int:
              "train": lambda: run_train(report, fails, state),
              "multiview": lambda: run_multiview(report, fails, state),
              "trainer": lambda: run_trainer(report, fails, state),
+             "multigpu": lambda: run_multigpu(report, fails, state),
              "timing": lambda: run_timing(report, fails, state)}
     for name in PHASES:
         if name in phases:

@@ -29,8 +29,18 @@ run's device seeded with ``--seed`` + g (rap_tpu's from
 ``jax.random.key(seed + g)``); ``run_demo``'s ``noise`` takes the noise
 tensors instead. ``--checkpoint`` takes what ``apps.sample.load_params``
 reads: an ``.npz`` export, a torch ``.ckpt``/``.pth``/``.pt`` or a
-train-state directory. Not ported (each raises): ``--sequence-sharded``
-(ROADMAP A8), ``--render-results`` (A9).
+train-state directory. Not ported (raises): ``--render-results`` (A9).
+
+``--sequence-sharded`` (demo.py:241-251) merges a map over several GPUs,
+one process each (``torchrun --nproc-per-node N -m rap_tpu_torch.apps.demo
+--sequence-sharded ...``): every rank preprocesses the same scene, the
+batch's part slots are padded to a multiple of N and split over the ranks
+(``parallel.mesh.shard_batch``), and sampling runs on each rank's parts
+with the global attention as ring attention (``registration.sample``'s
+``ring_mesh``). Each rank fits its parts' poses; the poses and points are
+gathered, and the rigidity pick and ICP onto the anchor (which may lie on
+another rank) run on the gathered outputs. The noise is the global draw,
+so the result is a world of 1's. Rank 0 writes the files.
 """
 
 from __future__ import annotations
@@ -48,9 +58,11 @@ import torch
 from .._device import resolve_device
 from ..config import load_config
 from ..data.dataset import augment_sample
-from ..data.packer import N_BUCKETS, P_BUCKETS, _bucket, collate_to_part_batch
+from ..data.packer import N_BUCKETS, P_BUCKETS, _bucket, collate_to_part_batch, pad_to_multiple
 from ..eval.metrics import rigidity_rmse
 from ..ops import points as P
+from ..parallel.distributed import process_group
+from ..parallel.mesh import all_gather, make_mesh, shard_batch
 from ..registration import predict_poses, refine_poses_icp, sample
 from ..utils import ply as plyio
 from .sample import _sync, load_params
@@ -170,13 +182,21 @@ def run_demo(args, noise: list[torch.Tensor] | None = None, record: dict | None 
     given, receives des_r, the config, the keypoints, features and feature clouds per part,
     the batch, each generation's (points, R, t, rigidity RMSE), the kept
     generation's index and poses, the transforms and the timings
-    (preprocessing s, feature ms per part, generation ms, ICP ms)."""
-    if args.sequence_sharded:
-        raise NotImplementedError("--sequence-sharded: ring attention over several cards "
-                                  "waits for ROADMAP A8")
+    (preprocessing s, feature ms per part, generation ms, ICP ms); with
+    ``--sequence-sharded`` also this rank's shard of the batch."""
     if args.render_results:
         raise NotImplementedError("--render-results: the renderer waits for ROADMAP A9")
     device = resolve_device(args.device)
+    if not args.sequence_sharded:
+        return _demo(args, device, None, noise, record)
+    with process_group(device):
+        return _demo(args, device, make_mesh(device=device), noise, record)
+
+
+def _demo(args, device, mesh, noise, record) -> int:
+    rank = 0 if mesh is None else mesh.rank
+    if mesh is not None:
+        device = mesh.device
     rec = record if record is not None else {}
     rec.update(feature_ms=[], clouds=[], gen_ms=[], generations=[], icp_ms=0.0)
     in_dir = Path(args.input)
@@ -185,7 +205,8 @@ def run_demo(args, noise: list[torch.Tensor] | None = None, record: dict | None 
         logger.error("need at least 2 PLY parts in %s", in_dir)
         return 1
     out_dir = Path(args.output)
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if rank == 0:
+        out_dir.mkdir(parents=True, exist_ok=True)
     if args.n_generations < 1:
         logger.error("--n-generations must be >= 1 (got %d)", args.n_generations)
         return 1
@@ -242,9 +263,16 @@ def run_demo(args, noise: list[torch.Tensor] | None = None, record: dict | None 
     rec["config"] = cfg
     N = _bucket(smp.max_part_points, N_BUCKETS)
     Pp = _bucket(smp.num_parts, P_BUCKETS)
+    if mesh is not None:  # every rank holds the same number of part slots
+        Pp = pad_to_multiple(Pp, mesh.size)
     batch, _ = collate_to_part_batch([smp], N=N, P=Pp, device=device)
     rec["batch"] = batch
     logger.info("batch (S, P, N) = (1, %d, %d)", Pp, N)
+    shard = batch
+    if mesh is not None:
+        shard = rec["shard"] = shard_batch(batch, mesh)
+        logger.info("sequence-sharded over %d ranks (ring attention): %d parts a rank",
+                    mesh.size, shard.G)
 
     # --- generations, the rigidity-RMSE pick, ICP ----------------------------
     logger.info("registering (%d steps, %d generation(s))...", args.num_steps,
@@ -254,10 +282,15 @@ def run_demo(args, noise: list[torch.Tensor] | None = None, record: dict | None 
         gen = torch.Generator(device=device).manual_seed(args.seed + g)
         _sync(device)
         t0 = time.perf_counter()
-        out = sample(params, cfg.pipeline, batch, generator=gen,
+        out = sample(params, cfg.pipeline, shard, generator=gen,
                      x_1=None if noise is None else noise[g].to(device),
-                     return_trajectory=False)
-        R, t = predict_poses(batch, out["points"])
+                     return_trajectory=False, ring_mesh=mesh)
+        if mesh is None:
+            R, t = predict_poses(batch, out["points"])
+        else:  # each rank's parts, then the poses of all of them
+            lo = mesh.rank * shard.G
+            R, t = (all_gather(a, mesh) for a in
+                    predict_poses(shard, out["points"][lo:lo + shard.G]))
         rig = rigidity_rmse(batch, out["points"], R, t)[0]
         _sync(device)
         rec["gen_ms"].append((time.perf_counter() - t0) * 1e3)
@@ -281,14 +314,14 @@ def run_demo(args, noise: list[torch.Tensor] | None = None, record: dict | None 
     Ts = [_pose_to_metric(R_all[p], t_all[p], smp.scale, primary_center, gt_trans,
                           cond_offsets[p]) for p in range(smp.num_parts)]
     T0_inv = np.linalg.inv(Ts[0])
+    rec["transforms"] = [T0_inv @ T for T in Ts]
+    if rank != 0:
+        return 0
     reg_dir = out_dir / "registered"
     reg_dir.mkdir(exist_ok=True)
-    rec["transforms"] = []
-    for p, (f, orig) in enumerate(zip(ply_files, originals)):
-        T = T0_inv @ Ts[p]
+    for p, (f, orig, T) in enumerate(zip(ply_files, originals, rec["transforms"])):
         plyio.write_ply(reg_dir / f.name, orig @ T[:3, :3].T + T[:3, 3])
         np.savetxt(out_dir / f"part{p}_transform.txt", T, fmt="%.8f")
-        rec["transforms"].append(T)
         logger.info("part %d (%s): |t|=%.3f m", p, f.name, np.linalg.norm(T[:3, 3]))
     logger.info("registered clouds written to %s", reg_dir)
 
@@ -341,7 +374,8 @@ def main(argv=None, noise: list[torch.Tensor] | None = None, record: dict | None
     ap.add_argument("--render-results", action="store_true",
                     help="not ported (ROADMAP A9)")
     ap.add_argument("--sequence-sharded", action="store_true",
-                    help="not ported (ROADMAP A8)")
+                    help="shard the parts and the global attention over the world's ranks "
+                         "(launch one process per GPU with torchrun)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu (the plain versions)")

@@ -22,6 +22,13 @@ per batch). The noise of generation g of batch b comes from a
 g); it is not jax.random's. ``--profile-dir`` writes a torch.profiler
 Chrome trace of the whole run there (rap_tpu's writes a jax.profiler one).
 
+Several GPUs (sample.py:110-125, :207), one process each: ``torchrun
+--nproc-per-node N -m rap_tpu_torch.apps.sample ...``. Rank i evaluates
+the planned batches i, i + N, ... (the loader's stride mode; batch b's
+noise still seeded from b, so any world samples what a world of 1
+samples), the meter is summed over the ranks, and rank 0 prints the
+tables; artifacts are written by the rank that made them.
+
 Runs on the card (``--device cuda``, the default) unless the CPU is asked
 for. ``checkpoint`` may be a committed ``.npz`` export, a torch
 ``.ckpt``/``.pth``/``.pt`` of the reference (a path, or an artifact name
@@ -47,6 +54,7 @@ from ..data import BatchLoader, LoaderConfig, PointCloudDataset
 from ..eval import Evaluator, MetricsMeter
 from ..eval.meter import print_eval_table
 from ..models.dit import init_dit_params
+from ..parallel.distributed import process_group
 from ..registration import predict_poses, sample, seeded_generator
 from ..weights import load_params_npz
 
@@ -120,8 +128,14 @@ def run_eval(cfg: Config, params=None, device="cuda", record: dict | None = None
     with an 'overall' entry, prints the tables. ``record``, if given,
     receives the timings (generation ms per batch and per generation,
     loader wait ms per batch, pairs) and each batch's generations as
-    ``outputs``: [(names, [(points, R, t) per generation])]."""
+    ``outputs``: [(names, [(points, R, t) per generation])] (this rank's
+    batches in a world of several)."""
     device = resolve_device(device)
+    with process_group(device) as (rank, world_size):
+        return _eval(cfg, params, device, record, rank, world_size)
+
+
+def _eval(cfg: Config, params, device, record, rank: int, world_size: int) -> dict:
     if cfg.visualize:
         raise NotImplementedError("visualize: the visualizer waits for ROADMAP A9")
     if params is None:
@@ -140,9 +154,10 @@ def run_eval(cfg: Config, params=None, device="cuda", record: dict | None = None
         ds = PointCloudDataset(ds_cfg)
         loader = BatchLoader([ds], LoaderConfig(
             max_points_per_batch=cfg.data.max_points_per_batch,
-            prefetch=cfg.data.num_prefetch), device=device)
+            prefetch=cfg.data.num_prefetch, process_index=rank, process_count=world_size,
+            shard_mode="stride"), device=device)
         batches = loader.epoch(0)
-        b_idx = 0
+        b_idx = rank  # the batch's index in the plan: this rank takes every world_size-th
         while True:
             t_load0 = time.perf_counter()
             item = next(batches, None)
@@ -193,7 +208,7 @@ def run_eval(cfg: Config, params=None, device="cuda", record: dict | None = None
                     meter.add_metrics(ds_name, {f"{section}/{k}": v
                                                 for k, v in agg[section].items()}, valid)
             rec["post_ms"].append((t_post + time.perf_counter() - t_post0) * 1e3)
-            b_idx += 1
+            b_idx += world_size
         logger.info("%s padding: %s", ds_cfg.dataset_name, loader.padding_stats.summary())
         ds.close()
 
@@ -206,7 +221,8 @@ def run_eval(cfg: Config, params=None, device="cuda", record: dict | None = None
             if not metric:
                 sec, metric = "average", k
             sections.setdefault(sec, {}).setdefault(ds_name, {})[metric] = v
-    print_eval_table(sections, meter.get_sample_counts(), meter.get_part_count_ranges())
+    if rank == 0:
+        print_eval_table(sections, meter.get_sample_counts(), meter.get_part_count_ranges())
     if rec["gen_ms"]:
         logger.info("inference time/batch: %.3fs ± %.3fs | time/generation: %.3fs ± %.3fs",
                     np.mean(rec["batch_gen_ms"]) / 1e3, np.std(rec["batch_gen_ms"]) / 1e3,

@@ -20,8 +20,9 @@ its metrics go to the tracker (``train/tracking.py``: ``metrics.jsonl``,
 mirror only with ``--wandb``, as it needs the network). Every
 ``val_every_n_epochs`` epochs the datasets whose split starts with "val"
 are sampled and scored (``evaluate_validation``: ``sample`` +
-``predict_poses`` + the evaluator + the meter, one generator seeded 1234 +
-epoch); a better ``trainer.monitor`` saves ``best``, and ``keep_last``
+``predict_poses`` + the evaluator + the meter, batch b's noise from a
+generator seeded from (1234 + epoch, b)); a better ``trainer.monitor``
+saves ``best``, and ``keep_last``
 saves ``last`` after every epoch (``train/checkpoint.py``, the port's own
 train-state format). ``--max-steps`` stops after that many steps of this
 run. The logged step is the state's: it carries on across a resume (rap_tpu
@@ -29,7 +30,24 @@ logs the steps of the run).
 
 Runs on the card (``--device cuda``, the default) unless the CPU is asked
 for; ``--profile-dir`` writes a torch.profiler Chrome trace of the run.
-One card: ``n_devices`` above 1 raises (the mesh waits for ROADMAP A8).
+
+Several GPUs (train.py:88-210), one process each:
+
+    torchrun --nproc-per-node 4 -m rap_tpu_torch.apps.train \
+        --config configs/rap_train.yaml -o data.datasets=...
+
+Each process joins the world (``parallel.distributed``: nccl on the card,
+gloo with ``--device cpu``) on ``cuda:LOCAL_RANK``; ``n_devices`` 0 means
+the world size, and any other count than the world size raises. Every
+rank plans the same batches and loads its slice of each (the loader's
+slice mode, S a multiple of the world size), steps data-parallel
+(``train.step``: the global loss's gradient, one all-reduce a step) and so
+holds the same state; validation splits the batches over the ranks
+(stride mode) and reduces the meter. Rank 0 alone tracks and writes
+checkpoints (with barriers), and its best monitor is broadcast, so that a
+rank that reads another checkpoint directory takes the same save branch.
+A world joined by the caller before ``run_train`` (also a world of 1) is
+used as it is.
 """
 
 from __future__ import annotations
@@ -51,7 +69,9 @@ from ..eval.meter import print_eval_table
 from ..models.config import DiTConfig
 from ..models.dit import attach_bounds, init_dit_params, to_device
 from ..ops import launch_counts
-from ..registration import predict_poses, sample
+from ..parallel.distributed import is_initialized, process_group, world
+from ..parallel.mesh import broadcast, make_mesh
+from ..registration import predict_poses, sample, seeded_generator
 from ..train.checkpoint import (load_metadata, restore_checkpoint, save_checkpoint,
                                 train_state_tensors)
 from ..train.optim import tree_paths
@@ -91,16 +111,21 @@ def _launch_diff(before: dict, after: dict) -> dict:
 def evaluate_validation(cfg: Config, params, val_datasets, epoch: int,
                         device="cuda") -> dict:
     """Sampling evaluation of the validation datasets (train.py:57-87):
-    {dataset: {metric: mean}} with an 'overall' entry."""
+    {dataset: {metric: mean}} with an 'overall' entry. In a joined world of
+    several ranks each takes every world-size-th batch (stride mode) and
+    the meter is summed over the ranks; batch b's noise is seeded from b,
+    so any world scores what a world of 1 scores."""
     device = resolve_device(device)
+    rank, world_size = world()
     serve = serving_params(params, cfg.model)
     evaluator = Evaluator(cfg.eval)
     meter = MetricsMeter()
-    generator = torch.Generator(device=device).manual_seed(1234 + epoch)
     for ds in val_datasets:
-        loader = BatchLoader([ds], LoaderConfig(max_points_per_batch=cfg.data.max_points_per_batch,
-                                                prefetch=cfg.data.num_prefetch), device=device)
-        for batch, _names, ds_name in loader.epoch(0):
+        loader = BatchLoader([ds], LoaderConfig(
+            max_points_per_batch=cfg.data.max_points_per_batch, prefetch=cfg.data.num_prefetch,
+            process_index=rank, process_count=world_size, shard_mode="stride"), device=device)
+        for i, (batch, _names, ds_name) in enumerate(loader.epoch(0)):
+            generator = seeded_generator(device, 1234 + epoch, rank + i * world_size)
             out = sample(serve, cfg.pipeline, batch, generator=generator,
                          return_trajectory=False)
             R, t = predict_poses(batch, out["points"])
@@ -108,6 +133,7 @@ def evaluate_validation(cfg: Config, params, val_datasets, epoch: int,
             meter.add_metrics(ds_name, {k: v.detach().cpu().numpy() for k, v in md.items()},
                               batch.sample_valid.cpu().numpy(),
                               batch.part_valid.reshape(batch.S, -1).sum(1).cpu().numpy())
+    meter.reduce_across_hosts([ds.cfg.dataset_name for ds in val_datasets])
     return meter.compute_average()
 
 
@@ -120,9 +146,21 @@ def run_train(cfg: Config, max_steps: int | None = None, device="cuda",
     launches and results, each save's ms and bytes, the restore's ms and the
     restored state's tensors (``train_state_tensors``)."""
     device = resolve_device(device)
-    if cfg.n_devices > 1:
-        raise NotImplementedError(f"n_devices={cfg.n_devices}: the port trains on one card; "
-                                  "data parallelism over a mesh waits for ROADMAP A8")
+    with process_group(device) as (rank, world_size):
+        return _train(cfg, max_steps, device, record, use_wandb, rank, world_size)
+
+
+def _train(cfg: Config, max_steps, device, record, use_wandb: bool, rank: int,
+           world_size: int) -> TrainState:
+    n_dev = cfg.n_devices or world_size
+    if n_dev != world_size:
+        raise ValueError(f"n_devices={cfg.n_devices} but the world has {world_size} "
+                         f"process(es): launch one process per device (torchrun "
+                         f"--nproc-per-node {n_dev})")
+    mesh = make_mesh(n_dev, device) if is_initialized() else None
+    if mesh is not None:
+        device = mesh.device
+    logger.info("training on %d device(s), rank %d of %d", n_dev, rank, world_size)
     rec = record if record is not None else {}
     rec.update(step_ms=[], load_ms=[], step_launches=[], metrics=[], epochs=[], val_ms=[],
                val_launches=[], val_results=[], saves=[])
@@ -135,7 +173,8 @@ def run_train(cfg: Config, max_steps: int | None = None, device="cuda",
     loader = BatchLoader(train_datasets, LoaderConfig(
         max_points_per_batch=cfg.trainer.train_points_per_batch, shuffle=True,
         seed=cfg.trainer.seed, prefetch=cfg.data.num_prefetch,
-        max_samples_per_epoch=cfg.data.max_samples_per_epoch), device=device)
+        max_samples_per_epoch=cfg.data.max_samples_per_epoch, process_index=rank,
+        process_count=world_size, s_multiple=n_dev), device=device)
     steps_per_epoch = max(loader.num_batches(0), 1)
 
     params = init_dit_params(cfg.trainer.seed, cfg.model, device=device, masters=True)
@@ -155,10 +194,11 @@ def run_train(cfg: Config, max_steps: int | None = None, device="cuda",
     logger.info("model %s %.1fM params | %d steps/epoch", cfg.model_name, n_params / 1e6,
                 steps_per_epoch)
     step_fn = make_train_step(cfg.pipeline, cfg.optimizer, remat=cfg.trainer.remat,
-                              device=device, steps_per_epoch=steps_per_epoch)
+                              device=device, steps_per_epoch=steps_per_epoch, mesh=mesh)
     mlog = ExperimentTracker(run_dir=ckpt_dir, config=cfg,
                              resume_id=find_run_id(ckpt_dir) if cfg.checkpoint else None,
-                             jsonl_path=cfg.trainer.log_file or None, use_wandb=use_wandb)
+                             jsonl_path=cfg.trainer.log_file or None, use_wandb=use_wandb,
+                             rank_zero=rank == 0)
     # a resumed run starts from the best monitor value saved so far, so its
     # first validation cannot overwrite a better 'best'
     best_monitor = float("inf")
@@ -167,6 +207,12 @@ def run_train(cfg: Config, max_steps: int | None = None, device="cuda",
         if "monitor" in best_meta:
             best_monitor = float(best_meta["monitor"])
             logger.info("resumed best %s=%.4f", cfg.trainer.monitor, best_monitor)
+    if mesh is not None:
+        # only rank 0 writes rap_metadata.json: a rank reading another
+        # checkpoint directory would see no monitor, keep inf, take another
+        # branch at the first validation and deadlock the collective save
+        best_monitor = float(broadcast(torch.tensor(best_monitor, dtype=torch.float64,
+                                                    device=device), mesh))
     rec["best_monitor_start"] = best_monitor
     global_step = int(state.step)
     run_steps = 0
@@ -208,7 +254,8 @@ def run_train(cfg: Config, max_steps: int | None = None, device="cuda",
                 rec["val_ms"].append((time.perf_counter() - t0) * 1e3)
                 rec["val_launches"].append(_launch_diff(before, launch_counts()))
                 rec["val_results"].append(results)
-                print_eval_table({"val": results})
+                if rank == 0:
+                    print_eval_table({"val": results})
                 mlog.log_dict(global_step, results, prefix="val")
                 mon = _get_monitor(results, cfg.trainer.monitor)
                 if mon < best_monitor:

@@ -10,8 +10,8 @@ picks a ``MODEL_ZOO`` entry and the ``model`` keys override it;
 by name (``float32``, ``bfloat16``, ``float16``). The ``visualizer`` keys
 are parsed and kept; ``visualize: true`` raises in ``apps.sample`` (the
 visualizer waits for ROADMAP A9). Every field of rap_tpu's ``Config`` is
-here; ``apps.train`` refuses ``n_devices`` above 1: the port trains on one
-card until the mesh is ported (ROADMAP A8).
+here; ``n_devices`` is the data-parallel world ``apps.train`` expects (0:
+whatever world it was launched in; another count than the world's raises).
 """
 
 from __future__ import annotations
@@ -87,7 +87,7 @@ class Config:
     # .npz parameters, a torch .ckpt/.pth/.pt, or a train-state directory
     # (train/checkpoint.py); "" = random weights from trainer.seed
     checkpoint: str = ""
-    n_devices: int = 0     # 0 = all; apps.train runs on one card (> 1: ROADMAP A8)
+    n_devices: int = 0     # apps.train's world size; 0 = the launched world's
 
 
 def _resolve_type(owner, tp):

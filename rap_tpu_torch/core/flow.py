@@ -86,8 +86,10 @@ def flow_interpolate(x_0: torch.Tensor, x_1: torch.Tensor, t: torch.Tensor):
 
 
 def velocity_loss(v_pred, v_t, mask, loss_type: str = "mse",
-                  huber_delta: float = 1.0) -> torch.Tensor:
-    """Masked velocity-matching loss; mean over valid scalar entries."""
+                  huber_delta: float = 1.0, count: torch.Tensor | None = None) -> torch.Tensor:
+    """Masked velocity-matching loss; mean over valid scalar entries.
+    ``count``: the valid points the mean divides by (default the mask's;
+    data parallelism passes the global count)."""
     m = mask.to(v_pred.dtype)[..., None]
     diff = v_pred - v_t
     if loss_type == "mse":
@@ -100,14 +102,15 @@ def velocity_loss(v_pred, v_t, mask, loss_type: str = "mse",
                           huber_delta * (ad - 0.5 * huber_delta))
     else:
         raise ValueError(f"Invalid loss type: {loss_type}")
-    denom = torch.clamp_min(m.sum() * v_pred.shape[-1], 1.0)
+    denom = torch.clamp_min((m.sum() if count is None else count) * v_pred.shape[-1], 1.0)
     return (per * m).sum() / denom
 
 
-def velocity_norms(v_pred, v_t, mask):
-    """Mean L2 norms of predicted and target velocities over valid points."""
+def velocity_norms(v_pred, v_t, mask, count: torch.Tensor | None = None):
+    """Mean L2 norms of predicted and target velocities over valid points
+    (``count`` of them, default the mask's)."""
     m = mask.to(v_pred.dtype)
-    denom = torch.clamp_min(m.sum(), 1.0)
+    denom = torch.clamp_min(m.sum() if count is None else count, 1.0)
     n_pred = (torch.linalg.vector_norm(v_pred, dim=-1) * m).sum() / denom
     n_t = (torch.linalg.vector_norm(v_t, dim=-1) * m).sum() / denom
     return n_pred, n_t

@@ -1,5 +1,5 @@
 """Batch loader: datasets -> packed PartBatches with background prefetch
-(counterpart of rap_tpu/data/loader.py, one process).
+(counterpart of rap_tpu/data/loader.py).
 
 Per epoch (``_epoch_plan``, loader.py:100-141): a plan per dataset
 (``plan_batches`` on the num_points size estimates), each dataset first cut
@@ -13,8 +13,19 @@ augments and collates the batches onto the device while the consumer runs
 the previous one. A loaded batch whose true part sizes blow the budget is
 split (``_rebucket``), as rap_tpu does in one process. The thread ends when
 the epoch ends, and also when the consumer stops early or the generator is
-closed: ``epoch()`` joins it before it returns. It runs in one process:
-rap_tpu's process sharding (slice and stride modes) waits for ROADMAP A8.
+closed: ``epoch()`` joins it before it returns.
+
+Several processes (``process_index`` of ``process_count``, loader.py:36-160):
+every rank computes the same plan. In ``slice`` mode (data-parallel
+training) each rank loads its contiguous share of each planned batch's
+sample slots (``s_multiple`` must be a multiple of ``process_count``) at
+the plan's shapes, never shapes read from its own samples (the ranks must
+agree), a part longer than the planned N cut to it (augmentation shuffles
+points, so the first N are a uniform subsample), and the batch always
+masked (``no_padding`` False, as the ranks of one batch must take one
+branch); its ``sample_of_part`` counts from 0 (``parallel/distributed.py``).
+In ``stride`` mode (evaluation) rank i takes the whole planned batches
+i, i + count, ...
 """
 
 from __future__ import annotations
@@ -42,6 +53,12 @@ class LoaderConfig:
     prefetch: int = 2
     max_samples_per_epoch: int = 0   # per-dataset random cap (0 = all)
     s_multiple: int = 1              # pad each batch's S to a multiple
+    process_index: int = 0
+    process_count: int = 1
+    # "slice": each process loads its contiguous S-slice of the same batch
+    # (data-parallel training); "stride": process i takes batches i::count
+    # whole (evaluation, metrics reduced by MetricsMeter.reduce_across_hosts)
+    shard_mode: str = "slice"
 
 
 @dataclasses.dataclass
@@ -68,12 +85,26 @@ class PaddingStats:
                 f"{self.padded_tokens} padded ({100 * self.waste:.1f}% waste)")
 
 
+def _truncate_parts(s: Sample, n: int) -> Sample:
+    """``s`` with every part cut to its first ``n`` points (loader.py:203-212)."""
+    return dataclasses.replace(s, points=[p[:n] for p in s.points],
+                               points_gt=[p[:n] for p in s.points_gt],
+                               features=[f[:n] for f in s.features])
+
+
 class BatchLoader:
     """Iterates (PartBatch, names, dataset_name) over one or more datasets,
     the batches on ``device``."""
 
     def __init__(self, datasets: list[PointCloudDataset], cfg: LoaderConfig,
                  device="cuda"):
+        if cfg.shard_mode not in ("slice", "stride"):
+            raise ValueError(f"shard_mode must be 'slice' or 'stride', got {cfg.shard_mode!r}")
+        if cfg.process_count > 1 and cfg.shard_mode == "slice" \
+                and cfg.s_multiple % cfg.process_count:
+            raise ValueError(f"slice mode: s_multiple={cfg.s_multiple} must be a multiple of "
+                             f"process_count={cfg.process_count}, so every process owns an "
+                             "equal S slice")
         self.datasets = datasets
         self.cfg = cfg
         self.device = device
@@ -101,6 +132,8 @@ class BatchLoader:
         if cfg.shuffle:
             rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, epoch, 999]))
             all_plans = [all_plans[i] for i in rng.permutation(len(all_plans))]
+        if cfg.shard_mode == "stride" and cfg.process_count > 1:
+            all_plans = all_plans[cfg.process_index::cfg.process_count]
         return all_plans
 
     def num_batches(self, epoch: int = 0) -> int:
@@ -112,6 +145,22 @@ class BatchLoader:
         """[(batch, names, dataset_name)]: one, or more where the true part
         sizes blow the budget (loader.py:213-227)."""
         ds = self.datasets[d_idx]
+        cfg = self.cfg
+        if cfg.process_count > 1 and cfg.shard_mode == "slice":
+            per = plan.S // cfg.process_count
+            lo = cfg.process_index * per
+            samples = [ds.get(i, epoch=epoch) for i in plan.indices[lo:lo + per]]
+            cut = [s.name for s in samples if s.max_part_points > plan.N]
+            if cut:
+                logger.warning("planned bucket N=%d < the true largest part of %s; cutting "
+                               "to fit (slice mode cannot rebucket: the shapes must agree "
+                               "across processes)", plan.N, cut[:3])
+                samples = [_truncate_parts(s, plan.N) for s in samples]
+            batch, names = collate_to_part_batch(samples, plan.N, plan.P, per,
+                                                 feat_dim=ds.cfg.feat_dim, device=self.device)
+            batch = dataclasses.replace(batch, no_padding=False)
+            self.padding_stats.add(batch)
+            return [(batch, names, ds.cfg.dataset_name)]
         samples: list[Sample] = [ds.get(i, epoch=epoch) for i in plan.indices]
         out = []
         for group in self._rebucket(samples, plan):

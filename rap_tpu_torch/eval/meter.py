@@ -3,8 +3,8 @@ rap_tpu/eval/meter.py: ``MetricsMeter`` and ``print_eval_table``).
 
 Running sums and counts per dataset and metric over valid samples with
 finite values, an ``overall`` split, sample counts and part-count ranges.
-``reduce_across_hosts`` is the identity of one process; the
-torch.distributed version waits for ROADMAP A8. The table is plain text.
+``reduce_across_hosts`` sums them over the ranks of a torch.distributed
+world (stride-mode evaluation); the table is plain text.
 """
 
 from __future__ import annotations
@@ -69,8 +69,34 @@ class MetricsMeter:
         self.__init__()
 
     def reduce_across_hosts(self, dataset_registry: list[str]) -> None:
-        """One process: nothing to reduce (the multi-process sum waits for
-        ROADMAP A8)."""
+        """Sum the registry's datasets' sums, counts, sample counts and
+        part ranges over the ranks (meter.py:111-160), in place on every
+        rank; the identity without a joined world of several. The ranks may
+        hold different metric keys (a rank may have seen no pair sample, or
+        no batch at all): the result has their union. The per-rank state
+        crosses as Python objects (``all_gather_object``), so the float64
+        sums stay exact (rap_tpu splits them into float32 pairs because its
+        gathers run without x64)."""
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
+            return
+        mine = {ds: (dict(self._sums.get(ds, {})), dict(self._counts.get(ds, {})),
+                     self._samples.get(ds, 0), self._part_ranges.get(ds))
+                for ds in dataset_registry}
+        gathered: list = [None] * dist.get_world_size()
+        dist.all_gather_object(gathered, mine)
+        self.reset()
+        for rank_state in gathered:
+            for ds, (sums, counts, samples, part_range) in rank_state.items():
+                for k, v in sums.items():
+                    self._sums[ds][k] += v
+                    self._counts[ds][k] += counts[k]
+                if samples:
+                    self._samples[ds] += samples
+                if part_range is not None:
+                    lo, hi = self._part_ranges.get(ds, part_range)
+                    self._part_ranges[ds] = (min(lo, part_range[0]), max(hi, part_range[1]))
 
 
 def print_eval_table(sections: dict[str, dict[str, dict[str, float]]],

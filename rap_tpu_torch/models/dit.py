@@ -44,7 +44,14 @@ activation's device. A seed is fixed before the layer runs, so the remat
 recompute (``torch.utils.checkpoint`` restores only the default generators'
 states, never an explicit one) draws the same mask as the first forward.
 
-Not ported yet: ring attention (ROADMAP A8).
+Sequence sharding (dit.py:160-268): with ``ring_mesh`` (a
+``parallel.mesh.Mesh``) the batch is one rank's shard of an S = 1 sample:
+its contiguous share of the parts, so of the P·N global sequence. Part
+attention and the feed-forward stay local on the rank's parts, through the
+same branches as without a mesh; the global attention takes the unfused
+branch and runs ``ops.ring_attention`` over the ranks' shards (its block
+product is plain PyTorch, as rap_tpu's is plain XLA). Training takes no
+mesh here (rap_tpu's ``training_forward`` passes none).
 
 Parameters are a nested dict like the JAX pytree, except that ``layers`` is
 a list of per-layer dicts (the stacked ``layers/*`` arrays split along L).
@@ -64,7 +71,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..core.batch import PartBatch
-from ..ops import attention, flash_attention, fused_ff, fused_proj
+from ..ops import attention, flash_attention, fused_ff, fused_proj, ring_attention
 from .config import DiTConfig
 from .embedding import nerf_positional_encoding, sinusoidal_timestep_embedding
 
@@ -263,14 +270,16 @@ def _fused_ok(cfg: DiTConfig, mask, seq_len: int) -> bool:
 
 
 def _attention_block(lp, prefix, x, t_emb, mask, cfg: DiTConfig, S: int, P: int,
-                     is_global: bool, bound2):
+                     is_global: bool, bound2, ring_mesh=None):
     """x + AdaLN-prenorm attention sub-block (dit.py:177-268). ``bound2``:
-    the host guard bound of a dense batch, None for a padded one."""
+    the host guard bound of a dense batch, None for a padded one.
+    ``ring_mesh``: global attention over the ranks' shards (the module
+    docstring)."""
     G, N, D = x.shape
     H, dh = cfg.num_heads, cfg.head_dim
     kernels = cfg.use_kernels
     seq = P * N if is_global else N
-    if _fused_ok(cfg, mask, seq):
+    if ring_mesh is None and _fused_ok(cfg, mask, seq):
         ada = _adaln_mlp(lp[f"{prefix}_prenorm"], t_emb)  # (G, 2D)
         qh5, kh5, vah5 = fused_proj.adaln_qkv(
             x, ada, lp[f"{prefix}_qkv"]["kernel"], lp[f"{prefix}_q_gamma"],
@@ -300,6 +309,14 @@ def _attention_block(lp, prefix, x, t_emb, mask, cfg: DiTConfig, S: int, P: int,
     if is_global:  # (S, P*N, H, dh): all parts of a sample form one sequence
         q, k, v = (a.reshape(S, P * N, H, dh) for a in (q, k, v))
         kv_mask = None if mask is None else mask.reshape(S, P * N)
+        if ring_mesh is not None:
+            if S != 1:
+                raise ValueError(f"sequence-sharded global attention needs S == 1, got S={S}")
+            if kv_mask is None:
+                kv_mask = torch.ones((S, P * N), dtype=torch.bool, device=x.device)
+            out = ring_attention.ring_attention(q, k, v, kv_mask, ring_mesh,
+                                                softcap=cfg.softcap)
+            return x + _linear(lp[f"{prefix}_out"], out.reshape(G, N, D))
     out = attention.batched_attention(
         q, k, v, kv_mask, impl=cfg.attn_impl, softcap=cfg.softcap,
         logit_bound=logit_bound, kernels=kernels,
@@ -340,9 +357,10 @@ def dropout_ff(lp, x, rate: float, keep):
     return x + _linear(lp["ff_out"], act)
 
 
-def _layer(h, lp, t_emb, mask, cfg: DiTConfig, S: int, P: int, bounds, dropout=None):
+def _layer(h, lp, t_emb, mask, cfg: DiTConfig, S: int, P: int, bounds, dropout=None,
+           ring_mesh=None):
     h = _attention_block(lp, "self", h, t_emb, mask, cfg, S, P, False, bounds[0])
-    h = _attention_block(lp, "global", h, t_emb, mask, cfg, S, P, True, bounds[1])
+    h = _attention_block(lp, "global", h, t_emb, mask, cfg, S, P, True, bounds[1], ring_mesh)
     return _geglu_ff(lp, h, cfg, dropout)
 
 
@@ -358,6 +376,7 @@ def dit_forward(
     return_features: bool = False,
     latent: torch.Tensor | None = None,
     dropout: list | None = None,
+    ring_mesh=None,
 ):
     """Predict the velocity field: (G, N, out_dim) fp32 [, features (G, N, D)
     fp32 with ``return_features``].
@@ -371,6 +390,8 @@ def dit_forward(
     when ``cfg.in_dim > 0``; None gives zeros (dit.py:359-365).
     ``dropout``: one keep mask or int seed a layer, at ``cfg.dropout_rate``
     (training; see the module docstring); None runs without dropout.
+    ``ring_mesh``: a ``parallel.mesh.Mesh`` over whose ranks the global
+    attention of this S = 1 shard runs as ring attention; None: local.
     """
     G, N, _ = x.shape
     S, P = timesteps.shape[0], parts_per_sample
@@ -408,9 +429,10 @@ def dit_forward(
     drops = [None] * len(params["layers"]) if dropout is None else dropout
     for lp, b, d in zip(params["layers"], bounds, drops, strict=True):
         if remat and torch.is_grad_enabled():
-            h = checkpoint(_layer, h, lp, t_emb, mask, cfg, S, P, b, d, use_reentrant=False)
+            h = checkpoint(_layer, h, lp, t_emb, mask, cfg, S, P, b, d, ring_mesh,
+                           use_reentrant=False)
         else:
-            h = _layer(h, lp, t_emb, mask, cfg, S, P, b, d)
+            h = _layer(h, lp, t_emb, mask, cfg, S, P, b, d, ring_mesh)
 
     # ---- fp32 head ----------------------------------------------------------
     hf = h.float()

@@ -11,8 +11,15 @@ packages.
 Dense and padded batches both run (the DiT takes its masked branch for the
 latter). Training also takes rap_tpu's two options: the auxiliary pose loss
 (``pose_loss_weight > 0``, through the gradient of the batched 3x3 SVD of
-``core.procrustes``) and FF dropout (``model.dropout_rate > 0``). Not
-ported yet: ring attention (ROADMAP A8).
+``core.procrustes``) and FF dropout (``model.dropout_rate > 0``).
+
+Several GPUs (``parallel/``): ``training_forward(mesh=...)`` is one rank's
+part of a data-parallel step over the global batch (rap_tpu's jit over the
+mesh): the draws are global and sliced, the loss's denominators are summed
+over the ranks, and the loss and metrics are the rank's shares of the
+global values. ``sample(ring_mesh=...)`` samples an S = 1 batch whose parts
+are sharded over the ranks, the DiT's global attention running as ring
+attention, and returns the global outputs on every rank.
 """
 
 from __future__ import annotations
@@ -30,6 +37,10 @@ from .core.batch import PartBatch
 from .core.sampler import flow_sampler, make_schedule
 from .models.config import DiTConfig
 from .models.dit import attention_bounds, dit_forward
+from .parallel.mesh import Mesh, all_gather, all_reduce_sum
+
+# the t-binned losses (registration.py:154-163)
+T_BINS = ((0.0, 0.5, "loss_t<0.5"), (0.5, 0.9, "loss_t0.5-0.9"), (0.9, 1.01, "loss_t>0.9"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +81,7 @@ def training_forward(
     x_1: torch.Tensor | None = None,
     t: torch.Tensor | None = None,
     dropout_keep: list[torch.Tensor] | None = None,
+    mesh: Mesh | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One training forward (registration.py:92-164): sample t, build the
     flow target, predict v, loss. Returns (loss with its graph, metrics
@@ -85,45 +97,77 @@ def training_forward(
     (``dropout_seeds``). For a dense batch the attention guard bounds are
     computed here from the current gains, once per call; a padded batch
     needs none.
+
+    ``mesh``: ``batch`` is this rank's contiguous sample shard of a global
+    batch of ``mesh.size`` such shards. t and x_1 are the global ones (drawn,
+    or given with the global S and G) and the rank keeps its slice, so every
+    world draws what a world of 1 draws; the dropout seeds fold in the rank.
+    Every mean's denominator (valid points, valid parts, the samples of
+    each t bin) is summed over the ranks, with no gradient, before the
+    forward, and the loss and each metric are the rank's numerator over the
+    global denominator: their sums over the ranks are the global loss and
+    metrics, and the sum of the ranks' gradients is the global loss's.
     """
-    if t is None:
-        t = flow.sample_timesteps(generator, batch.S, cfg.timestep_sampling)
+    n, r = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    S, G = batch.S, batch.G
     x_0 = batch.points_gt
+    if t is None:
+        t = flow.sample_timesteps(generator, S * n, cfg.timestep_sampling)
     if x_1 is None:
-        x_1 = torch.randn(x_0.shape, generator=generator, dtype=x_0.dtype,
-                          device=x_0.device)
+        x_1 = torch.randn((G * n,) + tuple(x_0.shape[1:]), generator=generator,
+                          dtype=x_0.dtype, device=x_0.device)
+    if mesh is not None:
+        if t.shape[0] != S * n or x_1.shape[0] != G * n:
+            raise ValueError(f"t {tuple(t.shape)} and x_1 {tuple(x_1.shape)} must be the "
+                             f"global draws: S={S * n}, G={G * n}")
+        t, x_1 = t[r * S:(r + 1) * S], x_1[r * G:(r + 1) * G]
     dropout = None
     if cfg.model.dropout_rate > 0.0:
         dropout = (list(dropout_keep) if dropout_keep is not None
                    else dropout_seeds(generator, len(params["layers"])))
+        if mesh is not None and dropout_keep is None:
+            dropout = [_fold_rank(s, r) for s in dropout]
     P = parts_per_sample(batch)
+    mask = batch.point_mask.float()
+    valid = batch.sample_valid.float()
+    bins = [((t >= lo) & (t < hi)).float() * valid for lo, hi, _ in T_BINS]
+    counts = [mask.sum()] + [w.sum() for w in bins]
+    if cfg.pose_loss_weight > 0.0:
+        pw = (batch.part_valid & batch.per_sample_to_part(batch.sample_valid)).float()
+        counts.append(pw.sum())
+    counts = torch.stack(counts)
+    if mesh is not None:
+        counts = all_reduce_sum(counts, mesh)
     t_point = batch.per_sample_to_point(t)[..., None]  # (G, N, 1)
     x_t, v_t = flow.flow_interpolate(x_0, x_1, t_point)
     bounds = attention_bounds(params) if batch.no_padding else None
     v_pred = dit_forward(params, cfg.model, x_t, t, batch, parts_per_sample=P,
                          remat=remat, bounds=bounds, dropout=dropout)
-    loss = flow.velocity_loss(v_pred, v_t, batch.point_mask, cfg.loss_type)
+    loss = flow.velocity_loss(v_pred, v_t, batch.point_mask, cfg.loss_type, count=counts[0])
     metrics = {"loss": loss.detach()}
     if cfg.pose_loss_weight > 0.0:
-        pose_loss = _pose_loss(batch, x_t, t_point, v_pred)
+        pose_loss = _pose_loss(batch, x_t, t_point, v_pred, pw, counts[-1])
         loss = loss + cfg.pose_loss_weight * pose_loss
         metrics["pose_loss"] = pose_loss.detach()
     with torch.no_grad():
         v_pred = v_pred.detach()
-        n_pred, n_t = flow.velocity_norms(v_pred, v_t, batch.point_mask)
+        n_pred, n_t = flow.velocity_norms(v_pred, v_t, batch.point_mask, count=counts[0])
         metrics.update(norm_v_pred=n_pred, norm_v_t=n_t)
-        mask = batch.point_mask.float()
         se = ((v_pred - v_t) ** 2 * mask[..., None]).sum((1, 2))        # (G,)
         cnt = 3.0 * mask.sum(1)
-        se_s = se.reshape(batch.S, P).sum(1)                            # (S,)
-        cnt_s = cnt.reshape(batch.S, P).sum(1).clamp_min(1.0)
+        se_s = se.reshape(S, P).sum(1)                                  # (S,)
+        cnt_s = cnt.reshape(S, P).sum(1).clamp_min(1.0)
         loss_s = se_s / cnt_s
-        valid = batch.sample_valid.float()
-        for lo, hi, name in ((0.0, 0.5, "loss_t<0.5"), (0.5, 0.9, "loss_t0.5-0.9"),
-                             (0.9, 1.01, "loss_t>0.9")):
-            w = ((t >= lo) & (t < hi)).float() * valid
-            metrics[name] = (loss_s * w).sum() / w.sum().clamp_min(1.0)
+        for i, (w, (_, _, name)) in enumerate(zip(bins, T_BINS)):
+            metrics[name] = (loss_s * w).sum() / counts[1 + i].clamp_min(1.0)
     return loss, metrics
+
+
+def _fold_rank(seed: int, rank: int) -> int:
+    """A rank's dropout seed from the layer's seed: each rank draws its own
+    mask (rap_tpu draws one over the global activation)."""
+    data = seed.to_bytes(8, "little") + rank.to_bytes(4, "little")
+    return int.from_bytes(hashlib.blake2b(data, digest_size=8).digest(), "little") >> 1
 
 
 def seeded_generator(device, *entropy: int) -> torch.Generator:
@@ -148,31 +192,32 @@ def dropout_seeds(generator: torch.Generator, n: int) -> list[int]:
     return seeds
 
 
-def _pose_loss(batch: PartBatch, x_t, t_point, v_pred) -> torch.Tensor:
+def _pose_loss(batch: PartBatch, x_t, t_point, v_pred, pw, count) -> torch.Tensor:
     """rap_tpu's auxiliary pose loss (registration.py:132-149): the masked
     Kabsch fit of the condition to the implied endpoint x0_hat, then
     1 - clip((tr(R_hat^T R) - 1) / 2) plus the squared translation error,
-    averaged over the valid parts of valid samples. Degenerate parts (fewer
-    than 3 points) keep a finite gradient: kabsch_masked feeds the SVD an
-    identity there and selects (torch.where, no product) its result away,
-    so the SVD backward's non-finite entries for them never reach the
-    gradient. No host read."""
+    averaged over the valid parts of valid samples (``pw``, ``count`` of
+    them). Degenerate parts (fewer than 3 points) keep a finite gradient:
+    kabsch_masked feeds the SVD an identity there and selects (torch.where,
+    no product) its result away, so the SVD backward's non-finite entries
+    for them never reach the gradient. No host read."""
     x0_hat = x_t - t_point * v_pred.to(x_t.dtype)
     R_hat, t_hat = procrustes.fit_transformations(batch.points, x0_hat, batch.point_mask)
     tr = (R_hat * batch.rotations_gt).sum((-2, -1))
     rot_l = 1.0 - ((tr - 1.0) / 2.0).clamp(-1.0, 1.0)
     trans_l = ((t_hat - batch.translations_gt) ** 2).sum(-1)
-    pw = (batch.part_valid & batch.per_sample_to_part(batch.sample_valid)).float()
-    return ((rot_l + trans_l) * pw).sum() / pw.sum().clamp_min(1.0)
+    return ((rot_l + trans_l) * pw).sum() / count.clamp_min(1.0)
 
 
-def velocity_fn(params, cfg: RPFConfig, batch: PartBatch):
-    """The (x_t, t) -> v closure used by the ODE sampler."""
+def velocity_fn(params, cfg: RPFConfig, batch: PartBatch, ring_mesh: Mesh | None = None):
+    """The (x_t, t) -> v closure used by the ODE sampler; ``ring_mesh``: the
+    global attention over the ranks' shards (``dit_forward``)."""
     P = parts_per_sample(batch)
 
     def fn(x_t: torch.Tensor, t: float) -> torch.Tensor:
         ts = torch.full((batch.S,), t, dtype=torch.float32, device=x_t.device)
-        return dit_forward(params, cfg.model, x_t, ts, batch, parts_per_sample=P)
+        return dit_forward(params, cfg.model, x_t, ts, batch, parts_per_sample=P,
+                           ring_mesh=ring_mesh)
 
     return fn
 
@@ -189,6 +234,7 @@ def sample(
     num_steps: int | None = None,
     schedule: str | None = None,
     prune_index: torch.Tensor | None = None,
+    ring_mesh: Mesh | None = None,
 ) -> dict[str, Any]:
     """Generate a registered scene by integrating the learned flow.
 
@@ -205,18 +251,33 @@ def sample(
     ``generator`` (rap_tpu draws it from its key, which the port cannot
     reproduce). ``n_sub`` is N / prune_factor rounded up, then down to a
     multiple of 128, at least 128 and at most N.
+
+    ``ring_mesh`` (registration.py:190-211): ``batch`` is this rank's shard
+    of an S = 1 batch (``parallel.mesh.shard_batch``: its contiguous share
+    of the parts) and the DiT's global attention runs over the ranks as
+    ring attention. The noise is the global one (G = the shard's parts x
+    the mesh size), drawn or given, of which the rank keeps its parts, so a
+    world of n samples what a world of 1 samples. The per-part work (the
+    forcing's Kabsch fits) stays on the rank's parts; the outputs are
+    gathered, so every rank returns the global ones.
     """
+    n = 1 if ring_mesh is None else ring_mesh.size
+    G = batch.G * n
     if x_1 is None:
-        x_1 = torch.randn(batch.points.shape, generator=generator,
+        x_1 = torch.randn((G,) + tuple(batch.points.shape[1:]), generator=generator,
                           dtype=torch.float32, device=batch.device)
+    if ring_mesh is not None:
+        if x_1.shape[0] != G:
+            raise ValueError(f"x_1 has {x_1.shape[0]} parts; the global noise has {G}")
+        x_1 = x_1[ring_mesh.rank * batch.G:(ring_mesh.rank + 1) * batch.G]
     steps = num_steps or cfg.inference_sampling_steps
     return_trajectory = return_trajectory and cfg.return_end_point_trajectory
     schedule = schedule or cfg.inference_schedule
-    vfn = velocity_fn(params, cfg, batch)
+    vfn = velocity_fn(params, cfg, batch, ring_mesh)
     coarse = min(cfg.prune_coarse_steps, steps - 1)
     if coarse > 0 and cfg.rigidity_forcing and not return_trajectory:
         res = _sample_pruned(params, cfg, batch, vfn, x_1, make_schedule(steps, schedule),
-                             coarse, generator, prune_index)
+                             coarse, generator, prune_index, ring_mesh)
     else:
         res = flow_sampler(
             vfn,
@@ -229,16 +290,22 @@ def sample(
             method=cfg.inference_sampler,
             schedule=schedule,
         )
-    out: dict[str, Any] = {"points": res.x_final}
+    out: dict[str, Any] = {"points": _gather(res.x_final, ring_mesh)}
     if return_trajectory:
-        out["end_point_trajectory"] = res.end_point_trajectory
-        out["trajectory"] = res.trajectory
+        out["end_point_trajectory"] = _gather(res.end_point_trajectory, ring_mesh, 1)
+        out["trajectory"] = _gather(res.trajectory, ring_mesh, 1)
     if return_transformer_features:
         ts = torch.full((batch.S,), 1.0 / steps, dtype=torch.float32, device=batch.device)
-        _, out["transformer_features"] = dit_forward(
-            params, cfg.model, res.x_final, ts, batch,
-            parts_per_sample=parts_per_sample(batch), return_features=True)
+        _, feats = dit_forward(params, cfg.model, res.x_final, ts, batch,
+                               parts_per_sample=parts_per_sample(batch),
+                               return_features=True, ring_mesh=ring_mesh)
+        out["transformer_features"] = _gather(feats, ring_mesh)
     return out
+
+
+def _gather(x: torch.Tensor, ring_mesh: Mesh | None, dim: int = 0) -> torch.Tensor:
+    """The ranks' part slices of ``x`` joined along its part axis ``dim``."""
+    return x if ring_mesh is None else all_gather(x, ring_mesh, dim)
 
 
 def prune_size(N: int, prune_factor: int) -> int:
@@ -247,7 +314,7 @@ def prune_size(N: int, prune_factor: int) -> int:
 
 
 def _sample_pruned(params, cfg: RPFConfig, batch: PartBatch, vfn, x_1, ts, coarse: int,
-                   generator, prune_index):
+                   generator, prune_index, ring_mesh=None):
     """The coarse segment on the subsample, the exact switch to full
     resolution, the fine segment (registration.py:193-245)."""
     N = batch.N
@@ -262,8 +329,8 @@ def _sample_pruned(params, cfg: RPFConfig, batch: PartBatch, vfn, x_1, ts, coars
         batch, points=batch.points[:, idx], points_gt=batch.points_gt[:, idx],
         local_feats=batch.local_feats[:, idx], point_mask=batch.point_mask[:, idx])
     x_1_sub = x_1[:, idx]
-    res1 = flow_sampler(velocity_fn(params, cfg, sub), x_1=x_1_sub, condition=sub.points,
-                        point_mask=sub.point_mask, rigidity_forcing=True,
+    res1 = flow_sampler(velocity_fn(params, cfg, sub, ring_mesh), x_1=x_1_sub,
+                        condition=sub.points, point_mask=sub.point_mask, rigidity_forcing=True,
                         return_trajectory=False, method=cfg.inference_sampler,
                         ts=ts[:coarse + 1])
     # invert the forcing blend to the rigid endpoint, fit its per-part pose

@@ -13,7 +13,11 @@ kill-safe protocol (:39-108): write ``<path>.new``, then swap by renames
 through ``<path>.old``, so at every instant one complete checkpoint exists,
 and ``resolve_checkpoint_dir`` picks the newest complete one (a complete
 ``.new``, then ``path``, then ``.old``). ``restore_checkpoint`` rebuilds a
-state of the target's structure on the target's device.
+state of the target's structure on the target's device. In a
+torch.distributed world of several ranks (data parallelism: every rank
+holds the same state) rank 0 writes the state, the metadata and the swap,
+with a barrier before and after it (rap_tpu :51-85), and every rank
+restores.
 
 Parameter exports. ``save_params_npz`` writes rap_tpu's compact format
 (:111-128): flat "a/b/c" keys with the layers stacked along a leading axis,
@@ -82,7 +86,19 @@ def train_state_tensors(state: TrainState) -> dict[str, torch.Tensor]:
 
 def save_checkpoint(path: str | Path, state: TrainState, metadata: dict | None = None) -> int:
     """Save ``state`` kill-safely at ``path`` (see the module docstring);
-    returns the bytes of the state file."""
+    returns the bytes of the state file (0 on ranks other than 0, which
+    write nothing: every rank calls it)."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()  # no rank still reads the checkpoint being replaced
+        nbytes = _write_checkpoint(path, state, metadata) if dist.get_rank() == 0 else 0
+        dist.barrier()  # the swap is done before any rank reads it
+        return nbytes
+    return _write_checkpoint(path, state, metadata)
+
+
+def _write_checkpoint(path: str | Path, state: TrainState, metadata: dict | None) -> int:
     path = Path(path).absolute()
     tmp = path.with_name(path.name + ".new")
     old = path.with_name(path.name + ".old")

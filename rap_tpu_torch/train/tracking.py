@@ -79,9 +79,14 @@ class ExperimentTracker:
         resume_id: str | None = None,
         snapshot: bool = True,
         jsonl_path: str | Path | None = None,
+        rank_zero: bool = True,
     ):
         self.run_dir = Path(run_dir)
         self._wandb = None
+        self._jsonl = None
+        self.rank_zero = rank_zero
+        if not rank_zero:  # another rank of a data-parallel run: writes nothing
+            return
         self.run_dir.mkdir(parents=True, exist_ok=True)
         jsonl = Path(jsonl_path) if jsonl_path else self.run_dir / "metrics.jsonl"
         jsonl.parent.mkdir(parents=True, exist_ok=True)
@@ -107,6 +112,8 @@ class ExperimentTracker:
                 self._wandb = None
 
     def log(self, step: int, metrics: dict, prefix: str = "train") -> None:
+        if not self.rank_zero:
+            return
         scalars = {f"{prefix}/{k}": _scalar(v) for k, v in metrics.items()}
         logger.info("step %d | %s", step, " ".join(f"{k}={v:.4g}" for k, v in scalars.items()))
         if self._jsonl:

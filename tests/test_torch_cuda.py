@@ -999,3 +999,69 @@ def test_pose_loss_step_on_the_card_matches_plain(gen):
         assert m["skipped_nonfinite"] == 0.0 and all(map(lambda v: v == v, m.values())), m
     for name in ("loss", "pose_loss", "grad_norm"):
         assert ms[0][name] == pytest.approx(ms[1][name], rel=2e-2), name
+
+
+# --------------------------------------------------------------------------
+# the multi-GPU layer at a world of 1 under nccl
+# --------------------------------------------------------------------------
+
+@pytest.fixture
+def nccl_mesh(gen, tmp_path):
+    """A world of 1 joined under nccl (a file store), left at the end."""
+    import torch.distributed as dist
+
+    from rap_tpu_torch.parallel import initialize, make_mesh
+
+    initialize(init_method=f"file://{tmp_path / 'store'}", world_size=1, rank=0,
+               device="cuda:0", timeout_s=120)
+    try:
+        yield make_mesh(1, "cuda:0")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_ring_attention_at_a_world_of_1_under_nccl(gen, nccl_mesh):
+    """One collective over nccl, and the ring at n = 1 against
+    batched_attention (the flash route: masked row 3)."""
+    from rap_tpu_torch.ops.attention import batched_attention
+    from rap_tpu_torch.ops.ring_attention import ring_attention
+    from rap_tpu_torch.parallel.mesh import all_reduce_sum
+
+    assert nccl_mesh.backend == "nccl"
+    x = torch.arange(8.0, device="cuda")
+    assert torch.equal(all_reduce_sum(x, nccl_mesh), x)
+    B, T = 2, 1024
+    q, k, v = (_randn(gen, B, T, H, DH) for _ in range(3))
+    mask = torch.rand((B, T), generator=gen, device="cuda") > 0.3
+    reset_launches()
+    ref = batched_attention(q, k, v, mask)
+    assert launch_counts() == _counts(flash_online=1)
+    _close(ring_attention(q, k, v, mask, nccl_mesh), ref)
+
+
+def test_dp_step_at_a_world_of_1_under_nccl_equals_the_step_without_a_mesh(gen, nccl_mesh):
+    """A data-parallel step over a world of 1 (the all-reduce of the loss's
+    denominators and of the gradients and metrics run, over nccl) on a
+    padded batch: metrics and parameters equal to the step without a mesh."""
+    from rap_tpu_torch.core.batch import make_regular_synthetic_batch
+    from rap_tpu_torch.models.config import DiTConfig
+    from rap_tpu_torch.models.dit import init_dit_params
+    from rap_tpu_torch.registration import RPFConfig
+    from rap_tpu_torch.train.optim import OptimizerConfig, tree_paths
+    from rap_tpu_torch.train.step import TrainState, make_train_step
+
+    cfg = RPFConfig(model=DiTConfig(num_layers=2))
+    batch = make_regular_synthetic_batch(1, [[128, 96], [128, 128]], N=128, P=2, S=2,
+                                         device="cuda")
+    params = init_dit_params(0, cfg.model, device="cuda", masters=True)
+    out = []
+    for mesh in (None, nccl_mesh):
+        state = TrainState.create(params, OptimizerConfig(), seed=5)
+        reset_launches()
+        state, m = make_train_step(cfg, OptimizerConfig(), mesh=mesh)(state, batch)
+        out.append(({k: float(v) for k, v in m.items()}, dict(tree_paths(state.params)),
+                    launch_counts()))
+    (m0, p0, c0), (m1, p1, c1) = out
+    assert m0 == m1 and m0["skipped_nonfinite"] == 0.0
+    assert c0 == c1 == _counts(ff=4, ff_bwd=2)
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)

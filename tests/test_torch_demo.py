@@ -32,7 +32,7 @@ from rap_tpu_torch.apps import demo as T
 from rap_tpu_torch.data.synthetic_scenes import compute_geometric_features
 from rap_tpu_torch.spinnet import init_spinnet
 from rap_tpu_torch.utils import ply as plyio
-from torch_parity import max_err
+from torch_parity import max_err, run_world
 
 TINY = ["-o", "model.num_layers=2", "-o", "model.embed_dim=64", "-o", "model.num_heads=4",
         "-o", "model.compute_dtype=float32"]
@@ -146,11 +146,34 @@ def test_run_demo_matches_jax(numpy_path, demo_inputs, case):
     np.testing.assert_allclose(np.loadtxt(out_t / "part0_transform.txt"), np.eye(4), atol=1e-6)
 
 
+def test_sequence_sharded_demo_in_a_world_of_2(demo_inputs, tmp_path):
+    """--sequence-sharded on two gloo ranks (tests/torch_parallel_worker.py):
+    one part a rank, the global attention a ring; the same generations,
+    transforms and files as a world of 1 (the same seeded noise), written by
+    rank 0."""
+    _, views, npz, _ = demo_inputs
+    argv = ["-i", str(views), "--num-steps", "2", "--icp-refine", "--max-points-per-part",
+            "256", "--checkpoint", str(npz), "--seed", "3", "--n-generations", "2",
+            "--no-rigidity-forcing", "--output-generated", "--device", "cpu", *TINY]
+    rec = {}
+    assert T.main(argv + ["-out", str(tmp_path / "one")], record=rec) == 0
+    outs = run_world({"demo_app": {"argv": argv + ["-out", str(tmp_path / "two"),
+                                                   "--sequence-sharded"]}},
+                     2, tmp_path / "world")
+    for out in (o["demo_app"] for o in outs):
+        assert out["rc"] == 0 and out["shard_parts"] == rec["batch"].G // 2
+        for got, ref in zip(out["generations"], rec["generations"], strict=True):
+            for a, b in zip(got, ref[:3]):
+                assert max_err(a, b) <= 1e-4
+        for got, ref in zip(out["transforms"], rec["transforms"], strict=True):
+            assert max_err(got, ref) <= 1e-4, (got, ref)
+    files = lambda d: sorted(str(p.relative_to(d)) for p in d.rglob("*") if p.is_file())  # noqa: E731
+    assert files(tmp_path / "two") == files(tmp_path / "one")
+
+
 def test_unported_options_raise(demo_inputs, tmp_path):
     _, views, _, _ = demo_inputs
     base = ["-i", str(views), "-out", str(tmp_path), "--device", "cpu", *TINY]
-    with pytest.raises(NotImplementedError, match="A8"):
-        T.main(base + ["--sequence-sharded"])
     with pytest.raises(NotImplementedError, match="A9"):
         T.main(base + ["--render-results"])
     # a torch checkpoint is read now (A4); an orbax directory still raises

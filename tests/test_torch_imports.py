@@ -217,3 +217,13 @@ def test_trainer_entry_points_default_to_cuda(tmp_path):
     ds = PointCloudDataset(DatasetConfig(data_path=str(REPO / "demo_data" / "synth")))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         evaluate_split({}, None, ds)
+
+
+def test_multigpu_slice_modules_are_covered():
+    """The multi-GPU slice's modules are in MODULES (the fresh interpreter
+    above imports them, and the source scan checks each), and the worker
+    that the gloo tests spawn imports neither jax nor rap_tpu."""
+    assert {"rap_tpu_torch.parallel", "rap_tpu_torch.parallel.distributed",
+            "rap_tpu_torch.parallel.mesh", "rap_tpu_torch.ops.ring_attention"} <= set(MODULES)
+    roots = _imported_roots(REPO / "tests" / "torch_parallel_worker.py")
+    assert not roots & {"jax", "jaxlib", "flax", "rap_tpu"}, roots

@@ -18,8 +18,11 @@
   to one without (the recompute draws the first forward's masks);
 - ``make_scanned_train_steps`` against a loop of steps;
 - ``run_train`` end to end (artifacts, best/last, resume, ``n_devices=2``
-  refused); ``evaluate_split`` against rap_tpu's with the same noise; the
-  tracker's files.
+  in a world of 1 refused); ``run_train`` in a gloo world of 2 (the ranks
+  agree on every metric and the final state, rank 0 alone writes, the
+  validation of a world of 1, and a resume whose rank 1 reads an empty
+  checkpoint directory takes rank 0's best monitor); ``evaluate_split``
+  against rap_tpu's with the same noise; the tracker's files.
 """
 
 import dataclasses
@@ -53,6 +56,7 @@ from rap_tpu.train.step import TrainState as JaxTrainState
 from rap_tpu.train.step import make_train_step as jax_make_train_step
 from rap_tpu.utils import ply as plyio
 from rap_tpu_torch.apps import train as app
+from rap_tpu_torch.config import load_config
 from rap_tpu_torch.core.batch import TENSOR_FIELDS, make_regular_synthetic_batch
 from rap_tpu_torch.data import BatchLoader, DatasetConfig, LoaderConfig, PointCloudDataset
 from rap_tpu_torch.data.packer import plan_batches
@@ -64,7 +68,7 @@ from rap_tpu_torch.train.checkpoint import load_metadata
 from rap_tpu_torch.train.optim import Optimizer, OptimizerConfig, tree_paths, tree_replace
 from rap_tpu_torch.train.step import TrainState, make_scanned_train_steps, make_train_step
 from rap_tpu_torch.train.tracking import ExperimentTracker, find_run_id, snapshot_code
-from torch_parity import batch_to_torch, jax_flat, params_to_torch, t
+from torch_parity import batch_to_torch, jax_flat, params_to_torch, run_world, t
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -366,12 +370,60 @@ def test_run_train_end_to_end(tmp_path):
     assert [r["step"] for r in rows if "train/loss" in r][n1] == n1 + 1
     if rec2["val_results"][0]["overall"]["object_chamfer"] >= best["monitor"]:
         assert load_metadata(ck / "best") == best
-    # --max-steps stops early; n_devices > 1 waits for the mesh
+    # --max-steps stops early; n_devices must be the world's size
     rec4 = {}
     app.main(_train_argv(root, tmp_path / "c4") + ["--max-steps", "1"], record=rec4)
     assert len(rec4["step_ms"]) == 1 and not (tmp_path / "c4" / "last").exists()
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="world has 1 process"):
         app.main(_train_argv(root, tmp_path / "c5", "n_devices=2"))
+
+
+def test_run_train_in_a_world_of_2(tmp_path):
+    """apps.train.main on two gloo ranks (tests/torch_parallel_worker.py):
+    one epoch, then a resume for a second in which rank 1's checkpoint
+    directory is empty. No dropout, whose masks differ per rank."""
+    root = _write_scenes(tmp_path / "data", np.random.default_rng(1), 6, parts=(2, 3),
+                         sizes=(40, 90), splits={"train": [0, 1, 2, 3], "val": [4, 5]})
+    ck, empty = tmp_path / "ckpts", tmp_path / "rank1_ckpts"
+    run1 = _train_argv(root, ck, "model.dropout_rate=0.0", "trainer.max_epochs=1")
+    run2 = {r: _train_argv(root, ck if r == 0 else empty, "model.dropout_rate=0.0",
+                           f"checkpoint={ck / 'last'}", "trainer.max_epochs=2")
+            for r in (0, 1)}
+    r0, r1 = (out["train_app"] for out in
+              run_world({"train_app": {r: [run1, run2[r]] for r in (0, 1)}}, 2,
+                        tmp_path / "world"))
+    for a, b in zip(r0, r1, strict=True):
+        assert a["step"] == b["step"] and a["metrics"] == b["metrics"]  # the global metrics
+        assert a["val_results"] == b["val_results"]
+        assert all(torch.equal(a["params"][k], b["params"][k]) for k in a["params"])
+        assert all(np.isfinite(m["loss"]) and m["skipped_nonfinite"] == 0.0
+                   for m in a["metrics"])
+    n1 = r0[0]["step"]
+    cfg = load_config(REPO / "configs" / "rap_train.yaml", run2[0][5::2])
+    # each step a slice of a planned batch whose S is a multiple of 2
+    loader = BatchLoader([PointCloudDataset(d) for d in cfg.data.datasets
+                          if d.split == "train"],
+                         LoaderConfig(max_points_per_batch=cfg.trainer.train_points_per_batch,
+                                      shuffle=True, seed=cfg.trainer.seed, s_multiple=2,
+                                      max_samples_per_epoch=cfg.data.max_samples_per_epoch),
+                         device="cpu")
+    assert n1 == loader.num_batches(0) == len(r0[0]["metrics"]) > 1
+    assert r0[1]["step"] == n1 + loader.num_batches(1)
+    assert [s["bytes"] > 0 for s in r0[0]["saves"]] == [True] * len(r0[0]["saves"])
+    assert [s["bytes"] for s in r1[0]["saves"]] == [0] * len(r0[0]["saves"])
+    assert not empty.exists()  # rank 1 writes nothing
+    rows = [json.loads(x) for x in (ck / "metrics.jsonl").read_text().splitlines()]
+    assert sum("train/loss" in r for r in rows) == r0[1]["step"]  # rank 0's log only
+    best = load_metadata(ck / "best")["monitor"]
+    assert r0[1]["best_monitor_start"] == r1[1]["best_monitor_start"] <= best
+    # the validation of a world of 1 on the final state's parameters
+    val = [PointCloudDataset(d) for d in cfg.data.datasets if d.split.startswith("val")]
+    want = app.evaluate_validation(cfg, r0[1]["params_tree"], val, 1, "cpu")
+    got = r0[1]["val_results"][-1]
+    assert set(got) == set(want)
+    for ds, md in want.items():
+        for k, v in md.items():
+            np.testing.assert_allclose(got[ds][k], v, rtol=1e-5, atol=1e-7, err_msg=k)
 
 
 def test_evaluate_split_matches_rap_tpu(data):

@@ -7,6 +7,11 @@ the port's wrappers through their plain versions).
 
 from __future__ import annotations
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import jax
 import numpy as np
 import torch
@@ -83,3 +88,38 @@ def jax_flat(tree) -> dict[str, np.ndarray]:
     for k, v in tree.items():
         walk(v, f"{k}/", layer=(k == "layers") or None)
     return out
+
+
+REPO_ROOT = Path(__file__).resolve().parents[1]
+WORKER = REPO_ROOT / "tests" / "torch_parallel_worker.py"
+
+
+def run_world(spec: dict, world: int, workdir: Path, timeout: float = 300) -> list[dict]:
+    """Run ``spec``'s tasks (tests/torch_parallel_worker.py) in a gloo world
+    of ``world`` CPU processes joined on a file store in ``workdir``; each
+    process gets its own timeout. Returns each rank's results."""
+    return run_worlds([(spec, world, workdir)], timeout)[0]
+
+
+def run_worlds(jobs, timeout: float = 300) -> list[list[dict]]:
+    """``run_world`` for several (spec, world, workdir) at once."""
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    procs = []
+    for spec, world, workdir in jobs:
+        workdir.mkdir(parents=True, exist_ok=True)
+        torch.save(spec, workdir / "spec.pt")
+        procs += [(r, world, subprocess.Popen(
+            [sys.executable, str(WORKER), str(r), str(world), str(workdir)], cwd=REPO_ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env))
+            for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=timeout) for _, _, p in procs]
+    finally:
+        for _, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for (r, world, p), (so, se) in zip(procs, outs):
+        assert p.returncode == 0, f"rank {r} of {world} failed:\n{so[-2000:]}\n{se[-6000:]}"
+    return [[torch.load(workdir / f"out_{r}.pt", weights_only=False) for r in range(world)]
+            for _, world, workdir in jobs]
