@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases build,kernels,multiview
     python3 chip_smoke.py --phases build,kernels,trainer
     python3 chip_smoke.py --phases build,multigpu
+    python3 chip_smoke.py --phases build,tools
 
 Phases, each printed on its own flushed line with its wall time:
 
@@ -257,7 +258,36 @@ Phases, each printed on its own flushed line with its wall time:
               data-parallel step and of the all-reduce alone, ms a
               sequence-sharded generation and an evaluation batch, per rank:
               two ranks time-sliced on one card, not a scaling measurement.
-10. timing    median ms per batch and pairs/s, and the pruned sampler's
+10. tools     the rest of the package on cuda:0, after a line saying
+              whether matplotlib, PIL and h5py import (renders take the
+              raster renderer without matplotlib): (a) a generated dataset
+              (data.synthetic_scenes, TOOLS_SCENES scenes x 2 views x 2048
+              points, geometric features); (b) apps.train_synthetic_demo,
+              TOOLS_STEPS steps of a 6-layer D = 512 model on it through the
+              kernels and its validation: the loss finite and lower over
+              the last quarter than the first, the last step's gradients
+              held to the plain versions' by the training rule; (c)
+              apps.reflow_distill from reflow_student.npz: couples from its
+              own 4-step protocol (one held to the plain path by the serving
+              rule or, past it, twice the plain bf16 path's distance from the
+              plain fp32 one; the 10-step one's distance printed), TOOLS_STEPS retrain
+              steps, --export-npz (the export holds the student's leaves
+              rounded to bf16, and evaluates as that copy does), the sweep at
+              1, 2 and 4 steps on the val split (the teacher at 4 steps under
+              the 0.15 object_chamfer bar), and TOOLS_PROFILE_STEPS retrain
+              steps under torch.profiler (the device's busy share of the
+              unprofiled step); (d)
+              dataset_process.process_dataset_folder on demo_data/pair with
+              SpinNet on the card: no zero fallback, descriptors within
+              TOL_SPINNET_ABS of the CPU extractor's; (e) apps.sample with
+              visualize: true on configs/synth_student.yaml and apps.demo
+              --render-results on the pair: the images written and not
+              blank; (f) webapp.run_rap_demo on the pair with the student:
+              the GLB and the zip; (g) graft_entry.entry()'s forward against
+              its plain twin. Each path's wall s and launches (rows 1-6, 9
+              and 10 where its batches are dense, rows 3 and 5 where padded,
+              required) are printed and kept for the kernels line.
+11. timing    median ms per batch and pairs/s, and the pruned sampler's
               with and without the features; the sample path's median
               generation ms per batch and pairs/s at each softcap over three
               more runs; median ms per train step and
@@ -318,7 +348,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 PHASES = ("build", "kernels", "main", "sample", "demo", "train", "multiview", "trainer",
-          "multigpu", "timing")
+          "multigpu", "tools", "timing")
 
 # main path (bench.py:151-157 of the JAX package: 4 pairs of 2 x 4096 points)
 S, P, N = 4, 2, 4096
@@ -493,6 +523,18 @@ MG_PARTS = (8, 2)
 MG_REPEATS = 3
 MG_EVAL_POINTS = 16384
 MG_TIMEOUT = 600  # s
+# tools phase: the rest of the package (ROADMAP A9) on cuda:0: a generated
+# dataset of TOOLS_SCENES scenes x 2 views x TOOLS_VIEW_POINTS points (seed
+# TOOLS_SEED), TOOLS_STEPS steps of apps.train_synthetic_demo (LAYERS
+# layers, D = 512) and of apps.reflow_distill's retrain from the committed
+# student, TOOLS_PROFILE_STEPS retrain steps under the profiler, SpinNet's
+# descriptors of the first TOOLS_SPINNET_CHECK keypoints of a part held
+# against the CPU extractor
+TOOLS_SCENES, TOOLS_VIEW_POINTS, TOOLS_SEED = 24, 2048, 51
+TOOLS_STEPS, TOOLS_PROFILE_STEPS, TOOLS_SPINNET_CHECK = 20, 5, 128
+# the committed student is a 4-step model (configs/synth_student.yaml): its
+# couples come from its own protocol
+TOOLS_TEACHER_STEPS = 4
 
 
 def log(msg: str) -> None:
@@ -3213,6 +3255,8 @@ def kernel_rows(state, counts):
              "trainer_step_launches": state.get("trainer_counts", {}).get(name, 0),
              "trainer_val_launches": state.get("trainer_val_counts", {}).get(name, 0),
              "demo_launches_per_generation": {k: c.get(name, 0) for k, c in demo_counts.items()},
+             "tools_launches": {k: c.get(name, 0)
+                                for k, c in state.get("tools_counts", {}).items()},
              "multigpu_launches_per_rank": {
                  r: {k: c.get(name, 0) for k, c in paths.items()}
                  for r, paths in state.get("multigpu_counts", {}).items()},
@@ -3849,6 +3893,330 @@ def wide_softcap_backward_rows(state, row):
     ]
 
 
+# --------------------------------------------------------------------------
+# tools phase: the rest of the package on the card (ROADMAP A9)
+# --------------------------------------------------------------------------
+
+def tools_dir() -> Path:
+    return ROOT / "rap_tpu_torch" / "build" / "tools"
+
+
+def counted(fn):
+    """(fn(), the launches it made, its wall s): the counts set to 0 just
+    before and read just after, the card synchronised."""
+    from rap_tpu_torch.ops import launch_counts, reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts(), time.perf_counter() - t0
+
+
+def tools_rows(batch, training: bool) -> set:
+    """The rows a path must launch on ``batch``: a dense batch takes the
+    fused branch (rows 1, 2 or 3, 4, 5; in training also 6, 9, 10), a
+    padded one the masked branch (row 3 and 5; in training also 10 and the
+    attention backward, fused or split)."""
+    if batch.no_padding:
+        rows = {"proj", "out_proj", "ff"} | ({"flash_bwd", "proj_bwd", "ff_bwd"}
+                                              if training else set())
+    else:
+        rows = {"flash_online", "ff"} | ({"ff_bwd"} if training else set())
+    return rows
+
+
+def check_launched(fails, what: str, counts: dict, rows: set, attention: bool = True) -> None:
+    """Each of ``rows`` launched at least once, and (``attention``) an
+    attention forward of either variant."""
+    live = nonzero(counts)
+    missing = [r for r in sorted(rows) if not counts.get(r)]
+    if attention and not (counts.get("flash_fixed") or counts.get("flash_online")):
+        missing.append("flash_fixed|flash_online")
+    log(f"  {what} launches: {live}")
+    fails.check(f"{what} went through the kernels", not missing,
+                f"no launch of {missing}" if missing else "")
+
+
+def _tree_map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree_map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def image_nonblank(path: Path) -> bool:
+    from rap_tpu_torch.utils.render import read_image
+
+    return bool(read_image(path).min() < 255)
+
+
+def run_tools(report, fails, state):
+    """The rest of the package on cuda:0 (module docstring, phase 10)."""
+    import dataclasses as dc
+    import importlib.util
+    import shutil
+
+    from rap_tpu_torch.apps import demo, reflow_distill, sample, train_synthetic_demo, webapp
+    from rap_tpu_torch.apps.train import serving_params
+    from rap_tpu_torch.data import BatchLoader, DatasetConfig, LoaderConfig, PointCloudDataset
+    from rap_tpu_torch.data.synthetic_scenes import generate_dataset
+    from rap_tpu_torch.dataset_process import process_dataset_folder
+    from rap_tpu_torch.dataset_process.extract_features import SampleProcessorConfig
+    from rap_tpu_torch.eval.runner import evaluate_split
+    from rap_tpu_torch.models.config import DiTConfig
+    from rap_tpu_torch.registration import RPFConfig
+    from rap_tpu_torch.spinnet import build_feature_extractor
+    from rap_tpu_torch.weights import load_params_npz, stacked_flat
+
+    root = tools_dir()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    rep: dict = {"wall_s": {}, "launches": {}}
+    libs = {m: importlib.util.find_spec(m) is not None for m in ("matplotlib", "PIL", "h5py")}
+    log("  libraries on this machine: " + ", ".join(
+        f"{m} {'present' if ok else 'absent'}" for m, ok in libs.items()))
+    # PNG and GIF files need PIL; the matplotlib scatter also matplotlib
+    renderer = ("matplotlib" if libs["matplotlib"] else "raster") if libs["PIL"] else "none"
+    rep["libraries"], rep["renderer"] = libs, renderer
+
+    def path(name, fn, rows=None):
+        """fn() as one path of the phase: its wall s and launches kept, and
+        each of ``rows`` required among them (with an attention forward)."""
+        out, counts, wall = counted(fn)
+        rep["wall_s"][name], rep["launches"][name] = wall, counts
+        log(f"  [{name}] {wall:.3f} s")
+        if rows is not None:
+            check_launched(fails, name, counts, rows)
+        return out
+
+    # (a) a generated dataset
+    data = root / "synth_data"
+    names = path("generate", lambda: generate_dataset(
+        data, n_scenes=TOOLS_SCENES, max_points_per_view=TOOLS_VIEW_POINTS, seed=TOOLS_SEED))
+    fails.check("generated dataset", len(names) >= TOOLS_SCENES - 4
+                and (data / "data_split" / "val.txt").exists(), f"{len(names)} scenes")
+
+    # (b) training on it, with validation
+    rec_b: dict = {}
+    argv_b = ["--data-root", str(data), "--out", str(root / "synth_run"), "--steps",
+              str(TOOLS_STEPS), "--layers", str(LAYERS), "--eval-steps", "4", "--prefetch", "2"]
+    summary_b = path("synthetic demo", lambda: train_synthetic_demo.main(argv_b, record=rec_b))
+    check_launched(fails, "synthetic-demo step", rec_b["step_launches"][-1],
+                   tools_rows(rec_b["last_batch"], True))
+    check_launched(fails, "synthetic-demo validation", rec_b["eval_launches"]["val scenes"],
+                   {"ff"})
+    losses = rec_b["losses"]
+    k = max(TOOLS_STEPS // 4, 1)
+    fails.check("synthetic-demo loss finite and decreasing",
+                bool(np.isfinite(losses).all()) and np.mean(losses[-k:]) < np.mean(losses[:k]),
+                f"first {k} mean {np.mean(losses[:k]):.4f}, last {k} mean "
+                f"{np.mean(losses[-k:]):.4f}: {', '.join(f'{x:.3f}' for x in losses)}")
+    fails.check("synthetic-demo validation metrics finite",
+                all(np.isfinite(v) for v in summary_b["val"].values()),
+                f"object_chamfer {summary_b['val'].get('object_chamfer')}")
+    model = DiTConfig(num_layers=LAYERS)
+    rcfg = RPFConfig(model=model, rigidity_forcing=True, timestep_sampling="u_shaped")
+    check_train_gradients(fails, "synthetic-demo step", rec_b["state"].params,
+                          rec_b["last_batch"], rcfg)
+    rep["synthetic_step_ms"] = rec_b["step_ms"]
+    rep["synthetic_losses"] = losses
+    rep["synthetic_val"] = summary_b["val"]
+    log(f"  synthetic-demo step: median {np.median(rec_b['step_ms'][1:]):.2f} ms "
+        f"(first {rec_b['step_ms'][0]:.2f}), validation {rec_b['eval_ms']['val scenes']:.1f} ms")
+
+    # (c) reflow distillation from the committed student
+    rec_c: dict = {}
+    npz_out = root / "reflow_student_export.npz"
+    argv_c = ["--teacher", str(ROOT / STUDENT_PATH), "--data-root", str(data), "--out",
+              str(root / "reflow_run"), "--layers", str(LAYERS), "--couple-epochs", "1",
+              "--teacher-steps", str(TOOLS_TEACHER_STEPS),
+              "--steps", str(TOOLS_STEPS), "--eval-steps-sweep", "1,2,4", "--export-npz",
+              str(npz_out)]
+    summary_c = path("reflow", lambda: reflow_distill.main(argv_c, record=rec_c))
+    n_couples = len(rec_c["couple_ms"])
+    per_couple = {k: v // max(n_couples, 1) for k, v in rec_c["couple_launches"][0].items()}
+    ds_kw = dict(data_path=str(data), dataset_name="synth")
+    train_ds = PointCloudDataset(DatasetConfig(split="train", **ds_kw))
+    val_ds = PointCloudDataset(DatasetConfig(split="val", **ds_kw))
+    batch = next(iter(BatchLoader([train_ds], LoaderConfig(max_points_per_batch=32_768),
+                                  device="cuda").epoch(0)))[0]
+    check_launched(fails, "reflow couple batch", per_couple, tools_rows(batch, False))
+    check_launched(fails, "reflow retrain", rec_c["retrain_launches"][0],
+                   tools_rows(batch, True))
+    check_launched(fails, "reflow sweep", rec_c["eval_launches"][0], {"ff"})
+    teacher = rec_c["teacher"]
+    pipe = RPFConfig(model=model, inference_sampling_steps=TOOLS_TEACHER_STEPS,
+                     rigidity_forcing=True)
+    plain = dc.replace(pipe, model=dc.replace(model, use_kernels=False))
+    x_1 = torch.randn(tuple(batch.points.shape), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(TOOLS_SEED))
+    couple, counts, _ = counted(lambda: reflow_distill.make_couple(teacher, pipe, batch, x_1))
+    couple_p = reflow_distill.make_couple(teacher, plain, batch, x_1)
+    fp32 = dc.replace(plain, model=dc.replace(plain.model, compute_dtype=torch.float32))
+    couple_32 = reflow_distill.make_couple(teacher, fp32, batch, x_1)
+    floor = float((couple_p.points_gt - couple_32.points_gt).abs().max()
+                  / couple_32.points_gt.abs().max())
+    log(f"  couple: plain bf16 vs plain fp32 {floor:.4e} of max (the bf16 floor)")
+    # the serving rule, floored as the training rule is: on augmented
+    # training batches bf16 alone moves the forced end points past 2e-2
+    fails.compare(f"reflow couple ({TOOLS_TEACHER_STEPS}-step teacher end point) vs plain",
+                  couple.points_gt, couple_p.points_gt, tol_rel=max(TOL_POINTS, 2 * floor))
+    rep["couple_bf16_floor"] = floor
+    rep["launches"]["couple batch"] = counts
+    # rap_tpu's default of 10 teacher steps, for the record: bf16 rounding
+    # differences compound over the forced steps (no bound is held here)
+    ten = [reflow_distill.make_couple(teacher, dc.replace(c, inference_sampling_steps=10),
+                                      batch, x_1).points_gt for c in (pipe, plain)]
+    rep["couple_10_steps_rel_err"] = float((ten[0] - ten[1]).abs().max() / ten[1].abs().max())
+    log(f"  10-step couple vs plain (not held to a bound): "
+        f"{rep['couple_10_steps_rel_err']:.4e} of max")
+    # the exported .npz: the in-memory student rounded to bf16, leaf for leaf
+    student = rec_c["student"]
+    exported = load_params_npz(npz_out, device="cuda", compute_dtype=model.compute_dtype)
+    a, b = stacked_flat(exported), stacked_flat(student)
+    worst = max(float((a[k] - b[k].to(torch.bfloat16).float()).abs().max()) for k in b)
+    fails.check("exported npz holds the student (bf16)", set(a) == set(b) and worst == 0.0,
+                f"max |difference| {worst:.3e}")
+    from rap_tpu_torch.models.dit import master_params
+
+    rounded = master_params(student, "cuda")
+    rounded = serving_params(_tree_map(rounded, lambda x: x.to(torch.bfloat16).float()), model)
+    eval_pipe = RPFConfig(model=model, rigidity_forcing=True)
+    res_npz, res_mem = (evaluate_split(p, eval_pipe, val_ds, num_steps=4, tag=tag)
+                        for p, tag in ((exported, "exported npz"), (rounded, "student, bf16")))
+    diff = max(abs(res_npz[k] - res_mem[k]) for k in res_mem)
+    fails.check("exported npz evaluates as the student (its leaves rounded to bf16)",
+                set(res_npz) == set(res_mem) and diff <= TOL_ROUND_TRIP_METRIC,
+                f"worst |difference| {diff:.3e} (tol {TOL_ROUND_TRIP_METRIC}); object_chamfer "
+                f"{res_npz['object_chamfer']:.6f}, the fp32 student's "
+                f"{summary_c['val/student@4steps']['object_chamfer']:.6f}")
+    chamfer = summary_c["val/teacher@4steps"]["object_chamfer"]
+    fails.check(f"teacher (reflow_student.npz) at 4 steps object_chamfer < {STUDENT_CHAMFER}",
+                chamfer < STUDENT_CHAMFER, f"{chamfer:.6f}")
+    sweep = {k: v["object_chamfer"] for k, v in summary_c.items() if k.startswith("val/")}
+    log("  sweep object_chamfer: " + ", ".join(f"{k} {v:.5f}" for k, v in sorted(sweep.items()))
+        + f"; linearity teacher {summary_c['linearity/teacher']:.4f} student "
+        f"{summary_c['linearity/student']:.4f}")
+    log(f"  couple batch: median {np.median(rec_c['couple_ms']):.2f} ms over {n_couples}; "
+        f"retrain step: median {np.median(rec_c['retrain_ms'][1:]):.2f} ms "
+        f"(first {rec_c['retrain_ms'][0]:.2f})")
+    from rap_tpu_torch.train.optim import OptimizerConfig
+
+    host = (reflow_distill._batch_map(couple, reflow_distill._to_host),
+            reflow_distill._to_host(x_1))
+    opt = OptimizerConfig(name="muon", lr=1e-4, grad_clip=0.5)
+    reflow_pipe = dc.replace(pipe, timestep_sampling="uniform")
+    reflow_distill.retrain(teacher, [host], 2, reflow_pipe, opt, seed=3, device="cuda")
+    prof = device_profile(f"{TOOLS_PROFILE_STEPS} reflow retrain steps", lambda:
+                          reflow_distill.retrain(teacher, [host], TOOLS_PROFILE_STEPS,
+                                                 reflow_pipe, opt, seed=3, device="cuda"))
+    # the profiler's own host cost stretches the wall it sees: the busy share
+    # is the device ms a step over the unprofiled median step
+    busy = prof["device_ms"] / TOOLS_PROFILE_STEPS / float(np.median(rec_c["retrain_ms"][1:]))
+    log(f"  reflow retrain: device {prof['device_ms'] / TOOLS_PROFILE_STEPS:.2f} ms a step, "
+        f"{100 * busy:.1f}% of the unprofiled median step")
+    rep.update(couple_ms=rec_c["couple_ms"], retrain_ms=rec_c["retrain_ms"], sweep=sweep,
+               linearity={k: summary_c[f"linearity/{k}"] for k in ("teacher", "student")},
+               retrain_busy_share=busy,
+               retrain_profile={k: v for k, v in prof.items() if k != "kernels"})
+
+    # (d) dataset processing with SpinNet on the card
+    raw = root / "pair_raw" / "pair"
+    raw.mkdir(parents=True)
+    for i, f in enumerate(sorted((ROOT / DEMO_PAIR).glob("*.ply"))):
+        shutil.copy(f, raw / f"part_{i:02d}.ply")
+    fx = build_feature_extractor(device="cuda")
+    fx_cpu = build_feature_extractor(device="cpu")
+    calls = []
+
+    def timed_fx(cloud, kp, r):
+        t0 = time.perf_counter()
+        out = fx(cloud, kp, r)  # returns host numpy: synchronised
+        calls.append((cloud, kp, r, out, (time.perf_counter() - t0) * 1e3))
+        return out
+
+    cfg_d = SampleProcessorConfig(voxel_size=0.1, voxel_ratio=0.5, des_r=0.6,
+                                  max_points_per_part=2048, min_points_per_part=200)
+    meta = path("dataset processing", lambda: process_dataset_folder(
+        root / "pair_raw", root / "pair_processed", cfg_d, timed_fx, val_fraction=0.5,
+        to_hdf5=root / "pair.h5" if libs["h5py"] else None, device="cuda"))
+    fails.check("SpinNet extraction took no zero fallback",
+                meta["fallbacks"] == {"outlier_removal": 0, "features": 0},
+                str(meta["fallbacks"]))
+    worst = 0.0
+    for cloud, kp, r, out, _ in calls:
+        ref = fx_cpu(cloud, kp[:TOOLS_SPINNET_CHECK], r)
+        worst = max(worst, float(np.abs(out[:TOOLS_SPINNET_CHECK] - ref).max()))
+    fails.check("SpinNet descriptors on the card vs CPU", worst <= TOL_SPINNET_ABS,
+                f"max abs err {worst:.3e} over the first {TOOLS_SPINNET_CHECK} keypoints of "
+                f"{len(calls)} parts (tol {TOL_SPINNET_ABS})")
+    fails.check("processed features written",
+                len(list((root / "pair_processed").rglob("features_*.npy"))) == 2)
+    spin_ms = [c[4] for c in calls]
+    log(f"  SpinNet per part: {', '.join(f'{ms:.1f}' for ms in spin_ms)} ms "
+        f"({', '.join(str(len(c[1])) for c in calls)} keypoints)")
+    rep.update(spinnet_ms_per_part=spin_ms, spinnet_keypoints=[len(c[1]) for c in calls],
+               spinnet_max_abs_err=worst, fallbacks=meta["fallbacks"])
+
+    # (e) visualisation: apps.sample with visualize: true, demo --render-results
+    vis = root / "visualizations"
+    argv_e = sample_argv(ROOT / STUDENT_PATH, 0.0) + [
+        "-o", "visualize=true", "-o", f"visualizer.output_dir={vis}", "-o",
+        f"visualizer.renderer={renderer}", "-o", "visualizer.max_samples=2", "-o",
+        "visualizer.image_size=256"]
+    rec_e: dict = {}
+    path("sample visualize", lambda: sample.main(argv_e, record=rec_e), rows={"proj", "ff"})
+    pngs = sorted(vis.rglob("*.png"))
+    gifs = sorted(vis.rglob("*.gif"))
+    if libs["PIL"]:
+        fails.check("visualizer files", len(pngs) >= 8 and len(gifs) >= 4
+                    and all(image_nonblank(p) for p in pngs),
+                    f"{len(pngs)} PNG, {len(gifs)} GIF ({renderer})")
+    else:
+        log("  no PIL: the visualizer ran with renderer 'none' and wrote no image")
+    demo_out = root / "demo_render"
+    demo_argv = ["-i", str(ROOT / DEMO_PAIR), "-out", str(demo_out), "--config",
+                 str(ROOT / "configs" / "synth_student.yaml"), "--checkpoint",
+                 str(ROOT / STUDENT_PATH), "--features", "geometric", "--num-steps", "4"]
+    demo_argv += ["--render-results"] if libs["PIL"] else []
+    rc = path("demo render", lambda: demo.main(demo_argv), rows={"ff"})
+    renders = sorted(demo_out.glob("registered_e25_a*.png"))
+    fails.check("demo --render-results", rc == 0 and (not libs["PIL"] or (
+        len(renders) == 2 and all(image_nonblank(p) for p in renders))),
+        f"{[p.name for p in renders]}" if libs["PIL"] else "no PIL: run without the flag")
+
+    # (f) the web demo's headless core
+    work = root / "webapp"
+    res = path("webapp", lambda: webapp.run_rap_demo(
+        sorted((ROOT / DEMO_PAIR).glob("*.ply")), work, checkpoint=str(ROOT / STUDENT_PATH),
+        num_steps=4, demo_args=["--config", str(ROOT / "configs" / "synth_student.yaml"),
+                                "--features", "geometric"]), rows={"ff"})
+    glb = webapp.read_glb_pointcloud(res["glb"])
+    import zipfile
+
+    zipped = zipfile.ZipFile(res["zip"]).namelist()
+    fails.check("webapp GLB and zip", len(glb["points"]) > 1000
+                and bool(np.isfinite(glb["points"]).all())
+                and any(n.startswith("registered/") for n in zipped),
+                f"{len(glb['points'])} GLB points, {len(zipped)} zipped files")
+
+    # (g) the entry point's forward against its plain twin
+    from rap_tpu_torch import graft_entry
+    from rap_tpu_torch.models.dit import dit_forward
+
+    fn, args = graft_entry.entry()
+    v = path("entry", lambda: fn(*args), rows={"ff"})
+    cfg_e, _ = graft_entry.flagship()
+    v_p = dit_forward(args[0], dc.replace(cfg_e.model, use_kernels=False), *args[1:],
+                      parts_per_sample=2)
+    fails.compare("graft_entry forward vs plain", v, v_p, tol_rel=TOL_VELOCITY)
+    state["tools_counts"] = rep["launches"]
+    report["tools"] = rep
+
+
 def run_timing(report, fails, state):
     from rap_tpu_torch.ops import reset_launches
 
@@ -4111,6 +4479,7 @@ def main(argv=None) -> int:
              "multiview": lambda: run_multiview(report, fails, state),
              "trainer": lambda: run_trainer(report, fails, state),
              "multigpu": lambda: run_multigpu(report, fails, state),
+             "tools": lambda: run_tools(report, fails, state),
              "timing": lambda: run_timing(report, fails, state)}
     for name in PHASES:
         if name in phases:

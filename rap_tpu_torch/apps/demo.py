@@ -29,7 +29,9 @@ run's device seeded with ``--seed`` + g (rap_tpu's from
 ``jax.random.key(seed + g)``); ``run_demo``'s ``noise`` takes the noise
 tensors instead. ``--checkpoint`` takes what ``apps.sample.load_params``
 reads: an ``.npz`` export, a torch ``.ckpt``/``.pth``/``.pt`` or a
-train-state directory. Not ported (raises): ``--render-results`` (A9).
+train-state directory. ``--render-results`` (demo.py:339-353) renders the
+registered scene, coloured by part, with the z-buffer raster renderer from
+two viewpoints (``registered_e25_a45.png``, ``registered_e25_a135.png``).
 
 ``--sequence-sharded`` (demo.py:241-251) merges a map over several GPUs,
 one process each (``torchrun --nproc-per-node N -m rap_tpu_torch.apps.demo
@@ -184,8 +186,6 @@ def run_demo(args, noise: list[torch.Tensor] | None = None, record: dict | None 
     generation's index and poses, the transforms and the timings
     (preprocessing s, feature ms per part, generation ms, ICP ms); with
     ``--sequence-sharded`` also this rank's shard of the batch."""
-    if args.render_results:
-        raise NotImplementedError("--render-results: the renderer waits for ROADMAP A9")
     device = resolve_device(args.device)
     if not args.sequence_sharded:
         return _demo(args, device, None, noise, record)
@@ -319,8 +319,10 @@ def _demo(args, device, mesh, noise, record) -> int:
         return 0
     reg_dir = out_dir / "registered"
     reg_dir.mkdir(exist_ok=True)
+    regs = []
     for p, (f, orig, T) in enumerate(zip(ply_files, originals, rec["transforms"])):
-        plyio.write_ply(reg_dir / f.name, orig @ T[:3, :3].T + T[:3, 3])
+        regs.append(orig @ T[:3, :3].T + T[:3, 3])
+        plyio.write_ply(reg_dir / f.name, regs[-1])
         np.savetxt(out_dir / f"part{p}_transform.txt", T, fmt="%.8f")
         logger.info("part %d (%s): |t|=%.3f m", p, f.name, np.linalg.norm(T[:3, 3]))
     logger.info("registered clouds written to %s", reg_dir)
@@ -334,6 +336,17 @@ def _demo(args, device, mesh, noise, record) -> int:
             metric = metric @ T0_inv[:3, :3].T + T0_inv[:3, 3]
             plyio.write_ply(gen_dir / f.name, metric.astype(np.float32))
         logger.info("generated keypoint clouds written to %s", gen_dir)
+
+    if args.render_results:
+        from ..utils.render import part_ids_to_colors, render_point_cloud_raster, save_image
+
+        cols = part_ids_to_colors(np.concatenate([np.full(len(r), i)
+                                                  for i, r in enumerate(regs)]))
+        merged = np.concatenate(regs)
+        for elev, azim in ((25, 45), (25, 135)):
+            img = render_point_cloud_raster(merged, cols, image_size=800, elev=elev, azim=azim)
+            save_image(out_dir / f"registered_e{elev}_a{azim}.png", img)
+        logger.info("registered-scene renders written to %s", out_dir)
     return 0
 
 
@@ -372,7 +385,7 @@ def main(argv=None, noise: list[torch.Tensor] | None = None, record: dict | None
     ap.add_argument("--output-generated", action="store_true",
                     help="also write the generated keypoint clouds")
     ap.add_argument("--render-results", action="store_true",
-                    help="not ported (ROADMAP A9)")
+                    help="render part-coloured PNGs of the registered scene")
     ap.add_argument("--sequence-sharded", action="store_true",
                     help="shard the parts and the global attention over the world's ranks "
                          "(launch one process per GPU with torchrun)")

@@ -33,8 +33,14 @@ Runs on the card (``--device cuda``, the default) unless the CPU is asked
 for. ``checkpoint`` may be a committed ``.npz`` export, a torch
 ``.ckpt``/``.pth``/``.pt`` of the reference (a path, or an artifact name
 found in the local cache), or a train-state directory of
-``rap_tpu_torch.apps.train``. Not ported (each raises): rap_tpu's orbax
-directories (orbax needs jax), ``visualize`` (ROADMAP A9).
+``rap_tpu_torch.apps.train``. Not ported (raises): rap_tpu's orbax
+directories (orbax needs jax).
+
+``visualize: true`` (sample.py:91-105, :166-181) renders each batch
+through ``eval.visualizer.FlowVisualization`` with the ``visualizer``
+section: the last generation's points, its trajectories and transformer
+features (returned only then), moved to the host once per batch; the
+renders are not timed.
 """
 
 from __future__ import annotations
@@ -105,13 +111,15 @@ def load_params(cfg: Config, device="cuda"):
     return params
 
 
-def make_generate_fn(cfg: Config, return_trajectory: bool = True):
+def make_generate_fn(cfg: Config, return_features: bool = False,
+                     return_trajectory: bool = True):
     """(params, batch, generator=None, x_1=None) -> (sample output, R, t):
     one generation and its per-part poses."""
 
     def generate(params, batch, generator=None, x_1=None):
         out = sample(params, cfg.pipeline, batch, generator=generator, x_1=x_1,
-                     return_trajectory=return_trajectory)
+                     return_trajectory=return_trajectory,
+                     return_transformer_features=return_features)
         R, t = predict_poses(batch, out["points"])
         return out, R, t
 
@@ -136,8 +144,6 @@ def run_eval(cfg: Config, params=None, device="cuda", record: dict | None = None
 
 
 def _eval(cfg: Config, params, device, record, rank: int, world_size: int) -> dict:
-    if cfg.visualize:
-        raise NotImplementedError("visualize: the visualizer waits for ROADMAP A9")
     if params is None:
         params = load_params(cfg, device)
     n_params = sum(v.numel() for v in _leaves(params))
@@ -145,8 +151,15 @@ def _eval(cfg: Config, params, device, record, rank: int, world_size: int) -> di
     evaluator = Evaluator(cfg.eval)
     meter = MetricsMeter()
     steps_saved = cfg.eval.save_results and cfg.eval.save_merged_pointcloud_steps
-    need_traj = steps_saved or cfg.eval.use_average_rigidity_rmse
-    generate = make_generate_fn(cfg, return_trajectory=need_traj)
+    # trajectories only where something consumes them (rap_tpu's rule)
+    need_traj = steps_saved or cfg.visualize or cfg.eval.use_average_rigidity_rmse
+    generate = make_generate_fn(cfg, return_features=cfg.visualize,
+                                return_trajectory=need_traj)
+    visualizer = None
+    if cfg.visualize:
+        from ..eval.visualizer import FlowVisualization
+
+        visualizer = FlowVisualization(cfg.visualizer)
     rec = record if record is not None else {}
     rec.update(batch_gen_ms=[], gen_ms=[], load_ms=[], post_ms=[], pairs=0, outputs=[])
 
@@ -199,6 +212,14 @@ def _eval(cfg: Config, params, device, record, rank: int, world_size: int) -> di
             rec["outputs"].append((names, gens))
             t_post0 = time.perf_counter()
             agg = evaluator.aggregate_generations(batch, gen_results, trajs)
+            if visualizer is not None:
+                visualizer.on_batch_end(
+                    batch, [out["points"]],
+                    [out["end_point_trajectory"]] if "end_point_trajectory" in out else None,
+                    midpoint_trajectories=[out["trajectory"]] if "trajectory" in out else None,
+                    transformer_features=out.get("transformer_features"),
+                    metrics=agg["avg"], sample_names=names, dataset_name=ds_name,
+                    batch_idx=b_idx)
             valid = batch.sample_valid.cpu().numpy()
             nparts = batch.part_valid.reshape(batch.S, -1).sum(1).cpu().numpy()
             meter.add_metrics(ds_name, agg["avg"], valid, nparts)

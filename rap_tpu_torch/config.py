@@ -7,9 +7,9 @@ dataclasses, built here from the port's own ``DiTConfig``, ``RPFConfig``,
 ``DatasetConfig``, ``EvalConfig`` and ``OptimizerConfig``. ``model_name``
 picks a ``MODEL_ZOO`` entry and the ``model`` keys override it;
 ``pipeline.model`` mirrors ``model``. ``model.compute_dtype`` may be given
-by name (``float32``, ``bfloat16``, ``float16``). The ``visualizer`` keys
-are parsed and kept; ``visualize: true`` raises in ``apps.sample`` (the
-visualizer waits for ROADMAP A9). Every field of rap_tpu's ``Config`` is
+by name (``float32``, ``bfloat16``, ``float16``). ``visualize: true`` has
+``apps.sample`` render each batch through ``eval.visualizer`` with the
+``visualizer`` section's settings. Every field of rap_tpu's ``Config`` is
 here; ``n_devices`` is the data-parallel world ``apps.train`` expects (0:
 whatever world it was launched in; another count than the world's raises).
 """
@@ -26,27 +26,13 @@ import yaml
 
 from .data.dataset import DatasetConfig
 from .eval.evaluator import EvalConfig
+from .eval.visualizer import VisualizerConfig
 from .models.config import MODEL_ZOO, DiTConfig
 from .registration import RPFConfig
 from .train.optim import OptimizerConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
-
-
-@dataclasses.dataclass(frozen=True)
-class VisualizerConfig:
-    """rap_tpu's VisualizerConfig (eval/visualizer.py:28-37), kept as parsed."""
-
-    output_dir: str = "visualizations"
-    image_size: int = 512
-    render_trajectory: bool = True
-    render_parts: bool = False
-    render_features: bool = True
-    max_samples: int = 8
-    failure_metric: str = ""
-    failure_threshold: float = 0.5
-    renderer: str = "matplotlib"
 
 
 @dataclasses.dataclass(frozen=True)

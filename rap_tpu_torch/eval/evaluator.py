@@ -33,7 +33,7 @@ import torch
 from ..core.batch import PartBatch
 from ..core.procrustes import fit_transformations
 from ..utils import ply as plyio
-from ..utils.colors import part_ids_to_colors
+from ..utils.render import part_ids_to_colors
 from . import metrics as M
 
 # keys where bigger is better (best-of-N takes the max), evaluator.py:36

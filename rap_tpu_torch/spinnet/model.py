@@ -280,4 +280,5 @@ def build_feature_extractor(checkpoint: str = "", cfg: SpinNetConfig = SpinNetCo
     def fn(cloud: np.ndarray, keypoints: np.ndarray, des_r: float) -> np.ndarray:
         return extract_features(net, cloud, keypoints, des_r)
 
+    fn.device = net.grid.device  # where the descriptors are computed
     return fn

@@ -1065,3 +1065,74 @@ def test_dp_step_at_a_world_of_1_under_nccl_equals_the_step_without_a_mesh(gen, 
     assert m0 == m1 and m0["skipped_nonfinite"] == 0.0
     assert c0 == c1 == _counts(ff=4, ff_bwd=2)
     assert all(torch.equal(p0[k], p1[k]) for k in p0)
+
+
+def test_sample_processor_spinnet_on_the_card_matches_cpu(gen, tmp_path):
+    """dataset_process's SampleProcessor with SpinNet on the card: the same
+    keypoints as with the CPU extractor, descriptors within 1e-4 abs (the
+    chip_smoke SpinNet rule), no fallback."""
+    import numpy as np
+
+    from rap_tpu_torch.dataset_process.extract_features import (SampleProcessor,
+                                                                SampleProcessorConfig)
+    from rap_tpu_torch.spinnet import build_feature_extractor
+
+    rng = np.random.default_rng(0)
+    parts = [rng.uniform(0, 3, (600, 3)).astype(np.float32) for _ in range(2)]
+    cfg = SampleProcessorConfig(max_points_per_part=128, min_points_per_part=64, des_r=0.8)
+    outs = []
+    for device in ("cuda", "cpu"):
+        proc = SampleProcessor(cfg, build_feature_extractor(device=device))
+        outs.append(proc.process_sample(parts, np.random.default_rng(1)))
+        assert proc.fallbacks == {"outlier_removal": 0, "features": 0}
+    (kc, fc), (kp, fp) = outs
+    assert all(np.array_equal(a, b) for a, b in zip(kc, kp))
+    assert max(float(np.abs(a - b).max()) for a, b in zip(fc, fp)) <= 1e-4
+
+
+def test_reflow_and_synthetic_demo_run_through_the_kernels(gen, tmp_path):
+    """apps.train_synthetic_demo (1 layer, 2 steps) and apps.reflow_distill
+    (its final state as the teacher, 2 retrain steps) on the card: finite
+    losses, the train step's rows launched, and the teacher unchanged."""
+    import numpy as np
+
+    from rap_tpu_torch.apps import reflow_distill, train_synthetic_demo
+    from rap_tpu_torch.models.config import DiTConfig
+    from rap_tpu_torch.models.dit import master_params
+    from rap_tpu_torch.train.optim import tree_paths
+
+    argv = ["--scenes", "6", "--points-per-view", "128", "--layers", "1", "--steps", "2",
+            "--batch-tokens", "2048", "--eval-steps", "2", "--out", str(tmp_path / "s")]
+    rec = {}
+    train_synthetic_demo.main(argv, record=rec)
+    assert np.isfinite(rec["losses"]).all()
+    assert rec["step_launches"][0]["ff"] and rec["step_launches"][0]["ff_bwd"]
+    rec = {}
+    reflow_distill.main(["--teacher", str(tmp_path / "s" / "ckpts" / "final"), "--data-root",
+                         str(tmp_path / "s" / "data"), "--layers", "1", "--steps", "2",
+                         "--teacher-steps", "2", "--couple-epochs", "1",
+                         "--eval-steps-sweep", "1", "--out", str(tmp_path / "r")], record=rec)
+    assert np.isfinite(rec["retrain_losses"]).all()
+    assert rec["retrain_launches"][0]["ff_bwd"] and rec["couple_launches"][0]["ff"]
+    teacher = reflow_distill.load_model(str(tmp_path / "s" / "ckpts" / "final"),
+                                        DiTConfig(num_layers=1), "cuda")
+    for (k, a), (_, b) in zip(tree_paths(master_params(teacher, "cuda")),
+                              tree_paths(master_params(rec["teacher"], "cuda"))):
+        assert torch.equal(a, b), k
+
+
+def test_graft_entry_forward_on_the_card_matches_plain(gen):
+    import dataclasses
+
+    from rap_tpu_torch import graft_entry
+    from rap_tpu_torch.models.dit import dit_forward
+
+    fn, args = graft_entry.entry()
+    reset_launches()
+    v = fn(*args)
+    assert launch_counts()["flash_online"] and launch_counts()["ff"]
+    cfg, _ = graft_entry.flagship()
+    ref = dit_forward(args[0], dataclasses.replace(cfg.model, use_kernels=False), *args[1:],
+                      parts_per_sample=2)
+    err = float((v - ref).abs().max())
+    assert torch.isfinite(v).all() and err <= 5e-2 * float(ref.abs().max()), err

@@ -174,9 +174,8 @@ def test_sequence_sharded_demo_in_a_world_of_2(demo_inputs, tmp_path):
 def test_unported_options_raise(demo_inputs, tmp_path):
     _, views, _, _ = demo_inputs
     base = ["-i", str(views), "-out", str(tmp_path), "--device", "cpu", *TINY]
-    with pytest.raises(NotImplementedError, match="A9"):
-        T.main(base + ["--render-results"])
-    # a torch checkpoint is read now (A4); an orbax directory still raises
+    # a torch checkpoint is read now (A4), --render-results runs (A9,
+    # tests/test_torch_render.py); an orbax directory still raises
     orbax = tmp_path / "orbax_dir"
     orbax.mkdir()
     (orbax / "_CHECKPOINT_METADATA").write_text("{}")

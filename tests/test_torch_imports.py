@@ -13,6 +13,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -227,3 +228,40 @@ def test_multigpu_slice_modules_are_covered():
             "rap_tpu_torch.parallel.mesh", "rap_tpu_torch.ops.ring_attention"} <= set(MODULES)
     roots = _imported_roots(REPO / "tests" / "torch_parallel_worker.py")
     assert not roots & {"jax", "jaxlib", "flax", "rap_tpu"}, roots
+
+
+def test_last_slice_modules_are_covered():
+    """ROADMAP A9's modules are in MODULES (the fresh interpreter above
+    imports them, and the source scan checks each): every module of
+    rap_tpu has a counterpart in the port (its Pallas attention under
+    another name, ops/flash_attention), but the C++ host core."""
+    a9 = {"rap_tpu_torch.utils.render", "rap_tpu_torch.eval.visualizer",
+          "rap_tpu_torch.dataset_process", "rap_tpu_torch.dataset_process.io",
+          "rap_tpu_torch.dataset_process.splits", "rap_tpu_torch.dataset_process.geometry",
+          "rap_tpu_torch.dataset_process.submaps", "rap_tpu_torch.dataset_process.process",
+          "rap_tpu_torch.dataset_process.extract_features",
+          "rap_tpu_torch.dataset_process.datasets", "rap_tpu_torch.dataset_process.preview",
+          "rap_tpu_torch.data.synthetic_scenes", "rap_tpu_torch.apps.train_synthetic_demo",
+          "rap_tpu_torch.apps.reflow_distill", "rap_tpu_torch.apps.html_viewer",
+          "rap_tpu_torch.apps.viewer", "rap_tpu_torch.apps.webapp",
+          "rap_tpu_torch.graft_entry"}
+    assert a9 <= set(MODULES)
+    jax_side = {p.relative_to(REPO / "rap_tpu").with_suffix("").as_posix()
+                for p in (REPO / "rap_tpu").rglob("*.py")}
+    port = {p.relative_to(PKG).with_suffix("").as_posix() for p in PKG.rglob("*.py")}
+    assert jax_side - port == {"native/__init__", "native/build", "ops/pallas_attention"}, \
+        jax_side - port
+
+
+def test_last_slice_entry_points_default_to_cuda(tmp_path):
+    from rap_tpu_torch.apps import reflow_distill
+    from rap_tpu_torch.dataset_process.extract_features import SampleProcessor
+    from rap_tpu_torch.dataset_process.extract_features import SampleProcessorConfig
+
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        reflow_distill.main(["--teacher", "x.npz", "--data-root", str(tmp_path)])
+    # outlier removal on the card, asked for
+    proc = SampleProcessor(SampleProcessorConfig(), device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        proc.process_sample([np.zeros((100, 3), np.float32)], np.random.default_rng(0))

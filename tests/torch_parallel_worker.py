@@ -1,6 +1,6 @@
 """One rank of a gloo world on the CPU, spawned by the port's multi-process
 tests (tests/test_torch_parallel.py, test_torch_trainer.py,
-test_torch_demo.py). Imports no jax.
+test_torch_demo.py, test_torch_graft_entry.py). Imports no jax.
 
     python tests/torch_parallel_worker.py <rank> <world> <workdir>
 
@@ -136,7 +136,14 @@ def demo_app(spec, mesh):
             "generations": [tuple(a for a in g[:3]) for g in rec["generations"]]}
 
 
-TASKS = {"ring": ring, "dit": dit, "sample": sample, "train": train, "meter": meter,
+def graft(spec, mesh):
+    """rap_tpu_torch.graft_entry.dryrun_multigpu in the joined world."""
+    from rap_tpu_torch.graft_entry import dryrun_multigpu
+
+    return dryrun_multigpu(mesh.size, device="cpu")
+
+
+TASKS = {"graft": graft, "ring": ring, "dit": dit, "sample": sample, "train": train, "meter": meter,
          "checkpoint": checkpoint, "train_app": train_app, "demo_app": demo_app}
 
 
