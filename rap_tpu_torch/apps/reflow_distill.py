@@ -49,6 +49,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import telemetry
 from .._device import resolve_device
 from ..core.batch import TENSOR_FIELDS, PartBatch
 
@@ -274,7 +275,6 @@ def main(argv=None, record: dict | None = None) -> dict:
     from ..data import BatchLoader, DatasetConfig, LoaderConfig, PointCloudDataset
     from ..eval.runner import evaluate_split
     from ..models.config import DiTConfig
-    from ..ops import launch_counts
     from ..registration import RPFConfig
     from ..train.checkpoint import save_checkpoint
     from ..train.optim import OptimizerConfig
@@ -305,11 +305,10 @@ def main(argv=None, record: dict | None = None) -> dict:
 
     def counted(fn, key):
         """fn() with the launches it made recorded under ``key``."""
-        before = launch_counts()
-        res = fn()
+        with telemetry.counted("launch.") as launches:
+            res = fn()
         _sync(device)
-        after = launch_counts()
-        rec.setdefault(key, []).append({k: after[k] - before.get(k, 0) for k in after})
+        rec.setdefault(key, []).append(launches)
         return res
 
     if args.student:

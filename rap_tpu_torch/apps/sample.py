@@ -20,7 +20,8 @@ metrics and artifacts are not timed (``record['post_ms']`` holds their time
 per batch). The noise of generation g of batch b comes from a
 ``torch.Generator`` on the run's device seeded from (``trainer.seed``, b,
 g); it is not jax.random's. ``--profile-dir`` writes a torch.profiler
-Chrome trace of the whole run there (rap_tpu's writes a jax.profiler one).
+Chrome trace of the whole run there (rap_tpu's writes a jax.profiler one),
+with the program's ``rap.*`` spans (``rap_tpu_torch.telemetry``).
 
 Several GPUs (sample.py:110-125, :207), one process each: ``torchrun
 --nproc-per-node N -m rap_tpu_torch.apps.sample ...``. Rank i evaluates

@@ -29,7 +29,8 @@ run. The logged step is the state's: it carries on across a resume (rap_tpu
 logs the steps of the run).
 
 Runs on the card (``--device cuda``, the default) unless the CPU is asked
-for; ``--profile-dir`` writes a torch.profiler Chrome trace of the run.
+for; ``--profile-dir`` writes a torch.profiler Chrome trace of the run,
+with the program's ``rap.*`` spans (``rap_tpu_torch.telemetry``).
 
 Several GPUs (train.py:88-210), one process each:
 
@@ -61,6 +62,7 @@ from pathlib import Path
 
 import torch
 
+from .. import telemetry
 from .._device import resolve_device
 from ..config import Config, load_config
 from ..data import BatchLoader, LoaderConfig, PointCloudDataset
@@ -68,7 +70,6 @@ from ..eval import Evaluator, MetricsMeter
 from ..eval.meter import print_eval_table
 from ..models.config import DiTConfig
 from ..models.dit import attach_bounds, init_dit_params, to_device
-from ..ops import launch_counts
 from ..parallel.distributed import is_initialized, process_group, world
 from ..parallel.mesh import broadcast, make_mesh
 from ..registration import predict_poses, sample, seeded_generator
@@ -102,10 +103,6 @@ def serving_params(params, cfg: DiTConfig):
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-
-
-def _launch_diff(before: dict, after: dict) -> dict:
-    return {k: after[k] - before.get(k, 0) for k in after}
 
 
 def evaluate_validation(cfg: Config, params, val_datasets, epoch: int,
@@ -228,15 +225,15 @@ def _train(cfg: Config, max_steps, device, record, use_wandb: bool, rank: int,
                         break
                     batch = item[0]
                     t1 = time.perf_counter()
-                    before = launch_counts() if record is not None else None
-                    state, metrics = step_fn(state, batch)
+                    with telemetry.counted("launch.") as launches:
+                        state, metrics = step_fn(state, batch)
                     global_step += 1
                     run_steps += 1
                     if record is not None:
                         _sync(device)
                         rec["load_ms"].append((t1 - t0) * 1e3)
                         rec["step_ms"].append((time.perf_counter() - t1) * 1e3)
-                        rec["step_launches"].append(_launch_diff(before, launch_counts()))
+                        rec["step_launches"].append(launches)
                         rec["metrics"].append({k: float(v) for k, v in metrics.items()})
                         rec["last_batch"] = batch
                     if global_step % cfg.trainer.log_every_n_steps == 0:
@@ -247,12 +244,13 @@ def _train(cfg: Config, max_steps, device, record, use_wandb: bool, rank: int,
                         time.perf_counter() - t_epoch, loader.padding_stats.summary())
 
             if (epoch + 1) % cfg.trainer.val_every_n_epochs == 0 and val_datasets:
-                before = launch_counts()
                 t0 = time.perf_counter()
-                results = evaluate_validation(cfg, state.params, val_datasets, epoch, device)
+                with telemetry.counted("launch.") as launches:
+                    results = evaluate_validation(cfg, state.params, val_datasets, epoch,
+                                                  device)
                 _sync(device)
                 rec["val_ms"].append((time.perf_counter() - t0) * 1e3)
-                rec["val_launches"].append(_launch_diff(before, launch_counts()))
+                rec["val_launches"].append(launches)
                 rec["val_results"].append(results)
                 if rank == 0:
                     print_eval_table({"val": results})

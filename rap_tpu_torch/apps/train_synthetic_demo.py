@@ -42,6 +42,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import telemetry
 from .._device import resolve_device
 
 logger = logging.getLogger("rap_tpu_torch.train_synthetic_demo")
@@ -181,7 +182,6 @@ def main(argv=None, record: dict | None = None) -> dict | None:
     from ..eval.runner import evaluate_split
     from ..models.config import DiTConfig
     from ..models.dit import init_dit_params
-    from ..ops import launch_counts
     from ..registration import RPFConfig
     from ..train.checkpoint import resolve_checkpoint_dir, restore_checkpoint, save_checkpoint
     from ..train.optim import OptimizerConfig, tree_paths
@@ -243,15 +243,13 @@ def main(argv=None, record: dict | None = None) -> dict | None:
         while total < args.steps:
             with contextlib.closing(loader.epoch(epoch)) as batches:
                 for batch, _names, _ in batches:
-                    before = launch_counts()
                     t1 = time.perf_counter()
-                    state, metrics = step_fn(state, batch)
+                    with telemetry.counted("launch.") as launches:
+                        state, metrics = step_fn(state, batch)
                     if record is not None:  # the loss read is the step's sync
                         rec["losses"].append(float(metrics["loss"]))
                         rec["step_ms"].append((time.perf_counter() - t1) * 1e3)
-                        after = launch_counts()
-                        rec["step_launches"].append({k: after[k] - before.get(k, 0)
-                                                     for k in after})
+                        rec["step_launches"].append(launches)
                         rec["last_batch"] = batch
                     total += 1
                     if total % 100 == 0:
@@ -273,18 +271,17 @@ def main(argv=None, record: dict | None = None) -> dict | None:
     serve = serving_params(state.params, model)
 
     def run_eval(ds, tag):
-        before = launch_counts()
         t1 = time.perf_counter()
-        res = evaluate_split(
-            serve, pipe, ds, batch_tokens=args.batch_tokens, num_steps=args.eval_steps,
-            tag=tag, schedule=args.eval_schedule, n_generations=args.eval_generations,
-            use_icp=args.eval_icp, icp_refine=args.eval_icp_refine,
-            icp_refine_trim=args.eval_icp_trim, icp_refine_restarts=args.eval_icp_restarts,
-            device=device)
+        with telemetry.counted("launch.") as launches:
+            res = evaluate_split(
+                serve, pipe, ds, batch_tokens=args.batch_tokens, num_steps=args.eval_steps,
+                tag=tag, schedule=args.eval_schedule, n_generations=args.eval_generations,
+                use_icp=args.eval_icp, icp_refine=args.eval_icp_refine,
+                icp_refine_trim=args.eval_icp_trim,
+                icp_refine_restarts=args.eval_icp_restarts, device=device)
         _sync(device)
         rec["eval_ms"][tag] = (time.perf_counter() - t1) * 1e3
-        after = launch_counts()
-        rec["eval_launches"][tag] = {k: after[k] - before.get(k, 0) for k in after}
+        rec["eval_launches"][tag] = launches
         return res
 
     summary = {"steps": args.steps if not args.eval_only else "eval-only",

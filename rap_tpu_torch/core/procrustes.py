@@ -10,7 +10,8 @@ which never goes through TF32 whatever the global matmul setting.
 
 The SVD: where no gradient is taken (sampling, pose fits, metrics),
 ``torch.linalg.svd``. On the card that is cuSOLVER, which checks its
-convergence on the host: each call synchronises the device with the host.
+convergence on the host: each call synchronises the device with the host
+(counted as ``sync.svd``, ``telemetry``).
 A training step must not (its non-finite guard is sync-free on purpose), so
 where the cross-covariance needs a gradient (the pose loss) ``svd3`` runs
 instead: cyclic one-sided Jacobi with a fixed number of sweeps, elementwise
@@ -22,6 +23,8 @@ theirs, and ``torch.where`` selects that entry away.
 from __future__ import annotations
 
 import torch
+
+from .. import telemetry
 
 
 def _matmul33(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -114,6 +117,7 @@ def svd3(H: torch.Tensor):
     return _SVD3.apply(H)
 
 
+@telemetry.spanned("rap.kabsch")
 def kabsch_masked(source, target, mask, weights=None):
     """Solve min_{R,t} ||source @ R^T + t - target||^2 per leading batch entry.
 
@@ -138,7 +142,11 @@ def kabsch_masked(source, target, mask, weights=None):
     eye = torch.eye(3, dtype=H.dtype, device=H.device).expand(H.shape)
     H = torch.where(degen[..., None, None], eye, H)
 
-    U, _, Vh = svd3(H) if H.requires_grad else torch.linalg.svd(H)
+    if H.requires_grad:
+        U, _, Vh = svd3(H)
+    else:
+        telemetry.bump("sync.svd")
+        U, _, Vh = torch.linalg.svd(H)
     V = Vh.transpose(-1, -2)
     Ut = U.transpose(-1, -2)
     d = _det33(_matmul33(V, Ut))

@@ -15,6 +15,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from .procrustes import rigidify_prediction
 
 
@@ -74,28 +75,29 @@ def flow_sampler(
     x_t = x_1 if x_start is None else x_start
     ends, xs = [], []
     for t, t_next in zip(ts[:-1], ts[1:]):
-        dt = t - t_next
-        v1 = velocity_fn(x_t, t)
-        if method == "euler":
-            v_eff = v1
-        elif method == "rk2":
-            v2 = velocity_fn(x_t - 0.5 * dt * v1, 0.5 * (t + t_next))
-            v_eff = 0.5 * (v1 + v2)
-        else:
-            t_half = 0.5 * (t + t_next)
-            v2 = velocity_fn(x_t - 0.5 * dt * v1, t_half)
-            v3 = velocity_fn(x_t - 0.5 * dt * v2, t_half)
-            v4 = velocity_fn(x_t - dt * v3, t_next)
-            v_eff = (v1 + 2.0 * v2 + 2.0 * v3 + v4) / 6.0
-        x_0_hat = x_t - v_eff * t
-        x_next = x_t - dt * v_eff
-        if rigidity_forcing:
-            x_0_rigid = rigidify_prediction(x_0_hat, condition, point_mask)
-            x_next = x_0_rigid * (1.0 - t_next) + x_1 * t_next
-        if return_trajectory:
-            ends.append(x_0_hat)
-            xs.append(x_next)
-        x_t = x_next
+        with telemetry.span("rap.step"):
+            dt = t - t_next
+            v1 = velocity_fn(x_t, t)
+            if method == "euler":
+                v_eff = v1
+            elif method == "rk2":
+                v2 = velocity_fn(x_t - 0.5 * dt * v1, 0.5 * (t + t_next))
+                v_eff = 0.5 * (v1 + v2)
+            else:
+                t_half = 0.5 * (t + t_next)
+                v2 = velocity_fn(x_t - 0.5 * dt * v1, t_half)
+                v3 = velocity_fn(x_t - 0.5 * dt * v2, t_half)
+                v4 = velocity_fn(x_t - dt * v3, t_next)
+                v_eff = (v1 + 2.0 * v2 + 2.0 * v3 + v4) / 6.0
+            x_0_hat = x_t - v_eff * t
+            x_next = x_t - dt * v_eff
+            if rigidity_forcing:
+                x_0_rigid = rigidify_prediction(x_0_hat, condition, point_mask)
+                x_next = x_0_rigid * (1.0 - t_next) + x_1 * t_next
+            if return_trajectory:
+                ends.append(x_0_hat)
+                xs.append(x_next)
+            x_t = x_next
     if return_trajectory:
         return SampleResult(x_t, torch.stack(ends), torch.stack(xs))
     return SampleResult(x_t, None, None)

@@ -69,6 +69,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from .. import telemetry
 from .._device import resolve_device
 from ..core.batch import PartBatch
 from ..ops import attention, flash_attention, fused_ff, fused_proj, ring_attention
@@ -103,6 +104,7 @@ def attention_bounds(params: Params) -> list[tuple[float, float]]:
     dh = gains[0].shape[-1]
     with torch.no_grad():
         m = torch.stack([g.float() for g in gains]).abs().amax(dim=(1, 2))
+        telemetry.bump("sync.bounds")
         b = (m[0::2] * m[1::2]).cpu().double().tolist()
     scale = math.log2(math.e) * math.sqrt(dh)
     return [(scale * b[2 * i], scale * b[2 * i + 1]) for i in range(len(layers))]
@@ -357,6 +359,7 @@ def dropout_ff(lp, x, rate: float, keep):
     return x + _linear(lp["ff_out"], act)
 
 
+@telemetry.spanned("rap.dit.layer")
 def _layer(h, lp, t_emb, mask, cfg: DiTConfig, S: int, P: int, bounds, dropout=None,
            ring_mesh=None):
     h = _attention_block(lp, "self", h, t_emb, mask, cfg, S, P, False, bounds[0])
@@ -364,6 +367,7 @@ def _layer(h, lp, t_emb, mask, cfg: DiTConfig, S: int, P: int, bounds, dropout=N
     return _geglu_ff(lp, h, cfg, dropout)
 
 
+@telemetry.spanned("rap.dit")
 def dit_forward(
     params: Params,
     cfg: DiTConfig,

@@ -1,19 +1,21 @@
-"""What the kernel wrappers share: launch counters, device dispatch, checks.
+"""What the kernel wrappers share: launch counts, device dispatch, checks.
 
 A wrapper takes its plain PyTorch version only when its tensors lie on the
 CPU (the tests); for CUDA tensors it launches its kernel or raises. There is
 no fallback from one to the other. Every launch goes through ``launch``,
 which makes the tensors' device current around the C call (the launchers
 take the device from the calling thread, the stream from the tensor), checks
-the error code and counts the launch. ``flash_bwd`` counts the fused
-attention backward with and without a key mask; each attention kernel's
-softcap variant counts under its own ``*_softcap`` name.
+the error code and counts the launch (the ``launch.<kernel>`` counters of
+``telemetry``). ``flash_bwd`` counts the fused attention backward with and
+without a key mask; each attention kernel's softcap variant counts under its
+own ``*_softcap`` name.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import telemetry
 from . import _build
 
 KERNELS = ("proj", "flash_fixed", "flash_online", "out_proj", "ff",
@@ -21,17 +23,16 @@ KERNELS = ("proj", "flash_fixed", "flash_online", "out_proj", "ff",
            "flash_fixed_softcap", "flash_online_softcap", "flash_bwd_softcap",
            "flash_bwd_dkv_softcap", "flash_bwd_dq_softcap")
 
-# one plain integer per kernel, incremented only where the kernel launches
-LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
+telemetry.register(f"launch.{name}" for name in KERNELS)
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    telemetry.reset("launch.")
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(LAUNCHES)
+    """{kernel: launches} for every name of KERNELS."""
+    return telemetry.counts("launch.")
 
 
 def on_cpu(*tensors: torch.Tensor) -> bool:
@@ -80,4 +81,4 @@ def launch(kernel: str, like: torch.Tensor, *args) -> None:
     with torch.cuda.device(like.device):
         err = fn(*args, torch.cuda.current_stream(like.device).cuda_stream)
     _build.check(err, f"{kernel} kernel")
-    LAUNCHES[kernel] += 1
+    telemetry.bump(f"launch.{kernel}")

@@ -21,6 +21,7 @@ import math
 
 import torch
 
+from .. import telemetry
 from .flash_attention import NEG_INF, flash_attention
 
 _DENSE_LOGITS = 2**28
@@ -91,6 +92,8 @@ def batched_attention(q, k, v, kv_mask=None, impl: str = "auto", softcap: float 
     if impl == "pallas":
         return flash_attention(q, k, v, kv_mask, scale=scale, softcap=softcap,
                                logit_bound=logit_bound, kernels=kernels)
+    if impl in ("dense", "chunked"):
+        telemetry.bump("attn.dense")
     if kv_mask is None:
         kv_mask = torch.ones((B, Tk), dtype=torch.bool, device=q.device)
     kv_mask = kv_mask.bool()

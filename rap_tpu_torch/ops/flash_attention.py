@@ -55,6 +55,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import telemetry
 from ._common import check_input, launch, on_cpu, require
 
 SAFE_BOUND2 = 60.0
@@ -584,9 +585,11 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, qh, kh, vah, bound2: float, kernels: bool, softcap: float):
         if bound2 <= SAFE_BOUND2:
+            telemetry.bump("attn.fixed")
             fwd = flash_fixed if kernels else flash_fixed_plain
             out, lse = fwd(qh, kh, vah, bound2, softcap)
         else:
+            telemetry.bump("attn.online")
             fwd = flash_online if kernels else flash_online_plain
             out, lse = fwd(qh, kh, vah, None, 1, softcap)
         ctx.save_for_backward(qh, kh, vah, out, lse)
@@ -622,6 +625,7 @@ class _MaskedFlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, qh, kh, vah, mask, heads: int, kernels: bool, softcap: float):
+        telemetry.bump("attn.masked")
         fwd = flash_online if kernels else flash_online_plain
         out, lse = fwd(qh, kh, vah, mask, heads, softcap)
         ctx.save_for_backward(qh, kh, vah, mask, out, lse)
@@ -674,6 +678,7 @@ def flash_attention(q, k, v, kv_mask=None, scale: float | None = None,
             with torch.no_grad():
                 qn = qh.float().square().sum(-1).sqrt().max()
                 kn = kh.float().square().sum(-1).sqrt().max()
+                telemetry.bump("sync.bounds")
                 bound2 = float(qn * kn)
         out = flash_attention_headmajor(qh, kh, F.pad(vh, (0, 1), value=1.0), bound2,
                                         kernels, softcap)

@@ -32,6 +32,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from . import telemetry
 from .core import flow, procrustes
 from .core.batch import PartBatch
 from .core.sampler import flow_sampler, make_schedule
@@ -223,6 +224,7 @@ def velocity_fn(params, cfg: RPFConfig, batch: PartBatch, ring_mesh: Mesh | None
 
 
 @torch.no_grad()
+@telemetry.spanned("rap.sample")
 def sample(
     params,
     cfg: RPFConfig,
@@ -347,6 +349,7 @@ def _sample_pruned(params, cfg: RPFConfig, batch: PartBatch, vfn, x_1, ts, coars
                         ts=ts[coarse:])
 
 
+@telemetry.spanned("rap.poses")
 def predict_poses(batch: PartBatch, predicted_points: torch.Tensor):
     """Per-part rigid poses condition -> prediction (registration.py:282-287)."""
     return procrustes.fit_transformations(

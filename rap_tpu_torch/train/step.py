@@ -37,6 +37,7 @@ from typing import Any
 
 import torch
 
+from .. import telemetry
 from .._device import resolve_device
 from ..core.batch import TENSOR_FIELDS, PartBatch
 from ..models.dit import master_params
@@ -86,6 +87,7 @@ def _sum_over_ranks(grads: dict, metrics: dict, mesh: Mesh) -> tuple[dict, dict]
     return grads, dict(zip(metrics, flat[-len(metrics):].unbind()))
 
 
+@telemetry.spanned("rap.train.grad")
 def train_gradients(state: TrainState, cfg: RPFConfig, batch: PartBatch, remat: bool = True,
                     x_1=None, t=None, dropout_keep=None, mesh: Mesh | None = None):
     """The gradient of one training step's loss at the state's parameters,
@@ -125,6 +127,7 @@ def make_train_step(cfg: RPFConfig, opt_cfg: OptimizerConfig, remat: bool = True
     device = resolve_device(device)
     opt = Optimizer(opt_cfg, steps_per_epoch)
 
+    @telemetry.spanned("rap.train.step")
     def step(state: TrainState, batch: PartBatch, x_1=None, t=None, dropout_keep=None):
         if state.step.device.type != device.type:
             raise ValueError(f"state on {state.step.device}, step built for {device}")
@@ -133,7 +136,8 @@ def make_train_step(cfg: RPFConfig, opt_cfg: OptimizerConfig, remat: bool = True
         with torch.no_grad():
             gnorm = global_norm(grads.values())
             finite = torch.isfinite(gnorm)
-            updates, opt_state = opt.update(grads, state.opt_state, flat)
+            with telemetry.span("rap.optim"):
+                updates, opt_state = opt.update(grads, state.opt_state, flat)
             params = _keep(finite, apply_updates(flat, updates), flat)
             opt_state = _keep(finite, opt_state, state.opt_state)
         metrics.update(grad_norm=gnorm, skipped_nonfinite=(~finite).float())

@@ -1136,3 +1136,87 @@ def test_graft_entry_forward_on_the_card_matches_plain(gen):
                       parts_per_sample=2)
     err = float((v - ref).abs().max())
     assert torch.isfinite(v).all() and err <= 5e-2 * float(ref.abs().max()), err
+
+
+def test_span_holds_the_device_interval_of_its_kernels(gen):
+    """A program span and the kernels launched inside it lie on one clock:
+    with a synchronise inside the span, its host interval holds theirs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import tracing
+    from rap_tpu_torch import telemetry
+
+    a = _randn(gen, 2048, 2048, scale=2048 ** -0.5)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with telemetry.span("rap.probe"):
+            outs = [a @ a for _ in range(4)]
+            torch.cuda.synchronize()
+    events = prof.events()
+    (host,) = [e for e in events if e.name == "rap.probe" and not tracing._is_device(e)]
+    kernels = [e for e in events if tracing._is_device(e) and not tracing._is_annotation(e)]
+    assert len(kernels) >= len(outs)
+    for k in kernels:
+        assert host.time_range.start <= k.time_range.start, k.name
+        assert k.time_range.end <= host.time_range.end, k.name
+
+
+def test_trace_counts_no_program_span_as_device_work(gen):
+    """The program's spans mirrored on the device's timeline are not device
+    operations in the benchmark's trace."""
+    from torch.profiler import record_function
+
+    from benchmark import tracing
+    from rap_tpu_torch import telemetry
+
+    a = _randn(gen, 2048, 2048, scale=2048 ** -0.5)
+    prof = tracing.start()
+    with record_function(tracing.WINDOW_SPAN):
+        with telemetry.span("rap.sample"), telemetry.span("rap.step"):
+            a @ a
+        torch.cuda.synchronize()
+    prof.stop()
+    tr = tracing.reduce(prof)
+    assert tr.kernels and not any(name.startswith("rap.") for name, _, _ in tr.kernels)
+    assert tr.busy_s < tr.window_s
+
+
+def test_serving_syncs_are_the_counted_ones(gen):
+    """One serving request (``sample`` with forcing, then ``predict_poses``)
+    under ``torch.cuda.set_sync_debug_mode("warn")``: every synchronising
+    call warned of is at a site the ``sync.*`` counters count. cuSOLVER's
+    SVD warns twice a call, back to back (its convergence check): the
+    counter counts the call, where the host waits for the device to
+    drain."""
+    import warnings
+
+    from rap_tpu_torch import telemetry
+    from rap_tpu_torch.core.batch import make_regular_synthetic_batch
+    from rap_tpu_torch.models.config import DiTConfig
+    from rap_tpu_torch.models.dit import init_dit_params
+    from rap_tpu_torch.registration import RPFConfig, predict_poses, sample
+
+    steps = 3
+    cfg = RPFConfig(model=DiTConfig(num_layers=2), inference_sampling_steps=steps,
+                    rigidity_forcing=True, return_end_point_trajectory=False)
+    params = init_dit_params(0, cfg.model)
+    batch = make_regular_synthetic_batch(1, [[1024] * P] * S, N=1024, P=P)
+    x_1 = torch.randn(batch.points.shape, generator=gen, device="cuda")
+
+    def request():
+        pts = sample(params, cfg, batch, x_1=x_1, return_trajectory=False)["points"]
+        return predict_poses(batch, pts)
+
+    request()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught, telemetry.counted("sync.") as syncs:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            request()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    warned = [w for w in caught if "called a synchronizing" in str(w.message)]
+    assert syncs == {"svd": steps + 1, "bounds": 0}
+    assert {w.filename.replace("\\", "/").rsplit("/", 2)[-2:] == ["core", "procrustes.py"]
+            for w in warned} == {True}
+    assert len(warned) == 2 * syncs["svd"]
