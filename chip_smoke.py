@@ -97,8 +97,12 @@ Phases, each printed on its own flushed line with its wall time:
               so that their guard bound exceeds 60, as teacher3's do, so 6 of
               the 12 attention calls per forward take the online kernel.
               Checks: finite output of the right shape, the launch counts of
-              one sample, and agreement with the same call through the plain
-              versions. Then 2-layer D = 768 and D = 1024, H = 8 models
+              one sample (the Kabsch kernel's too: each step's forcing and
+              the pose fit), no host sync counted (``sync.*``), the Kabsch
+              kernel against its plain path with cuSOLVER's SVD at the
+              serving shape (the pose fit and the forcing mode, 1e-5), and
+              agreement with the same call through the plain versions. Then
+              2-layer D = 768 and D = 1024, H = 8 models
               (head widths 96: the fused branch, attention on heads padded
               to 128; and 128: the unfused branch, the masked online
               forward) serve the same batch: launch counts, points,
@@ -485,6 +489,7 @@ DEMO_RUNS = (("zero", ["--features", "zero"]),
              ("student geometric", ["--config", str(ROOT / "configs" / "synth_student.yaml"),
                                     "--checkpoint", str(ROOT / STUDENT_PATH),
                                     "--features", "geometric", "--num-steps", "4"]))
+DEMO_ICP_ITERS = 30  # registration.refine_poses_icp's iterations a yaw start
 DEMO_VIEWS, DEMO_VIEW_POINTS, DEMO_SEED = 6, 20_000, 31
 TOL_DEMO_TRANSLATION = 2e-2    # of the scene's bounding box
 TOL_SPINNET_ABS = 1e-4         # descriptors on the card against the CPU
@@ -1453,10 +1458,12 @@ def run_sample(report, fails, state):
         reset_launches()
         app.main(sample_argv(ckpt, c, kernels=False), record=rec_p)
         torch.cuda.synchronize()
-        fails.check(f"sample c={c:g}: plain path launched no kernel",
-                    sum(launch_counts().values()) == 0)
-        forwards = len(rec["batch_gen_ms"]) * cfg.pipeline.n_generations * steps
-        expected = dict.fromkeys(KERNELS, 0)
+        runs_ = len(rec["batch_gen_ms"]) * cfg.pipeline.n_generations
+        fits = runs_ * kabsch_fits(cfg.pipeline, steps)
+        fails.check(f"sample c={c:g}: plain path launched only the Kabsch fits ({fits})",
+                    launch_counts() == dict(dict.fromkeys(KERNELS, 0), kabsch=fits))
+        forwards = runs_ * steps
+        expected = dict(dict.fromkeys(KERNELS, 0), kabsch=fits)
         if c == 0.0:
             expected.update(proj=2 * L * forwards, out_proj=2 * L * forwards, ff=L * forwards,
                             flash_fixed=(2 * L - n_online) * forwards,
@@ -1640,8 +1647,9 @@ def run_sample_options(report, fails, ckpt):
         res, rec, counts = recs["kernels"]
         fails.check("every-option run went through the kernels",
                     counts["proj"] > 0 and counts["ff"] > 0 and counts["flash_fixed"] > 0)
-        fails.check("every-option plain run launched no kernel",
-                    sum(recs["plain"][2].values()) == 0)
+        fails.check("every-option plain run launched only the kernel run's Kabsch fits",
+                    counts["kabsch"] > 0 and recs["plain"][2]
+                    == dict(dict.fromkeys(counts, 0), kabsch=counts["kabsch"]))
         want = {sec + m for sec in SAMPLE_OPTION_SECTIONS for m in SAMPLE_OPTION_METRICS}
         got = set(res["synth"])
         fails.check(f"every-option run: metric keys are rap_tpu's ({len(want)})", got == want,
@@ -1731,19 +1739,27 @@ def demo_argv(inp: Path, out: Path, extra, kernels: bool = True) -> list[str]:
             + ([] if kernels else ["-o", "model.use_kernels=false"]))
 
 
-def demo_expected_launches(rec) -> dict:
+def demo_expected_launches(rec, extra=()) -> dict:
     """Row 3 (masked online attention, each call whose key sequence is
     >= 1024: part attention at N, global at P·N; shorter ones take the dense
-    route, as in rap_tpu) and row 5, per layer of every forward."""
+    route, as in rap_tpu) and row 5, per layer of every forward; the Kabsch
+    kernel for each generation's fits and, with ``--icp-refine`` in the
+    run's ``extra`` arguments, for each ICP iteration of each yaw start."""
     from rap_tpu_torch.ops import KERNELS
 
     batch, cfg = rec["batch"], rec["config"]
     G, Nb = batch.points.shape[:2]
     L = cfg.model.num_layers
-    forwards = len(rec["gen_ms"]) * cfg.pipeline.inference_sampling_steps
+    n_gen, steps = len(rec["gen_ms"]), cfg.pipeline.inference_sampling_steps
+    forwards = n_gen * steps
+    icp = 0
+    if "--icp-refine" in extra:
+        starts = (int(extra[extra.index("--icp-restarts") + 1])
+                  if "--icp-restarts" in extra else 1)
+        icp = DEMO_ICP_ITERS * max(starts, 1)
     expected = dict.fromkeys(KERNELS, 0)
     expected.update(flash_online=L * forwards * ((Nb >= 1024) + (G * Nb >= 1024)),
-                    ff=L * forwards)
+                    ff=L * forwards, kabsch=n_gen * kabsch_fits(cfg.pipeline, steps) + icp)
     return expected
 
 
@@ -1809,13 +1825,14 @@ def run_demo(report, fails, state):
                                  record=rec_p)
                 torch.cuda.synchronize()
                 fails.check(f"demo {label}: both runs exit 0", rc == rc_p == 0)
-                fails.check(f"demo {label}: plain path launched no kernel",
-                            sum(launch_counts().values()) == 0)
                 batch = rec["batch"]
                 G, Nb = batch.points.shape[:2]
                 fails.check(f"demo {label}: a padded batch (the masked branch)",
                             not batch.no_padding)
-                expected = demo_expected_launches(rec)
+                expected = demo_expected_launches(rec, extra)
+                fails.check(f"demo {label}: plain path launched only the Kabsch fits "
+                            f"({expected['kabsch']})", launch_counts()
+                            == dict(dict.fromkeys(expected, 0), kabsch=expected["kabsch"]))
                 log(f"  launches: {counts}")
                 fails.check(f"demo {label} launch counts", counts == expected,
                             f"expected {expected}")
@@ -1888,6 +1905,7 @@ def build_main_params(cfg):
 
 
 def run_main(report, fails, state):
+    from rap_tpu_torch import telemetry
     from rap_tpu_torch.core.batch import make_regular_synthetic_batch, validate
     from rap_tpu_torch.models.config import DiTConfig
     from rap_tpu_torch.models.dit import dit_forward
@@ -1916,7 +1934,8 @@ def run_main(report, fails, state):
         return out["points"], R, t
 
     reset_launches()
-    pts, R, t = serve(rcfg)
+    with telemetry.counted("sync.") as syncs:
+        pts, R, t = serve(rcfg)
     torch.cuda.synchronize()
     counts = launch_counts()
     expected = dict.fromkeys(counts, 0)
@@ -1924,11 +1943,14 @@ def run_main(report, fails, state):
         "proj": 2 * LAYERS * STEPS, "out_proj": 2 * LAYERS * STEPS,
         "ff": LAYERS * STEPS, "flash_fixed": (2 * LAYERS - n_online) * STEPS,
         "flash_online": n_online * STEPS,
+        "kabsch": STEPS + 1,  # each step's forcing and the pose fit
     })
     log(f"  launches in one sample: {counts}")
     fails.check("launch counts", counts == expected, f"expected {expected}")
     fails.check("both attention variants ran",
                 counts["flash_fixed"] > 0 and counts["flash_online"] > 0)
+    fails.check("no host sync counted on the card", syncs == {"svd": 0, "bounds": 0},
+                f"{syncs}")
     fails.check("output shapes", tuple(pts.shape) == (S * P, N, 3)
                 and tuple(R.shape) == (S * P, 3, 3) and tuple(t.shape) == (S * P, 3))
     fails.check("finite output", bool(torch.isfinite(pts).all() & torch.isfinite(R).all()
@@ -1942,7 +1964,8 @@ def run_main(report, fails, state):
     reset_launches()
     pts_p, R_p, t_p = serve(plain)
     torch.cuda.synchronize()
-    fails.check("plain path launched no kernel", sum(launch_counts().values()) == 0)
+    fails.check("plain path launched only the Kabsch fits",
+                launch_counts() == dict(dict.fromkeys(counts, 0), kabsch=STEPS + 1))
     ts = torch.ones(S, device="cuda")
     with torch.no_grad():
         v_k = dit_forward(params, cfg, x_1, ts, batch, P)
@@ -1959,10 +1982,46 @@ def run_main(report, fails, state):
     fails.check("translations vs plain", err_t <= tol_t,
                 f"max_abs_err={err_t:.4e} (tol {tol_t:.4e})")
     report["launches"] = counts
+    check_kabsch(report, fails, state, batch, pts, x_1)
     state.update(params=params, batch=batch, x_1=x_1, rcfg=rcfg, serve=serve,
                  plain_cfg=plain)
     run_main_pruned(report, fails, state, n_online)
     run_main_wide_heads(report, fails, state)
+
+
+def check_kabsch(report, fails, state, batch, pts, x_1):
+    """The Kabsch kernel (csrc/kabsch.cu) at the serving shape against the
+    plain path with cuSOLVER's SVD: the pose fit of the served points, and
+    the forcing mode (x_0_hat formed from x_t and v, the next state
+    written) against ``rigidify_prediction`` plus the blend; 1e-5 of each
+    number's scale. The fit's inputs are kept for the timing phase."""
+    from rap_tpu_torch.core import procrustes
+    from rap_tpu_torch.ops import launch_counts, reset_launches
+
+    cond, mask = batch.points, batch.point_mask
+    v = torch.randn(pts.shape, generator=torch.Generator(device="cuda").manual_seed(9),
+                    device="cuda")
+    t, t_next = 0.6, 0.5
+    x_t = pts + v * t
+    x_0_hat = x_t - v * t
+    reset_launches()
+    R, tr = procrustes.kabsch_masked(cond, pts, mask)
+    got = procrustes.forced_state(cond, mask, x_1, t_next, x_t, v, t)
+    torch.cuda.synchronize()
+    fails.check("Kabsch kernel: one launch a fit", launch_counts()["kabsch"] == 2)
+    R_p, tr_p = procrustes._fit(cond, pts, mask, None, torch.linalg.svd)
+    R_f, tr_f = procrustes._fit(cond, x_0_hat, mask, None, torch.linalg.svd)
+    rigid = torch.where(mask[..., None], procrustes.transform_points(R_f, tr_f, cond), x_0_hat)
+    want = rigid * (1.0 - t_next) + x_1 * t_next
+    errs = {"rotation": float((R - R_p).abs().max()),
+            "translation": float(((tr - tr_p).abs() / tr_p.abs().clamp_min(1.0)).max()),
+            "forced state": float(((got - want).abs() / want.abs().clamp_min(1.0)).max())}
+    for what, err in errs.items():
+        fails.check(f"Kabsch kernel vs plain, serving shape: {what}", err <= 1e-5,
+                    f"max_err={err:.3e} (tol 1e-05)")
+    report["kabsch_vs_plain"] = errs
+    state.setdefault("max_abs_err", {})["kabsch"] = errs["rotation"]
+    state["kabsch"] = tuple(x.contiguous() for x in (cond.float(), pts.float(), mask))
 
 
 def run_main_pruned(report, fails, state, n_online: int):
@@ -1997,17 +2056,18 @@ def run_main_pruned(report, fails, state, n_online: int):
     # one for the features, each through the fused branch
     forwards = STEPS + 1
     expected = dict.fromkeys(counts, 0)
+    # the Kabsch kernel: each step's forcing, the switch's fit, the pose fit
     expected.update(proj=2 * LAYERS * forwards, out_proj=2 * LAYERS * forwards,
                     ff=LAYERS * forwards, flash_fixed=(2 * LAYERS - n_online) * forwards,
-                    flash_online=n_online * forwards)
+                    flash_online=n_online * forwards, kabsch=STEPS + 2)
     log(f"  pruned serving ({PRUNE_COARSE} of {STEPS} steps on {n_sub} of {N} points a "
         f"part, transformer features): launches {counts}")
     fails.check("pruned serving launch counts", counts == expected, f"expected {expected}")
     reset_launches()
     pts_p, R_p, _, feats_p = serve(plain)
     torch.cuda.synchronize()
-    fails.check("pruned serving: plain path launched no kernel",
-                sum(launch_counts().values()) == 0)
+    fails.check("pruned serving: plain path launched only the Kabsch fits",
+                launch_counts() == dict(dict.fromkeys(counts, 0), kabsch=STEPS + 2))
     fails.check("pruned serving: finite output and features",
                 bool(torch.isfinite(pts).all() & torch.isfinite(feats).all()))
     fails.check("pruned serving: feature shape", tuple(feats.shape) == (S * P, N, D))
@@ -2086,9 +2146,9 @@ def run_main_wide_heads(report, fails, state):
                            for b in (lp["self_bound2"], lp["global_bound2"]))
             expected.update(proj=2 * L_ * STEPS, out_proj=2 * L_ * STEPS, ff=L_ * STEPS,
                             flash_fixed=(2 * L_ - n_online) * STEPS,
-                            flash_online=n_online * STEPS)
+                            flash_online=n_online * STEPS, kabsch=STEPS + 1)
         else:  # the unfused branch: every attention call the masked online forward
-            expected.update(ff=L_ * STEPS, flash_online=2 * L_ * STEPS)
+            expected.update(ff=L_ * STEPS, flash_online=2 * L_ * STEPS, kabsch=STEPS + 1)
         log(f"  launches in one sample at D={width}, H={H} (dh={dh}): {counts}")
         fails.check(f"dh={dh} serving launch counts", counts == expected,
                     f"expected {expected}")
@@ -2496,20 +2556,22 @@ def trainer_argv(data: Path, ckpt_dir: Path, *extra) -> list[str]:
     return ["--config", str(ROOT / TRAINER_CONFIG)] + [a for o in ov for a in ("-o", o)]
 
 
-def trainer_expected(L: int, steps: int) -> tuple[dict, dict]:
+def trainer_expected(L: int, steps: int, pipeline) -> tuple[dict, dict]:
     """Launches of one trainer step on a padded 2 x 8 x 4096 batch (the
     masked branch, remat: row 3 at part and global attention twice a layer,
     row 5 twice, the fused backward for part attention and the split one for
     global attention past the dQ slab, row 10) and of one validation pass
     over the dense synth batch (the fused branch at each of ``steps``
-    forwards: rows 1 and 4 twice a layer, row 2 or 3 twice, row 5 once)."""
+    forwards: rows 1 and 4 twice a layer, row 2 or 3 twice, row 5 once, and
+    the Kabsch kernel for the pass's fits)."""
     from rap_tpu_torch.ops import KERNELS
 
     step = dict.fromkeys(KERNELS, 0)
     step.update(flash_online=4 * L, ff=2 * L, flash_bwd=L, ff_bwd=L, flash_bwd_dkv=L,
                 flash_bwd_dq=L)
     val = dict.fromkeys(KERNELS, 0)
-    val.update(proj=2 * L * steps, out_proj=2 * L * steps, ff=L * steps)
+    val.update(proj=2 * L * steps, out_proj=2 * L * steps, ff=L * steps,
+               kabsch=kabsch_fits(pipeline, steps))
     return step, val
 
 
@@ -2540,7 +2602,7 @@ def run_trainer(report, fails, state):
         f"samples, 8 val scenes, under {data.relative_to(ROOT)}")
     cfg = load_config(ROOT / TRAINER_CONFIG)
     L, vsteps = cfg.model.num_layers, cfg.pipeline.inference_sampling_steps
-    want_step, want_val = trainer_expected(L, vsteps)
+    want_step, want_val = trainer_expected(L, vsteps, cfg.pipeline)
 
     # run 1
     log(f"  -- apps.train.main, {TRAINER_EPOCHS} epochs")
@@ -2745,6 +2807,16 @@ def trainer_pose_syncs(rcfg, params, batch) -> dict:
 
 def nonzero(counts: dict) -> dict:
     return {k: v for k, v in counts.items() if v}
+
+
+def kabsch_fits(pipeline, steps: int) -> int:
+    """Launches of the Kabsch kernel (csrc/kabsch.cu) in one generation of
+    ``steps`` steps with no trajectory kept: each step's rigidity forcing,
+    the pruned sampler's switch fit, and the pose fit. Every fit on the card
+    launches it, through the model's kernels or its plain versions."""
+    forcing = bool(pipeline.rigidity_forcing)
+    pruned = forcing and min(pipeline.prune_coarse_steps, steps - 1) > 0
+    return steps * forcing + pruned + 1
 
 
 def multigpu_dir() -> Path:
@@ -3082,9 +3154,10 @@ def run_multigpu(report, fails, state):
         steps = demo_rec["config"].pipeline.inference_sampling_steps
         n_gen = len(gen["gen_ms"])
         want = {k: 0 for k in want_step}
-        want.update(flash_online=L * steps * n_gen, ff=L * steps * n_gen)
-        fails.check(f"multigpu (b) rank {r}: demo launch counts (part attention, FF)",
-                    gen["launches"] == want,
+        want.update(flash_online=L * steps * n_gen, ff=L * steps * n_gen,
+                    kabsch=n_gen * kabsch_fits(demo_rec["config"].pipeline, steps))
+        fails.check(f"multigpu (b) rank {r}: demo launch counts (part attention, FF, "
+                    "the rank's Kabsch fits)", gen["launches"] == want,
                     f"{nonzero(gen['launches'])} (expected {nonzero(want)})")
         ev = out["eval"]
         worst = max(abs(ev["results"][ds][k] - v) for ds, md in eval_one.items()
@@ -3411,7 +3484,42 @@ def kernel_rows(state, counts):
         rows += wide_backward_kernel_rows(state, row)
     if "softcap" in state:
         rows += softcap_kernel_rows(state, row)
+    if "kabsch" in state:
+        rows.append(kabsch_row(state, row))
     return rows
+
+
+def kabsch_row(state, row, calls: int = 100) -> dict:
+    """The Kabsch kernel (csrc/kabsch.cu) at the serving shape: the pose fit
+    of the served points against the plain path with cuSOLVER's SVD. Bound
+    by its bytes (source, target and mask in, R and t out); its ~30 fp32
+    operations a point run on the CUDA cores, far under that. One eager
+    call's events hold the host's launch work too, longer than the kernel:
+    ``graph_ms`` is a call inside a CUDA graph of ``calls`` launches."""
+    from rap_tpu_torch.core import procrustes
+    from rap_tpu_torch.ops import kabsch as kabsch_op
+
+    src, tgt, mask = state["kabsch"]
+    B, Nk = mask.shape
+
+    def fit():
+        return kabsch_op.kabsch(src, tgt, mask)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fit()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fit()
+    graph_ms = cuda_time_ms(graph.replay, 5) / calls
+    nbytes = (src.numel() + tgt.numel()) * 4 + mask.numel() + B * 12 * 4
+    return row("kabsch", "rap_tpu_torch/csrc/kabsch.cu", "rap_tpu/core/procrustes.py:19",
+               fit, lambda: procrustes._fit(src, tgt, mask, None, torch.linalg.svd), None,
+               0.0, nbytes, f"{B} parts x {Nk} points fp32", reps=50, graph_ms=graph_ms)
 
 
 def ff_work(T: int) -> tuple[float, float]:

@@ -8,23 +8,31 @@ is fp32. The JAX code forces HIGHEST matmul precision (procrustes.py:47,
 :66); here the small products are written as elementwise multiply-and-sum,
 which never goes through TF32 whatever the global matmul setting.
 
-The SVD: where no gradient is taken (sampling, pose fits, metrics),
-``torch.linalg.svd``. On the card that is cuSOLVER, which checks its
-convergence on the host: each call synchronises the device with the host
-(counted as ``sync.svd``, ``telemetry``).
-A training step must not (its non-finite guard is sync-free on purpose), so
-where the cross-covariance needs a gradient (the pose loss) ``svd3`` runs
-instead: cyclic one-sided Jacobi with a fixed number of sweeps, elementwise
-on the device, and the analytic SVD backward (the formula JAX and torch
-use). For the degenerate parts' identity its backward divides by zero like
-theirs, and ``torch.where`` selects that entry away.
+Three routes, chosen by what the inputs show:
+
+- on the card, where no gradient is taken (sampling, pose fits, metrics,
+  ICP): one launch of csrc/kabsch.cu (``ops.kabsch``), which solves the SVD
+  in registers by ``svd3``'s Jacobi and never waits on the host. Rigidity
+  forcing's whole update (``forced_state``) is that one launch too;
+- where the cross-covariance needs a gradient (the pose loss): ``svd3``,
+  cyclic one-sided Jacobi with a fixed number of sweeps, elementwise on the
+  device, and the analytic SVD backward (the formula JAX and torch use). For
+  the degenerate parts' identity its backward divides by zero like theirs,
+  and ``torch.where`` selects that entry away. No host sync: a training step
+  has none on purpose (its non-finite guard is sync-free);
+- on the CPU: ``torch.linalg.svd``, counted as ``sync.svd`` (``telemetry``).
+  Its CUDA form, cuSOLVER, checks its convergence on the host, so no route
+  takes it.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .. import telemetry
+from ..ops import kabsch as kabsch_op
 
 
 def _matmul33(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -64,7 +72,9 @@ def _jacobi_svd3(H: torch.Tensor):
             a[p], a[q] = c * a[p] - s * a[q], s * a[p] + c * a[q]
             v[p], v[q] = c * v[p] - s * v[q], s * v[p] + c * v[q]
     A, V = torch.stack(a, -1), torch.stack(v, -1)
-    order = A.norm(dim=-2).argsort(-1, descending=True)[..., None, :].expand(A.shape)
+    # stable: equal norms (a rank-deficient H) keep their order on every device
+    order = A.norm(dim=-2).argsort(dim=-1, descending=True, stable=True)
+    order = order[..., None, :].expand(A.shape)
     A, V = A.gather(-1, order), V.gather(-1, order)
     s1 = A[..., 0].norm(dim=-1, keepdim=True)
     u1 = A[..., 0] / s1.clamp_min(1e-30)
@@ -117,14 +127,9 @@ def svd3(H: torch.Tensor):
     return _SVD3.apply(H)
 
 
-@telemetry.spanned("rap.kabsch")
-def kabsch_masked(source, target, mask, weights=None):
-    """Solve min_{R,t} ||source @ R^T + t - target||^2 per leading batch entry.
-
-    source, target: (..., N, 3); mask: (..., N) bool. Returns (R, t) with
-    det(R) = +1; degenerate parts give R = I (t = centroid difference) and
-    empty parts t = 0.
-    """
+def _fit(source, target, mask, weights, svd):
+    """(R, t) of the masked fit in plain PyTorch, ``svd``: (..., 3, 3) ->
+    (U, S, Vh)."""
     source = source.float()
     target = target.float()
     w = mask.float()
@@ -142,11 +147,7 @@ def kabsch_masked(source, target, mask, weights=None):
     eye = torch.eye(3, dtype=H.dtype, device=H.device).expand(H.shape)
     H = torch.where(degen[..., None, None], eye, H)
 
-    if H.requires_grad:
-        U, _, Vh = svd3(H)
-    else:
-        telemetry.bump("sync.svd")
-        U, _, Vh = torch.linalg.svd(H)
+    U, _, Vh = svd(H)
     V = Vh.transpose(-1, -2)
     Ut = U.transpose(-1, -2)
     d = _det33(_matmul33(V, Ut))
@@ -159,13 +160,69 @@ def kabsch_masked(source, target, mask, weights=None):
     return R, t
 
 
+def _host_svd(H):
+    telemetry.bump("sync.svd")
+    return torch.linalg.svd(H)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in tensors)
+
+
+def _card_fit(source, target, mask, weights=None, velocity=None, t=0.0, x_1=None,
+              t_next=0.0):
+    """``ops.kabsch`` on what ``_fit`` takes: (..., N, 3) points whose
+    leading shapes broadcast, and a mask of any dtype, which weighs each
+    point by its value as in ``_fit`` (folded into the weights, the points
+    it zeroes masked out). The parts go flat to (B, N, 3) fp32 and back."""
+    if mask.dtype != torch.bool:
+        weights = mask.float() if weights is None else mask.float() * weights.float()
+        mask = mask != 0
+    shapes = [x.shape[:-2] for x in (source, target, velocity, x_1) if x is not None]
+    shapes += [x.shape[:-1] for x in (mask, weights) if x is not None]
+    # on meta tensors: torch.broadcast_shapes imports sympy on its first call
+    # (seconds on a serving host's first request)
+    lead = torch.broadcast_tensors(*(torch.empty(s, device="meta") for s in shapes))[0].shape
+    B, N = math.prod(lead), source.shape[-2]
+
+    def flat(x, *tail):
+        if x is None:
+            return None
+        x = x if x.dtype == torch.bool else x.float()
+        return x.expand(*lead, N, *tail).reshape(B, N, *tail).contiguous()
+
+    out = kabsch_op.kabsch(flat(source, 3), flat(target, 3), flat(mask), flat(weights),
+                           flat(velocity, 3), t, flat(x_1, 3), t_next)
+    R, tr = out[0].reshape(*lead, 3, 3), out[1].reshape(*lead, 3)
+    return (R, tr) + tuple(x.reshape(*lead, N, 3) for x in out[2:])
+
+
+@telemetry.spanned("rap.kabsch")
+def kabsch_masked(source, target, mask, weights=None):
+    """Solve min_{R,t} ||source @ R^T + t - target||^2 per leading batch entry.
+
+    source, target: (..., N, 3), mask: (..., N), weights: (..., N) or None,
+    leading shapes broadcasting; a mask that is not bool weighs each point
+    by its value. Every route takes these inputs alike. Returns (R, t) with
+    det(R) = +1; degenerate parts give R = I (t = centroid difference) and
+    empty parts t = 0. The route (module docstring) follows the inputs'
+    device and whether a gradient is taken.
+    """
+    if _needs_grad(source, target, weights):
+        return _fit(source, target, mask, weights, svd3)
+    if source.is_cuda:
+        return _card_fit(source, target, mask, weights)
+    return _fit(source, target, mask, weights, _host_svd)
+
+
 def transform_points(R, t, pts):
     """pts @ R^T + t (R: (..., 3, 3), t: (..., 3), pts: (..., N, 3))."""
     return (pts[..., :, None, :] * R[..., None, :, :]).sum(-1) + t[..., None, :]
 
 
 def fit_transformations(source, target, mask):
-    """Per-part rigid poses, all parts at once (procrustes.py:87-93)."""
+    """Per-part rigid poses, all parts at once (procrustes.py:87-93); the
+    inputs and routes of ``kabsch_masked``."""
     return kabsch_masked(source, target, mask)
 
 
@@ -175,6 +232,19 @@ def rigidify_prediction(prediction, condition, mask):
     R, t = kabsch_masked(condition, prediction, mask)
     rigid = transform_points(R, t, condition)
     return torch.where(mask[..., None], rigid, prediction)
+
+
+def forced_state(condition, mask, x_1, t_next: float, x_t, v, t: float):
+    """Rigidity forcing's next ODE state (sampler.py:134-139): the
+    end-point estimate x_0_hat = x_t - v * t made rigid per part
+    (``rigidify_prediction``), then ``* (1 - t_next) + x_1 * t_next``. On
+    the card with no gradient taken, fit and update are one launch of
+    csrc/kabsch.cu, which forms x_0_hat on the fly."""
+    if condition.is_cuda and not _needs_grad(condition, x_t, v, x_1):
+        with telemetry.span("rap.kabsch"):
+            return _card_fit(condition, x_t, mask, velocity=v, t=t, x_1=x_1,
+                             t_next=t_next)[2]
+    return rigidify_prediction(x_t - v * t, condition, mask) * (1.0 - t_next) + x_1 * t_next
 
 
 def rotation_angle_deg(R_a, R_b):

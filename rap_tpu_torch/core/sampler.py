@@ -4,8 +4,9 @@ rap_tpu/core/sampler.py:34-159).
 t runs 1 -> 0 over a timestep grid; each step evaluates the velocity field,
 forms the end-point estimate x0_hat = x_t - v*t and steps x_t. With rigidity
 forcing, x0_hat is made rigid per part (Kabsch) and x_t is re-interpolated
-from it and the noise: x_next = x0_rigid * (1 - t_next) + x_1 * t_next. The
-JAX ``lax.scan`` is a Python loop here.
+from it and the noise: x_next = x0_rigid * (1 - t_next) + x_1 * t_next
+(``procrustes.forced_state``: on the card one kernel launch, which forms
+x0_hat itself). The JAX ``lax.scan`` is a Python loop here.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 from .. import telemetry
-from .procrustes import rigidify_prediction
+from .procrustes import forced_state
 
 
 class SampleResult(NamedTuple):
@@ -89,13 +90,12 @@ def flow_sampler(
                 v3 = velocity_fn(x_t - 0.5 * dt * v2, t_half)
                 v4 = velocity_fn(x_t - dt * v3, t_next)
                 v_eff = (v1 + 2.0 * v2 + 2.0 * v3 + v4) / 6.0
-            x_0_hat = x_t - v_eff * t
-            x_next = x_t - dt * v_eff
             if rigidity_forcing:
-                x_0_rigid = rigidify_prediction(x_0_hat, condition, point_mask)
-                x_next = x_0_rigid * (1.0 - t_next) + x_1 * t_next
+                x_next = forced_state(condition, point_mask, x_1, t_next, x_t, v_eff, t)
+            else:
+                x_next = x_t - dt * v_eff
             if return_trajectory:
-                ends.append(x_0_hat)
+                ends.append(x_t - v_eff * t)
                 xs.append(x_next)
             x_t = x_next
     if return_trajectory:

@@ -51,11 +51,12 @@ SIGNATURES = {
     "rtt_flash_bwd_dq_softcap": [_P] * 9 + [_I] * 5 + [_F] * 2 + [_P],
     "rtt_proj_bwd": [_P] * 18 + [_I] * 7 + [_P],
     "rtt_ff_bwd": [_P] * 19 + [_I] * 5 + [_P],
+    "rtt_kabsch": [_P] * 9 + [_F] * 3 + [_I] * 2 + [_P],
 }
 # C entry points that launch nothing: the registers and local bytes of the
 # backward's setmaxnreg kernels (the key block's eight instantiations, the dQ
 # pass's four, at head widths 64 and 128; 8 ints each) and of every kernel behind rtt_flash_* forward,
-# rtt_proj, rtt_out_proj, rtt_ff, rtt_ff_bwd and rtt_proj_bwd (2 ints each,
+# rtt_proj, rtt_out_proj, rtt_ff, rtt_ff_bwd, rtt_proj_bwd and rtt_kabsch (2 ints each,
 # in the order of QUERY_KERNELS[entry]; cudaFuncGetAttributes)
 QUERIES = {
     "rtt_flash_fwd_attributes": [_P],
@@ -67,6 +68,7 @@ QUERIES = {
     "rtt_ff_attributes": [_P],
     "rtt_ff_bwd_attributes": [_P],
     "rtt_proj_bwd_attributes": [_P],
+    "rtt_kabsch_attributes": [_P],
 }
 # the forward attention kernel's eight instantiations (FIXED_BOUND, SOFTCAP,
 # head width), which setmaxnreg needs at the launch bound's 168 registers
@@ -93,6 +95,7 @@ QUERY_KERNELS = {
     "rtt_ff_attributes": FF_KERNELS,
     "rtt_ff_bwd_attributes": FF_BWD_KERNELS,
     "rtt_proj_bwd_attributes": PROJ_BWD_KERNELS,
+    "rtt_kabsch_attributes": ("kabsch_kernel",),
 }
 
 

@@ -21,7 +21,7 @@ from . import _build
 KERNELS = ("proj", "flash_fixed", "flash_online", "out_proj", "ff",
            "flash_bwd", "proj_bwd", "ff_bwd", "flash_bwd_dkv", "flash_bwd_dq",
            "flash_fixed_softcap", "flash_online_softcap", "flash_bwd_softcap",
-           "flash_bwd_dkv_softcap", "flash_bwd_dq_softcap")
+           "flash_bwd_dkv_softcap", "flash_bwd_dq_softcap", "kabsch")
 
 telemetry.register(f"launch.{name}" for name in KERNELS)
 

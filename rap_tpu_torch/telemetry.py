@@ -3,7 +3,8 @@
 Spans mark the port's layer boundaries: ``rap.sample`` (``registration.sample``),
 ``rap.step`` (one ODE step of ``flow_sampler``, rigidity forcing included),
 ``rap.dit`` (``dit_forward``), ``rap.dit.layer`` (one DiT layer, its remat
-recompute too), ``rap.kabsch`` (``kabsch_masked``), ``rap.poses``
+recompute too), ``rap.kabsch`` (``kabsch_masked``, and rigidity forcing's
+fused fit on the card, ``procrustes.forced_state``), ``rap.poses``
 (``predict_poses``), and in training ``rap.train.step``, ``rap.train.grad``
 (forward, backward and the all-reduce) and ``rap.optim`` (the optimizer's
 update). While a torch.profiler session records, a span is a
@@ -22,8 +23,10 @@ Counters are plain integers, always on, bumped where the decision is taken:
   the fixed-bound forward (row 2) or the online one (row 3);
   ``attn.masked``: the online forward with a key mask; ``attn.dense``:
   dense or chunked attention (under 1024 keys);
-- ``sync.svd``: ``torch.linalg.svd`` in ``kabsch_masked`` (cuSOLVER on the
-  card checks its convergence on the host, which waits for the device);
+- ``sync.svd``: ``torch.linalg.svd`` in ``kabsch_masked``, which runs on
+  the CPU only: a fit on the card launches csrc/kabsch.cu (``launch.kabsch``)
+  or, under a gradient, the sync-free ``svd3``, so the counter reads 0 there
+  (cuSOLVER, which checks its convergence on the host, is called nowhere);
   ``sync.bounds``: a host read of an attention guard bound
   (``attention_bounds``, once a training step; ``flash_attention``'s
   row-norm bound where no logit bound is given).

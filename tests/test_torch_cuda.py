@@ -737,11 +737,12 @@ def test_sample_app_launch_counts(gen, c):
               "-o", f"data.datasets.0.data_path={root / 'demo_data/synth'}",
               "-o", "model.num_layers=2", "-o", f"model.softcap={c}"], record=rec)
     forwards = len(rec["batch_gen_ms"]) * 4  # 4 Euler steps, one generation
+    fits = len(rec["batch_gen_ms"]) * 5  # the 4 steps' forcing and the pose fit a batch
     if c == 0.0:
         expected = _counts(proj=4 * forwards, flash_fixed=4 * forwards, out_proj=4 * forwards,
-                           ff=2 * forwards)
+                           ff=2 * forwards, kabsch=fits)
     else:
-        expected = _counts(flash_fixed_softcap=4 * forwards, ff=2 * forwards)
+        expected = _counts(flash_fixed_softcap=4 * forwards, ff=2 * forwards, kabsch=fits)
     assert launch_counts() == expected
     assert rec["pairs"] == 8
 
@@ -918,7 +919,8 @@ def test_spinnet_on_card_matches_cpu_with_tf32_on(gen, aligned):
 def test_demo_runs_through_rows_3_and_5(gen, tmp_path):
     """apps.demo on the bundled pair at rap_12's width (one layer, 2 steps):
     the masked online attention (row 3) and the FF (row 5) launch, the plain
-    run launches nothing, and the transforms agree within 2e-2."""
+    run launches no kernel of the model (the Kabsch fits run the kernel on
+    either), and the transforms agree within 2e-2."""
     import numpy as np
 
     from rap_tpu_torch.apps import demo
@@ -930,7 +932,8 @@ def test_demo_runs_through_rows_3_and_5(gen, tmp_path):
     assert counts["flash_online"] > 0 and counts["ff"] > 0
     reset_launches()
     assert demo.main(argv + ["-out", str(tmp_path / "p"), "-o", "model.use_kernels=false"]) == 0
-    assert sum(launch_counts().values()) == 0
+    assert launch_counts() == _counts(kabsch=launch_counts()["kabsch"])
+    assert launch_counts()["kabsch"] == counts["kabsch"] > 0
     for p in range(2):
         got = np.loadtxt(tmp_path / "k" / f"part{p}_transform.txt")
         ref = np.loadtxt(tmp_path / "p" / f"part{p}_transform.txt")
@@ -1183,10 +1186,10 @@ def test_trace_counts_no_program_span_as_device_work(gen):
 def test_serving_syncs_are_the_counted_ones(gen):
     """One serving request (``sample`` with forcing, then ``predict_poses``)
     under ``torch.cuda.set_sync_debug_mode("warn")``: every synchronising
-    call warned of is at a site the ``sync.*`` counters count. cuSOLVER's
-    SVD warns twice a call, back to back (its convergence check): the
-    counter counts the call, where the host waits for the device to
-    drain."""
+    call warned of is at a site the ``sync.*`` counters count. The Kabsch
+    fits run csrc/kabsch.cu, which never waits on the host: no ``sync.svd``
+    on the card (cuSOLVER's SVD warned twice a call there), and no warning
+    at all."""
     import warnings
 
     from rap_tpu_torch import telemetry
@@ -1216,7 +1219,131 @@ def test_serving_syncs_are_the_counted_ones(gen):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     warned = [w for w in caught if "called a synchronizing" in str(w.message)]
-    assert syncs == {"svd": steps + 1, "bounds": 0}
-    assert {w.filename.replace("\\", "/").rsplit("/", 2)[-2:] == ["core", "procrustes.py"]
-            for w in warned} == {True}
-    assert len(warned) == 2 * syncs["svd"]
+    assert syncs == {"svd": 0, "bounds": 0}
+    assert [(w.filename, w.lineno) for w in warned] == []
+
+
+# --------------------------------------------------------------------------
+# the Kabsch fit (csrc/kabsch.cu)
+# --------------------------------------------------------------------------
+
+KABSCH_ATOL = 1e-5
+
+
+@pytest.mark.parametrize("name", ["random", "one_point", "empty", "reflection", "rank1",
+                                  "padded", "two_leading", "weighted", "large"])
+def test_kabsch_kernel_matches_plain_path(gen, name):
+    """``kabsch_masked`` on the card (one launch of the kernel) against its
+    plain path with cuSOLVER's SVD, to 1e-5, bitwise repeatable. A rank-1
+    cross-covariance leaves the rotation about the line free: there the
+    kernel is held to the plain path through ``svd3`` (the same Jacobi and
+    rank-1 axis, exact on this case's numbers), and both it and cuSOLVER's
+    fit to their residual."""
+    from kabsch_cases import torch_case
+
+    from rap_tpu_torch.core import procrustes
+
+    src, tgt, mask, w = torch_case(name, "cuda")
+    reset_launches()
+    R, t = procrustes.kabsch_masked(src, tgt, mask, w)
+    assert launch_counts() == _counts(kabsch=1)
+    R2, t2 = procrustes.kabsch_masked(src, tgt, mask, w)
+    assert torch.equal(R, R2) and torch.equal(t, t2)
+    svd = procrustes.svd3 if name == "rank1" else torch.linalg.svd
+    R_ref, t_ref = procrustes._fit(src, tgt, mask, w, svd)
+    assert R.shape == R_ref.shape and t.shape == t_ref.shape
+    assert float((R - R_ref).abs().max()) < KABSCH_ATOL
+    assert float((t - t_ref).abs().max()) < KABSCH_ATOL
+    assert float((torch.linalg.det(R.double()) - 1).abs().max()) < 1e-5
+    if name == "rank1":
+        R_s, t_s = procrustes._fit(src, tgt, mask, w, torch.linalg.svd)
+        for a, b in ((R, t), (R_s, t_s)):
+            fit = procrustes.transform_points(a, b, src)
+            assert float(torch.where(mask[..., None], fit - tgt, 0.0).abs().max()) < 1e-4
+
+
+@pytest.mark.parametrize("form", ["broadcast", "float_mask"])
+def test_kabsch_kernel_takes_what_the_plain_path_takes(gen, form):
+    """``kabsch_masked`` on the card with leading shapes that broadcast (one
+    source for three targets) or a mask of weights in [0, 1] with zeros
+    (not bool): one launch, and the plain path's fit with cuSOLVER's SVD to
+    1e-5."""
+    from kabsch_cases import torch_case
+
+    from rap_tpu_torch.core import procrustes
+
+    src, tgt, mask, _ = torch_case("random", "cuda")
+    if form == "broadcast":
+        args = (src, torch.stack([tgt, tgt + 1.0, tgt.flip(-2)]), mask[0])
+    else:
+        m = torch.rand(mask.shape, generator=gen, device="cuda")
+        args = (src, tgt, torch.where(m > 0.2, m, 0.0))
+    reset_launches()
+    R, t = procrustes.kabsch_masked(*args)
+    assert launch_counts() == _counts(kabsch=1)
+    R_ref, t_ref = procrustes._fit(*args, None, torch.linalg.svd)
+    assert R.shape == R_ref.shape and t.shape == t_ref.shape
+    assert float((R - R_ref).abs().max()) < KABSCH_ATOL
+    assert float((t - t_ref).abs().max()) < KABSCH_ATOL
+
+
+def test_kabsch_forcing_mode_matches_rigidify_and_blend(gen):
+    """``forced_state`` on the card (one launch: x_0_hat formed from x_t and
+    v) against the plain ``rigidify_prediction`` with cuSOLVER's SVD plus
+    the blend, to 1e-5 of each point's scale."""
+    from kabsch_cases import torch_case
+
+    from rap_tpu_torch.core import procrustes
+
+    src, tgt, mask, _ = torch_case("padded", "cuda")
+    v = torch.randn(tgt.shape, generator=gen, device="cuda")
+    x_1 = torch.randn(tgt.shape, generator=gen, device="cuda")
+    t, t_next = 0.7, 0.6
+    x_t = tgt + v * t
+    x_0_hat = x_t - v * t
+    R, tr = procrustes._fit(src, x_0_hat, mask, None, torch.linalg.svd)
+    rigid = torch.where(mask[..., None], procrustes.transform_points(R, tr, src), x_0_hat)
+    want = rigid * (1.0 - t_next) + x_1 * t_next
+    reset_launches()
+    got = procrustes.forced_state(src, mask, x_1, t_next, x_t, v, t)
+    assert launch_counts() == _counts(kabsch=1)
+    assert bool(((got - want).abs() <= KABSCH_ATOL * want.abs().clamp_min(1.0)).all())
+
+
+def test_forcing_sampler_on_the_card_never_syncs(gen):
+    """10 Euler steps with rigidity forcing and the pose fit, with no
+    trajectory kept, under ``set_sync_debug_mode("error")``: 11 launches of
+    the Kabsch kernel, no ``sync.svd``, and the CPU's result (LAPACK's SVD)
+    to 1e-4 of each number's scale (the padding sits at 1e3)."""
+    import types
+
+    from kabsch_cases import torch_case
+
+    from rap_tpu_torch import telemetry
+    from rap_tpu_torch.core.sampler import flow_sampler
+    from rap_tpu_torch.registration import predict_poses
+
+    out = {}
+    for device in ("cpu", "cuda"):
+        src, tgt, mask, _ = torch_case("padded", device)
+        x_1 = torch.randn(src.shape, generator=torch.Generator().manual_seed(3)).to(device)
+
+        def field(x, t, tgt=tgt):
+            return (x - tgt) / max(t, 1e-3)
+
+        reset_launches()
+        with telemetry.counted("sync.") as syncs:
+            if device == "cuda":
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                res = flow_sampler(field, x_1, src, mask, num_steps=10, rigidity_forcing=True,
+                                   return_trajectory=False)
+                R, t = predict_poses(types.SimpleNamespace(points=src, point_mask=mask),
+                                     res.x_final)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        out[device] = (res.x_final.cpu(), R.cpu(), t.cpu(), syncs["svd"], launch_counts())
+    assert out["cpu"][3] == 11 and out["cuda"][3] == 0
+    assert out["cuda"][4] == _counts(kabsch=11)
+    for a, b in zip(out["cuda"][:3], out["cpu"][:3]):
+        assert bool(((a - b).abs() <= 1e-4 * b.abs().clamp_min(1.0)).all())
