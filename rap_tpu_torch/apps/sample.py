@@ -55,6 +55,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import telemetry
 from .._device import resolve_device
 from ..config import Config, load_config
 from ..data import BatchLoader, LoaderConfig, PointCloudDataset
@@ -128,6 +129,7 @@ def make_generate_fn(cfg: Config, return_features: bool = False,
 
 
 def _sync(device: torch.device) -> None:
+    telemetry.bump("sync.eval")
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -136,9 +138,12 @@ def run_eval(cfg: Config, params=None, device="cuda", record: dict | None = None
     """Evaluate every configured dataset; returns {dataset: {metric: mean}}
     with an 'overall' entry, prints the tables. ``record``, if given,
     receives the timings (generation ms per batch and per generation,
-    loader wait ms per batch, pairs) and each batch's generations as
-    ``outputs``: [(names, [(points, R, t) per generation])] (this rank's
-    batches in a world of several)."""
+    loader wait ms per batch, metrics and artifacts ms per batch, pairs),
+    each batch's generations as ``outputs``: [(names, [(points, R, t) per
+    generation])], and its metrics as ``metrics``: [([each generation's
+    metric dict], the aggregation over generations)] (this rank's batches
+    in a world of several). Spans ``rap.eval.*`` and the ``sync.eval``
+    counter (``rap_tpu_torch.telemetry``) mark the loop."""
     device = resolve_device(device)
     with process_group(device) as (rank, world_size):
         return _eval(cfg, params, device, record, rank, world_size)
@@ -162,7 +167,8 @@ def _eval(cfg: Config, params, device, record, rank: int, world_size: int) -> di
 
         visualizer = FlowVisualization(cfg.visualizer)
     rec = record if record is not None else {}
-    rec.update(batch_gen_ms=[], gen_ms=[], load_ms=[], post_ms=[], pairs=0, outputs=[])
+    rec.update(batch_gen_ms=[], gen_ms=[], load_ms=[], post_ms=[], pairs=0, outputs=[],
+               metrics=[])
 
     for ds_cfg in cfg.data.datasets:
         ds = PointCloudDataset(ds_cfg)
@@ -174,62 +180,68 @@ def _eval(cfg: Config, params, device, record, rank: int, world_size: int) -> di
         b_idx = rank  # the batch's index in the plan: this rank takes every world_size-th
         while True:
             t_load0 = time.perf_counter()
-            item = next(batches, None)
+            with telemetry.span("rap.eval.load"):
+                item = next(batches, None)
             if item is None:
                 break
             batch, names, ds_name = item
             rec["load_ms"].append((time.perf_counter() - t_load0) * 1e3)
-            gen_results, trajs, gens = [], [], []
-            t_batch = t_post = 0.0
-            for g in range(cfg.pipeline.n_generations):
-                gen = seeded_generator(device, cfg.trainer.seed, b_idx, g)
-                _sync(device)
-                t_gen0 = time.perf_counter()
-                out, R, t = generate(params, batch, generator=gen)
-                _sync(device)
+            with telemetry.span("rap.eval.batch"):
+                gen_results, trajs, gens = [], [], []
+                t_batch = t_post = 0.0
+                for g in range(cfg.pipeline.n_generations):
+                    gen = seeded_generator(device, cfg.trainer.seed, b_idx, g)
+                    _sync(device)
+                    t_gen0 = time.perf_counter()
+                    out, R, t = generate(params, batch, generator=gen)
+                    _sync(device)
+                    t_post0 = time.perf_counter()
+                    dt = t_post0 - t_gen0
+                    rec["gen_ms"].append(dt * 1e3)
+                    t_batch += dt
+                    with telemetry.span("rap.eval.metrics"):
+                        md = evaluator.compute_metrics(batch, out["points"], R, t)
+                    gen_results.append(md)
+                    if "end_point_trajectory" in out:
+                        trajs.append(out["end_point_trajectory"])
+                    gens.append((out["points"], R, t))
+                    if cfg.eval.save_results:
+                        host = lambda x: x.detach().cpu().numpy()  # noqa: E731
+                        evaluator.save_sample_results(
+                            batch, host(out["points"]), host(R), host(t),
+                            {k: host(v) for k, v in md.items()}, sample_names=names,
+                            dataset_name=ds_name, generation_idx=g,
+                            trajectory=(host(out["end_point_trajectory"]) if steps_saved
+                                        and "end_point_trajectory" in out else None),
+                            midpoint_trajectory=(host(out["trajectory"])
+                                                 if steps_saved and "trajectory" in out else None))
+                    _sync(device)
+                    t_post += time.perf_counter() - t_post0
+                rec["batch_gen_ms"].append(t_batch * 1e3)
+                rec["pairs"] += int(batch.sample_valid.sum())
+                rec["outputs"].append((names, gens))
                 t_post0 = time.perf_counter()
-                dt = t_post0 - t_gen0
-                rec["gen_ms"].append(dt * 1e3)
-                t_batch += dt
-                md = evaluator.compute_metrics(batch, out["points"], R, t)
-                gen_results.append(md)
-                if "end_point_trajectory" in out:
-                    trajs.append(out["end_point_trajectory"])
-                gens.append((out["points"], R, t))
-                if cfg.eval.save_results:
-                    host = lambda x: x.detach().cpu().numpy()  # noqa: E731
-                    evaluator.save_sample_results(
-                        batch, host(out["points"]), host(R), host(t),
-                        {k: host(v) for k, v in md.items()}, sample_names=names,
-                        dataset_name=ds_name, generation_idx=g,
-                        trajectory=(host(out["end_point_trajectory"])
-                                    if steps_saved and "end_point_trajectory" in out else None),
-                        midpoint_trajectory=(host(out["trajectory"])
-                                             if steps_saved and "trajectory" in out else None))
-                _sync(device)
-                t_post += time.perf_counter() - t_post0
-            rec["batch_gen_ms"].append(t_batch * 1e3)
-            rec["pairs"] += int(batch.sample_valid.sum())
-            rec["outputs"].append((names, gens))
-            t_post0 = time.perf_counter()
-            agg = evaluator.aggregate_generations(batch, gen_results, trajs)
-            if visualizer is not None:
-                visualizer.on_batch_end(
-                    batch, [out["points"]],
-                    [out["end_point_trajectory"]] if "end_point_trajectory" in out else None,
-                    midpoint_trajectories=[out["trajectory"]] if "trajectory" in out else None,
-                    transformer_features=out.get("transformer_features"),
-                    metrics=agg["avg"], sample_names=names, dataset_name=ds_name,
-                    batch_idx=b_idx)
-            valid = batch.sample_valid.cpu().numpy()
-            nparts = batch.part_valid.reshape(batch.S, -1).sum(1).cpu().numpy()
-            meter.add_metrics(ds_name, agg["avg"], valid, nparts)
-            for section in (f"best_of_{cfg.pipeline.n_generations}", "rigidity_selected",
-                            "overlap_ratio_selected"):
-                if section in agg:
-                    meter.add_metrics(ds_name, {f"{section}/{k}": v
-                                                for k, v in agg[section].items()}, valid)
-            rec["post_ms"].append((t_post + time.perf_counter() - t_post0) * 1e3)
+                with telemetry.span("rap.eval.metrics"):
+                    agg = evaluator.aggregate_generations(batch, gen_results, trajs)
+                    valid = batch.sample_valid.cpu().numpy()
+                    nparts = batch.part_valid.reshape(batch.S, -1).sum(1).cpu().numpy()
+                    meter.add_metrics(ds_name, agg["avg"], valid, nparts)
+                    for section in (f"best_of_{cfg.pipeline.n_generations}",
+                                    "rigidity_selected", "overlap_ratio_selected"):
+                        if section in agg:
+                            meter.add_metrics(ds_name, {f"{section}/{k}": v
+                                                        for k, v in agg[section].items()}, valid)
+                rec["metrics"].append((gen_results, agg))
+                if visualizer is not None:
+                    ends = out.get("end_point_trajectory")
+                    mids = out.get("trajectory")
+                    visualizer.on_batch_end(
+                        batch, [out["points"]], None if ends is None else [ends],
+                        midpoint_trajectories=None if mids is None else [mids],
+                        transformer_features=out.get("transformer_features"),
+                        metrics=agg["avg"], sample_names=names, dataset_name=ds_name,
+                        batch_idx=b_idx)
+                rec["post_ms"].append((t_post + time.perf_counter() - t_post0) * 1e3)
             b_idx += world_size
         logger.info("%s padding: %s", ds_cfg.dataset_name, loader.padding_stats.summary())
         ds.close()

@@ -13,7 +13,9 @@ augments and collates the batches onto the device while the consumer runs
 the previous one. A loaded batch whose true part sizes blow the budget is
 split (``_rebucket``), as rap_tpu does in one process. The thread ends when
 the epoch ends, and also when the consumer stops early or the generator is
-closed: ``epoch()`` joins it before it returns.
+closed: ``epoch()`` joins it before it returns. Each batch it yields bumps
+the ``pack.slots`` and ``pack.points`` counters (``telemetry``) by its
+padded slots and valid points, on the consumer's thread.
 
 Several processes (``process_index`` of ``process_count``, loader.py:36-160):
 every rank computes the same plan. In ``slice`` mode (data-parallel
@@ -38,6 +40,7 @@ from typing import Iterator
 
 import numpy as np
 
+from .. import telemetry
 from .dataset import PointCloudDataset, Sample
 from .packer import (N_BUCKETS, BatchPlan, _bucket, collate_to_part_batch, pad_to_multiple,
                      plan_batches)
@@ -74,11 +77,13 @@ class PaddingStats:
         tot = self.valid_tokens + self.padded_tokens
         return self.padded_tokens / tot if tot else 0.0
 
-    def add(self, batch) -> None:
+    def add(self, batch) -> int:
+        """Count one batch; returns its valid tokens."""
         valid = int(batch.point_mask.sum())
         self.valid_tokens += valid
         self.padded_tokens += batch.num_tokens - valid
         self.batches += 1
+        return valid
 
     def summary(self) -> str:
         return (f"{self.batches} batches, {self.valid_tokens} valid tokens, "
@@ -142,8 +147,8 @@ class BatchLoader:
         return len(self._epoch_plan(epoch))
 
     def _load_batch(self, d_idx: int, plan: BatchPlan, epoch: int):
-        """[(batch, names, dataset_name)]: one, or more where the true part
-        sizes blow the budget (loader.py:213-227)."""
+        """[((batch, names, dataset_name), valid tokens)]: one, or more where
+        the true part sizes blow the budget (loader.py:213-227)."""
         ds = self.datasets[d_idx]
         cfg = self.cfg
         if cfg.process_count > 1 and cfg.shard_mode == "slice":
@@ -159,8 +164,8 @@ class BatchLoader:
             batch, names = collate_to_part_batch(samples, plan.N, plan.P, per,
                                                  feat_dim=ds.cfg.feat_dim, device=self.device)
             batch = dataclasses.replace(batch, no_padding=False)
-            self.padding_stats.add(batch)
-            return [(batch, names, ds.cfg.dataset_name)]
+            valid = self.padding_stats.add(batch)
+            return [((batch, names, ds.cfg.dataset_name), valid)]
         samples: list[Sample] = [ds.get(i, epoch=epoch) for i in plan.indices]
         out = []
         for group in self._rebucket(samples, plan):
@@ -169,8 +174,8 @@ class BatchLoader:
             batch, names = collate_to_part_batch(group, N, plan.P, S,
                                                  feat_dim=ds.cfg.feat_dim,
                                                  device=self.device)
-            self.padding_stats.add(batch)
-            out.append((batch, names, ds.cfg.dataset_name))
+            valid = self.padding_stats.add(batch)
+            out.append(((batch, names, ds.cfg.dataset_name), valid))
         return out
 
     def _rebucket(self, samples: list[Sample], plan: BatchPlan):
@@ -234,6 +239,9 @@ class BatchLoader:
                     break
                 if isinstance(item, Exception):
                     raise item
+                item, valid = item
+                telemetry.bump("pack.slots", item[0].num_tokens)
+                telemetry.bump("pack.points", valid)
                 yield item
         finally:
             stop.set()

@@ -5,9 +5,12 @@ Spans mark the port's layer boundaries: ``rap.sample`` (``registration.sample``)
 ``rap.dit`` (``dit_forward``), ``rap.dit.layer`` (one DiT layer, its remat
 recompute too), ``rap.kabsch`` (``kabsch_masked``, and rigidity forcing's
 fused fit on the card, ``procrustes.forced_state``), ``rap.poses``
-(``predict_poses``), and in training ``rap.train.step``, ``rap.train.grad``
+(``predict_poses``), in training ``rap.train.step``, ``rap.train.grad``
 (forward, backward and the all-reduce) and ``rap.optim`` (the optimizer's
-update). While a torch.profiler session records, a span is a
+update), and in batch evaluation (``apps.sample.run_eval``) ``rap.eval.batch``
+(one loader batch, all its generations), ``rap.eval.load`` (the wait on the
+loader) and ``rap.eval.metrics`` (the evaluator, the aggregation over
+generations and the meter). While a torch.profiler session records, a span is a
 ``torch.profiler.record_function`` range: the profiler holds it, writes it
 with its trace and puts it on the clock of the device's events, nested under
 the span open on the launching thread. Otherwise ``span`` returns one shared
@@ -29,7 +32,11 @@ Counters are plain integers, always on, bumped where the decision is taken:
   (cuSOLVER, which checks its convergence on the host, is called nowhere);
   ``sync.bounds``: a host read of an attention guard bound
   (``attention_bounds``, once a training step; ``flash_attention``'s
-  row-norm bound where no logit bound is given).
+  row-norm bound where no logit bound is given); ``sync.eval``: each
+  ``_sync`` of ``run_eval`` (a ``torch.cuda.synchronize`` on the card,
+  three a generation);
+- ``pack.slots`` / ``pack.points``: the padded slots and the valid points
+  of each batch ``BatchLoader.epoch`` yields (bumped by the count).
 
 ``counts()`` takes a snapshot and ``counted()`` gives what a block added.
 Each bump made while a profiler records is also tallied in
@@ -51,7 +58,7 @@ _profiling = torch._C._autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
 
 COUNTERS = ("attn.fixed", "attn.online", "attn.masked", "attn.dense", "sync.svd",
-            "sync.bounds")
+            "sync.bounds", "sync.eval", "pack.slots", "pack.points")
 _counts: dict[str, int] = dict.fromkeys(COUNTERS, 0)
 _profiled: dict[str, int] = {}
 _was_profiling = False
@@ -80,15 +87,15 @@ def register(names: Iterable[str]) -> None:
         _counts.setdefault(name, 0)
 
 
-def bump(name: str) -> None:
-    """Count one event of the registered counter ``name``."""
+def bump(name: str, n: int = 1) -> None:
+    """Count ``n`` events of the registered counter ``name``."""
     global _was_profiling
-    _counts[name] += 1
+    _counts[name] += n
     if _profiling():
         if not _was_profiling:
             _profiled.clear()
             _was_profiling = True
-        _profiled[name] = _profiled.get(name, 0) + 1
+        _profiled[name] = _profiled.get(name, 0) + n
     elif _was_profiling:
         _was_profiling = False
 

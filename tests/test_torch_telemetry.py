@@ -150,7 +150,7 @@ def test_launch_counts_keep_their_keys():
     assert launch_counts()["ff"] == 1
     reset_launches()
     assert launch_counts()["ff"] == 0
-    assert telemetry.counts("sync.").keys() == {"svd", "bounds"}
+    assert telemetry.counts("sync.").keys() == {"svd", "bounds", "eval"}
 
 
 def test_benchmark_reads_the_counters_per_traced_request():
