@@ -154,9 +154,10 @@ Phases, each printed on its own flushed line with its wall time:
               writes (20 000 points a view, each in its own rigid frame:
               8 part slots). Each run through the kernels and through the
               plain versions (-o model.use_kernels=false): the launch counts
-              (rows 3 and 5 only: the batch is padded, so the masked
-              branch; attention over fewer than 1024 keys takes the dense
-              route as in rap_tpu), each generation's points and rotations,
+              (the batch is padded: rows 1, 3 (masked) and 4 for each
+              attention over 1024 keys or more, the fused branch; fewer
+              take the unfused branch's dense route as in rap_tpu; row 5),
+              each generation's points and rotations,
               every part{i}_transform.txt where both runs kept the same
               generation (rotation 2e-2 abs, translation 2e-2 of the scene's
               extent), the registered PLYs read back with the originals'
@@ -186,7 +187,8 @@ Phases, each printed on its own flushed line with its wall time:
               sample 1 with 6 (two empty slots), part sizes uniform in
               [2500, 4096] from a seed. The model has rap_12's width and depth
               (12 layers, D=512, H=8), bf16, fp32 random masters, Muon, remat,
-              u-shaped timesteps. The batch takes the masked branch: online
+              u-shaped timesteps. The batch takes the fused branch with the
+              key mask: proj and out_proj (rows 1, 4 and 9) around online
               attention with the key mask, the fused backward with the mask
               for part attention and, past the 2 GiB dQ slab, the split
               backward for global attention. Checks: the launch counts of one
@@ -990,7 +992,7 @@ def run_kernels_ff(fails, state, gen, compare):
 
 
 def multiview_attention_inputs(gen, BH: int, T: int, d: int = DH):
-    """q, k, va as the masked branch hands them to the kernels: rows of norm
+    """q, k, va as the fused branch hands them to the masked kernels: rows of norm
     sqrt(dh) (qk-norm at unit gains), q pre-scaled by log2(e)/sqrt(dh)."""
     def rows(scale):
         x = torch.randn((BH, T, d), generator=gen, device="cuda")
@@ -1740,11 +1742,13 @@ def demo_argv(inp: Path, out: Path, extra, kernels: bool = True) -> list[str]:
 
 
 def demo_expected_launches(rec, extra=()) -> dict:
-    """Row 3 (masked online attention, each call whose key sequence is
-    >= 1024: part attention at N, global at P·N; shorter ones take the dense
-    route, as in rap_tpu) and row 5, per layer of every forward; the Kabsch
-    kernel for each generation's fits and, with ``--icp-refine`` in the
-    run's ``extra`` arguments, for each ICP iteration of each yaw start."""
+    """Rows 1, 3 (masked online attention) and 4, the fused branch, for each
+    attention call whose sequence is >= 1024 (part attention at N, global at
+    P·N; the demo's buckets are 128-aligned; shorter ones take the unfused
+    branch's dense route, as in rap_tpu) and row 5, per layer of every
+    forward; the Kabsch kernel for each generation's fits and, with
+    ``--icp-refine`` in the run's ``extra`` arguments, for each ICP
+    iteration of each yaw start."""
     from rap_tpu_torch.ops import KERNELS
 
     batch, cfg = rec["batch"], rec["config"]
@@ -1757,9 +1761,10 @@ def demo_expected_launches(rec, extra=()) -> dict:
         starts = (int(extra[extra.index("--icp-restarts") + 1])
                   if "--icp-restarts" in extra else 1)
         icp = DEMO_ICP_ITERS * max(starts, 1)
+    fused = L * forwards * ((Nb >= 1024) + (G * Nb >= 1024))
     expected = dict.fromkeys(KERNELS, 0)
-    expected.update(flash_online=L * forwards * ((Nb >= 1024) + (G * Nb >= 1024)),
-                    ff=L * forwards, kabsch=n_gen * kabsch_fits(cfg.pipeline, steps) + icp)
+    expected.update(proj=fused, flash_online=fused, out_proj=fused, ff=L * forwards,
+                    kabsch=n_gen * kabsch_fits(cfg.pipeline, steps) + icp)
     return expected
 
 
@@ -2479,8 +2484,9 @@ def run_multiview(report, fails, state):
     counts = launch_counts()
     L = MV_LAYERS
     expected = dict.fromkeys(counts, 0)
-    expected.update({"flash_online": 4 * L, "ff": 2 * L, "flash_bwd": L, "ff_bwd": L,
-                     "flash_bwd_dkv": L, "flash_bwd_dq": L})
+    expected.update({"proj": 4 * L, "flash_online": 4 * L, "out_proj": 4 * L, "ff": 2 * L,
+                     "proj_bwd": 2 * L, "flash_bwd": L, "ff_bwd": L, "flash_bwd_dkv": L,
+                     "flash_bwd_dq": L})
     log(f"  launches in one {L}-layer multiview step: {counts}")
     fails.check("multiview launch counts", counts == expected, f"expected {expected}")
     losses = []
@@ -2558,17 +2564,18 @@ def trainer_argv(data: Path, ckpt_dir: Path, *extra) -> list[str]:
 
 def trainer_expected(L: int, steps: int, pipeline) -> tuple[dict, dict]:
     """Launches of one trainer step on a padded 2 x 8 x 4096 batch (the
-    masked branch, remat: row 3 at part and global attention twice a layer,
-    row 5 twice, the fused backward for part attention and the split one for
-    global attention past the dQ slab, row 10) and of one validation pass
+    fused branch with masked attention, remat: rows 1, 3 and 4 at part and
+    global attention twice a layer, row 5 twice, row 9 at each, the fused
+    backward for part attention and the split one for global attention past
+    the dQ slab, row 10) and of one validation pass
     over the dense synth batch (the fused branch at each of ``steps``
     forwards: rows 1 and 4 twice a layer, row 2 or 3 twice, row 5 once, and
     the Kabsch kernel for the pass's fits)."""
     from rap_tpu_torch.ops import KERNELS
 
     step = dict.fromkeys(KERNELS, 0)
-    step.update(flash_online=4 * L, ff=2 * L, flash_bwd=L, ff_bwd=L, flash_bwd_dkv=L,
-                flash_bwd_dq=L)
+    step.update(proj=4 * L, flash_online=4 * L, out_proj=4 * L, ff=2 * L, proj_bwd=2 * L,
+                flash_bwd=L, ff_bwd=L, flash_bwd_dkv=L, flash_bwd_dq=L)
     val = dict.fromkeys(KERNELS, 0)
     val.update(proj=2 * L * steps, out_proj=2 * L * steps, ff=L * steps,
                kabsch=kabsch_fits(pipeline, steps))
@@ -2959,8 +2966,9 @@ def check_gradients(fails, what: str, res: dict) -> None:
 
 def multigpu_expected_step(L: int) -> dict:
     """Launches of one data-parallel step on a rank's 1 x 8 x 4096 shard of
-    the multiview batch (masked branch, remat): row 3 at part and global
-    attention twice a layer, row 5 twice, row 10 once; the fused backward
+    the multiview batch (the fused branch with masked attention, remat):
+    rows 1, 3 and 4 at part and global attention twice a layer, row 5 twice,
+    row 9 at each, row 10 once; the fused backward
     (row 6) for part attention, and for global attention (BH = 8, T = 32768)
     whatever the guard picks: its dQ slab is exactly 2 GiB, not past the
     cap, so row 6 again where the whole batch (BH = 16) takes rows 7-8."""
@@ -2970,7 +2978,8 @@ def multigpu_expected_step(L: int) -> dict:
     T = MV_P * MV_N
     split = fa.masked_backward_slab_bytes(H, T, T, DH) > fa._FUSED_DQ_PARTIALS_CAP
     want = dict.fromkeys(KERNELS, 0)
-    want.update(flash_online=4 * L, ff=2 * L, ff_bwd=L, flash_bwd=L + (0 if split else L),
+    want.update(proj=4 * L, flash_online=4 * L, out_proj=4 * L, ff=2 * L, proj_bwd=2 * L,
+                ff_bwd=L, flash_bwd=L + (0 if split else L),
                 flash_bwd_dkv=L if split else 0, flash_bwd_dq=L if split else 0)
     return want
 
@@ -3154,10 +3163,11 @@ def run_multigpu(report, fails, state):
         steps = demo_rec["config"].pipeline.inference_sampling_steps
         n_gen = len(gen["gen_ms"])
         want = {k: 0 for k in want_step}
-        want.update(flash_online=L * steps * n_gen, ff=L * steps * n_gen,
+        fused = L * steps * n_gen  # part attention: the fused branch (global: the ring)
+        want.update(proj=fused, flash_online=fused, out_proj=fused, ff=L * steps * n_gen,
                     kabsch=n_gen * kabsch_fits(demo_rec["config"].pipeline, steps))
-        fails.check(f"multigpu (b) rank {r}: demo launch counts (part attention, FF, "
-                    "the rank's Kabsch fits)", gen["launches"] == want,
+        fails.check(f"multigpu (b) rank {r}: demo launch counts (part attention's fused "
+                    "branch, FF, the rank's Kabsch fits)", gen["launches"] == want,
                     f"{nonzero(gen['launches'])} (expected {nonzero(want)})")
         ev = out["eval"]
         worst = max(abs(ev["results"][ds][k] - v) for ds, md in eval_one.items()
@@ -4025,8 +4035,9 @@ def counted(fn):
 def tools_rows(batch, training: bool) -> set:
     """The rows a path must launch on ``batch``: a dense batch takes the
     fused branch (rows 1, 2 or 3, 4, 5; in training also 6, 9, 10), a
-    padded one the masked branch (row 3 and 5; in training also 10 and the
-    attention backward, fused or split)."""
+    padded one at least row 3 (masked) and 5 (in training also 10 and the
+    attention backward, fused or split; rows 1, 4 and 9 where a sequence
+    passes the fused guard, which these small batches' need not)."""
     if batch.no_padding:
         rows = {"proj", "out_proj", "ff"} | ({"flash_bwd", "proj_bwd", "ff_bwd"}
                                               if training else set())

@@ -2,20 +2,28 @@
 
 Per layer: AdaLN part attention -> AdaLN global attention -> LayerNorm +
 GEGLU feed-forward, each with its residual. ``_attention_block`` has rap_tpu's
-two branches, chosen by its guard (dit.py:183-195) as on its accelerator:
-- the fused branch, for a dense batch (no mask) whose sequence is a multiple
-  of 128 and at least 1024 long (or ``attn_impl="pallas"``): five kernels,
-  proj (AdaLN + QKV + qk-norm), attention (fixed-bound or online softmax,
-  chosen per layer on the host from the qk-norm gains), out_proj
-  (+ residual) and ff (+ residual);
-- the unfused branch (dit.py:228-268) for everything else, padded batches
-  above all, and for a softcap or ``qk_norm=False``: AdaLN, plain linears,
-  per-head RMS qk-norm (with ``qk_norm``) and
+two branches, chosen by its guard (dit.py:183-195) as on its accelerator,
+except that a padded batch takes the fused branch too:
+- the fused branch, for a sequence that is a multiple of 128 and at least
+  1024 long (or ``attn_impl="pallas"``), with qk-norm, no softcap and no
+  ring mesh: five kernels, proj (AdaLN + QKV + qk-norm), attention, out_proj
+  (+ residual) and ff (+ residual). A dense batch takes the fixed-bound or
+  the online forward, chosen per layer on the host from the qk-norm gains;
+  a padded one the masked online forward on the same head-major operands,
+  with the int32 key masks built once a forward (``_key_masks``). proj and
+  out_proj work token by token, so the mask does not reach them. rap_tpu
+  keeps padded batches out of this branch because its fused attention has
+  no mask;
+- the unfused branch (dit.py:228-268) for unaligned or (under ``auto``)
+  short sequences, a softcap, ``qk_norm=False`` and ring global attention:
+  AdaLN, plain linears, per-head RMS qk-norm (with ``qk_norm``) and
   ``ops.attention.batched_attention`` with the point mask (flash kernels for
   sequences of 1024 keys or more, dense or chunked attention below; a
   softcap takes their softcap variants). A dense batch with qk-norm passes
   the exact logit bound of its gains; without qk-norm the flash route
   bounds the logits from the row norms.
+Each attention sub-block bumps the counter of its branch, ``dit.fused`` or
+``dit.unfused``.
 The feed-forward takes its kernel where rap_tpu's ``legal`` rule holds. The
 encoding (NeRF PE, anchor embedding, optional latent) runs in fp32 and is
 cast to the compute dtype; the per-part timestep sinusoid and the AdaLN MLPs
@@ -261,19 +269,34 @@ def _rms_qk(x, gamma):
     return (n * gamma.float() * math.sqrt(x.shape[-1])).to(x.dtype)
 
 
-def _fused_ok(cfg: DiTConfig, mask, seq_len: int) -> bool:
-    """rap_tpu's guard of the fused branch (dit.py:183-195) on its
-    accelerator: a dense batch, qk-norm, no softcap, 128-aligned sequences."""
+def _fused_ok(cfg: DiTConfig, seq_len: int) -> bool:
+    """The guard of the fused branch: rap_tpu's (dit.py:183-195) on its
+    accelerator without its ``mask is None``: qk-norm, no softcap,
+    128-aligned sequences."""
     D, dh = cfg.embed_dim, cfg.head_dim
-    return (mask is None and cfg.qk_norm and cfg.softcap == 0.0
+    return (cfg.qk_norm and cfg.softcap == 0.0
             and cfg.attn_impl in ("auto", "pallas")
             and (seq_len >= 1024 or cfg.attn_impl == "pallas")
             and seq_len % 128 == 0 and D % 128 == 0 and dh % 8 == 0 and dh < 128)
 
 
-def _attention_block(lp, prefix, x, t_emb, mask, cfg: DiTConfig, S: int, P: int,
+def _key_masks(cfg: DiTConfig, mask, S: int, P: int, ring: bool):
+    """The fused branch's int32 key masks of a padded batch, built once a
+    forward (``flash_attention.key_mask``): part attention's (G, N) and
+    global attention's (S, P·N), each None where that attention takes the
+    unfused branch (the guard refuses its sequence, or ``ring``)."""
+    N = mask.shape[1]
+    part = flash_attention.key_mask(mask) if _fused_ok(cfg, N) else None
+    glob = (flash_attention.key_mask(mask.reshape(S, P * N))
+            if not ring and _fused_ok(cfg, P * N) else None)
+    return part, glob
+
+
+def _attention_block(lp, prefix, x, t_emb, mask, key_mask, cfg: DiTConfig, S: int, P: int,
                      is_global: bool, bound2, ring_mesh=None):
-    """x + AdaLN-prenorm attention sub-block (dit.py:177-268). ``bound2``:
+    """x + AdaLN-prenorm attention sub-block (dit.py:177-268). ``mask``: the
+    point mask (G, N) of a padded batch, None for a dense one; ``key_mask``:
+    its int32 key mask for the fused branch (``_key_masks``). ``bound2``:
     the host guard bound of a dense batch, None for a padded one.
     ``ring_mesh``: global attention over the ranks' shards (the module
     docstring)."""
@@ -281,23 +304,28 @@ def _attention_block(lp, prefix, x, t_emb, mask, cfg: DiTConfig, S: int, P: int,
     H, dh = cfg.num_heads, cfg.head_dim
     kernels = cfg.use_kernels
     seq = P * N if is_global else N
-    if ring_mesh is None and _fused_ok(cfg, mask, seq):
+    if ring_mesh is None and _fused_ok(cfg, seq):
+        telemetry.bump("dit.fused")
         ada = _adaln_mlp(lp[f"{prefix}_prenorm"], t_emb)  # (G, 2D)
         qh5, kh5, vah5 = fused_proj.adaln_qkv(
             x, ada, lp[f"{prefix}_qkv"]["kernel"], lp[f"{prefix}_q_gamma"],
             lp[f"{prefix}_k_gamma"], P=P, is_global=is_global, kernels=kernels,
         )
         B = S if is_global else G
-        out_hm = flash_attention.flash_attention_headmajor(
-            qh5.reshape(B * H, seq, dh), kh5.reshape(B * H, seq, dh),
-            vah5.reshape(B * H, seq, dh + 1), bound2, kernels=kernels,
-        )
+        qh, kh, vah = (a.reshape(B * H, seq, -1) for a in (qh5, kh5, vah5))
+        if mask is None:
+            out_hm = flash_attention.flash_attention_headmajor(qh, kh, vah, bound2,
+                                                               kernels=kernels)
+        else:  # the key mask is shared by the H heads of a batch row
+            out_hm = flash_attention.masked_attention_headmajor(qh, kh, vah, key_mask, H,
+                                                                kernels=kernels)
         return fused_proj.attn_out(
             out_hm.reshape(qh5.shape), x, lp[f"{prefix}_out"]["kernel"],
             lp[f"{prefix}_out"]["bias"], P=P, is_global=is_global, kernels=kernels,
         )
 
     # the unfused branch (dit.py:228-268): XLA linears and batched_attention
+    telemetry.bump("dit.unfused")
     h = _adaln(lp[f"{prefix}_prenorm"], x, t_emb)
     q, k, v = _linear(lp[f"{prefix}_qkv"], h).reshape(G, N, 3, H, dh).unbind(2)
     logit_bound = None
@@ -360,10 +388,12 @@ def dropout_ff(lp, x, rate: float, keep):
 
 
 @telemetry.spanned("rap.dit.layer")
-def _layer(h, lp, t_emb, mask, cfg: DiTConfig, S: int, P: int, bounds, dropout=None,
-           ring_mesh=None):
-    h = _attention_block(lp, "self", h, t_emb, mask, cfg, S, P, False, bounds[0])
-    h = _attention_block(lp, "global", h, t_emb, mask, cfg, S, P, True, bounds[1], ring_mesh)
+def _layer(h, lp, t_emb, mask, key_masks, cfg: DiTConfig, S: int, P: int, bounds,
+           dropout=None, ring_mesh=None):
+    h = _attention_block(lp, "self", h, t_emb, mask, key_masks[0], cfg, S, P, False,
+                         bounds[0])
+    h = _attention_block(lp, "global", h, t_emb, mask, key_masks[1], cfg, S, P, True,
+                         bounds[1], ring_mesh)
     return _geglu_ff(lp, h, cfg, dropout)
 
 
@@ -386,7 +416,8 @@ def dit_forward(
     fp32 with ``return_features``].
 
     Requires the regular layout (G == S * P). A batch with padding runs with
-    its point mask (the unfused branch); a dense one without a mask.
+    its point mask (the fused branch's masked attention where the guard
+    admits the sequence, else the unfused branch); a dense one without.
     ``bounds``: (self, global) guard bound per layer of a dense batch; None
     takes the ones attached at load (serving); a padded batch needs none.
     ``remat``: recompute each layer's forward in the backward instead of
@@ -426,17 +457,19 @@ def dit_forward(
         batch.per_sample_to_part(timesteps), cfg.time_embed_channels
     )
 
+    key_masks = (None, None)
     if mask is not None:
+        key_masks = _key_masks(cfg, mask, S, P, ring_mesh is not None)
         bounds = [(None, None)] * len(params["layers"])
     elif bounds is None:
         bounds = [(lp["self_bound2"], lp["global_bound2"]) for lp in params["layers"]]
     drops = [None] * len(params["layers"]) if dropout is None else dropout
     for lp, b, d in zip(params["layers"], bounds, drops, strict=True):
         if remat and torch.is_grad_enabled():
-            h = checkpoint(_layer, h, lp, t_emb, mask, cfg, S, P, b, d, ring_mesh,
+            h = checkpoint(_layer, h, lp, t_emb, mask, key_masks, cfg, S, P, b, d, ring_mesh,
                            use_reentrant=False)
         else:
-            h = _layer(h, lp, t_emb, mask, cfg, S, P, b, d, ring_mesh)
+            h = _layer(h, lp, t_emb, mask, key_masks, cfg, S, P, b, d, ring_mesh)
 
     # ---- fp32 head ----------------------------------------------------------
     hf = h.float()

@@ -1,6 +1,6 @@
 """Flash attention on pre-scaled tensors, forward and backward.
 
-Counterpart of rap_tpu/ops/pallas_attention.py. Two entry points:
+Counterpart of rap_tpu/ops/pallas_attention.py. Three entry points:
 
 - ``flash_attention_headmajor`` (:338), the no-padding path of the fused DiT
   branch, and its guard ``_fwd_full_or_online`` (:272): q arrives pre-scaled
@@ -14,6 +14,10 @@ Counterpart of rap_tpu/ops/pallas_attention.py. Two entry points:
   lengths, it takes the no-padding path above; otherwise it pre-scales q,
   pads queries and keys to rap_tpu's blocks (padded keys masked) and runs
   the online variant with the key mask (``_flash_hm``, :722-768).
+- ``masked_attention_headmajor``, that masked path on head-major operands:
+  the fused DiT branch of a padded batch, whose q, k and va arrive
+  pre-scaled and head-major from the proj kernel, with the int32 key mask
+  (``key_mask``) that the forward builds once for all layers.
 
 Forward kernels: csrc/attention.cu (TPU ``_flash_fwd_full_kernel`` :188 and
 ``_flash_fwd_kernel`` :91). Backward kernels, dispatched as ``_bwd_impl``
@@ -301,8 +305,7 @@ def masked_backward_slab_bytes(BH: int, Tq: int, Tk: int, d: int) -> int:
     to 128, the sequences padded to them, and a kv block of the largest
     128-multiple divisor of the key block within 1024. The padded lengths
     give the same blocks, so Tq, Tk may be either."""
-    block_q = min(1024, _round_up(Tq, 128))
-    block_k = min(2048, _round_up(Tk, 128))
+    block_q, block_k = _query_block(Tq), _key_block(Tk)
     bk = _divisor_cap(block_k, 1024)
     Tqp, Tkp = _round_up(Tq, block_q), _round_up(Tk, block_k)
     return BH * (Tkp // bk) * Tqp * d * 4
@@ -642,6 +645,43 @@ class _MaskedFlashAttention(torch.autograd.Function):
         return dq, dk, F.pad(dv, (0, 1)), None, None, None, None
 
 
+def _query_block(Tq: int) -> int:
+    """The masked path's query block (:855-876): min(1024, Tq) rounded up to 128."""
+    return min(1024, _round_up(Tq, 128))
+
+
+def _key_block(Tk: int) -> int:
+    """Its key block: min(2048, Tk) rounded up to 128."""
+    return min(2048, _round_up(Tk, 128))
+
+
+def key_mask(kv_mask):
+    """(B, Tk) bool key mask -> the masked path's int32 mask (B, Tk + pk),
+    the keys padded to its key block invalid."""
+    Tk = kv_mask.shape[1]
+    return F.pad(kv_mask.to(torch.int32), (0, (-Tk) % _key_block(Tk)))
+
+
+def masked_attention_headmajor(qh, kh, vah, mask, heads: int, kernels: bool = True,
+                               softcap: float = 0.0):
+    """Masked attention on (BH, Tq, d) pre-scaled q, k (BH, Tk, d) and
+    ones-augmented va (BH, Tk, d+1); ``mask`` the int32 key mask of
+    ``key_mask`` (BH/heads, Tk + pk), shared by ``heads`` heads. Pads q to
+    the query block and k, va to the key block (padded keys: v = 0, ones
+    column 1), runs the online forward with the mask and returns out
+    (BH, Tq, d). Differentiable."""
+    Tq, Tk, d = qh.shape[1], kh.shape[1], qh.shape[2]
+    pq, pk = (-Tq) % _query_block(Tq), (-Tk) % _key_block(Tk)
+    if pq:
+        qh = F.pad(qh, (0, 0, 0, pq))
+    if pk:
+        kh = F.pad(kh, (0, 0, 0, pk))
+        vah = torch.cat([F.pad(vah[..., :d], (0, 0, 0, pk)),
+                         F.pad(vah[..., d:], (0, 0, 0, pk), value=1.0)], dim=-1)
+    out = _MaskedFlashAttention.apply(qh, kh, vah, mask, heads, kernels, float(softcap))
+    return out[:, :Tq] if pq else out
+
+
 def _head_major(a, B: int, H: int, T: int, d: int):
     return a.transpose(1, 2).reshape(B * H, T, d).contiguous()
 
@@ -686,12 +726,6 @@ def flash_attention(q, k, v, kv_mask=None, scale: float | None = None,
 
     if kv_mask is None:
         kv_mask = torch.ones((B, Tk), dtype=torch.bool, device=q.device)
-    block_q = min(1024, _round_up(Tq, 128))
-    block_k = min(2048, _round_up(Tk, 128))
-    pq, pk = (-Tq) % block_q, (-Tk) % block_k
-    qh = F.pad(qh, (0, 0, 0, pq))
-    kh = F.pad(kh, (0, 0, 0, pk))
-    vah = F.pad(F.pad(vh, (0, 0, 0, pk)), (0, 1), value=1.0)
-    mask = F.pad(kv_mask.to(torch.int32), (0, pk))
-    out = _MaskedFlashAttention.apply(qh, kh, vah, mask, H, kernels, float(softcap))
-    return out[:, :Tq].reshape(B, H, Tq, d).transpose(1, 2)
+    out = masked_attention_headmajor(qh, kh, F.pad(vh, (0, 1), value=1.0), key_mask(kv_mask),
+                                     H, kernels, softcap)
+    return out.reshape(B, H, Tq, d).transpose(1, 2)

@@ -26,6 +26,9 @@ Counters are plain integers, always on, bumped where the decision is taken:
   the fixed-bound forward (row 2) or the online one (row 3);
   ``attn.masked``: the online forward with a key mask; ``attn.dense``:
   dense or chunked attention (under 1024 keys);
+- ``dit.fused`` / ``dit.unfused``: one attention sub-block of ``dit_forward``
+  took the fused branch (rows 1 and 4 around the attention, padded batch or
+  not) or the unfused one (``models.dit._fused_ok``);
 - ``sync.svd``: ``torch.linalg.svd`` in ``kabsch_masked``, which runs on
   the CPU only: a fit on the card launches csrc/kabsch.cu (``launch.kabsch``)
   or, under a gradient, the sync-free ``svd3``, so the counter reads 0 there
@@ -57,8 +60,9 @@ from torch.profiler import record_function
 _profiling = torch._C._autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
 
-COUNTERS = ("attn.fixed", "attn.online", "attn.masked", "attn.dense", "sync.svd",
-            "sync.bounds", "sync.eval", "pack.slots", "pack.points")
+COUNTERS = ("attn.fixed", "attn.online", "attn.masked", "attn.dense", "dit.fused",
+            "dit.unfused", "sync.svd", "sync.bounds", "sync.eval", "pack.slots",
+            "pack.points")
 _counts: dict[str, int] = dict.fromkeys(COUNTERS, 0)
 _profiled: dict[str, int] = {}
 _was_profiling = False

@@ -163,6 +163,44 @@ def test_dit_forward_kernels_match_plain_at_head_width_96(gen):
                                               attn_impl="pallas"))
 
 
+def test_padded_dit_forward_fused_branch_matches_unfused(gen, monkeypatch):
+    """A padded (2, 4, 4096) batch at rap_10's widths (D = 512, H = 8, FF
+    2048; 2 layers): dit_forward takes the fused branch (rows 1 and 4 around
+    the masked online forward) and, with the guard patched to refuse every
+    sequence, the unfused one (AdaLN, linears and qk-norm in PyTorch around
+    the same masked forward). The valid rows agree within the bf16 rule of
+    ``_dit_forward_matches_plain``; the launch counts show each route."""
+    from rap_tpu_torch import telemetry
+    from rap_tpu_torch.core.batch import make_regular_synthetic_batch
+    from rap_tpu_torch.models import dit
+    from rap_tpu_torch.models.config import DiTConfig
+
+    cfg = DiTConfig(num_layers=2)
+    params = dit.init_dit_params(0, cfg)
+    Sb, Pb, Nb = 2, 4, 4096
+    batch = make_regular_synthetic_batch(1, [[4096, 3000, 2600, 3500], [4000, 2700, 3300]],
+                                         N=Nb, P=Pb, S=Sb)
+    assert not batch.no_padding
+    x = torch.randn((Sb * Pb, Nb, 3), generator=gen, device="cuda")
+    ts = torch.tensor([0.3, 0.8], device="cuda")
+    out = {}
+    for route in ("fused", "unfused"):
+        if route == "unfused":
+            monkeypatch.setattr(dit, "_fused_ok", lambda cfg, seq_len: False)
+        reset_launches()
+        with telemetry.counted("dit.") as routes:
+            out[route] = dit.dit_forward(params, cfg, x, ts, batch, Pb)
+        torch.cuda.synchronize()
+        assert routes == {route: 4, ("unfused" if route == "fused" else "fused"): 0}
+        rows = dict(proj=4, out_proj=4) if route == "fused" else {}
+        assert launch_counts() == _counts(flash_online=4, ff=2, **rows), route
+    valid = batch.point_mask[..., None]
+    v_f, v_u = out["fused"] * valid, out["unfused"] * valid
+    assert torch.isfinite(v_f).all()
+    err = float((v_f - v_u).abs().max())
+    assert err <= 5e-2 * float(v_u.abs().max()), err
+
+
 def test_training_at_head_width_32_runs_through_every_kernel(gen):
     """Training a D = 512, 16-head model (dh = 32): training_forward +
     autograd through every kernel, the proj backward (row 9) among them

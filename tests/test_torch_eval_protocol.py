@@ -198,12 +198,14 @@ def test_the_cell_runs_one_tiny_epoch_on_the_cpu(trace):
         "translation", "points_median", "poses_median"}
     if trace:
         listed = {m["name"] for m in spec["per_layer"] if CELL in m.get("workloads", [])}
-        assert len(listed) == 7 and all(n.endswith(".eval") for n in listed)
+        assert len(listed) == 8 and all(n.endswith(".eval") for n in listed)
         # the CPU runs no device operation: the device-trace shares but idle read nothing
         assert set(result["metrics"]) == listed - {"attn_roofline.eval", "glue_pct.eval"}
         assert result["metrics"]["idle_pct.eval"]["value"] == 100.0
         assert 0.0 < result["metrics"]["padding_pct.eval"]["value"] < 100.0
         assert result["metrics"]["host_syncs.eval"]["value"] >= 3 * 3
+        # D = 64 fails the fused guard's D % 128: every sub-block unfused
+        assert result["metrics"]["fused_pct.eval"]["value"] == 0.0
     else:
         assert set(result["metrics"]) == {"points_per_s", "setup_s"}
         assert all(v["value"] > 0 for v in result["metrics"].values())
