@@ -764,7 +764,7 @@ def run_kernels(report, fails, state):
         tag = "global" if is_global else "part"
         args = (inp["x"], inp["ada"], inp["w_qkv"], inp["gq"], inp["gk"], P, is_global)
         got, again = fp.adaln_qkv(*args), fp.adaln_qkv(*args)
-        for nm, g_, r_ in zip(("q", "k", "va"), got, fp.adaln_qkv_plain(*args)):
+        for nm, g_, r_ in zip(("q", "k", "v"), got, fp.adaln_qkv_plain(*args)):
             compare("proj", f"proj[{tag}].{nm}", g_, r_)
         fails.check(f"proj[{tag}]: bitwise equal on two calls",
                     all(torch.equal(a, b) for a, b in zip(got, again)))
@@ -773,16 +773,16 @@ def run_kernels(report, fails, state):
         T = P * N if is_global else N
         qh = got[0].reshape(B * H, T, DH)
         kh = got[1].reshape(B * H, T, DH)
-        vah = got[2].reshape(B * H, T, DH + 1)
+        vh = got[2].reshape(B * H, T, DH)
         b2 = float(np.log2(np.e) * np.sqrt(DH)
                    * inp["gq"].abs().max().item() * inp["gk"].abs().max().item())
-        state["attn"][tag] = (qh, kh, vah, got, b2)
-        o_k, l_k = fa.flash_fixed(qh, kh, vah, b2)
-        o_p, l_p = fa.flash_fixed_plain(qh, kh, vah, b2)
+        state["attn"][tag] = (qh, kh, vh, got, b2)
+        o_k, l_k = fa.flash_fixed(qh, kh, vh, b2)
+        o_p, l_p = fa.flash_fixed_plain(qh, kh, vh, b2)
         compare("flash_fixed", f"flash_fixed[{tag}].out", o_k, o_p)
         compare_lse(f"flash_fixed[{tag}].lse2", l_k, l_p)
-        o_k, l_k = fa.flash_online(qh, kh, vah)
-        o_p, l_p = fa.flash_online_plain(qh, kh, vah)
+        o_k, l_k = fa.flash_online(qh, kh, vh)
+        o_p, l_p = fa.flash_online_plain(qh, kh, vh)
         compare("flash_online", f"flash_online[{tag}].out", o_k, o_p)
         compare_lse(f"flash_online[{tag}].lse2", l_k, l_p)
 
@@ -793,11 +793,11 @@ def run_kernels(report, fails, state):
 
     # online variant with a random key mask (one batch row fully masked, so
     # the empty-row rule is exercised too)
-    qh, kh, vah, _, _ = state["attn"]["global"]
+    qh, kh, vh, _, _ = state["attn"]["global"]
     mask = torch.rand((S, P * N), generator=gen, device="cuda") > 0.3
     mask[1] = False
-    o_k, l_k = fa.flash_online(qh, kh, vah, mask, heads=H)
-    o_p, l_p = fa.flash_online_plain(qh, kh, vah, mask, heads=H)
+    o_k, l_k = fa.flash_online(qh, kh, vh, mask, heads=H)
+    o_p, l_p = fa.flash_online_plain(qh, kh, vh, mask, heads=H)
     compare("flash_online", "flash_online[global,masked].out", o_k, o_p)
     empty = slice(H, 2 * H)
     fails.check("flash_online[global,masked] empty rows",
@@ -816,15 +816,15 @@ def run_kernels(report, fails, state):
 
     state["attn_bwd"] = {}
     for tag in ("part", "global"):
-        qh, kh, vah, _, b2 = state["attn"][tag]
+        qh, kh, vh, _, b2 = state["attn"][tag]
         dout = randn(*qh.shape)
         for variant in ("fixed", "online"):
             if variant == "fixed":
-                out, lse = fa.flash_fixed_kernel(qh, kh, vah, b2)
+                out, lse = fa.flash_fixed_kernel(qh, kh, vh, b2)
             else:
-                out, lse = fa.flash_online_kernel(qh, kh, vah)
-            got = fa.flash_bwd(qh, kh, vah, out, lse, dout)
-            ref = fa.flash_bwd_plain(qh, kh, vah, out, lse, dout)
+                out, lse = fa.flash_online_kernel(qh, kh, vh)
+            got = fa.flash_bwd(qh, kh, vh, out, lse, dout)
+            ref = fa.flash_bwd_plain(qh, kh, vh, out, lse, dout)
             for nm, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
                 compare("flash_bwd", f"flash_bwd[{tag},{variant}].{nm}", g_, r_)
             state["attn_bwd"][tag, variant] = (out, lse, dout)
@@ -834,10 +834,8 @@ def run_kernels(report, fails, state):
     for is_global in (False, True):
         tag = "global" if is_global else "part"
         lead = (S, H, P, N) if is_global else (S * P, H, N)
-        dva = randn(*lead, DH + 1)
-        dva[..., DH] = 0  # the attention backward's cotangent of the ones column
         args = (inp["x"], inp["ada"], inp["w_qkv"], gq_eff, gk_eff, randn(*lead, DH),
-                randn(*lead, DH), dva, P, is_global)
+                randn(*lead, DH), randn(*lead, DH), P, is_global)
         compare_proj_bwd(fails, compare, f"proj_bwd[{tag}]", args)
         state["proj_bwd_args"][tag] = args
 
@@ -919,7 +917,7 @@ def run_kernels_proj(fails, gen, compare):
             tag = f"{label}, {'global' if is_global else 'part'}"
             args = (x, ada, w, gq_eff, gk_eff, P_, is_global)
             got, again = fp.proj_kernel(*args), fp.proj_kernel(*args)
-            for nm, g_, r_ in zip(("q", "k", "va"), got, fp.proj_plain(*args)):
+            for nm, g_, r_ in zip(("q", "k", "v"), got, fp.proj_plain(*args)):
                 compare("proj", f"proj[{tag}].{nm}", g_, r_)
             fails.check(f"proj[{tag}]: bitwise equal on two calls",
                         all(torch.equal(a, b) for a, b in zip(got, again)))
@@ -927,8 +925,8 @@ def run_kernels_proj(fails, gen, compare):
             out_args = (a5, x, w_out, b_out, P_, is_global)
             compare("out_proj", f"out_proj[{tag}]", fp.out_kernel(*out_args),
                     fp.out_plain(*out_args))
-            dva = torch.randn(got[2].shape, generator=gen, device="cuda").to(torch.bfloat16)
-            cot = (a5, torch.randn(a5.shape, generator=gen, device="cuda").to(torch.bfloat16), dva)
+            dv = torch.randn(got[2].shape, generator=gen, device="cuda").to(torch.bfloat16)
+            cot = (a5, torch.randn(a5.shape, generator=gen, device="cuda").to(torch.bfloat16), dv)
             compare_proj_bwd(fails, compare, f"proj_bwd[{tag}]",
                              (x, ada, w, gq_eff, gk_eff, *cot, P_, is_global))
 
@@ -941,7 +939,7 @@ def run_kernels_proj(fails, gen, compare):
     out = fp.attn_out(got[0], x, w_out, b_out, P_, False)
     torch.cuda.synchronize()
     fails.check(f"{label}: the entry points launch nothing", sum(launch_counts().values()) == 0)
-    for nm, g_, r_ in zip(("q", "k", "va"), got,
+    for nm, g_, r_ in zip(("q", "k", "v"), got,
                           fp.proj_plain(x, ada, w, gq_eff, gk_eff, P_, False)):
         fails.compare(f"{label}: adaln_qkv.{nm} vs the kernel's twin", g_, r_)
     fails.compare(f"{label}: attn_out vs the kernel's twin", out,
@@ -992,15 +990,14 @@ def run_kernels_ff(fails, state, gen, compare):
 
 
 def multiview_attention_inputs(gen, BH: int, T: int, d: int = DH):
-    """q, k, va as the fused branch hands them to the masked kernels: rows of norm
+    """q, k, v as the fused branch hands them to the masked kernels: rows of norm
     sqrt(dh) (qk-norm at unit gains), q pre-scaled by log2(e)/sqrt(dh)."""
     def rows(scale):
         x = torch.randn((BH, T, d), generator=gen, device="cuda")
         return (x / x.norm(dim=-1, keepdim=True) * scale).to(torch.bfloat16)
 
     v = torch.randn((BH, T, d), generator=gen, device="cuda").to(torch.bfloat16)
-    va = torch.cat([v, torch.ones((BH, T, 1), dtype=torch.bfloat16, device="cuda")], -1)
-    return rows(np.log2(np.e)), rows(np.sqrt(d)), va.contiguous()
+    return rows(np.log2(np.e)), rows(np.sqrt(d)), v
 
 
 def run_kernels_multiview(fails, state, gen, compare):
@@ -1015,15 +1012,15 @@ def run_kernels_multiview(fails, state, gen, compare):
 
     # global attention: BH = 2 x 8, T = 8 x 4096; past the 2 GiB slab
     BH, T = MV_S * H, MV_P * MV_N
-    qh, kh, vah = multiview_attention_inputs(gen, BH, T)
+    qh, kh, vh = multiview_attention_inputs(gen, BH, T)
     dout = randn(BH, T, DH)
     for tag, mask in (("masked", global_mask), ("unmasked", None)):
-        out, lse = fa.flash_online(qh, kh, vah, mask, heads=H)
+        out, lse = fa.flash_online(qh, kh, vh, mask, heads=H)
         if mask is not None:
             compare("flash_online_masked", "flash_online[multiview global,masked].out", out,
-                    fa.flash_online_plain(qh, kh, vah, mask, H)[0])
-        doa = fa.augment_do(dout, out).contiguous()
-        args = (qh, kh, vah, doa, lse, mask, H)
+                    fa.flash_online_plain(qh, kh, vh, mask, H)[0])
+        nd = fa._neg_delta(dout, out)
+        args = (qh, kh, vh, dout, nd, lse, mask, H)
         dk, dv = fa.flash_bwd_dkv(*args)
         dq = fa.flash_bwd_dq(*args)
         rk, rv = fa.flash_bwd_dkv_plain(*args)
@@ -1036,22 +1033,22 @@ def run_kernels_multiview(fails, state, gen, compare):
                     torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2))
         # the fused backward needs no slab here: a second witness
         for nm, g_, r_ in zip(("dq", "dk", "dv"),
-                              fa.flash_bwd(qh, kh, vah, out, lse, dout, mask, H),
+                              fa.flash_bwd(qh, kh, vh, out, lse, dout, mask, H),
                               (dq, dk, dv)):
             compare("flash_bwd_masked" if mask is not None else "flash_bwd",
                     f"flash_bwd[global,{tag}].{nm} vs split", g_, r_)
         if mask is not None:
-            state["mv_attn"]["global"] = (qh, kh, vah, mask, out, lse, dout, doa)
+            state["mv_attn"]["global"] = (qh, kh, vh, mask, out, lse, dout, nd)
 
     # part attention: BH = 16 x 8, T = 4096, two empty part slots
     BH, T = MV_S * MV_P * H, MV_N
-    qh, kh, vah = multiview_attention_inputs(gen, BH, T)
+    qh, kh, vh = multiview_attention_inputs(gen, BH, T)
     dout = randn(BH, T, DH)
-    out, lse = fa.flash_online(qh, kh, vah, part_mask, heads=H)
+    out, lse = fa.flash_online(qh, kh, vh, part_mask, heads=H)
     compare("flash_online_masked", "flash_online[multiview part,masked].out", out,
-            fa.flash_online_plain(qh, kh, vah, part_mask, H)[0])
-    got = fa.flash_bwd(qh, kh, vah, out, lse, dout, part_mask, H)
-    ref = fa.flash_bwd_plain(qh, kh, vah, out, lse, dout, part_mask, H)
+            fa.flash_online_plain(qh, kh, vh, part_mask, H)[0])
+    got = fa.flash_bwd(qh, kh, vh, out, lse, dout, part_mask, H)
+    ref = fa.flash_bwd_plain(qh, kh, vh, out, lse, dout, part_mask, H)
     for nm, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
         compare("flash_bwd_masked", f"flash_bwd[part,masked].{nm}", g_, r_)
     empty = (part_mask.sum(1) == 0).repeat_interleave(H)
@@ -1062,7 +1059,7 @@ def run_kernels_multiview(fails, state, gen, compare):
                 f"{int(empty.sum()) // H} empty slots")
     fails.check("flash_bwd[part,masked] masked keys: zero dk, dv",
                 not bool(got[1][masked_keys].any()) and not bool(got[2][masked_keys].any()))
-    state["mv_attn"]["part"] = (qh, kh, vah, part_mask, out, lse, dout)
+    state["mv_attn"]["part"] = (qh, kh, vh, part_mask, out, lse, dout)
 
 
 def sample_overrides(ckpt, softcap: float, kernels: bool = True) -> list[str]:
@@ -1101,7 +1098,7 @@ def sample_attention_shapes() -> dict[str, tuple[int, int]]:
 
 def softcap_attention_inputs(gen, BH: int, T: int, softcap: float, gain: float = 3.0,
                              d: int = DH):
-    """q, k, va as the unfused branch hands them to the softcap kernels:
+    """q, k, v as the unfused branch hands them to the softcap kernels:
     qk-norm rows at gain ``gain`` (norm gain·sqrt(dh)), q pre-scaled by
     scale/c, so |q·k| <= gain²·sqrt(dh)/c and the cap bites."""
     def rows(norm):
@@ -1109,8 +1106,7 @@ def softcap_attention_inputs(gen, BH: int, T: int, softcap: float, gain: float =
         return (x / x.norm(dim=-1, keepdim=True) * norm).to(torch.bfloat16)
 
     v = torch.randn((BH, T, d), generator=gen, device="cuda").to(torch.bfloat16)
-    va = torch.cat([v, torch.ones((BH, T, 1), dtype=torch.bfloat16, device="cuda")], -1)
-    return rows(gain / softcap), rows(gain * np.sqrt(d)), va.contiguous()
+    return rows(gain / softcap), rows(gain * np.sqrt(d)), v
 
 
 def run_kernels_softcap(fails, state, gen, compare, compare_lse):
@@ -1124,39 +1120,39 @@ def run_kernels_softcap(fails, state, gen, compare, compare_lse):
     sc = state["softcap"] = {}
     for tag, (BH, T) in shapes.items():
         for c in (5.0, 50.0):
-            qh, kh, vah = softcap_attention_inputs(gen, BH, T, c)
+            qh, kh, vh = softcap_attention_inputs(gen, BH, T, c)
             b2 = fa._cap2(c)
             if b2 <= fa.SAFE_BOUND2:
                 name = "flash_fixed_softcap"
-                got, ref = (fa.flash_fixed(qh, kh, vah, b2, c),
-                            fa.flash_fixed_plain(qh, kh, vah, b2, c))
+                got, ref = (fa.flash_fixed(qh, kh, vh, b2, c),
+                            fa.flash_fixed_plain(qh, kh, vh, b2, c))
             else:
                 name = "flash_online_softcap"
-                got, ref = (fa.flash_online(qh, kh, vah, None, 1, c),
-                            fa.flash_online_plain(qh, kh, vah, None, 1, c))
+                got, ref = (fa.flash_online(qh, kh, vh, None, 1, c),
+                            fa.flash_online_plain(qh, kh, vh, None, 1, c))
             compare(f"{name}@{c:g}", f"{name}[sample {tag}, c={c:g}].out", got[0], ref[0])
             compare_lse(f"{name}[sample {tag}, c={c:g}].lse2", got[1], ref[1])
-            sc["sample", tag, c] = (qh, kh, vah)
+            sc["sample", tag, c] = (qh, kh, vh)
 
     part_mask, global_mask = multiview_masks(multiview_parts())
     for tag, BH, T, mask in (("part", MV_S * MV_P * H, MV_N, part_mask),
                              ("global", MV_S * H, MV_P * MV_N, global_mask)):
         for c in (5.0, 50.0):
-            qh, kh, vah = softcap_attention_inputs(gen, BH, T, c)
+            qh, kh, vh = softcap_attention_inputs(gen, BH, T, c)
             dout = torch.randn((BH, T, DH), generator=gen, device="cuda").to(torch.bfloat16)
-            out, lse = fa.flash_online(qh, kh, vah, mask, H, c)
+            out, lse = fa.flash_online(qh, kh, vh, mask, H, c)
             compare(f"flash_online_softcap@{c:g}/mv",
                     f"flash_online_softcap[multiview {tag}, c={c:g}].out", out,
-                    fa.flash_online_plain(qh, kh, vah, mask, H, c)[0])
-            doa = fa.augment_do(dout, out).contiguous()
+                    fa.flash_online_plain(qh, kh, vh, mask, H, c)[0])
+            nd = fa._neg_delta(dout, out)
             if tag == "part":  # the fused backward, masked (row 6)
-                got = fa.flash_bwd(qh, kh, vah, out, lse, dout, mask, H, c)
-                ref = fa.flash_bwd_plain(qh, kh, vah, out, lse, dout, mask, H, c)
+                got = fa.flash_bwd(qh, kh, vh, out, lse, dout, mask, H, c)
+                ref = fa.flash_bwd_plain(qh, kh, vh, out, lse, dout, mask, H, c)
                 for nm, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
                     compare(f"flash_bwd_softcap@{c:g}",
                             f"flash_bwd_softcap[multiview part, c={c:g}].{nm}", g_, r_)
             else:  # the split backward (rows 7-8)
-                args = (qh, kh, vah, doa, lse, mask, H)
+                args = (qh, kh, vh, dout, nd, lse, mask, H)
                 dk, dv = fa.flash_bwd_dkv(*args, c)
                 dq = fa.flash_bwd_dq(*args, c)
                 rk, rv = fa.flash_bwd_dkv_plain(*args, c)
@@ -1171,7 +1167,7 @@ def run_kernels_softcap(fails, state, gen, compare, compare_lse):
                             torch.equal(dq, fa.flash_bwd_dq(*args, c))
                             and all(torch.equal(a, b) for a, b in
                                     zip((dk, dv), fa.flash_bwd_dkv(*args, c))))
-            sc["mv", tag, c] = (qh, kh, vah, mask, out, lse, dout, doa)
+            sc["mv", tag, c] = (qh, kh, vh, mask, out, lse, dout, nd)
 
 
 # (label, BH, Tq, Tk, heads, live): the masked variant gets a random key mask
@@ -1206,25 +1202,25 @@ def run_kernels_edges(fails, gen, compare, compare_lse):
     for label, BH, Tq, Tk, heads, live in FWD_EDGES:
         for c in (0.0, 5.0):
             if c > 0.0:
-                q, k, va = softcap_attention_inputs(gen, BH, max(Tq, Tk), c)
+                q, k, v = softcap_attention_inputs(gen, BH, max(Tq, Tk), c)
                 b2 = fa._cap2(c)
             else:
-                q, k, va = multiview_attention_inputs(gen, BH, max(Tq, Tk))
+                q, k, v = multiview_attention_inputs(gen, BH, max(Tq, Tk))
                 b2 = float(np.log2(np.e) * np.sqrt(DH))  # |q| = log2(e), |k| = sqrt(dh)
-            q, k, va = q[:, :Tq].contiguous(), k[:, :Tk].contiguous(), va[:, :Tk].contiguous()
+            q, k, v = q[:, :Tq].contiguous(), k[:, :Tk].contiguous(), v[:, :Tk].contiguous()
             sfx = "_softcap" if c > 0.0 else ""
             tag = f"edge {label}, BH={BH}, Tq={Tq}, Tk={Tk}, c={c:g}"
             if live is None:
                 for name, got, ref in (
-                        (f"flash_fixed{sfx}", fa.flash_fixed(q, k, va, b2, c),
-                         fa.flash_fixed_plain(q, k, va, b2, c)),
-                        (f"flash_online{sfx}", fa.flash_online(q, k, va, None, 1, c),
-                         fa.flash_online_plain(q, k, va, None, 1, c))):
+                        (f"flash_fixed{sfx}", fa.flash_fixed(q, k, v, b2, c),
+                         fa.flash_fixed_plain(q, k, v, b2, c)),
+                        (f"flash_online{sfx}", fa.flash_online(q, k, v, None, 1, c),
+                         fa.flash_online_plain(q, k, v, None, 1, c))):
                     compare(f"{name}/edges", f"{name}[{tag}].out", got[0], ref[0])
                     compare_lse(f"{name}[{tag}].lse2", got[1], ref[1])
             mask = edge_mask(gen, BH // heads, Tk, live)
-            got = fa.flash_online(q, k, va, mask, heads, c)
-            ref = fa.flash_online_plain(q, k, va, mask, heads, c)
+            got = fa.flash_online(q, k, v, mask, heads, c)
+            ref = fa.flash_online_plain(q, k, v, mask, heads, c)
             name = f"flash_online{sfx}"
             compare(f"{name}/edges", f"{name}[{tag}, masked].out", got[0], ref[0])
             rows = (mask.sum(1) > 0).repeat_interleave(heads)
@@ -1253,16 +1249,16 @@ def run_kernels_dq_edges(fails, gen, compare):
         for label, BH, Tq, Tk, heads, live in FWD_EDGES:
             for c in (0.0, 5.0):
                 if c > 0.0:
-                    q, k, va = softcap_attention_inputs(gen, BH, max(Tq, Tk), c, d=d)
+                    q, k, v = softcap_attention_inputs(gen, BH, max(Tq, Tk), c, d=d)
                 else:
-                    q, k, va = multiview_attention_inputs(gen, BH, max(Tq, Tk), d)
-                q, k, va = q[:, :Tq].contiguous(), k[:, :Tk].contiguous(), va[:, :Tk].contiguous()
+                    q, k, v = multiview_attention_inputs(gen, BH, max(Tq, Tk), d)
+                q, k, v = q[:, :Tq].contiguous(), k[:, :Tk].contiguous(), v[:, :Tk].contiguous()
                 dout = torch.randn((BH, Tq, d), generator=gen, device="cuda").to(torch.bfloat16)
                 sfx = "_softcap" if c > 0.0 else ""
                 mask = edge_mask(gen, BH // heads, Tk, live)
                 for tag, m in (("masked", mask), ("unmasked", None))[:1 if live else 2]:
-                    out, lse = fa.flash_online(q, k, va, m, heads, c)
-                    args = (q, k, va, fa.augment_do(dout, out).contiguous(), lse, m, heads, c)
+                    out, lse = fa.flash_online(q, k, v, m, heads, c)
+                    args = (q, k, v, dout, fa._neg_delta(dout, out), lse, m, heads, c)
                     name = f"flash_bwd_dq{sfx}"
                     what = (f"{name}[edge {label}, BH={BH}, Tq={Tq}, Tk={Tk}, d={d}, c={c:g}, "
                             f"{tag}]")
@@ -1282,7 +1278,7 @@ def run_kernels_dq_edges(fails, gen, compare):
                                           fa.flash_bwd_dkv_plain(*args)):
                         compare(f"flash_bwd_dkv{sfx}/edges", f"{what}.{nm}", g_, r_)
                     what = what.replace(f"flash_bwd_dkv{sfx}", f"flash_bwd{sfx}")
-                    fused = (q, k, va, out, lse, dout, m, heads, c)
+                    fused = (q, k, v, out, lse, dout, m, heads, c)
                     for nm, g_, r_ in zip(("dq", "dk", "dv"), fa.flash_bwd(*fused),
                                           fa.flash_bwd_plain(*fused)):
                         compare(f"flash_bwd{sfx}/edges", f"{what}.{nm}", g_, r_)
@@ -1303,8 +1299,6 @@ def run_kernels_wide_heads(fails, state, gen, compare, compare_lse):
             return (x / x.norm(dim=-1, keepdim=True) * norm).to(torch.bfloat16)
 
         v = torch.randn((BH, T, d), generator=gen, device="cuda").to(torch.bfloat16)
-        va = torch.cat([v, torch.ones((BH, T, 1), dtype=torch.bfloat16, device="cuda")],
-                       -1).contiguous()
         # qk-norm rows at unit gains, q pre-scaled by log2(e)/sqrt(d): bound
         # log2(e) sqrt(d), the fixed variant's range
         q, k = rows(np.log2(np.e)), rows(np.sqrt(d))
@@ -1312,29 +1306,29 @@ def run_kernels_wide_heads(fails, state, gen, compare, compare_lse):
         tag = f"d={d}, BH={BH}, T={T}"
         mask = torch.rand((BH // H, T), generator=gen, device="cuda") > 0.3
         for name, label, got, ref in (
-                ("flash_fixed", tag, fa.flash_fixed(q, k, va, b2),
-                 fa.flash_fixed_plain(q, k, va, b2)),
-                ("flash_online", tag, fa.flash_online(q, k, va), fa.flash_online_plain(q, k, va)),
-                ("flash_online", f"{tag}, masked", fa.flash_online(q, k, va, mask, H),
-                 fa.flash_online_plain(q, k, va, mask, H))):
+                ("flash_fixed", tag, fa.flash_fixed(q, k, v, b2),
+                 fa.flash_fixed_plain(q, k, v, b2)),
+                ("flash_online", tag, fa.flash_online(q, k, v), fa.flash_online_plain(q, k, v)),
+                ("flash_online", f"{tag}, masked", fa.flash_online(q, k, v, mask, H),
+                 fa.flash_online_plain(q, k, v, mask, H))):
             compare(f"{name}/wide", f"{name}[{label}].out", got[0], ref[0])
             if "masked" in label:  # a batch row may have no valid key: its lse is LSE_EMPTY
                 live = (mask.sum(1) > 0).repeat_interleave(H)
                 compare_lse(f"{name}[{label}].lse2 (live rows)", got[1][live], ref[1][live])
             else:
                 compare_lse(f"{name}[{label}].lse2", got[1], ref[1])
-        state["wide"][d] = (q, k, va, b2)
+        state["wide"][d] = (q, k, v, b2)
         for c in (5.0, 50.0):
             qc, kc = rows(3.0 / c), rows(3.0 * np.sqrt(d))
             b2c = fa._cap2(c)
             if b2c <= fa.SAFE_BOUND2:
                 name = "flash_fixed_softcap"
-                got, ref = fa.flash_fixed(qc, kc, va, b2c, c), fa.flash_fixed_plain(qc, kc, va,
+                got, ref = fa.flash_fixed(qc, kc, v, b2c, c), fa.flash_fixed_plain(qc, kc, v,
                                                                                      b2c, c)
             else:
                 name = "flash_online_softcap"
-                got, ref = (fa.flash_online(qc, kc, va, None, 1, c),
-                            fa.flash_online_plain(qc, kc, va, None, 1, c))
+                got, ref = (fa.flash_online(qc, kc, v, None, 1, c),
+                            fa.flash_online_plain(qc, kc, v, None, 1, c))
             compare(f"{name}/wide", f"{name}[{tag}, c={c:g}].out", got[0], ref[0])
             compare_lse(f"{name}[{tag}, c={c:g}].lse2", got[1], ref[1])
 
@@ -1357,30 +1351,30 @@ def run_kernels_wide_backward(fails, state, gen, compare, compare_lse):
         for c in (0.0, 5.0):
             BH, T = (BH0, T0) if c == 0.0 else (16, 2048)
             if c > 0.0:
-                q, k, va = softcap_attention_inputs(gen, BH, T, c, d=d)
+                q, k, v = softcap_attention_inputs(gen, BH, T, c, d=d)
             else:
-                q, k, va = multiview_attention_inputs(gen, BH, T, d)
+                q, k, v = multiview_attention_inputs(gen, BH, T, d)
             dout = torch.randn((BH, T, d), generator=gen, device="cuda").to(torch.bfloat16)
             mask = torch.rand((BH // H, T), generator=gen, device="cuda") > 0.3
             mask[-1] = False
             sfx = "_softcap" if c > 0.0 else ""
             for tag, m in (("masked", mask), ("unmasked", None)):
                 what = f"d={d}, BH={BH}, T={T}, c={c:g}, {tag}"
-                out, lse = fa.flash_online(q, k, va, m, H, c)
+                out, lse = fa.flash_online(q, k, v, m, H, c)
                 if d == 128:
-                    ref = fa.flash_online_plain(q, k, va, m, H, c)
+                    ref = fa.flash_online_plain(q, k, v, m, H, c)
                     compare(f"flash_online{sfx}/wide", f"flash_online{sfx}[{what}].out", out,
                             ref[0])
                     live = (torch.ones(BH, dtype=torch.bool, device="cuda") if m is None
                             else (m.sum(1) > 0).repeat_interleave(H))
                     compare_lse(f"flash_online{sfx}[{what}].lse2 (live rows)", lse[live],
                                 ref[1][live])
-                fused = (q, k, va, out, lse, dout, m, H, c)
+                fused = (q, k, v, out, lse, dout, m, H, c)
                 got = fa.flash_bwd(*fused)
                 for nm, g_, r_ in zip(("dq", "dk", "dv"), got, fa.flash_bwd_plain(*fused)):
                     compare(f"flash_bwd{sfx}/wide", f"flash_bwd{sfx}[{what}].{nm}", g_, r_)
-                doa = fa.augment_do(dout, out).contiguous()
-                args = (q, k, va, doa, lse, m, H, c)
+                nd = fa._neg_delta(dout, out)
+                args = (q, k, v, dout, nd, lse, m, H, c)
                 dk, dv = fa.flash_bwd_dkv(*args)
                 dq = fa.flash_bwd_dq(*args)
                 for nm, g_, r_ in zip(("dk", "dv"), (dk, dv), fa.flash_bwd_dkv_plain(*args)):
@@ -1403,9 +1397,9 @@ def run_kernels_wide_backward(fails, state, gen, compare, compare_lse):
                                 and not bool(got[1][masked_keys].any())
                                 and not bool(got[2][masked_keys].any()))
                 elif c == 0.0 and d in (96, 128):
-                    state["wide_bwd"][d] = (q, k, va, out, lse, dout, doa, mask)
+                    state["wide_bwd"][d] = (q, k, v, out, lse, dout, nd, mask)
                 elif d == 128:
-                    state["wide_bwd_softcap"] = (q, k, va, out, lse, dout, doa, c)
+                    state["wide_bwd_softcap"] = (q, k, v, out, lse, dout, nd, c)
 
 
 def write_random_checkpoint(cfg, seed: int) -> Path:
@@ -1782,12 +1776,12 @@ def check_demo_kernels(fails, state, label: str, batch) -> None:
     for tag, mask in masks.items():
         if mask.shape[1] < 1024:
             continue  # the dense route, no kernel
-        qh, kh, vah = multiview_attention_inputs(gen, mask.shape[0] * H, mask.shape[1])
-        got = fa.flash_online(qh, kh, vah, mask, heads=H)[0]
+        qh, kh, vh = multiview_attention_inputs(gen, mask.shape[0] * H, mask.shape[1])
+        got = fa.flash_online(qh, kh, vh, mask, heads=H)[0]
         err = fails.compare(f"flash_online[demo {label} {tag}, masked]", got,
-                            fa.flash_online_plain(qh, kh, vah, mask, H)[0])
+                            fa.flash_online_plain(qh, kh, vh, mask, H)[0])
         errs["flash_online_masked"] = max(errs.get("flash_online_masked", 0.0), err)
-        state.setdefault("demo_attn", {})[f"{label} {tag}"] = (qh, kh, vah, mask)
+        state.setdefault("demo_attn", {})[f"{label} {tag}"] = (qh, kh, vh, mask)
     fwd, _ = ff_inputs(gen, G * Nb, D, FH)
     err = fails.compare(f"ff[demo {label}: T={G * Nb}]", ff.ff_kernel(*fwd), ff.ff_plain(*fwd))
     errs["ff"] = max(errs.get("ff", 0.0), err)
@@ -1954,8 +1948,8 @@ def run_main(report, fails, state):
     fails.check("launch counts", counts == expected, f"expected {expected}")
     fails.check("both attention variants ran",
                 counts["flash_fixed"] > 0 and counts["flash_online"] > 0)
-    fails.check("no host sync counted on the card", syncs == {"svd": 0, "bounds": 0},
-                f"{syncs}")
+    fails.check("no host sync counted on the card",
+                syncs == {"svd": 0, "bounds": 0, "eval": 0}, f"{syncs}")
     fails.check("output shapes", tuple(pts.shape) == (S * P, N, 3)
                 and tuple(R.shape) == (S * P, 3, 3) and tuple(t.shape) == (S * P, 3))
     fails.check("finite output", bool(torch.isfinite(pts).all() & torch.isfinite(R).all()
@@ -3360,29 +3354,28 @@ def kernel_rows(state, counts):
                 lambda: fp.proj_kernel(*args), lambda: fp.proj_plain(*args), None,
                 2 * T * D * 3 * D,
                 T * D * 2 + G * 2 * D * 4 + D * 3 * D * 2 + 2 * D * 4
-                + 2 * T * D * 2 + T * H * (DH + 1) * 2,
+                + 3 * T * D * 2,
                 f"{tag}: x ({G},{N},{D}) bf16", matmul_ms=cuda_time_ms(mm_proj, 10))
         if is_global:
             rows.append(r)
 
     for tag in ("part", "global"):
-        qh, kh, vah, got, b2 = state["attn"][tag]
+        qh, kh, vh, got, b2 = state["attn"][tag]
         BH, Tn, _ = qh.shape
         flops = 4 * BH * Tn * Tn * DH
         nbytes = 4 * BH * Tn * DH * 2 + BH * Tn * 4
-        v = vah[..., :DH].contiguous()
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qh[None], kh[None], v[None], scale=float(np.log(2.0)))
+            qh[None], kh[None], vh[None], scale=float(np.log(2.0)))
         shape = f"{tag}: BH={BH}, T={Tn}, d={DH} bf16"
         rf = row("flash_fixed", "rap_tpu_torch/csrc/attention.cu",
                  "rap_tpu/ops/pallas_attention.py:188",
-                 lambda: fa.flash_fixed_kernel(qh, kh, vah, b2),
-                 lambda: fa.flash_fixed_plain(qh, kh, vah, b2), sdpa, flops, nbytes, shape,
+                 lambda: fa.flash_fixed_kernel(qh, kh, vh, b2),
+                 lambda: fa.flash_fixed_plain(qh, kh, vh, b2), sdpa, flops, nbytes, shape,
                  mufu=BH * Tn * Tn)
         ro = row("flash_online", "rap_tpu_torch/csrc/attention.cu",
                  "rap_tpu/ops/pallas_attention.py:91",
-                 lambda: fa.flash_online_kernel(qh, kh, vah),
-                 lambda: fa.flash_online_plain(qh, kh, vah), sdpa, flops, nbytes, shape,
+                 lambda: fa.flash_online_kernel(qh, kh, vh),
+                 lambda: fa.flash_online_plain(qh, kh, vh), sdpa, flops, nbytes, shape,
                  mufu=BH * Tn * Tn)
         if tag == "global":
             rows += [rf, ro]
@@ -3391,21 +3384,20 @@ def kernel_rows(state, counts):
     # global shape of the main phase's D = 768, H = 8 model; the bound
     # counts the products at d = 96
     wide_counts = state.get("wide_counts", {}).get(WIDE_D // H, {})
-    for d, (qh, kh, vah, b2) in state.get("wide", {}).items():
+    for d, (qh, kh, vh, b2) in state.get("wide", {}).items():
         BH, Tn, _ = qh.shape
-        v = vah[..., :d].contiguous()
-        sdpa = lambda qh=qh, kh=kh, v=v: F.scaled_dot_product_attention(  # noqa: E731
-            qh[None], kh[None], v[None], scale=float(np.log(2.0)))
+        sdpa = lambda qh=qh, kh=kh, vh=vh: F.scaled_dot_product_attention(  # noqa: E731
+            qh[None], kh[None], vh[None], scale=float(np.log(2.0)))
         shape = f"BH={BH}, T={Tn}, d={d} bf16 (padded to 128)"
         serving = d == WIDE_D // H  # the main phase's D = 768 check runs this width
         common = dict(launches=None, err_key=None, mufu=BH * Tn * Tn, head_width=d,
                       path=f"serving at D={WIDE_D}, H={H}, {WIDE_LAYERS} layers" if serving
                       else "kernels phase check")
         for name, fn_k, fn_p in (
-                ("flash_fixed", lambda: fa.flash_fixed_kernel(qh, kh, vah, b2),
-                 lambda: fa.flash_fixed_plain(qh, kh, vah, b2)),
-                ("flash_online", lambda: fa.flash_online_kernel(qh, kh, vah),
-                 lambda: fa.flash_online_plain(qh, kh, vah))):
+                ("flash_fixed", lambda: fa.flash_fixed_kernel(qh, kh, vh, b2),
+                 lambda: fa.flash_fixed_plain(qh, kh, vh, b2)),
+                ("flash_online", lambda: fa.flash_online_kernel(qh, kh, vh),
+                 lambda: fa.flash_online_plain(qh, kh, vh))):
             common.update(launches=wide_counts.get(name, 0) if serving else 0,
                           err_key=f"{name}/wide")
             rows.append(row(name, "rap_tpu_torch/csrc/attention.cu",
@@ -3440,11 +3432,10 @@ def kernel_rows(state, counts):
 
     # ---- backward kernels, at the training shapes --------------------------
     for tag in ("part", "global"):
-        qh, kh, vah, _, _ = state["attn"][tag]
+        qh, kh, vh, _, _ = state["attn"][tag]
         out, lse, dout = state["attn_bwd"][tag, "fixed"]
         BH, Tn, _ = qh.shape
-        q_, k_, v_ = (a[None].detach().clone().requires_grad_(True)
-                      for a in (qh, kh, vah[..., :DH].contiguous()))
+        q_, k_, v_ = (a[None].detach().clone().requires_grad_(True) for a in (qh, kh, vh))
 
         def sdpa_fwd(q_=q_, k_=k_, v_=v_):
             with torch.no_grad():
@@ -3457,10 +3448,10 @@ def kernel_rows(state, counts):
         lib = cuda_time_ms(sdpa_fwd_bwd, 10) - cuda_time_ms(sdpa_fwd, 10)
         r = row("flash_bwd", "rap_tpu_torch/csrc/attention_bwd_dkv.cuh",
                 "rap_tpu/ops/pallas_attention.py:506",
-                lambda: fa.flash_bwd_kernel(qh, kh, vah, out, lse, dout),
-                lambda: fa.flash_bwd_plain(qh, kh, vah, out, lse, dout), None,
+                lambda: fa.flash_bwd_kernel(qh, kh, vh, out, lse, dout),
+                lambda: fa.flash_bwd_plain(qh, kh, vh, out, lse, dout), None,
                 10 * BH * Tn * Tn * DH,
-                BH * Tn * (4 * DH * 2 + (DH + 1) * 2 + 4) + 3 * BH * Tn * DH * 2,
+                BH * Tn * (5 * DH * 2 + 4) + 3 * BH * Tn * DH * 2,
                 f"{tag}: BH={BH}, T={Tn}, d={DH} bf16", lib_ms=lib, mufu=BH * Tn * Tn)
         if tag == "global":
             rows.append(r)
@@ -3471,8 +3462,8 @@ def kernel_rows(state, counts):
                 lambda: fp.proj_bwd_kernel(*args), lambda: fp.proj_bwd_plain(*args), None,
                 # q and k recomputed (v's cotangent is given), dW, dh
                 16 * T * D * D,
-                T * D * 2 + G * 2 * D * 4 + D * 3 * D * 2 + 2 * D * 4 + 2 * T * D * 2
-                + T * H * (DH + 1) * 2 + T * D * 2 + G * 2 * D * 4 + D * 3 * D * 4
+                T * D * 2 + G * 2 * D * 4 + D * 3 * D * 2 + 2 * D * 4 + 3 * T * D * 2
+                + T * D * 2 + G * 2 * D * 4 + D * 3 * D * 4
                 + 2 * D * 4,
                 f"{tag}: x ({G},{N},{D}) bf16", matmul_ms=cuda_time_ms(mm_proj_bwd, 10))
         if tag == "global":
@@ -3591,12 +3582,12 @@ def ff_matmuls(fwd, bwd=None):
     return row5, row10
 
 
-def flex_softcap_ms(qh, kh, vah, c: float, mask=None, heads: int = 1, dout=None, out=None,
+def flex_softcap_ms(qh, kh, vh, c: float, mask=None, heads: int = 1, dout=None, out=None,
                     d: int = DH):
     """torch.compile(flex_attention) on the same head-major q, k, v (and dO):
     the logit c·tanh(q·k) (q is pre-scaled, so scale 1) as its score_mod,
     the key mask as a block mask (built once, outside the timing), at head
-    width ``d`` (the unpadded columns of q, k and va). Returns
+    width ``d`` (the unpadded columns of q, k and v). Returns
     (forward ms, backward ms as forward+backward minus forward or None
     without ``dout``, max |flex out - out| over the rows with a valid key);
     (None, None, None) if the library refuses the call. Timed here only: the
@@ -3612,7 +3603,7 @@ def flex_softcap_ms(qh, kh, vah, c: float, mask=None, heads: int = 1, dout=None,
     BH, T, _ = qh.shape
     B = BH // heads
     q_, k_, v_ = (a[..., :d].reshape(B, heads, T, d).detach().clone()
-                  .requires_grad_(dout is not None) for a in (qh, kh, vah))
+                  .requires_grad_(dout is not None) for a in (qh, kh, vh))
 
     def score_mod(score, b, h, q_idx, kv_idx):
         return c * torch.tanh(score)
@@ -3669,16 +3660,16 @@ def softcap_kernel_rows(state, row):
     rows = []
     for tag in ("part", "global"):
         for c, name in ((5.0, "flash_fixed_softcap"), (50.0, "flash_online_softcap")):
-            qh, kh, vah = state["softcap"]["sample", tag, c]
+            qh, kh, vh = state["softcap"]["sample", tag, c]
             BH, Tn, _ = qh.shape
             b2 = fa._cap2(c)
             if name == "flash_fixed_softcap":
-                fn_k = lambda: fa.flash_fixed_kernel(qh, kh, vah, b2, c)  # noqa: E731
-                fn_p = lambda: fa.flash_fixed_plain(qh, kh, vah, b2, c)  # noqa: E731
+                fn_k = lambda: fa.flash_fixed_kernel(qh, kh, vh, b2, c)  # noqa: E731
+                fn_p = lambda: fa.flash_fixed_plain(qh, kh, vh, b2, c)  # noqa: E731
             else:
-                fn_k = lambda: fa.flash_online_kernel(qh, kh, vah, None, 1, c)  # noqa: E731
-                fn_p = lambda: fa.flash_online_plain(qh, kh, vah, None, 1, c)  # noqa: E731
-            lib_ms, _, lib_err = flex_softcap_ms(qh, kh, vah, c, out=fn_k()[0])
+                fn_k = lambda: fa.flash_online_kernel(qh, kh, vh, None, 1, c)  # noqa: E731
+                fn_p = lambda: fa.flash_online_plain(qh, kh, vh, None, 1, c)  # noqa: E731
+            lib_ms, _, lib_err = flex_softcap_ms(qh, kh, vh, c, out=fn_k()[0])
             rows.append(row(name, "rap_tpu_torch/csrc/attention.cu",
                             "rap_tpu/ops/pallas_attention.py:" + ("188" if c == 5.0 else "91"),
                             fn_k, fn_p, None, 4 * BH * Tn * Tn * DH,
@@ -3692,24 +3683,24 @@ def softcap_kernel_rows(state, row):
 
     c = MV_SOFTCAP
     for tag in ("part", "global"):
-        qh, kh, vah, mask, out, lse, dout, doa = state["softcap"]["mv", tag, c]
+        qh, kh, vh, mask, out, lse, dout, nd = state["softcap"]["mv", tag, c]
         BH, T, _ = qh.shape
         valid = float(mask.sum()) * H
-        lib_f, lib_b, lib_err = flex_softcap_ms(qh, kh, vah, c, mask, H, dout, out)
+        lib_f, lib_b, lib_err = flex_softcap_ms(qh, kh, vh, c, mask, H, dout, out)
         rows.append(row(
             "flash_online_softcap", "rap_tpu_torch/csrc/attention.cu",
             "rap_tpu/ops/pallas_attention.py:91",
-            lambda: fa.flash_online_kernel(qh, kh, vah, mask, H, c),
-            lambda: fa.flash_online_plain(qh, kh, vah, mask, H, c), None,
+            lambda: fa.flash_online_kernel(qh, kh, vh, mask, H, c),
+            lambda: fa.flash_online_plain(qh, kh, vh, mask, H, c), None,
             4 * T * DH * valid,
-            BH * T * (DH * 2 + (DH + 1) * 2 + DH * 2 + DH * 2 + 4) + mask.numel() * 4,
+            BH * T * (4 * DH * 2 + 4) + mask.numel() * 4,
             f"multiview {tag}: BH={BH}, T={T}, d={DH} bf16, key mask, softcap {c:g}",
             reps=5, launches=mv.get("flash_online_softcap", 0), lib_ms=lib_f,
             mufu=2 * T * valid, err_key=f"flash_online_softcap@{c:g}/mv", softcap=c,
             tanh_ops=T * valid, library="flex_attention", library_max_abs_err=lib_err,
             path=f"multiview {MV_CHECK_LAYERS}-layer check, softcap {c:g}",
             bound_all_tiles_ms=bound(4 * T * T * DH * BH, 0, 2 * T * T * BH)[0]))
-        reads = BH * T * (2 * DH * 2 + 2 * (DH + 1) * 2 + 4) + mask.numel() * 4
+        reads = BH * T * (4 * DH * 2 + 4) + mask.numel() * 4
         shape = f"multiview {tag}: BH={BH}, T={T}, d={DH} bf16, key mask, softcap {c:g}"
         common = dict(softcap=c, path=f"multiview {MV_CHECK_LAYERS}-layer check, softcap {c:g}",
                       mufu=2 * T * valid, tanh_ops=T * valid, library="flex_attention")
@@ -3717,8 +3708,8 @@ def softcap_kernel_rows(state, row):
             rows.append(row(
                 "flash_bwd_softcap", "rap_tpu_torch/csrc/attention_bwd_dkv.cuh",
                 "rap_tpu/ops/pallas_attention.py:506",
-                lambda: fa.flash_bwd_kernel(qh, kh, vah, out, lse, dout, mask, H, c),
-                lambda: fa.flash_bwd_plain(qh, kh, vah, out, lse, dout, mask, H, c), None,
+                lambda: fa.flash_bwd_kernel(qh, kh, vh, out, lse, dout, mask, H, c),
+                lambda: fa.flash_bwd_plain(qh, kh, vh, out, lse, dout, mask, H, c), None,
                 10 * T * DH * valid, reads + 3 * BH * T * DH * 2, shape,
                 launches=mv.get("flash_bwd_softcap", 0), lib_ms=lib_b,
                 err_key=f"flash_bwd_softcap@{c:g}",
@@ -3727,9 +3718,9 @@ def softcap_kernel_rows(state, row):
         else:
             # the two passes together are one backward: the library's
             # backward stands beside each (library_backward_ms); they read
-            # the pieces of va and [dO | -delta] (backward_operands)
-            reads = BH * T * (4 * DH * 2 + 3 * 4) + mask.numel() * 4
-            args = (qh, kh, vah, doa, lse, mask, H)
+            # q, k, v, dO and -delta (_neg_delta)
+            reads = BH * T * (4 * DH * 2 + 2 * 4) + mask.numel() * 4
+            args = (qh, kh, vh, dout, nd, lse, mask, H)
             rows.append(row(
                 "flash_bwd_dkv_softcap", "rap_tpu_torch/csrc/attention_bwd_dkv.cuh",
                 "rap_tpu/ops/pallas_attention.py:426",
@@ -3763,7 +3754,7 @@ def split_pair_ms(args, c: float = 0.0) -> float:
                                  fa.flash_bwd_dq_kernel(*args, c)), 5)
 
 
-def sdpa_masked_ms(qh, kh, vah, dout, mask, heads: int):
+def sdpa_masked_ms(qh, kh, vh, dout, mask, heads: int):
     """(forward, backward) ms of scaled_dot_product_attention on the same
     head-major q, k, v, dO and boolean key mask, the backward as
     forward+backward minus forward, with the memory-efficient backend (the
@@ -3774,7 +3765,7 @@ def sdpa_masked_ms(qh, kh, vah, dout, mask, heads: int):
     BH, T, d = qh.shape
     B = BH // heads
     q_, k_, v_ = (a.reshape(B, heads, T, d).detach().clone().requires_grad_(True)
-                  for a in (qh, kh, vah[..., :d].contiguous()))
+                  for a in (qh, kh, vh))
     bias = mask.bool()[:, None, None, :]
     do = dout.reshape(B, heads, T, d)
 
@@ -3807,44 +3798,44 @@ def multiview_kernel_rows(state, row):
     rows = []
     sdpa = {}
     for tag in ("part", "global"):
-        qh, kh, vah, mask, out, lse, dout = state["mv_attn"][tag][:7]
+        qh, kh, vh, mask, out, lse, dout = state["mv_attn"][tag][:7]
         BH, T, _ = qh.shape
         valid = float(mask.sum()) * H  # valid keys over every (batch, head) row
-        sdpa[tag] = sdpa_masked_ms(qh, kh, vah, dout, mask, H)
+        sdpa[tag] = sdpa_masked_ms(qh, kh, vh, dout, mask, H)
         rows.append(row(
             "flash_online", "rap_tpu_torch/csrc/attention.cu",
             "rap_tpu/ops/pallas_attention.py:91",
-            lambda: fa.flash_online_kernel(qh, kh, vah, mask, H),
-            lambda: fa.flash_online_plain(qh, kh, vah, mask, H), None,
+            lambda: fa.flash_online_kernel(qh, kh, vh, mask, H),
+            lambda: fa.flash_online_plain(qh, kh, vh, mask, H), None,
             4 * T * DH * valid,
-            BH * T * (DH * 2 + (DH + 1) * 2 + DH * 2 + DH * 2 + 4) + mask.numel() * 4,
+            BH * T * (4 * DH * 2 + 4) + mask.numel() * 4,
             f"multiview {tag}: BH={BH}, T={T}, d={DH} bf16, key mask", lib_ms=sdpa[tag][0],
             reps=5, launches=mv_counts.get("flash_online", 0), err_key="flash_online_masked",
             variant="masked", mufu=T * valid,
             bound_all_tiles_ms=bound(4 * T * T * DH * BH, 0, T * T * BH)[0]))
 
-    qh, kh, vah, mask, out, lse, dout = state["mv_attn"]["part"]
+    qh, kh, vh, mask, out, lse, dout = state["mv_attn"]["part"]
     BH, T, _ = qh.shape
     valid = float(mask.sum()) * H
-    reads = BH * T * (2 * DH * 2 + 2 * (DH + 1) * 2 + 4) + mask.numel() * 4
+    reads = BH * T * (4 * DH * 2 + 4) + mask.numel() * 4
     rows.append(row(
         "flash_bwd", "rap_tpu_torch/csrc/attention_bwd_dkv.cuh",
         "rap_tpu/ops/pallas_attention.py:506",
-        lambda: fa.flash_bwd_kernel(qh, kh, vah, out, lse, dout, mask, H),
-        lambda: fa.flash_bwd_plain(qh, kh, vah, out, lse, dout, mask, H), None,
+        lambda: fa.flash_bwd_kernel(qh, kh, vh, out, lse, dout, mask, H),
+        lambda: fa.flash_bwd_plain(qh, kh, vh, out, lse, dout, mask, H), None,
         10 * T * DH * valid, reads + 3 * BH * T * DH * 2,
         f"multiview part: BH={BH}, T={T}, d={DH} bf16, key mask", lib_ms=sdpa["part"][1],
         launches=mv_counts.get("flash_bwd", 0), err_key="flash_bwd_masked",
         variant="masked", mufu=T * valid,
         bound_all_tiles_ms=bound(10 * T * T * DH * BH, 0, T * T * BH)[0]))
 
-    qh, kh, vah, mask, out, lse, dout, doa = state["mv_attn"]["global"]
+    qh, kh, vh, mask, out, lse, dout, nd = state["mv_attn"]["global"]
     BH, T, _ = qh.shape
     valid = float(mask.sum()) * H
-    # q, k, V, dO (bf16), va's ones column, -delta, lse2 (fp32): the pieces
-    # the split passes read (backward_operands), and the key mask
-    reads = BH * T * (4 * DH * 2 + 3 * 4) + mask.numel() * 4
-    args = (qh, kh, vah, doa, lse, mask, H)
+    # q, k, V, dO (bf16), -delta, lse2 (fp32): what the split passes read,
+    # and the key mask
+    reads = BH * T * (4 * DH * 2 + 2 * 4) + mask.numel() * 4
+    args = (qh, kh, vh, dout, nd, lse, mask, H)
     shape = f"multiview global: BH={BH}, T={T}, d={DH} bf16, key mask"
     rows.append(row(
         "flash_bwd_dkv", "rap_tpu_torch/csrc/attention_bwd_dkv.cuh",
@@ -3872,19 +3863,19 @@ def demo_kernel_rows(state, row):
     from rap_tpu_torch.ops import fused_ff as ff
 
     rows = []
-    for label, (qh, kh, vah, mask) in state["demo_attn"].items():
+    for label, (qh, kh, vh, mask) in state["demo_attn"].items():
         BH, T, _ = qh.shape
         valid = float(mask.sum()) * H
         launched = state["demo_counts"][label.split()[0]]
         rows.append(row(
             "flash_online", "rap_tpu_torch/csrc/attention.cu",
             "rap_tpu/ops/pallas_attention.py:91",
-            lambda qh=qh, kh=kh, vah=vah, mask=mask: fa.flash_online_kernel(qh, kh, vah, mask, H),
-            lambda qh=qh, kh=kh, vah=vah, mask=mask: fa.flash_online_plain(qh, kh, vah, mask, H),
+            lambda qh=qh, kh=kh, vh=vh, mask=mask: fa.flash_online_kernel(qh, kh, vh, mask, H),
+            lambda qh=qh, kh=kh, vh=vh, mask=mask: fa.flash_online_plain(qh, kh, vh, mask, H),
             None, 4 * T * DH * valid,
-            BH * T * (DH * 2 + (DH + 1) * 2 + DH * 2 + DH * 2 + 4) + mask.numel() * 4,
+            BH * T * (4 * DH * 2 + 4) + mask.numel() * 4,
             f"demo {label}: BH={BH}, T={T}, d={DH} bf16, key mask",
-            lib_ms=sdpa_masked_ms(qh, kh, vah, torch.zeros_like(qh), mask, H)[0],
+            lib_ms=sdpa_masked_ms(qh, kh, vh, torch.zeros_like(qh), mask, H)[0],
             launches=launched.get("flash_online", 0), err_key="flash_online_masked",
             variant="masked", mufu=T * valid))
     for label, fwd in state["demo_ff"].items():
@@ -3915,23 +3906,22 @@ def wide_backward_kernel_rows(state, row):
     rows = []
     serving = state.get("wide_counts", {})
     training = state.get("train_wide_counts", {})
-    for d, (qh, kh, vah, out, lse, dout, doa, mask) in state["wide_bwd"].items():
+    for d, (qh, kh, vh, out, lse, dout, nd, mask) in state["wide_bwd"].items():
         BH, T, _ = qh.shape
         valid = float(mask.sum()) * H
         common = dict(head_width=d, reps=5)
-        sdpa = sdpa_masked_ms(qh, kh, vah, dout, mask, H)
+        sdpa = sdpa_masked_ms(qh, kh, vh, dout, mask, H)
         rows.append(row(
             "flash_online", "rap_tpu_torch/csrc/attention.cu",
             "rap_tpu/ops/pallas_attention.py:91",
-            lambda: fa.flash_online_kernel(qh, kh, vah, mask.to(torch.int32), H),
-            lambda: fa.flash_online_plain(qh, kh, vah, mask, H), None,
+            lambda: fa.flash_online_kernel(qh, kh, vh, mask.to(torch.int32), H),
+            lambda: fa.flash_online_plain(qh, kh, vh, mask, H), None,
             4 * T * d * valid,
-            BH * T * (d * 2 + (d + 1) * 2 + d * 2 + d * 2 + 4) + mask.numel() * 4,
+            BH * T * (4 * d * 2 + 4) + mask.numel() * 4,
             f"BH={BH}, T={T}, d={d} bf16 (padded to 128), key mask", lib_ms=sdpa[0],
             launches=serving.get(d, {}).get("flash_online", 0),
             err_key="flash_online/wide", variant="masked", mufu=T * valid, **common))
-        q_, k_, v_ = (a[None].detach().clone().requires_grad_(True)
-                      for a in (qh, kh, vah[..., :d].contiguous()))
+        q_, k_, v_ = (a[None].detach().clone().requires_grad_(True) for a in (qh, kh, vh))
 
         def sdpa_fwd(q_=q_, k_=k_, v_=v_):
             with torch.no_grad():
@@ -3948,12 +3938,12 @@ def wide_backward_kernel_rows(state, row):
         rows.append(row(
             "flash_bwd", "rap_tpu_torch/csrc/attention_bwd_dkv128.cuh",
             "rap_tpu/ops/pallas_attention.py:506",
-            lambda: fa.flash_bwd_kernel(qh, kh, vah, out, lse, dout),
-            lambda: fa.flash_bwd_plain(qh, kh, vah, out, lse, dout), None,
+            lambda: fa.flash_bwd_kernel(qh, kh, vh, out, lse, dout),
+            lambda: fa.flash_bwd_plain(qh, kh, vh, out, lse, dout), None,
             10 * BH * T * T * d, reads + 3 * BH * T * d * 2, shape, lib_ms=lib,
             launches=launched.get("flash_bwd", 0), err_key="flash_bwd/wide",
             mufu=BH * T * T, **common))
-        args = (qh, kh, vah, doa, lse, None, 1)
+        args = (qh, kh, vh, dout, nd, lse, None, 1)
         rows.append(row(
             "flash_bwd_dkv", "rap_tpu_torch/csrc/attention_bwd_dkv128.cuh",
             "rap_tpu/ops/pallas_attention.py:426",
@@ -3981,20 +3971,20 @@ def wide_softcap_backward_rows(state, row):
     them (no shipped config sets a softcap), so no launches."""
     from rap_tpu_torch.ops import flash_attention as fa
 
-    qh, kh, vah, out, lse, dout, doa, c = state["wide_bwd_softcap"]
+    qh, kh, vh, out, lse, dout, nd, c = state["wide_bwd_softcap"]
     BH, T, _ = qh.shape
     d = 128
-    _, lib_b, _ = flex_softcap_ms(qh, kh, vah, c, None, H, dout, out, d=d)
+    _, lib_b, _ = flex_softcap_ms(qh, kh, vh, c, None, H, dout, out, d=d)
     shape = f"BH={BH}, T={T}, d={d} bf16, softcap {c:g}"
     reads = BH * T * (4 * d * 2 + 3 * 4)
     common = dict(head_width=d, reps=5, softcap=c, launches=0, mufu=2 * BH * T * T,
                   tanh_ops=BH * T * T, library="flex_attention", path="kernels phase check")
-    args = (qh, kh, vah, doa, lse, None, H)
+    args = (qh, kh, vh, dout, nd, lse, None, H)
     return [
         row("flash_bwd_softcap", "rap_tpu_torch/csrc/attention_bwd_dkv128.cuh",
             "rap_tpu/ops/pallas_attention.py:506",
-            lambda: fa.flash_bwd_kernel(qh, kh, vah, out, lse, dout, None, H, c),
-            lambda: fa.flash_bwd_plain(qh, kh, vah, out, lse, dout, None, H, c), None,
+            lambda: fa.flash_bwd_kernel(qh, kh, vh, out, lse, dout, None, H, c),
+            lambda: fa.flash_bwd_plain(qh, kh, vh, out, lse, dout, None, H, c), None,
             10 * BH * T * T * d, reads + 3 * BH * T * d * 2, shape, lib_ms=lib_b,
             err_key="flash_bwd_softcap/wide", **common),
         row("flash_bwd_dkv_softcap", "rap_tpu_torch/csrc/attention_bwd_dkv128.cuh",

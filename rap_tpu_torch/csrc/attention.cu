@@ -21,9 +21,9 @@
 // 128 (d % 8 == 0), which is exact (flash_attention.py `kernel_width`).
 // Both write out (BH, Tq, D) bf16 and lse2 (BH, Tq) fp32, the residual the
 // backward kernels read. The row sum l is the fp32 sum of the bf16-rounded p,
-// the value the TPU kernel's ones column produced, and is produced the same
-// way here (below). v arrives as (BH, Tk, D) with 16-byte-aligned rows (the
-// wrapper drops the ones column of va), the layout rap_tpu's online path
+// the value the TPU kernel's P·[V | 1] product gives, and is produced by the
+// tensor cores here too (below). v arrives as (BH, Tk, D) with 16-byte-aligned
+// rows, the caller's own tensor at D = 64, the layout rap_tpu's online path
 // feeds its kernel (:288). Keys are never padded: the wrapper refuses Tq, Tk
 // that are not multiples of 128.
 //
@@ -53,7 +53,8 @@
 //   wgmma.m64n64k16 on V's first box at D = 128. Columns 64-71 of that B
 //   are a 2 KB block of bf16 ones one descriptor offset from V, so the
 //   tensor cores also produce l = sum of the bf16-rounded p in fp32, as the
-//   TPU's ones column did, and the online rescale of O rescales l with it.
+//   TPU kernel's P·[V | 1] does, and the online rescale of O rescales l with
+//   it.
 //   The P V product of tile i is issued in one commit group with the Q K^T
 //   product of tile i+1; the stage of tile i is released when that group
 //   completes.

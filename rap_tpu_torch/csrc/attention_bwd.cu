@@ -30,46 +30,43 @@ namespace {
 
 // The instantiation at head width D = 64 or 128.
 template <bool SOFTCAP>
-int launch_fused(const void* q, const void* k, const void* v, const void* ones,
-                 const void* mask, const void* dout, const void* nd, const void* lse,
-                 void* dq_acc, void* dk, void* dv, int BH, int Tq, int Tk, int heads, int D,
-                 Cap cap, void* stream) {
+int launch_fused(const void* q, const void* k, const void* v, const void* mask,
+                 const void* dout, const void* nd, const void* lse, void* dq_acc, void* dk,
+                 void* dv, int BH, int Tq, int Tk, int heads, int D, Cap cap, void* stream) {
   if (D == 64)
-    return rtt::attn_bwd::launch_dkv<true, SOFTCAP>(q, k, v, ones, mask, dout, nd, lse, dq_acc,
+    return rtt::attn_bwd::launch_dkv<true, SOFTCAP>(q, k, v, mask, dout, nd, lse, dq_acc,
                                                     dk, dv, BH, Tq, Tk, heads, cap, stream);
   if (D == 128)
-    return rtt::attn_bwd::launch_dkv128<true, SOFTCAP>(q, k, v, ones, mask, dout, nd, lse,
-                                                       dq_acc, dk, dv, BH, Tq, Tk, heads, cap,
-                                                       stream);
+    return rtt::attn_bwd::launch_dkv128<true, SOFTCAP>(q, k, v, mask, dout, nd, lse, dq_acc,
+                                                       dk, dv, BH, Tq, Tk, heads, cap, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, k (BH, T, D) bf16, D = 64 or 128 (the padded head width); v (BH, Tk, D)
-// bf16 and ones (BH, Tk) fp32, va without and with its ones column; mask
+// q, k, v (BH, T, D) bf16, D = 64 or 128 (the padded head width); mask
 // (BH / heads, Tk) int32, nonzero = valid key, or null (every key valid);
-// dout (BH, Tq, D) bf16 and nd (BH, Tq) fp32, [dO | -delta] split the same
-// way; lse (BH, Tq) fp32 from either forward. dq_acc (BH, Tq, D) fp32 zeroed
+// dout (BH, Tq, D) bf16; nd = -delta (BH, Tq) fp32; lse (BH, Tq) fp32 from
+// either forward. dq_acc (BH, Tq, D) fp32 zeroed
 // by the caller (it receives sum ds K, not yet times ln2); dk, dv (BH, Tk, D)
 // bf16. Tq % 64 == 0, Tk % 128 == 0; q, k, v, dout, nd and lse 16-byte
 // aligned.
-extern "C" int rtt_flash_bwd(const void* q, const void* k, const void* v, const void* ones,
-                             const void* mask, const void* dout, const void* nd,
-                             const void* lse, void* dq_acc, void* dk, void* dv, int BH,
-                             int Tq, int Tk, int heads, int D, void* stream) {
-  return launch_fused<false>(q, k, v, ones, mask, dout, nd, lse, dq_acc, dk, dv, BH, Tq, Tk,
+extern "C" int rtt_flash_bwd(const void* q, const void* k, const void* v, const void* mask,
+                             const void* dout, const void* nd, const void* lse, void* dq_acc,
+                             void* dk, void* dv, int BH, int Tq, int Tk, int heads, int D,
+                             void* stream) {
+  return launch_fused<false>(q, k, v, mask, dout, nd, lse, dq_acc, dk, dv, BH, Tq, Tk,
                              heads, D, Cap{0.f, 0.f}, stream);
 }
 
 // The softcap variant: cap = c, cap2 = c log2(e) (q pre-scaled by scale/c);
 // dk is not scaled by ln2 and dq_acc receives sum ds K to be used as it is.
 extern "C" int rtt_flash_bwd_softcap(const void* q, const void* k, const void* v,
-                                     const void* ones, const void* mask, const void* dout,
-                                     const void* nd, const void* lse, void* dq_acc, void* dk,
-                                     void* dv, int BH, int Tq, int Tk, int heads, int D,
-                                     float cap, float cap2, void* stream) {
-  return launch_fused<true>(q, k, v, ones, mask, dout, nd, lse, dq_acc, dk, dv, BH, Tq, Tk,
+                                     const void* mask, const void* dout, const void* nd,
+                                     const void* lse, void* dq_acc, void* dk, void* dv, int BH,
+                                     int Tq, int Tk, int heads, int D, float cap, float cap2,
+                                     void* stream) {
+  return launch_fused<true>(q, k, v, mask, dout, nd, lse, dq_acc, dk, dv, BH, Tq, Tk,
                             heads, D, Cap{cap, cap2}, stream);
 }
 

@@ -10,8 +10,9 @@
 // All three recompute, per tile, what `_recompute_p_ds` (:369) computes on
 // head-major, pre-scaled (base-2) q: s = q.k in fp32; a masked key's logit is
 // NEG_INF (:411-412); p = exp2(s - lse2); ds = p (dO.V^T - delta) in fp32,
-// the -delta column of [dO | -delta] (bf16, `_augment_do` :566) entering
-// through va's ones column; p and ds rounded to bf16 before their products.
+// -delta a per-query fp32 vector holding the bf16 value of `_augment_do`
+// (:566) added after the dO.V^T product; p and ds rounded to bf16 before
+// their products.
 // dV = sum p^T dO, dK = ln2 sum ds^T Q, dQ = ln2 sum ds K: the ln2 of the
 // base-2 domain is applied once per output element.
 // SOFTCAP (the `softcap` static of all three TPU kernels): q arrives
@@ -49,18 +50,18 @@ __device__ __forceinline__ float out_scale() {
   return SOFTCAP ? 1.f : LN2;
 }
 
-// One logit: (p, ds). `valid` false is a masked key; `nd` is -delta (bf16
-// value) and `one` va's ones column of the key.
+// One logit: (p, ds). `valid` false is a masked key; `nd` is the query's
+// -delta (bf16 value).
 template <bool SOFTCAP>
-__device__ __forceinline__ float2 p_ds(float s, float dpv, float lse, float nd,
-                                       float one, bool valid, Cap cap) {
+__device__ __forceinline__ float2 p_ds(float s, float dpv, float lse, float nd, bool valid,
+                                       Cap cap) {
   if (SOFTCAP) {
     const float th = tanhf(s);
     const float p = exp2f((valid ? th * cap.cap2 : NEG_INF) - lse);
-    return make_float2(p, p * (dpv + nd * one) * (cap.c * (1.f - th * th)));
+    return make_float2(p, p * (dpv + nd) * (cap.c * (1.f - th * th)));
   }
   const float p = exp2f((valid ? s : NEG_INF) - lse);
-  return make_float2(p, p * (dpv + nd * one));
+  return make_float2(p, p * (dpv + nd));
 }
 
 }  // namespace attn_bwd

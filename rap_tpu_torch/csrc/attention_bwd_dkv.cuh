@@ -63,11 +63,10 @@
 // kernels' pl.when(any(mask)), :441, :485); queries are never skipped (a
 // padded query's p is not zero in general).
 //
-// Inputs with 16-byte row strides for TMA (the wrapper splits them off va and
-// [dO | -delta], `backward_operands` in ops/flash_attention.py): V (BH, Tk, 64)
-// bf16, dO (BH, Tq, 64) bf16, -delta (BH, Tq) fp32 and va's ones column
-// (BH, Tk) fp32 holding the bf16 values. Tq % 64 == 0, Tk % 128 == 0; q, k,
-// V, dO, lse2 and -delta 16-byte aligned.
+// Inputs with 16-byte row strides for TMA: V (BH, Tk, 64) bf16, dO (BH, Tq,
+// 64) bf16, and -delta (BH, Tq) fp32 holding the bf16 values
+// (`_neg_delta` in ops/flash_attention.py). Tq % 64 == 0, Tk % 128 == 0; q,
+// k, V, dO, lse2 and -delta 16-byte aligned.
 //
 // ptxas (sm_90a), all four instantiations: 168 registers (the launch bound
 // for 384 threads; setmaxnreg moves them to 40 / 232), no stack, no spills;
@@ -140,19 +139,18 @@ __device__ __forceinline__ void reduce_dq(const CUtensorMap& map_dq, uint8_t* sD
   if (++buf == KV_DQ_BUFS) buf = 0;
 }
 
-// q, k (BH, T, 64), v (BH, Tk, 64), dout (BH, Tq, 64) bf16 as TMA maps; ones
-// (BH, Tk) and nd = -delta (BH, Tq) fp32; mask (BH / heads, Tk) int32 or null;
-// lse (BH, Tq) fp32. dk (x ln2, x 1 under SOFTCAP), dv (BH, Tk, 64) bf16.
+// q, k (BH, T, 64), v (BH, Tk, 64), dout (BH, Tq, 64) bf16 as TMA maps; nd =
+// -delta (BH, Tq) fp32; mask (BH / heads, Tk) int32 or null; lse (BH, Tq)
+// fp32. dk (x ln2, x 1 under SOFTCAP), dv (BH, Tk, 64) bf16.
 // FUSED_DQ: map_dq over dq_acc (BH, Tq, 64) fp32, zeroed by the caller, which
 // receives sum ds K (unused without).
 template <bool FUSED_DQ, bool SOFTCAP>
 __global__ void __launch_bounds__(KV_THREADS, 1)
 dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
            const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
-           const __grid_constant__ CUtensorMap map_dq, const float* __restrict__ ones,
-           const int* __restrict__ mask, const float* __restrict__ nd,
-           const float* __restrict__ lse, bf16* __restrict__ dk, bf16* __restrict__ dv, int Tq,
-           int Tk, int heads, Cap cap) {
+           const __grid_constant__ CUtensorMap map_dq, const int* __restrict__ mask,
+           const float* __restrict__ nd, const float* __restrict__ lse, bf16* __restrict__ dk,
+           bf16* __restrict__ dv, int Tq, int Tk, int heads, Cap cap) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int bh = blockIdx.y, k0 = blockIdx.x * KV_BK;
@@ -219,7 +217,6 @@ dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CU
   const int g = lane >> 2, t = lane & 3;
   const int kA = 64 * c + 16 * wq + g, kB = kA + 8;  // this thread's keys in the block
   const int rA = 16 * wq + g;  // this thread's dQ rows (queries of the step): rA, rA + 8
-  const float oneA = ones[krow0 + kA], oneB = ones[krow0 + kB];
   const bool validA = mrow == nullptr || mrow[kA] != 0;
   const bool validB = mrow == nullptr || mrow[kB] != 0;
   const uint32_t k_addr = smem_u32(smem + KV_OFF_K) + 64 * c * 128;  // this consumer's rows
@@ -275,10 +272,10 @@ dkv_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CU
     for (int j = 0; j < KV_BQ / 8; ++j) {
       const float2 l = *reinterpret_cast<const float2*>(sLse + 8 * j + 2 * t);
       const float2 n = *reinterpret_cast<const float2*>(sND + 8 * j + 2 * t);
-      const float2 a0 = p_ds<SOFTCAP>(st[4 * j], dpt[4 * j], l.x, n.x, oneA, validA, cap);
-      const float2 a1 = p_ds<SOFTCAP>(st[4 * j + 1], dpt[4 * j + 1], l.y, n.y, oneA, validA, cap);
-      const float2 b0 = p_ds<SOFTCAP>(st[4 * j + 2], dpt[4 * j + 2], l.x, n.x, oneB, validB, cap);
-      const float2 b1 = p_ds<SOFTCAP>(st[4 * j + 3], dpt[4 * j + 3], l.y, n.y, oneB, validB, cap);
+      const float2 a0 = p_ds<SOFTCAP>(st[4 * j], dpt[4 * j], l.x, n.x, validA, cap);
+      const float2 a1 = p_ds<SOFTCAP>(st[4 * j + 1], dpt[4 * j + 1], l.y, n.y, validA, cap);
+      const float2 b0 = p_ds<SOFTCAP>(st[4 * j + 2], dpt[4 * j + 2], l.x, n.x, validB, cap);
+      const float2 b1 = p_ds<SOFTCAP>(st[4 * j + 3], dpt[4 * j + 3], l.y, n.y, validB, cap);
       const int r = 4 * (j >> 1) + 2 * (j & 1);
       pa[r] = pack_f2(a0.x, a1.x);
       pa[r + 1] = pack_f2(b0.x, b1.x);
@@ -384,10 +381,9 @@ inline int dkv_attributes(int* regs, int* local_bytes) {
 // if the kernel was not compiled to the launch bound's register count (its
 // setmaxnreg.inc would wait forever), else cudaGetLastError() after the launch.
 template <bool FUSED_DQ, bool SOFTCAP>
-inline int launch_dkv(const void* q, const void* k, const void* v, const void* ones,
-                      const void* mask, const void* dout, const void* nd, const void* lse,
-                      void* dq_acc, void* dk, void* dv, int BH, int Tq, int Tk, int heads,
-                      Cap cap, void* stream) {
+inline int launch_dkv(const void* q, const void* k, const void* v, const void* mask,
+                      const void* dout, const void* nd, const void* lse, void* dq_acc, void* dk,
+                      void* dv, int BH, int Tq, int Tk, int heads, Cap cap, void* stream) {
   static int regs = 0;  // per instantiation, read once
   if (regs == 0) {
     int local_bytes = 0;
@@ -407,8 +403,8 @@ inline int launch_dkv(const void* q, const void* k, const void* v, const void* o
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)KV_SMEM);
   if (err != 0) return err;
   kernel<<<dim3(Tk / KV_BK, BH), KV_THREADS, KV_SMEM, (cudaStream_t)stream>>>(
-      map_q, map_k, map_v, map_do, map_dq, (const float*)ones, (const int*)mask,
-      (const float*)nd, (const float*)lse, (bf16*)dk, (bf16*)dv, Tq, Tk, heads, cap);
+      map_q, map_k, map_v, map_do, map_dq, (const int*)mask, (const float*)nd,
+      (const float*)lse, (bf16*)dk, (bf16*)dv, Tq, Tk, heads, cap);
   return (int)cudaGetLastError();
 }
 

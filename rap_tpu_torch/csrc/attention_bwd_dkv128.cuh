@@ -54,8 +54,8 @@
 // and returns before loading anything.
 //
 // Inputs: q, k, V, dO (BH, T, 128) bf16 (zero-padded past d); -delta (BH, Tq)
-// and va's ones column (BH, Tk) fp32; Tq % 64 == 0, Tk % 128 == 0; q, k, V,
-// dO, lse2 and -delta 16-byte aligned.
+// fp32; Tq % 64 == 0, Tk % 128 == 0; q, k, V, dO, lse2 and -delta 16-byte
+// aligned.
 //
 // ptxas (sm_90a), all four instantiations: 168 registers (the launch bound
 // for 384 threads; setmaxnreg moves them to 40 / 232) and no local memory;
@@ -112,7 +112,7 @@ dkv128_kernel(const __grid_constant__ CUtensorMap map_q,
               const __grid_constant__ CUtensorMap map_k,
               const __grid_constant__ CUtensorMap map_v,
               const __grid_constant__ CUtensorMap map_do,
-              const __grid_constant__ CUtensorMap map_dq, const float* __restrict__ ones,
+              const __grid_constant__ CUtensorMap map_dq,
               const int* __restrict__ mask, const float* __restrict__ nd,
               const float* __restrict__ lse, bf16* __restrict__ dk, bf16* __restrict__ dv,
               int Tq, int Tk, int heads, Cap cap) {
@@ -188,7 +188,6 @@ dkv128_kernel(const __grid_constant__ CUtensorMap map_q,
   const int g = lane >> 2, t = lane & 3;
   const int kA = 64 * c + 16 * wq + g, kB = kA + 8;  // this thread's keys in the block
   const int rA = 16 * wq + g;  // this thread's dQ rows (queries of the step): rA, rA + 8
-  const float oneA = ones[krow0 + kA], oneB = ones[krow0 + kB];
   const bool validA = mrow == nullptr || mrow[kA] != 0;
   const bool validB = mrow == nullptr || mrow[kB] != 0;
   // this consumer's 64 rows of box b of K and V are KBOX b on, 64c rows in; a
@@ -256,10 +255,10 @@ dkv128_kernel(const __grid_constant__ CUtensorMap map_q,
     for (int j = 0; j < K8_BQ / 8; ++j) {
       const float2 l = *reinterpret_cast<const float2*>(sLse + 8 * j + 2 * t);
       const float2 n = *reinterpret_cast<const float2*>(sND + 8 * j + 2 * t);
-      const float2 a0 = p_ds<SOFTCAP>(st[4 * j], dpt[4 * j], l.x, n.x, oneA, validA, cap);
-      const float2 a1 = p_ds<SOFTCAP>(st[4 * j + 1], dpt[4 * j + 1], l.y, n.y, oneA, validA, cap);
-      const float2 b0 = p_ds<SOFTCAP>(st[4 * j + 2], dpt[4 * j + 2], l.x, n.x, oneB, validB, cap);
-      const float2 b1 = p_ds<SOFTCAP>(st[4 * j + 3], dpt[4 * j + 3], l.y, n.y, oneB, validB, cap);
+      const float2 a0 = p_ds<SOFTCAP>(st[4 * j], dpt[4 * j], l.x, n.x, validA, cap);
+      const float2 a1 = p_ds<SOFTCAP>(st[4 * j + 1], dpt[4 * j + 1], l.y, n.y, validA, cap);
+      const float2 b0 = p_ds<SOFTCAP>(st[4 * j + 2], dpt[4 * j + 2], l.x, n.x, validB, cap);
+      const float2 b1 = p_ds<SOFTCAP>(st[4 * j + 3], dpt[4 * j + 3], l.y, n.y, validB, cap);
       const int r = 4 * (j >> 1) + 2 * (j & 1);
       if constexpr (FUSED_DQ) {
         st_shared_u32(pt_x ^ (j << 4), pack_f2(a0.x, a1.x));
@@ -408,10 +407,10 @@ inline int dkv128_attributes(int* regs, int* local_bytes) {
 // 128); dq_acc (BH, Tq, 128) fp32, zeroed by the caller (FUSED_DQ). Returns
 // as launch_dkv does.
 template <bool FUSED_DQ, bool SOFTCAP>
-inline int launch_dkv128(const void* q, const void* k, const void* v, const void* ones,
-                         const void* mask, const void* dout, const void* nd, const void* lse,
-                         void* dq_acc, void* dk, void* dv, int BH, int Tq, int Tk, int heads,
-                         Cap cap, void* stream) {
+inline int launch_dkv128(const void* q, const void* k, const void* v, const void* mask,
+                         const void* dout, const void* nd, const void* lse, void* dq_acc,
+                         void* dk, void* dv, int BH, int Tq, int Tk, int heads, Cap cap,
+                         void* stream) {
   static int regs = 0;  // per instantiation, read once
   if (regs == 0) {
     int local_bytes = 0;
@@ -431,8 +430,8 @@ inline int launch_dkv128(const void* q, const void* k, const void* v, const void
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)K8_SMEM);
   if (err != 0) return err;
   kernel<<<dim3(Tk / K8_BK, BH), KV_THREADS, K8_SMEM, (cudaStream_t)stream>>>(
-      map_q, map_k, map_v, map_do, map_dq, (const float*)ones, (const int*)mask,
-      (const float*)nd, (const float*)lse, (bf16*)dk, (bf16*)dv, Tq, Tk, heads, cap);
+      map_q, map_k, map_v, map_do, map_dq, (const int*)mask, (const float*)nd,
+      (const float*)lse, (bf16*)dk, (bf16*)dv, Tq, Tk, heads, cap);
   return (int)cudaGetLastError();
 }
 

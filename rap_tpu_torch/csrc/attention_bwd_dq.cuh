@@ -24,16 +24,15 @@
 //   flight. A block with no live tile writes zeros (dq is not zero-filled
 //   by the caller) and stops; queries are never skipped.
 // - a producer warpgroup (registers lowered to 40 by setmaxnreg) whose one
-//   elected thread streams each live tile's K and V (TMA) and va's ones
-//   column (fp32, a 512-byte bulk copy) through a ring of DQ_STAGES stages,
-//   each with a full barrier (transaction bytes) and an empty barrier (the 8
-//   consumer warps);
+//   elected thread streams each live tile's K and V (TMA) through a ring of
+//   DQ_STAGES stages, each with a full barrier (transaction bytes) and an
+//   empty barrier (the 8 consumer warps);
 // - two consumer warpgroups of 64 queries (registers raised to 232), each
 //   keeping its dQ (64 x 64 fp32) in registers across the sweep, and its dO
 //   rows as wgmma A fragments (read once from the swizzled tile). Per step of
 //   64 keys: S = Q K^T (A and B K-major from shared memory) and dP = dO V^T
 //   (A from registers, B K-major) by wgmma.m64n64k16; p and ds per logit by
-//   `p_ds` with the key's valid bit and ones value; dS rounded to bf16
+//   `p_ds` with the key's valid bit; dS rounded to bf16
 //   straight into register A fragments (the accumulator of 8 columns maps
 //   onto half an A fragment register-locally); dQ += dS K by wgmma with B
 //   MN-major (the transpose bit) from the same K tile. A tile is four commit
@@ -58,15 +57,14 @@
 // 8.05. Without `p_ds` (dS = S + dP, a diagnostic) 5.65: p and ds are what
 // the tensor cores still wait for.
 //
-// Inputs with 16-byte row strides for TMA (the wrapper splits them off va and
-// [dO | -delta], `backward_operands` in ops/flash_attention.py): V (BH, Tk,
-// 64) bf16, dO (BH, Tq, 64) bf16, -delta (BH, Tq) fp32 and va's ones column
-// (BH, Tk) fp32 holding the bf16 values. Tq % 128 == 0, Tk % 128 == 0; q, k,
-// V, dO, lse2, -delta and the ones column 16-byte aligned.
+// Inputs with 16-byte row strides for TMA: V (BH, Tk, 64) bf16, dO (BH, Tq,
+// 64) bf16, and -delta (BH, Tq) fp32 holding the bf16 values (`_neg_delta`
+// in ops/flash_attention.py). Tq % 128 == 0, Tk % 128 == 0; q, k, V, dO,
+// lse2 and -delta 16-byte aligned.
 //
 // ptxas (sm_90a), both instantiations: 168 registers (the launch bound for
 // 384 threads; setmaxnreg moves them to 40 / 232), no stack, no spills;
-// dynamic shared memory 167 040 bytes plus 20 a key tile. `launch_dq`
+// dynamic shared memory 164 992 bytes plus 20 a key tile. `launch_dq`
 // refuses to launch a build with another register count, since
 // setmaxnreg.inc would then wait forever.
 #pragma once
@@ -88,28 +86,26 @@ constexpr int DQ_PRODUCER_REGS = 40;
 constexpr int DQ_CONSUMER_REGS = 232;  // 40 + 2 x 232 = 3 x 168 (launch bound)
 constexpr int DQ_LAUNCH_REGS = 168;
 constexpr uint32_t DQ_TILE = 128 * D * 2;  // 128 rows x 64 bf16: 16 KB
-constexpr uint32_t DQ_ONES = DQ_BK * 4;    // a tile's ones column, fp32: 512 bytes
 // shared memory, from a 1024-byte aligned base
 constexpr size_t DQ_OFF_Q = 0;
 constexpr size_t DQ_OFF_DO = DQ_TILE;
 constexpr size_t DQ_OFF_K = 2 * (size_t)DQ_TILE;                       // STAGES tiles
 constexpr size_t DQ_OFF_V = DQ_OFF_K + DQ_STAGES * (size_t)DQ_TILE;    // STAGES tiles
-constexpr size_t DQ_OFF_ONES = DQ_OFF_V + DQ_STAGES * (size_t)DQ_TILE;
-constexpr size_t DQ_OFF_BAR = DQ_OFF_ONES + DQ_STAGES * (size_t)DQ_ONES;
+constexpr size_t DQ_OFF_BAR = DQ_OFF_V + DQ_STAGES * (size_t)DQ_TILE;
 constexpr size_t DQ_SMEM_BARS = 128;  // q barrier, full[], empty[], live count
 constexpr size_t DQ_SMEM_FIXED = 1024 + DQ_OFF_BAR + DQ_SMEM_BARS;  // + alignment slack
 constexpr size_t DQ_SMEM_PER_TILE = 20;  // per-key bits (16 bytes) and a list entry
 
-// q, k (BH, T, 64), v (BH, Tk, 64), dout (BH, Tq, 64) bf16 as TMA maps; ones
-// (BH, Tk) and nd = -delta (BH, Tq) fp32; mask (BH / heads, Tk) int32 or null;
-// lse (BH, Tq) fp32. Writes dq (x ln2, x 1 under SOFTCAP) (BH, Tq, 64) bf16.
+// q, k (BH, T, 64), v (BH, Tk, 64), dout (BH, Tq, 64) bf16 as TMA maps; nd =
+// -delta (BH, Tq) fp32; mask (BH / heads, Tk) int32 or null; lse (BH, Tq)
+// fp32. Writes dq (x ln2, x 1 under SOFTCAP) (BH, Tq, 64) bf16.
 template <bool SOFTCAP>
 __global__ void __launch_bounds__(DQ_THREADS, 1)
 dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUtensorMap map_k,
           const __grid_constant__ CUtensorMap map_v, const __grid_constant__ CUtensorMap map_do,
-          const float* __restrict__ ones, const int* __restrict__ mask,
-          const float* __restrict__ nd, const float* __restrict__ lse, bf16* __restrict__ dq,
-          int Tq, int Tk, int heads, Cap cap) {
+          const int* __restrict__ mask, const float* __restrict__ nd,
+          const float* __restrict__ lse, bf16* __restrict__ dq, int Tq, int Tk, int heads,
+          Cap cap) {
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* qbar = reinterpret_cast<uint64_t*>(smem + DQ_OFF_BAR);
@@ -177,7 +173,7 @@ dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
   }
 
   if (warp < 4) {
-    // ---- producer: K, V and the ones column of each live tile --------------------
+    // ---- producer: K and V of each live tile --------------------------------------
     setmaxnreg_dec<DQ_PRODUCER_REGS>();
     if (threadIdx.x == 0) {
       int stage = 0;
@@ -185,10 +181,9 @@ dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
       for (int i = 0; i < n_live; ++i) {
         if (i >= DQ_STAGES) mbar_wait(&empty[stage], phase ^ 1);
         const int row = bh * Tk + sList[i] * DQ_BK;
-        mbar_expect_tx(&full[stage], 2 * DQ_TILE + DQ_ONES);
+        mbar_expect_tx(&full[stage], 2 * DQ_TILE);
         tma_load_2d(smem + DQ_OFF_K + stage * DQ_TILE, &map_k, &full[stage], 0, row);
         tma_load_2d(smem + DQ_OFF_V + stage * DQ_TILE, &map_v, &full[stage], 0, row);
-        bulk_load(smem + DQ_OFF_ONES + stage * DQ_ONES, ones + row, DQ_ONES, &full[stage]);
         if (++stage == DQ_STAGES) {
           stage = 0;
           phase ^= 1;
@@ -206,7 +201,6 @@ dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
   const long rowA = (long)qrow0 + r, rowB = rowA + 8;
   const float lA = lse[rowA], lB = lse[rowB];
   const float nA = nd[rowA], nB = nd[rowB];
-  const float* sOnes = reinterpret_cast<const float*>(smem + DQ_OFF_ONES);
 
   // dO rows r, r + 8 as A fragments (k-step kk: dims 16kk + 2t, +1 in
   // registers 0 (row r), 1 (row r + 8); dims + 8 in 2, 3), read from the
@@ -258,20 +252,18 @@ dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
   // j holds keys 8j + 2t, +1 of rows r (0, 1) and r + 8 (2, 3); A fragment
   // k-step j/2 takes tile j in registers 2(j&1), 2(j&1)+1
   auto ds_frags_of = [&](auto all_valid, uint32_t (&dsa)[16], float (&s)[32], float (&dp)[32],
-                         int stg, int h, uint32_t w0, uint32_t w1) {
+                         uint32_t w0, uint32_t w1) {
     constexpr bool ALL_VALID = decltype(all_valid)::value;
     fence_regs(s);
     fence_regs(dp);
-    const float* so = sOnes + stg * DQ_BK + h * DQ_STEP;
 #pragma unroll
     for (int j = 0; j < DQ_STEP / 8; ++j) {
-      const float2 o = *reinterpret_cast<const float2*>(so + 8 * j + 2 * t);
       const uint32_t bits = ALL_VALID ? 3u : (j < 4 ? w0 : w1) >> (8 * (j & 3) + 2 * t);
       const bool v0 = (bits & 1u) != 0, v1 = (bits & 2u) != 0;
-      const float2 a0 = p_ds<SOFTCAP>(s[4 * j], dp[4 * j], lA, nA, o.x, v0, cap);
-      const float2 a1 = p_ds<SOFTCAP>(s[4 * j + 1], dp[4 * j + 1], lA, nA, o.y, v1, cap);
-      const float2 b0 = p_ds<SOFTCAP>(s[4 * j + 2], dp[4 * j + 2], lB, nB, o.x, v0, cap);
-      const float2 b1 = p_ds<SOFTCAP>(s[4 * j + 3], dp[4 * j + 3], lB, nB, o.y, v1, cap);
+      const float2 a0 = p_ds<SOFTCAP>(s[4 * j], dp[4 * j], lA, nA, v0, cap);
+      const float2 a1 = p_ds<SOFTCAP>(s[4 * j + 1], dp[4 * j + 1], lA, nA, v1, cap);
+      const float2 b0 = p_ds<SOFTCAP>(s[4 * j + 2], dp[4 * j + 2], lB, nB, v0, cap);
+      const float2 b1 = p_ds<SOFTCAP>(s[4 * j + 3], dp[4 * j + 3], lB, nB, v1, cap);
       const int e = 4 * (j >> 1) + 2 * (j & 1);
       dsa[e] = pack_f2(a0.y, a1.y);
       dsa[e + 1] = pack_f2(b0.y, b1.y);
@@ -279,12 +271,12 @@ dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
   };
   // a step whose 64 keys are all valid (every step without a mask) skips the
   // per-key select
-  auto ds_frags = [&](uint32_t (&dsa)[16], float (&s)[32], float (&dp)[32], int stg, int h,
-                      uint32_t w0, uint32_t w1) {
+  auto ds_frags = [&](uint32_t (&dsa)[16], float (&s)[32], float (&dp)[32], uint32_t w0,
+                      uint32_t w1) {
     if ((w0 & w1) == ~0u)
-      ds_frags_of(std::true_type(), dsa, s, dp, stg, h, w0, w1);
+      ds_frags_of(std::true_type(), dsa, s, dp, w0, w1);
     else
-      ds_frags_of(std::false_type(), dsa, s, dp, stg, h, w0, w1);
+      ds_frags_of(std::false_type(), dsa, s, dp, w0, w1);
   };
   // dQ += dS K (queries x dims; K-dim = the step's 64 keys), one commit group
   auto issue_dq = [&](uint32_t (&dsa)[16], int stg, int h) {
@@ -311,10 +303,10 @@ dq_kernel(const __grid_constant__ CUtensorMap map_q, const __grid_constant__ CUt
     issue_s_dp(sA, dpA, stage, 0);
     issue_s_dp(sB, dpB, stage, 1);
     wgmma_wait<1>();  // A's S and dP
-    ds_frags(dsA, sA, dpA, stage, 0, b.x, b.y);
+    ds_frags(dsA, sA, dpA, b.x, b.y);
     issue_dq(dsA, stage, 0);
     wgmma_wait<1>();  // B's S and dP
-    ds_frags(dsB, sB, dpB, stage, 1, b.z, b.w);
+    ds_frags(dsB, sB, dpB, b.z, b.w);
     issue_dq(dsB, stage, 1);
     wgmma_wait<0>();  // both dQ products: the tile is read
     fence_regs(dqacc);
@@ -353,9 +345,9 @@ inline int dq_attributes(int* regs, int* local_bytes) {
 // if the kernel was not compiled to the launch bound's register count (its
 // setmaxnreg.inc would wait forever), else cudaGetLastError() after the launch.
 template <bool SOFTCAP>
-inline int launch_dq(const void* q, const void* k, const void* v, const void* ones,
-                     const void* mask, const void* dout, const void* nd, const void* lse,
-                     void* dq, int BH, int Tq, int Tk, int heads, Cap cap, void* stream) {
+inline int launch_dq(const void* q, const void* k, const void* v, const void* mask,
+                     const void* dout, const void* nd, const void* lse, void* dq, int BH,
+                     int Tq, int Tk, int heads, Cap cap, void* stream) {
   static int regs = 0;  // per instantiation, read once
   if (regs == 0) {
     int local_bytes = 0;
@@ -375,8 +367,8 @@ inline int launch_dq(const void* q, const void* k, const void* v, const void* on
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != 0) return err;
   kernel<<<dim3(Tq / DQ_BQ, BH), DQ_THREADS, smem, (cudaStream_t)stream>>>(
-      map_q, map_k, map_v, map_do, (const float*)ones, (const int*)mask, (const float*)nd,
-      (const float*)lse, (bf16*)dq, Tq, Tk, heads, cap);
+      map_q, map_k, map_v, map_do, (const int*)mask, (const float*)nd, (const float*)lse,
+      (bf16*)dq, Tq, Tk, heads, cap);
   return (int)cudaGetLastError();
 }
 

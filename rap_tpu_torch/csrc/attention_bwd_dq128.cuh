@@ -15,7 +15,7 @@
 // 64; the same live-tile prologue, producer warpgroup and ring), with what 128
 // columns change:
 // - a K or V tile is 32 KB (two 64-column boxes), so the ring has 2 stages
-//   (Q 32 KB + dO 32 KB + 2 x (K + V) 128 KB + the ones columns);
+//   (Q 32 KB + dO 32 KB + 2 x (K + V) 128 KB);
 // - dQ is 64 x 128 fp32, 64 registers a thread (two 64-column halves), so a
 //   step is serial: S = Q K^T and dP = dO V^T (A and B K-major from shared
 //   memory, 8 k-steps over two boxes) into registers zeroed right before
@@ -25,8 +25,8 @@
 // A step whose 64 keys are all valid skips the per-key select.
 //
 // Inputs: q, k, V, dO (BH, T, 128) bf16 (zero-padded past d); -delta (BH, Tq)
-// and va's ones column (BH, Tk) fp32. Tq % 128 == 0, Tk % 128 == 0; q, k, V,
-// dO, lse2, -delta and the ones column 16-byte aligned.
+// fp32. Tq % 128 == 0, Tk % 128 == 0; q, k, V, dO, lse2 and -delta 16-byte
+// aligned.
 //
 // ptxas (sm_90a), both instantiations: 168 registers (the launch bound for
 // 384 threads; setmaxnreg moves them to 40 / 232) and no local memory;
@@ -49,22 +49,20 @@ constexpr size_t Q8_OFF_Q = 0;
 constexpr size_t Q8_OFF_DO = Q8_TILE;
 constexpr size_t Q8_OFF_K = 2 * (size_t)Q8_TILE;                      // STAGES tiles
 constexpr size_t Q8_OFF_V = Q8_OFF_K + Q8_STAGES * (size_t)Q8_TILE;   // STAGES tiles
-constexpr size_t Q8_OFF_ONES = Q8_OFF_V + Q8_STAGES * (size_t)Q8_TILE;
-constexpr size_t Q8_OFF_BAR = Q8_OFF_ONES + Q8_STAGES * (size_t)DQ_ONES;
+constexpr size_t Q8_OFF_BAR = Q8_OFF_V + Q8_STAGES * (size_t)Q8_TILE;
 constexpr size_t Q8_SMEM_FIXED = 1024 + Q8_OFF_BAR + DQ_SMEM_BARS;  // + alignment slack
 
-// q, k, v, dout (BH, T, 128) bf16 as TMA maps; ones (BH, Tk) and nd = -delta
-// (BH, Tq) fp32; mask (BH / heads, Tk) int32 or null; lse (BH, Tq) fp32.
+// q, k, v, dout (BH, T, 128) bf16 as TMA maps; nd = -delta (BH, Tq) fp32;
+// mask (BH / heads, Tk) int32 or null; lse (BH, Tq) fp32.
 // Writes dq (x ln2, x 1 under SOFTCAP) (BH, Tq, 128) bf16.
 template <bool SOFTCAP>
 __global__ void __launch_bounds__(DQ_THREADS, 1)
 dq128_kernel(const __grid_constant__ CUtensorMap map_q,
              const __grid_constant__ CUtensorMap map_k,
              const __grid_constant__ CUtensorMap map_v,
-             const __grid_constant__ CUtensorMap map_do, const float* __restrict__ ones,
-             const int* __restrict__ mask, const float* __restrict__ nd,
-             const float* __restrict__ lse, bf16* __restrict__ dq, int Tq, int Tk, int heads,
-             Cap cap) {
+             const __grid_constant__ CUtensorMap map_do, const int* __restrict__ mask,
+             const float* __restrict__ nd, const float* __restrict__ lse,
+             bf16* __restrict__ dq, int Tq, int Tk, int heads, Cap cap) {
   constexpr int W = 128;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -135,7 +133,7 @@ dq128_kernel(const __grid_constant__ CUtensorMap map_q,
   }
 
   if (warp < 4) {
-    // ---- producer: K, V and the ones column of each live tile --------------------
+    // ---- producer: K and V of each live tile --------------------------------------
     setmaxnreg_dec<DQ_PRODUCER_REGS>();
     if (threadIdx.x == 0) {
       int stage = 0;
@@ -143,14 +141,13 @@ dq128_kernel(const __grid_constant__ CUtensorMap map_q,
       for (int i = 0; i < n_live; ++i) {
         if (i >= Q8_STAGES) mbar_wait(&empty[stage], phase ^ 1);
         const int row = bh * Tk + sList[i] * DQ_BK;
-        mbar_expect_tx(&full[stage], 2 * Q8_TILE + DQ_ONES);
+        mbar_expect_tx(&full[stage], 2 * Q8_TILE);
         for (int b = 0; b < 2; ++b) {
           tma_load_2d(smem + Q8_OFF_K + stage * Q8_TILE + b * Q8_BOX, &map_k, &full[stage],
                       64 * b, row);
           tma_load_2d(smem + Q8_OFF_V + stage * Q8_TILE + b * Q8_BOX, &map_v, &full[stage],
                       64 * b, row);
         }
-        bulk_load(smem + Q8_OFF_ONES + stage * DQ_ONES, ones + row, DQ_ONES, &full[stage]);
         if (++stage == Q8_STAGES) {
           stage = 0;
           phase ^= 1;
@@ -168,7 +165,6 @@ dq128_kernel(const __grid_constant__ CUtensorMap map_q,
   const long rowA = (long)qrow0 + r, rowB = rowA + 8;
   const float lA = lse[rowA], lB = lse[rowB];
   const float nA = nd[rowA], nB = nd[rowB];
-  const float* sOnes = reinterpret_cast<const float*>(smem + Q8_OFF_ONES);
   // this consumer's 64 rows of box b of Q and dO: Q8_BOX b on, 64c rows in; a
   // k-step of 16 columns (32 bytes) is 2 in the descriptor's address field, one
   // of 16 rows (2048 bytes) 128 (no carry: shared addresses < 2^18)
@@ -183,17 +179,16 @@ dq128_kernel(const __grid_constant__ CUtensorMap map_q,
   // j holds keys 8j + 2t, +1 of rows r (0, 1) and r + 8 (2, 3); A fragment
   // k-step j/2 takes tile j in registers 2(j&1), 2(j&1)+1
   auto ds_frags_of = [&](auto all_valid, uint32_t (&dsa)[16], float (&s)[32], float (&dp)[32],
-                         const float* so, uint32_t w0, uint32_t w1) {
+                         uint32_t w0, uint32_t w1) {
     constexpr bool ALL_VALID = decltype(all_valid)::value;
 #pragma unroll
     for (int j = 0; j < DQ_STEP / 8; ++j) {
-      const float2 o = *reinterpret_cast<const float2*>(so + 8 * j + 2 * t);
       const uint32_t bits = ALL_VALID ? 3u : (j < 4 ? w0 : w1) >> (8 * (j & 3) + 2 * t);
       const bool v0 = (bits & 1u) != 0, v1 = (bits & 2u) != 0;
-      const float2 a0 = p_ds<SOFTCAP>(s[4 * j], dp[4 * j], lA, nA, o.x, v0, cap);
-      const float2 a1 = p_ds<SOFTCAP>(s[4 * j + 1], dp[4 * j + 1], lA, nA, o.y, v1, cap);
-      const float2 b0 = p_ds<SOFTCAP>(s[4 * j + 2], dp[4 * j + 2], lB, nB, o.x, v0, cap);
-      const float2 b1 = p_ds<SOFTCAP>(s[4 * j + 3], dp[4 * j + 3], lB, nB, o.y, v1, cap);
+      const float2 a0 = p_ds<SOFTCAP>(s[4 * j], dp[4 * j], lA, nA, v0, cap);
+      const float2 a1 = p_ds<SOFTCAP>(s[4 * j + 1], dp[4 * j + 1], lA, nA, v1, cap);
+      const float2 b0 = p_ds<SOFTCAP>(s[4 * j + 2], dp[4 * j + 2], lB, nB, v0, cap);
+      const float2 b1 = p_ds<SOFTCAP>(s[4 * j + 3], dp[4 * j + 3], lB, nB, v1, cap);
       const int e = 4 * (j >> 1) + 2 * (j & 1);
       dsa[e] = pack_f2(a0.y, a1.y);
       dsa[e + 1] = pack_f2(b0.y, b1.y);
@@ -239,12 +234,11 @@ dq128_kernel(const __grid_constant__ CUtensorMap map_q,
 
       // ---- p, ds; a step whose 64 keys are all valid skips the per-key select ----------
       uint32_t dsa[16];
-      const float* so = sOnes + stage * DQ_BK + h * DQ_STEP;
       const uint32_t w0 = h ? bits.z : bits.x, w1 = h ? bits.w : bits.y;
       if ((w0 & w1) == ~0u)
-        ds_frags_of(std::true_type(), dsa, s, dp, so, w0, w1);
+        ds_frags_of(std::true_type(), dsa, s, dp, w0, w1);
       else
-        ds_frags_of(std::false_type(), dsa, s, dp, so, w0, w1);
+        ds_frags_of(std::false_type(), dsa, s, dp, w0, w1);
 
       // ---- dQ += dS K (queries x dims; K-dim = the step's 64 keys), per half -------
       fence_regs(dq0);
@@ -302,9 +296,9 @@ inline int dq128_attributes(int* regs, int* local_bytes) {
 // Tq % 128 == 0, Tk % 128 == 0 (the wrapper checks); q, k, v, dout (BH, T,
 // 128). Returns as launch_dq does.
 template <bool SOFTCAP>
-inline int launch_dq128(const void* q, const void* k, const void* v, const void* ones,
-                        const void* mask, const void* dout, const void* nd, const void* lse,
-                        void* dq, int BH, int Tq, int Tk, int heads, Cap cap, void* stream) {
+inline int launch_dq128(const void* q, const void* k, const void* v, const void* mask,
+                        const void* dout, const void* nd, const void* lse, void* dq, int BH,
+                        int Tq, int Tk, int heads, Cap cap, void* stream) {
   static int regs = 0;  // per instantiation, read once
   if (regs == 0) {
     int local_bytes = 0;
@@ -324,8 +318,8 @@ inline int launch_dq128(const void* q, const void* k, const void* v, const void*
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != 0) return err;
   kernel<<<dim3(Tq / DQ_BQ, BH), DQ_THREADS, smem, (cudaStream_t)stream>>>(
-      map_q, map_k, map_v, map_do, (const float*)ones, (const int*)mask, (const float*)nd,
-      (const float*)lse, (bf16*)dq, Tq, Tk, heads, cap);
+      map_q, map_k, map_v, map_do, (const int*)mask, (const float*)nd, (const float*)lse,
+      (bf16*)dq, Tq, Tk, heads, cap);
   return (int)cudaGetLastError();
 }
 

@@ -21,9 +21,9 @@
 // designs), have no atomics, no zero-fill and no post-scale, so rows 7-8
 // are bitwise repeatable. Both skip key blocks with no valid key (the
 // kernels' pl.when(any(mask)), :441 and :485): dKV writes zeros there, dQ
-// adds nothing. Both read V and dO with D-value rows and -delta and va's
-// ones column as fp32 vectors, split once off va and [dO | -delta] by the
-// caller (`backward_operands` in ops/flash_attention.py).
+// adds nothing. Both read V and dO with D-value rows and -delta as an fp32
+// vector, which the caller computes once for both passes (`_neg_delta` in
+// ops/flash_attention.py).
 //
 // Bound on the H100 (d=64; global attention of the 2 x 8 x 4096 multi-view
 // batch, BH=16, T=32768; 2 T^2 d per product and head at 989 TFLOP/s): dKV
@@ -45,80 +45,73 @@ namespace {
 
 // The dKV pass at head width D = 64 or 128.
 template <bool SOFTCAP>
-int launch_dkv_at(const void* q, const void* k, const void* v, const void* ones,
-                  const void* mask, const void* dout, const void* nd, const void* lse,
-                  void* dk, void* dv, int BH, int Tq, int Tk, int heads, int D, Cap cap,
-                  void* stream) {
+int launch_dkv_at(const void* q, const void* k, const void* v, const void* mask,
+                  const void* dout, const void* nd, const void* lse, void* dk, void* dv, int BH,
+                  int Tq, int Tk, int heads, int D, Cap cap, void* stream) {
   if (D == 64)
-    return rtt::attn_bwd::launch_dkv<false, SOFTCAP>(q, k, v, ones, mask, dout, nd, lse,
-                                                     nullptr, dk, dv, BH, Tq, Tk, heads, cap,
-                                                     stream);
+    return rtt::attn_bwd::launch_dkv<false, SOFTCAP>(q, k, v, mask, dout, nd, lse, nullptr, dk,
+                                                     dv, BH, Tq, Tk, heads, cap, stream);
   if (D == 128)
-    return rtt::attn_bwd::launch_dkv128<false, SOFTCAP>(q, k, v, ones, mask, dout, nd, lse,
-                                                        nullptr, dk, dv, BH, Tq, Tk, heads, cap,
-                                                        stream);
+    return rtt::attn_bwd::launch_dkv128<false, SOFTCAP>(q, k, v, mask, dout, nd, lse, nullptr,
+                                                        dk, dv, BH, Tq, Tk, heads, cap, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 // The dQ pass at head width D = 64 or 128.
 template <bool SOFTCAP>
-int launch_dq_at(const void* q, const void* k, const void* v, const void* ones,
-                 const void* mask, const void* dout, const void* nd, const void* lse, void* dq,
-                 int BH, int Tq, int Tk, int heads, int D, Cap cap, void* stream) {
+int launch_dq_at(const void* q, const void* k, const void* v, const void* mask,
+                 const void* dout, const void* nd, const void* lse, void* dq, int BH, int Tq,
+                 int Tk, int heads, int D, Cap cap, void* stream) {
   if (D == 64)
-    return rtt::attn_bwd::launch_dq<SOFTCAP>(q, k, v, ones, mask, dout, nd, lse, dq, BH, Tq,
-                                             Tk, heads, cap, stream);
+    return rtt::attn_bwd::launch_dq<SOFTCAP>(q, k, v, mask, dout, nd, lse, dq, BH, Tq, Tk,
+                                             heads, cap, stream);
   if (D == 128)
-    return rtt::attn_bwd::launch_dq128<SOFTCAP>(q, k, v, ones, mask, dout, nd, lse, dq, BH, Tq,
-                                                Tk, heads, cap, stream);
+    return rtt::attn_bwd::launch_dq128<SOFTCAP>(q, k, v, mask, dout, nd, lse, dq, BH, Tq, Tk,
+                                                heads, cap, stream);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dKV: q, k (BH, T, D) bf16, D = 64 or 128 (the padded head width); v (BH,
-// Tk, D) bf16 and ones (BH, Tk) fp32, va without and with its ones column;
-// mask (BH / heads, Tk) int32, nonzero = valid key, or null (masked=False:
-// every key valid); dout (BH, Tq, D) bf16 and nd (BH, Tq) fp32, [dO | -delta]
-// split the same way; lse (BH, Tq) fp32. Writes dk (x ln2), dv (BH, Tk, D)
-// bf16. Tq % 64 == 0, Tk % 128 == 0; q, k, v, dout, nd and lse 16-byte
-// aligned.
-extern "C" int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                 const void* ones, const void* mask, const void* dout,
-                                 const void* nd, const void* lse, void* dk, void* dv, int BH,
-                                 int Tq, int Tk, int heads, int D, void* stream) {
-  return launch_dkv_at<false>(q, k, v, ones, mask, dout, nd, lse, dk, dv, BH, Tq, Tk, heads,
-                              D, Cap{0.f, 0.f}, stream);
+// dKV: q, k, v (BH, T, D) bf16, D = 64 or 128 (the padded head width); mask
+// (BH / heads, Tk) int32, nonzero = valid key, or null (masked=False: every
+// key valid); dout (BH, Tq, D) bf16; nd = -delta (BH, Tq) fp32; lse (BH, Tq)
+// fp32. Writes dk (x ln2), dv (BH, Tk, D) bf16. Tq % 64 == 0, Tk % 128 == 0;
+// q, k, v, dout, nd and lse 16-byte aligned.
+extern "C" int rtt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* mask,
+                                 const void* dout, const void* nd, const void* lse, void* dk,
+                                 void* dv, int BH, int Tq, int Tk, int heads, int D,
+                                 void* stream) {
+  return launch_dkv_at<false>(q, k, v, mask, dout, nd, lse, dk, dv, BH, Tq, Tk, heads, D,
+                              Cap{0.f, 0.f}, stream);
 }
 
-// dQ: q, k, v, ones, mask, dout, nd and lse as above. Writes dq (x ln2)
-// (BH, Tq, D) bf16. Tq % 128 == 0, Tk % 128 == 0; q, k, v, ones, dout, nd
-// and lse 16-byte aligned.
-extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* ones,
-                                const void* mask, const void* dout, const void* nd,
-                                const void* lse, void* dq, int BH, int Tq, int Tk, int heads,
-                                int D, void* stream) {
-  return launch_dq_at<false>(q, k, v, ones, mask, dout, nd, lse, dq, BH, Tq, Tk, heads, D,
+// dQ: q, k, v, mask, dout, nd and lse as above. Writes dq (x ln2) (BH, Tq,
+// D) bf16. Tq % 128 == 0, Tk % 128 == 0; q, k, v, dout, nd and lse 16-byte
+// aligned.
+extern "C" int rtt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* mask,
+                                const void* dout, const void* nd, const void* lse, void* dq,
+                                int BH, int Tq, int Tk, int heads, int D, void* stream) {
+  return launch_dq_at<false>(q, k, v, mask, dout, nd, lse, dq, BH, Tq, Tk, heads, D,
                              Cap{0.f, 0.f}, stream);
 }
 
 // The softcap variants of both passes: cap = c, cap2 = c log2(e) (q
 // pre-scaled by scale/c); dk and dq are not scaled by ln2.
 extern "C" int rtt_flash_bwd_dkv_softcap(const void* q, const void* k, const void* v,
-                                         const void* ones, const void* mask, const void* dout,
-                                         const void* nd, const void* lse, void* dk, void* dv,
-                                         int BH, int Tq, int Tk, int heads, int D, float cap,
-                                         float cap2, void* stream) {
-  return launch_dkv_at<true>(q, k, v, ones, mask, dout, nd, lse, dk, dv, BH, Tq, Tk, heads, D,
+                                         const void* mask, const void* dout, const void* nd,
+                                         const void* lse, void* dk, void* dv, int BH, int Tq,
+                                         int Tk, int heads, int D, float cap, float cap2,
+                                         void* stream) {
+  return launch_dkv_at<true>(q, k, v, mask, dout, nd, lse, dk, dv, BH, Tq, Tk, heads, D,
                              Cap{cap, cap2}, stream);
 }
 
 extern "C" int rtt_flash_bwd_dq_softcap(const void* q, const void* k, const void* v,
-                                        const void* ones, const void* mask, const void* dout,
-                                        const void* nd, const void* lse, void* dq, int BH,
-                                        int Tq, int Tk, int heads, int D, float cap, float cap2,
-                                        void* stream) {
-  return launch_dq_at<true>(q, k, v, ones, mask, dout, nd, lse, dq, BH, Tq, Tk, heads, D,
+                                        const void* mask, const void* dout, const void* nd,
+                                        const void* lse, void* dq, int BH, int Tq, int Tk,
+                                        int heads, int D, float cap, float cap2, void* stream) {
+  return launch_dq_at<true>(q, k, v, mask, dout, nd, lse, dq, BH, Tq, Tk, heads, D,
                             Cap{cap, cap2}, stream);
 }
 

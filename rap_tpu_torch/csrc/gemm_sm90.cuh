@@ -20,7 +20,7 @@
 //   (default (m, k0): out_proj reads the head-major attention output, a
 //   relayout of the product's rows), `SCRATCH`, bytes of shared memory
 //   each consumer warp gets for its epilogue, passed as its last argument
-//   (default none: the QKV projection stages va's odd-width rows there), and
+//   (default none: the QKV projection stages v's rows there), and
 //   `BLOCKS_PER_SM` (default 2): 1 for an epilogue that needs more than the
 //   96 registers a thread has with two blocks of 9 warps on an SM, which
 //   then gets a ring of ONE_BLOCK_STAGES slabs.

@@ -5,7 +5,8 @@
 // points: LN without affine (eps 1e-5) in fp32 -> h*(1+scale)+shift -> bf16
 // -> h @ W (D, 3D) with fp32 accumulation -> per-head RMS of q and k with the
 // folded gains (gq*log2e, gk*sqrt(dh)) -> bf16; v is cast from the fp32 sum
-// and gets the ones column. Outputs are written straight into the head-major
+// (ops/fused_proj.py says how its layout differs from the TPU kernel's).
+// Outputs are written straight into the head-major
 // layout the attention kernel reads: (G,H,N,dh) for part attention and
 // (S,H,P,N,dh) for global attention. Both are, for token t = b*L + l of
 // attention sequence b (L = N resp. P*N tokens) and head h, row (b*H + h)*L
@@ -13,7 +14,7 @@
 //
 // Bound on the H100 at the main path's shape (32768 tokens, D=512, H=8):
 // the product is 51.5 GFLOP against ~100 MB that must move (x in; q, k and
-// va out), so the tensor cores bound it (~52 us at 989 TFLOP/s). Two
+// v out), so the tensor cores bound it (~52 us at 989 TFLOP/s). Two
 // launches on one stream:
 //   1. adaln_ln_kernel<false>: hln = bf16(LN(x)(1 + scale[g]) + shift[g]),
 //      (T, D), g = t / N (ff_common.cuh);
@@ -24,15 +25,16 @@
 //      head are computed and dropped, so at dh = 64 nothing is wasted. The
 //      epilogue takes each head's sum of squares over a quad of threads
 //      (a row's columns of one half lie in the quad's 4 threads) and stores
-//      q and k from the accumulator's layout; va's (dh+1)-wide rows (130
-//      bytes at dh = 64: no TMA, no aligned vectors) go through 1936 bytes
-//      of shared memory a warp, 8 rows at a time, and out as one contiguous
-//      16-byte-aligned block (a tile's 128 rows of one head are contiguous
-//      in both layouts, L % 128 == 0). That epilogue needs more than the 96
-//      registers two blocks an SM leave a thread (every variant spilled
-//      72-104 bytes there), so the GEMM runs one block an SM (166
-//      registers) with a 6-slab ring, which the producer fills with the
-//      next tile's slabs while the consumers run the epilogue.
+//      q and k from the accumulator's layout, 4 bytes a store; v goes
+//      through 2 KB of shared memory a warp, 8 rows at a time, and out as
+//      16-byte stores of one contiguous block (a tile's 128 rows of one head
+//      are contiguous in both layouts, L % 128 == 0). Stored as q and k are,
+//      v made the GEMM 1.4x (part) and 1.7x (global layout) slower at the
+//      serving shape on an H100. The GEMM runs one block an SM with a 6-slab
+//      ring, which the producer fills with the next tile's slabs while the
+//      consumers run the epilogue: every epilogue tried with two blocks an
+//      SM (96 registers a thread) spilled 72-104 bytes, as the qk-norm
+//      epilogue of proj_bwd.cu does.
 // Takes every shape rap_tpu's fused guard admits: D % 128 == 0, L % 128 ==
 // 0, dh % 8 == 0, dh < 128, D = H*dh (the wrapper checks; ops/fused_proj.py
 // `proj_shape_error`). Then H is even: an odd H would make dh = D/H a
@@ -54,11 +56,11 @@ constexpr int MAX_DH = 120;  // dh % 8 == 0 and dh < 128
 struct ProjEpi {
   bf16* q;
   bf16* k;
-  bf16* va;
+  bf16* v;
   const float* gq;
   const float* gk;
   int H, dh, L;  // heads, head width, tokens of one attention sequence
-  static constexpr int SCRATCH = 16 * (MAX_DH + 1);  // 8 va rows of dh + 1
+  static constexpr int SCRATCH = 16 * (MAX_DH + 8);  // 8 v rows of dh + 8
   static constexpr int BLOCKS_PER_SM = 1;             // see the head comment
 
   __device__ bool wide() const { return dh > 64; }
@@ -82,15 +84,15 @@ struct ProjEpi {
       float ss[2];
 #pragma unroll
       for (int s = 0; s < 2; ++s) {
-        float v = 0.f;
+        float sq = 0.f;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           if (col0(s) + 8 * j < dh) {
             const float a0 = acc[4 * (8 * s + j) + 2 * h], a1 = acc[4 * (8 * s + j) + 2 * h + 1];
-            v += a0 * a0 + a1 * a1;
+            sq += a0 * a0 + a1 * a1;
           }
         }
-        ss[s] = rtt::quad_sum(v);
+        ss[s] = rtt::quad_sum(sq);
       }
       if (wide()) ss[0] = ss[1] = ss[0] + ss[1];
       r[0][h] = rsqrtf(ss[0] + 1e-12f);
@@ -98,9 +100,9 @@ struct ProjEpi {
     }
 
     // q and k straight from the accumulators (the gains through the
-    // read-only path); va 8 rows at a time through the warp's scratch,
-    // row-major as in the output (dh + 1 values a row, the last 1), then out
-    // as one contiguous block
+    // read-only path); v 8 rows at a time through the warp's scratch (rows
+    // of dh + 8 values, so the 8 rows of a store fall in distinct banks),
+    // then out as 16-byte stores: the 8 rows are contiguous in the output
     bf16* sv = reinterpret_cast<bf16*>(scratch);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -126,18 +128,18 @@ struct ProjEpi {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int c = col0(s) + 8 * j + 2 * t;
-          if (c < dh) {
-            sv[g * (dh + 1) + c] = __float2bfloat16(acc[4 * (8 * s + j) + 2 * h]);
-            sv[g * (dh + 1) + c + 1] = __float2bfloat16(acc[4 * (8 * s + j) + 2 * h + 1]);
-          }
+          if (c < dh)
+            *reinterpret_cast<uint32_t*>(sv + g * (dh + 8) + c) =
+                rtt::pack_f2(acc[4 * (8 * s + j) + 2 * h], acc[4 * (8 * s + j) + 2 * h + 1]);
         }
-        if (t == 0) sv[g * (dh + 1) + dh] = __float2bfloat16(1.f);
         if (wide() && s == 0) continue;  // the head's columns 64.. come with s = 1
         __syncwarp();
         const long row = (long)(b * H + hh) * L + l + 8 * h;  // the block's first row
-        const uint4* src = reinterpret_cast<const uint4*>(scratch);
-        uint4* out = reinterpret_cast<uint4*>(va + row * (dh + 1));
-        for (int i = lane; i < dh + 1; i += 32) out[i] = src[i];  // 8 (dh + 1) bf16
+        uint4* out = reinterpret_cast<uint4*>(v + row * dh);
+        for (int i = lane; i < dh; i += 32) {  // 8 rows of dh / 8 16-byte chunks
+          const int rr = i / (dh / 8), cc = i - rr * (dh / 8);
+          out[i] = *reinterpret_cast<const uint4*>(sv + rr * (dh + 8) + 8 * cc);
+        }
         __syncwarp();
       }
     }
@@ -147,11 +149,11 @@ struct ProjEpi {
 }  // namespace
 
 // x (G, N, D) bf16, ada (G, 2D) fp32, w (D, 3D) bf16, gq, gk (H, dh) fp32;
-// scratch hln (G*N, D) bf16; out q, k (rows, dh) and va (rows, dh + 1) bf16,
-// head-major with L = N * P_layout tokens a sequence (P_layout = 1 for part
-// attention, P for global). x, w, hln, va 16-byte aligned.
+// scratch hln (G*N, D) bf16; out q, k, v (rows, dh) bf16, head-major with
+// L = N * P_layout tokens a sequence (P_layout = 1 for part attention, P for
+// global). x, w, hln, v 16-byte aligned.
 extern "C" int rtt_proj(const void* x, const void* ada, const void* w, const void* gq,
-                        const void* gk, void* hln, void* q, void* k, void* va, int G, int N,
+                        const void* gk, void* hln, void* q, void* k, void* v, int G, int N,
                         int D, int H, int P_layout, void* stream) {
   const int T = G * N, dh = D / H;
   if (T == 0) return 0;
@@ -164,7 +166,7 @@ extern "C" int rtt_proj(const void* x, const void* ada, const void* w, const voi
   if (!rtt::gemm::tile_map(&m_h, hln, T, D) || !rtt::gemm::tile_map(&m_w, w, D, 3L * D))
     return (int)cudaErrorInvalidValue;
   const rtt::gemm::Sched sched{T / 128, dh > 64 ? 3 * H : 3 * H / 2, 1, D / 64};
-  const ProjEpi epi{(bf16*)q, (bf16*)k, (bf16*)va, (const float*)gq, (const float*)gk,
+  const ProjEpi epi{(bf16*)q, (bf16*)k, (bf16*)v, (const float*)gq, (const float*)gk,
                     H, dh, N * P_layout};
   return rtt::gemm::launch<K_MAJOR, MN_MAJOR>(m_h, m_w, sched, epi, s);
 }

@@ -5,11 +5,11 @@
 // recompute h = bf16(LN(x) (1 + scale) + shift) and y = h W (fp32 sum, q and
 // k columns only); per head of q and k, with r = rsqrt(sum y^2 + 1e-12) and
 // dqg = dq * gain, dy = r dqg - y r^3 sum_head(dqg y) (fp32, then bf16), and
-// d(gain) = sum over tokens of dq y r; the v section of dy is dva without its
-// ones column. Then dW = h^T dy (fp32 sum over all tokens, kept fp32), dh =
-// dy W^T (fp32), and the AdaLN + LayerNorm vjp: d(scale) = sum dh xhat and
-// d(shift) = sum dh per part, dx = rstd (dxhat - mean(dxhat) - xhat
-// mean(dxhat xhat)) with dxhat = dh (1 + scale). dq, dk and dva are read in
+// d(gain) = sum over tokens of dq y r; the v section of dy is dv. Then dW =
+// h^T dy (fp32 sum over all tokens, kept fp32), dh = dy W^T (fp32), and the
+// AdaLN + LayerNorm vjp: d(scale) = sum dh xhat and d(shift) = sum dh per
+// part, dx = rstd (dxhat - mean(dxhat) - xhat mean(dxhat xhat)) with dxhat
+// = dh (1 + scale). dq, dk and dv are read in
 // their head-major layout ((G,H,N,dh) part, (S,H,P,N,dh) global): for token
 // t = b*L + l of attention sequence b (L = N resp. P*N tokens) and head h,
 // row (b*H + h)*L + l, as the TPU kernel folds them in its DMA reads.
@@ -30,9 +30,8 @@
 //      dqg y are quad sums. It writes dy's q and k columns (T, 3D) bf16, and
 //      per 64 tokens the column sums of dq y r (gain partials), summed
 //      across the warpgroup's 4 warps through shared memory;
-//   3. dv_copy_kernel: dy's v columns, dva without its ones column,
-//      head-major -> token-major (dva's (dh+1)-wide rows, 130 bytes at
-//      dh = 64, cannot be read by TMA);
+//   3. dv_copy_kernel: dy's v columns, dv head-major -> token-major, 16
+//      bytes a load and a store;
 //   4. GEMM dh = dy . W^T (K = 3D, W stored (D, 3D) is B K-major), fp32;
 //   5. ln_grad_kernel<true> (ff_common.cuh): dx, and per block of R rows
 //      (R the largest power of two <= 64 dividing N, so a block lies in one
@@ -198,11 +197,10 @@ struct ProjBwdEpi {
   }
 };
 
-// dy[t, 2D + h*dh + c] = dva[(b*H + h)*L + l, c], c < dh, for token t =
-// b*L + l: one thread a run of 8 values (dva's rows are dh + 1 wide, so
-// read by element; dy's written 16 bytes at a time).
+// dy[t, 2D + h*dh + c] = dv[(b*H + h)*L + l, c], c < dh, for token t =
+// b*L + l: one thread a run of 8 values, read and written 16 bytes at a time.
 __global__ void __launch_bounds__(256)
-dv_copy_kernel(const bf16* __restrict__ dva, bf16* __restrict__ dy, long rows, int H, int dh,
+dv_copy_kernel(const bf16* __restrict__ dv, bf16* __restrict__ dy, long rows, int H, int dh,
                int L, int D) {
   const int per = dh / 8;
   for (long i = (long)blockIdx.x * 256 + threadIdx.x; i < rows * per;
@@ -211,29 +209,25 @@ dv_copy_kernel(const bf16* __restrict__ dva, bf16* __restrict__ dy, long rows, i
     const int c = (int)(i - r * per) * 8;
     const long bh = r / L, l = r - bh * L, b = bh / H;
     const int hh = (int)(bh - b * H);
-    const bf16* src = dva + r * (dh + 1) + c;
-    uint4 o;
-    bf16* e = reinterpret_cast<bf16*>(&o);
-#pragma unroll
-    for (int q = 0; q < 8; ++q) e[q] = src[q];
-    *reinterpret_cast<uint4*>(dy + (b * L + l) * 3 * D + 2 * D + hh * dh + c) = o;
+    *reinterpret_cast<uint4*>(dy + (b * L + l) * 3 * D + 2 * D + hh * dh + c) =
+        *reinterpret_cast<const uint4*>(dv + r * dh + c);
   }
 }
 
 }  // namespace
 
 // x (G,N,D) bf16; ada (G,2D) fp32 = (scale | shift); w (D,3D) bf16; gq, gk
-// (H*dh) fp32 folded gains; dq, dk head-major bf16, dva head-major (dh+1)
-// wide, with L = N * P_layout tokens a sequence (P_layout = 1 for part
-// attention, P for global). Scratch: hln (T, D) bf16, dy (T, 3D) bf16, dhid
+// (H*dh) fp32 folded gains; dq, dk, dv head-major bf16, with L = N *
+// P_layout tokens a sequence (P_layout = 1 for part attention, P for
+// global). Scratch: hln (T, D) bf16, dy (T, 3D) bf16, dhid
 // (T, D) fp32, gpart (T / 64, 2D), lnpart (T / R, 2D), wpart (splits, D, 3D)
 // fp32 (unused for one split). Outputs: dx (G,N,D) bf16; dada (G, 2D) =
 // (d scale | d shift), dw (D, 3D), dgain (2D: q | k), fp32. R: rows of an LN
 // vjp block, a power of two <= 64 that divides N; splits: token splits of
-// dW's product (1 <= splits <= T / 64). x, w, dq, dk, hln, dy 16-byte
+// dW's product (1 <= splits <= T / 64). x, w, dq, dk, dv, hln, dy 16-byte
 // aligned.
 extern "C" int rtt_proj_bwd(const void* x, const void* ada, const void* w, const void* gq,
-                            const void* gk, const void* dq, const void* dk, const void* dva,
+                            const void* gk, const void* dq, const void* dk, const void* dv,
                             void* hln, void* dy, void* dhid, void* gpart, void* lnpart,
                             void* wpart, void* dx, void* dada, void* dw, void* dgain, int G,
                             int N, int D, int H, int P_layout, int R, int splits,
@@ -265,7 +259,7 @@ extern "C" int rtt_proj_bwd(const void* x, const void* ada, const void* w, const
   const long rows = (long)T * H, units = rows * (dh / 8);
   const long blocks = (units + 255) / 256;
   dv_copy_kernel<<<(int)(blocks < 65536 ? blocks : 65536), 256, 0, s>>>(
-      (const bf16*)dva, (bf16*)dy, rows, H, dh, L, D);
+      (const bf16*)dv, (bf16*)dy, rows, H, dh, L, D);
   if ((err = (int)cudaGetLastError())) return err;
 
   const rtt::gemm::Sched sd{T / 128, D / 128, 1, 3 * D / 64};

@@ -307,17 +307,17 @@ def _attention_block(lp, prefix, x, t_emb, mask, key_mask, cfg: DiTConfig, S: in
     if ring_mesh is None and _fused_ok(cfg, seq):
         telemetry.bump("dit.fused")
         ada = _adaln_mlp(lp[f"{prefix}_prenorm"], t_emb)  # (G, 2D)
-        qh5, kh5, vah5 = fused_proj.adaln_qkv(
+        qh5, kh5, vh5 = fused_proj.adaln_qkv(
             x, ada, lp[f"{prefix}_qkv"]["kernel"], lp[f"{prefix}_q_gamma"],
             lp[f"{prefix}_k_gamma"], P=P, is_global=is_global, kernels=kernels,
         )
         B = S if is_global else G
-        qh, kh, vah = (a.reshape(B * H, seq, -1) for a in (qh5, kh5, vah5))
+        qh, kh, vh = (a.reshape(B * H, seq, -1) for a in (qh5, kh5, vh5))
         if mask is None:
-            out_hm = flash_attention.flash_attention_headmajor(qh, kh, vah, bound2,
+            out_hm = flash_attention.flash_attention_headmajor(qh, kh, vh, bound2,
                                                                kernels=kernels)
         else:  # the key mask is shared by the H heads of a batch row
-            out_hm = flash_attention.masked_attention_headmajor(qh, kh, vah, key_mask, H,
+            out_hm = flash_attention.masked_attention_headmajor(qh, kh, vh, key_mask, H,
                                                                 kernels=kernels)
         return fused_proj.attn_out(
             out_hm.reshape(qh5.shape), x, lp[f"{prefix}_out"]["kernel"],

@@ -41,14 +41,14 @@ SIGNATURES = {
     "rtt_ff": [_P] * 10 + [_I] * 3 + [_P],
     "rtt_flash_fixed": [_P] * 3 + [_F] + [_P] * 2 + [_I] * 4 + [_P],
     "rtt_flash_online": [_P] * 6 + [_I] * 5 + [_P],
-    "rtt_flash_bwd": [_P] * 11 + [_I] * 5 + [_P],
-    "rtt_flash_bwd_dkv": [_P] * 10 + [_I] * 5 + [_P],
-    "rtt_flash_bwd_dq": [_P] * 9 + [_I] * 5 + [_P],
+    "rtt_flash_bwd": [_P] * 10 + [_I] * 5 + [_P],
+    "rtt_flash_bwd_dkv": [_P] * 9 + [_I] * 5 + [_P],
+    "rtt_flash_bwd_dq": [_P] * 8 + [_I] * 5 + [_P],
     "rtt_flash_fixed_softcap": [_P] * 3 + [_F] * 2 + [_P] * 2 + [_I] * 4 + [_P],
     "rtt_flash_online_softcap": [_P] * 4 + [_F] + [_P] * 2 + [_I] * 5 + [_P],
-    "rtt_flash_bwd_softcap": [_P] * 11 + [_I] * 5 + [_F] * 2 + [_P],
-    "rtt_flash_bwd_dkv_softcap": [_P] * 10 + [_I] * 5 + [_F] * 2 + [_P],
-    "rtt_flash_bwd_dq_softcap": [_P] * 9 + [_I] * 5 + [_F] * 2 + [_P],
+    "rtt_flash_bwd_softcap": [_P] * 10 + [_I] * 5 + [_F] * 2 + [_P],
+    "rtt_flash_bwd_dkv_softcap": [_P] * 9 + [_I] * 5 + [_F] * 2 + [_P],
+    "rtt_flash_bwd_dq_softcap": [_P] * 8 + [_I] * 5 + [_F] * 2 + [_P],
     "rtt_proj_bwd": [_P] * 18 + [_I] * 7 + [_P],
     "rtt_ff_bwd": [_P] * 19 + [_I] * 5 + [_P],
     "rtt_kabsch": [_P] * 9 + [_F] * 3 + [_I] * 2 + [_P],

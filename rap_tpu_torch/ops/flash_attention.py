@@ -4,18 +4,18 @@ Counterpart of rap_tpu/ops/pallas_attention.py. Three entry points:
 
 - ``flash_attention_headmajor`` (:338), the no-padding path of the fused DiT
   branch, and its guard ``_fwd_full_or_online`` (:272): q arrives pre-scaled
-  into base 2 (q·k is the base-2 logit), va is v with a ones column. The
-  fixed-bound variant computes p = exp2(s - bound) with no running max; it
-  is exact while every logit lies within the fp32 exp2 range of the bound,
-  which the guard proves from the qk-norm gains: bound2 <= SAFE_BOUND2
-  (:269). Above it the online-softmax variant runs.
+  into base 2 (q·k is the base-2 logit). The fixed-bound variant computes
+  p = exp2(s - bound) with no running max; it is exact while every logit
+  lies within the fp32 exp2 range of the bound, which the guard proves from
+  the qk-norm gains: bound2 <= SAFE_BOUND2 (:269). Above it the
+  online-softmax variant runs.
 - ``flash_attention`` (:785), the (B, T, H, d) entry of ``batched_attention``
   with an optional (B, Tk) key mask. Without a mask, and with block-aligned
   lengths, it takes the no-padding path above; otherwise it pre-scales q,
   pads queries and keys to rap_tpu's blocks (padded keys masked) and runs
   the online variant with the key mask (``_flash_hm``, :722-768).
 - ``masked_attention_headmajor``, that masked path on head-major operands:
-  the fused DiT branch of a padded batch, whose q, k and va arrive
+  the fused DiT branch of a padded batch, whose q, k and v arrive
   pre-scaled and head-major from the proj kernel, with the int32 key mask
   (``key_mask``) that the forward builds once for all layers.
 
@@ -29,18 +29,23 @@ kernel and the dKV pass are one key-block kernel (csrc/attention_bwd_dkv.cuh),
 the dQ pass its mirror (csrc/attention_bwd_dq.cuh), all TMA + wgmma, each
 with a 128-wide counterpart (csrc/attention_bwd_dkv128.cuh,
 csrc/attention_bwd_dq128.cuh). They read V and dO with rows of the
-kernel's width and -delta and va's ones column as fp32 vectors
-(``backward_operands``), split once off va and [dO | -delta]
-(``augment_do``) for both split passes. Each has a plain twin here with
-the same arithmetic and cast points (``*_plain``), chunked over
-(batch*head, query) tiles to bound memory. The gradient of the
-bound is 0 and the ones column of va gets a zero cotangent (:321-323).
+kernel's width and -delta as an fp32 vector (``_neg_delta``), computed once
+for both split passes. Each has a plain twin here with the same arithmetic
+and cast points (``*_plain``), chunked over (batch*head, query) tiles to
+bound memory. The gradient of the bound is 0 (:321-323).
 Every kernel is 64 or 128 wide in its heads: the launchers take heads of
 8 <= d <= 128, multiples of 8 (the fixed-bound forward d < 128, as
 rap_tpu's no-padding path does: a d = 128 head takes the masked path),
 zero-padding q, k, V and dO to the kernel's width before a kernel and
 dropping the padded columns of out, dq, dk and dv after it
 (``kernel_width``, ``head_columns``).
+
+Layout: v, dO and every gradient are (BH, T, d) in the compute dtype, as q
+and k are. rap_tpu's kernels take va = [V | 1] with a ones column (its
+forward's row sums l come from P·va) and [dO | -delta] (``_augment_do``,
+:566); the kernels here make l with the tensor cores from the bf16-rounded
+p (csrc/attention.cu) and add -delta to dO·V^T per logit, which gives the
+same values.
 
 Softcap c > 0 (the TPU kernels' static ``softcap``): q is pre-scaled by
 scale/c instead of scale·log2(e) (:829-832), each logit becomes
@@ -124,7 +129,7 @@ def _valid_keys(mask, heads: int, sl: slice):
     return mask.bool().repeat_interleave(heads, dim=0)[sl][:, None, :]
 
 
-def flash_fixed_plain(qh, kh, vah, bound: float, softcap: float = 0.0):
+def flash_fixed_plain(qh, kh, vh, bound: float, softcap: float = 0.0):
     """Plain fixed-bound attention: (out (BH,Tq,d), lse2 (BH,Tq) fp32)."""
     BH, Tq, d = qh.shape
     out = torch.empty_like(qh)
@@ -132,14 +137,13 @@ def flash_fixed_plain(qh, kh, vah, bound: float, softcap: float = 0.0):
     for sl in _chunks(BH, Tq, kh.shape[1]):
         s = _logits(qh[sl], kh[sl], softcap)
         p = torch.exp2(s - bound).to(qh.dtype).float()
-        pv = p @ vah[sl].float()  # the ones column gives the row sum l
-        l = pv[..., d:].clamp_min(1e-30)
-        out[sl] = (pv[..., :d] / l).to(qh.dtype)
+        l = p.sum(-1, keepdim=True).clamp_min(1e-30)  # the fp32 sum of the bf16-rounded p
+        out[sl] = ((p @ vh[sl].float()) / l).to(qh.dtype)
         lse[sl] = bound + torch.log2(l[..., 0])
     return out, lse
 
 
-def flash_online_plain(qh, kh, vah, mask=None, heads: int = 1, softcap: float = 0.0):
+def flash_online_plain(qh, kh, vh, mask=None, heads: int = 1, softcap: float = 0.0):
     """Plain masked softmax attention: (out, lse2). mask: (BH/heads, Tk)
     bool or None (every key valid); fully masked rows give 0 and LSE_EMPTY."""
     BH, Tq, d = qh.shape
@@ -156,7 +160,7 @@ def flash_online_plain(qh, kh, vah, mask=None, heads: int = 1, softcap: float = 
             p = p * valid
         p = p.to(qh.dtype).float()
         l = p.sum(-1, keepdim=True)
-        o = (p @ vah[sl, :, :d].float()) / l.clamp_min(1e-30)
+        o = (p @ vh[sl].float()) / l.clamp_min(1e-30)
         out[sl] = torch.where(l > 0, o, 0.0).to(qh.dtype)
         lse[sl] = torch.where(
             l > 0, m + torch.log2(l.clamp_min(1e-30)), LSE_EMPTY
@@ -186,8 +190,8 @@ def head_columns(t, d: int):
     return t if t.shape[-1] == d else t[..., :d].contiguous()
 
 
-def _check_attention_inputs(qh, kh, vah, block: int, fixed: bool = False):
-    """Check q, k, va's shapes and dtypes: heads of 8 <= d <= 128, multiples
+def _check_attention_inputs(qh, kh, vh, block: int, fixed: bool = False):
+    """Check q, k, v's shapes and dtypes: heads of 8 <= d <= 128, multiples
     of 8 (the fixed-bound forward ``fixed``: d < 128); Tq, Tk multiples of
     ``block``."""
     BH, Tq, d = qh.shape
@@ -205,7 +209,7 @@ def _check_attention_inputs(qh, kh, vah, block: int, fixed: bool = False):
             f"padded); got Tq={Tq}, Tk={Tk}")
     check_input("qh", qh, torch.bfloat16, (BH, Tq, d))
     check_input("kh", kh, torch.bfloat16, (BH, Tk, d))
-    check_input("vah", vah, torch.bfloat16, (BH, Tk, d + 1))
+    check_input("vh", vh, torch.bfloat16, (BH, Tk, d))
 
 
 def _mask_arg(mask, qh, Tk: int, heads: int):
@@ -224,25 +228,28 @@ def _as_kernel_mask(mask):
     return None if mask is None else mask.to(torch.int32).contiguous()
 
 
-def _forward_operands(qh, kh, vah, fixed: bool):
-    """Check the forward kernel's inputs (``fixed``: the fixed-bound
-    variant's); return q, k and v = va without its ones column at the
-    kernels' width (``kernel_width``): v (BH, Tk, 64 or 128) with
-    16-byte-aligned rows, the layout its TMA loads read (a fresh tensor, so
-    aligned). TMA also needs q's and k's base addresses 16-byte aligned."""
-    _check_attention_inputs(qh, kh, vah, _FWD_BLOCK, fixed)
-    for name, t in (("qh", qh), ("kh", kh)):
+def _check_aligned(kernel: str, **tensors) -> None:
+    """TMA and the bulk copies need 16-byte-aligned base addresses."""
+    for name, t in tensors.items():
         require(t.data_ptr() % 16 == 0,
-                f"{name}: the attention forward kernel takes 16-byte-aligned inputs "
+                f"{name}: the attention {kernel} kernel takes 16-byte-aligned inputs "
                 f"(TMA), got data_ptr % 16 = {t.data_ptr() % 16}")
-    q, k, v = kernel_width(qh, kh, vah[..., :qh.shape[-1]])
-    return q, k, v.contiguous()
 
 
-def flash_fixed_kernel(qh, kh, vah, bound: float, softcap: float = 0.0):
+def _forward_operands(qh, kh, vh, fixed: bool):
+    """Check the forward kernel's inputs (``fixed``: the fixed-bound
+    variant's); return q, k and v at the kernels' width (``kernel_width``):
+    the caller's own tensors at d = 64 or 128, whose rows of 128 or 256
+    bytes TMA reads, and 16-byte-aligned base addresses."""
+    _check_attention_inputs(qh, kh, vh, _FWD_BLOCK, fixed)
+    _check_aligned("forward", qh=qh, kh=kh, vh=vh)
+    return kernel_width(qh, kh, vh)
+
+
+def flash_fixed_kernel(qh, kh, vh, bound: float, softcap: float = 0.0):
     """Launch the fixed-bound variant of csrc/attention.cu (its softcap
     variant for ``softcap`` > 0)."""
-    q, k, v = _forward_operands(qh, kh, vah, fixed=True)
+    q, k, v = _forward_operands(qh, kh, vh, fixed=True)
     BH, Tq, d = qh.shape
     out = torch.empty_like(q)
     lse = torch.empty((BH, Tq), dtype=torch.float32, device=qh.device)
@@ -255,10 +262,10 @@ def flash_fixed_kernel(qh, kh, vah, bound: float, softcap: float = 0.0):
     return head_columns(out, d), lse
 
 
-def flash_online_kernel(qh, kh, vah, mask=None, heads: int = 1, softcap: float = 0.0):
+def flash_online_kernel(qh, kh, vh, mask=None, heads: int = 1, softcap: float = 0.0):
     """Launch the online-softmax variant of csrc/attention.cu (its softcap
     variant for ``softcap`` > 0)."""
-    q, k, v = _forward_operands(qh, kh, vah, fixed=False)
+    q, k, v = _forward_operands(qh, kh, vh, fixed=False)
     BH, Tq, d = qh.shape
     Tk = kh.shape[1]
     mask_ptr = _mask_arg(mask, qh, Tk, heads)
@@ -273,17 +280,17 @@ def flash_online_kernel(qh, kh, vah, mask=None, heads: int = 1, softcap: float =
     return head_columns(out, d), lse
 
 
-def flash_fixed(qh, kh, vah, bound: float, softcap: float = 0.0):
-    if on_cpu(qh, kh, vah):
-        return flash_fixed_plain(qh, kh, vah, bound, softcap)
-    return flash_fixed_kernel(qh, kh, vah, bound, softcap)
+def flash_fixed(qh, kh, vh, bound: float, softcap: float = 0.0):
+    if on_cpu(qh, kh, vh):
+        return flash_fixed_plain(qh, kh, vh, bound, softcap)
+    return flash_fixed_kernel(qh, kh, vh, bound, softcap)
 
 
-def flash_online(qh, kh, vah, mask=None, heads: int = 1, softcap: float = 0.0):
+def flash_online(qh, kh, vh, mask=None, heads: int = 1, softcap: float = 0.0):
     """mask: (BH/heads, Tk), nonzero = valid key; None = every key valid."""
-    if on_cpu(qh, kh, vah):
-        return flash_online_plain(qh, kh, vah, mask, heads, softcap)
-    return flash_online_kernel(qh, kh, vah, _as_kernel_mask(mask), heads, softcap)
+    if on_cpu(qh, kh, vh):
+        return flash_online_plain(qh, kh, vh, mask, heads, softcap)
+    return flash_online_kernel(qh, kh, vh, _as_kernel_mask(mask), heads, softcap)
 
 
 # --------------------------------------------------------------------------
@@ -312,41 +319,22 @@ def masked_backward_slab_bytes(BH: int, Tq: int, Tk: int, d: int) -> int:
 
 
 def _neg_delta(dout, out):
-    """-delta in dO's dtype, delta = rowsum(dO·O) in fp32 (``_augment_do``,
-    pallas_attention.py:566): (BH, T). The products are taken in place in an
-    fp32 copy of dO (out widened element by element: the same values as
-    ``out.float()``, one temporary fewer)."""
+    """-delta (BH, T) as the backward kernels and twins read it: fp32 holding
+    the value in dO's dtype of the -delta column of rap_tpu's [dO | -delta]
+    (``_augment_do``, pallas_attention.py:566), delta = rowsum(dO·O) in fp32.
+    The products are taken in place in an fp32 copy of dO (out widened
+    element by element: the same values as ``out.float()``, one temporary
+    fewer)."""
     prod = dout.to(torch.float32, copy=True).mul_(out)
-    return (-prod.sum(-1)).to(dout.dtype)
+    return (-prod.sum(-1)).to(dout.dtype).float()
 
 
-def augment_do(dout, out):
-    """[dO | -delta] in dO's dtype (``_augment_do``, pallas_attention.py:566)."""
-    return torch.cat([dout, _neg_delta(dout, out)[..., None]], dim=-1)
-
-
-def _split_last(xa):
-    """(x, its last column as fp32): a (BH, T, d+1) ones- or delta-augmented
-    tensor as the key-block kernel reads it, both contiguous."""
-    return xa[..., :-1].contiguous(), xa[..., -1].float().contiguous()
-
-
-def backward_operands(vah, dout, out):
-    """(v, dO, -delta, ones): the operands of the backward kernels (rows 6-8),
-    whose TMA loads need 16-byte
-    row strides where va and [dO | -delta] have d+1 values a row. v and dO
-    are (BH, T, d) in their dtype; -delta and va's ones column are (BH, T)
-    fp32 vectors holding exactly ``augment_do(dout, out)[..., d]`` and
-    ``vah[..., d]``."""
-    v, ones = _split_last(vah)
-    return v, dout.contiguous(), _neg_delta(dout, out).float(), ones
-
-
-def _p_ds_tiles(qh, kh, vah, doa, lse2, mask, heads, softcap: float = 0.0):
+def _p_ds_tiles(qh, kh, vh, dout, nd, lse2, mask, heads, softcap: float = 0.0):
     """The recomputed tiles of the plain backward twins, over (batch*head
     rows, query rows) chunks: (rows, queries, p, ds), with p and ds rounded
-    to the storage dtype where ``_recompute_p_ds`` (:369) rounds them; under
-    softcap ds carries c·(1 - tanh²) (:402-405)."""
+    to the storage dtype where ``_recompute_p_ds`` (:369) rounds them, and
+    -delta ``nd`` added after the dO·V^T product, as the kernels add it;
+    under softcap ds carries c·(1 - tanh²) (:402-405)."""
     BH, Tq, d = qh.shape
     Tk = kh.shape[1]
     dt = qh.dtype
@@ -365,99 +353,68 @@ def _p_ds_tiles(qh, kh, vah, doa, lse2, mask, heads, softcap: float = 0.0):
             if valid is not None:
                 s = torch.where(valid, s, NEG_INF)
             p = torch.exp2(s - lse2[sl, qs, None])
-            dpd = doa[sl, qs].float() @ vah[sl].to(dt).float().transpose(-1, -2)
-            ds = p * dpd
+            dpd = dout[sl, qs].to(dt).float() @ vh[sl].to(dt).float().transpose(-1, -2)
+            ds = p * (dpd + nd[sl, qs, None].float())
             if dsdz is not None:
                 ds = ds * dsdz
             ds = ds.to(dt).float()
             yield sl, qs, p.to(dt).float(), ds
 
 
-def flash_bwd_dkv_plain(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
+def flash_bwd_dkv_plain(qh, kh, vh, dout, nd, lse2, mask=None, heads: int = 1,
                         softcap: float = 0.0):
     """Plain version of the dKV pass: (dk, dv), each (BH, Tk, d) in q's
     dtype; dk carries the ln2 of the base-2 domain (none under softcap).
-    doa = [dO | -delta]."""
-    d = qh.shape[-1]
+    nd = -delta (``_neg_delta``)."""
     dk = torch.zeros(kh.shape, dtype=torch.float32, device=qh.device)
     dv = torch.zeros_like(dk)
-    for sl, qs, p, ds in _p_ds_tiles(qh, kh, vah, doa, lse2, mask, heads, softcap):
-        dv[sl] += p.transpose(-1, -2) @ doa[sl, qs, :d].float()
+    for sl, qs, p, ds in _p_ds_tiles(qh, kh, vh, dout, nd, lse2, mask, heads, softcap):
+        dv[sl] += p.transpose(-1, -2) @ dout[sl, qs].to(qh.dtype).float()
         dk[sl] += ds.transpose(-1, -2) @ qh[sl, qs].float()
     return (dk * _dk_scale(softcap)).to(qh.dtype), dv.to(qh.dtype)
 
 
-def flash_bwd_dq_plain(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
+def flash_bwd_dq_plain(qh, kh, vh, dout, nd, lse2, mask=None, heads: int = 1,
                        softcap: float = 0.0):
     """Plain version of the dQ pass: dq (BH, Tq, d) in q's dtype, x ln2
     (x 1 under softcap)."""
     dq = torch.empty_like(qh)
-    for sl, qs, _, ds in _p_ds_tiles(qh, kh, vah, doa, lse2, mask, heads, softcap):
+    for sl, qs, _, ds in _p_ds_tiles(qh, kh, vh, dout, nd, lse2, mask, heads, softcap):
         dq[sl, qs] = ((ds @ kh[sl].float()) * _dk_scale(softcap)).to(qh.dtype)
     return dq
 
 
-def flash_bwd_plain(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1,
+def flash_bwd_plain(qh, kh, vh, out, lse2, dout, mask=None, heads: int = 1,
                     softcap: float = 0.0):
     """Plain version of the fused backward kernel: (dq, dk, dv), each
     (BH, T, d) in q's dtype, from one recompute per tile."""
-    d = qh.shape[-1]
     scale = _dk_scale(softcap)
-    doa = augment_do(dout.to(qh.dtype), out)
+    dout = dout.to(qh.dtype)
+    nd = _neg_delta(dout, out)
     dq = torch.empty_like(qh)
     dk = torch.zeros(kh.shape, dtype=torch.float32, device=qh.device)
     dv = torch.zeros_like(dk)
-    for sl, qs, p, ds in _p_ds_tiles(qh, kh, vah, doa, lse2, mask, heads, softcap):
-        dv[sl] += p.transpose(-1, -2) @ doa[sl, qs, :d].float()
+    for sl, qs, p, ds in _p_ds_tiles(qh, kh, vh, dout, nd, lse2, mask, heads, softcap):
+        dv[sl] += p.transpose(-1, -2) @ dout[sl, qs].float()
         dk[sl] += ds.transpose(-1, -2) @ qh[sl, qs].float()
         dq[sl, qs] = ((ds @ kh[sl].float()) * scale).to(qh.dtype)
     return dq, (dk * scale).to(qh.dtype), dv.to(qh.dtype)
 
 
-def _split_operands(vah, doa):
-    """(v, dO, -delta, ones) of va and an augmented [dO | -delta]: the
-    pieces of ``backward_operands``, split off the tensors the plain twins
-    read."""
-    v, ones = _split_last(vah)
-    do, nd = _split_last(doa)
-    return v, do, nd, ones
-
-
-def _check_bwd_operands(qh, kh, vah, ops, lse2, block: int):
-    """Check what a backward kernel reads: q, k, va's shape, lse2 and the
-    pieces (v, dO, -delta, ones) of ``backward_operands``. TMA and the bulk
-    copies need every one of them 16-byte aligned."""
-    _check_attention_inputs(qh, kh, vah, block)
-    v, do, nd, ones = ops
+def _check_bwd_inputs(qh, kh, vh, dout, nd, lse2, mask, heads: int, block: int):
+    """Check what a backward kernel reads: q, k, v, dO (``block``: its query
+    rows a step), -delta and lse2, every one 16-byte aligned for TMA and the
+    bulk copies, and the key tiles of 128; return the mask pointer."""
+    _check_attention_inputs(qh, kh, vh, block)
     BH, Tq, d = qh.shape
-    Tk = kh.shape[1]
-    check_input("v", v, torch.bfloat16, (BH, Tk, d))
-    check_input("ones", ones, torch.float32, (BH, Tk))
-    check_input("dout", do, torch.bfloat16, (BH, Tq, d))
-    check_input("-delta", nd, torch.float32, (BH, Tq))
-    check_input("lse2", lse2, torch.float32, (BH, Tq))
-    for name, t in (("qh", qh), ("kh", kh), ("v", v), ("ones", ones), ("dout", do),
-                    ("-delta", nd), ("lse2", lse2)):
-        require(t.data_ptr() % 16 == 0,
-                f"{name}: the attention backward kernel takes 16-byte-aligned inputs "
-                f"(TMA), got data_ptr % 16 = {t.data_ptr() % 16}")
-
-
-def _check_dkv_inputs(qh, kh, vah, ops, lse2, mask, heads):
-    """Check the key-block kernel's inputs (rows 6 and 7: Tq % 64, Tk % 128);
-    return the mask pointer."""
-    _check_bwd_operands(qh, kh, vah, ops, lse2, _BWD_BLOCK)
     Tk = kh.shape[1]
     require(Tk % _BWD_KEY_BLOCK == 0,
             f"attention backward kernel takes Tk % {_BWD_KEY_BLOCK} == 0, got {Tk}")
+    check_input("dout", dout, torch.bfloat16, (BH, Tq, d))
+    check_input("-delta", nd, torch.float32, (BH, Tq))
+    check_input("lse2", lse2, torch.float32, (BH, Tq))
+    _check_aligned("backward", qh=qh, kh=kh, vh=vh, dout=dout, **{"-delta": nd}, lse2=lse2)
     return _mask_arg(mask, qh, Tk, heads)
-
-
-def _check_dq_inputs(qh, kh, vah, ops, lse2, mask, heads):
-    """Check the dQ pass's inputs (row 8: blocks of 128 queries, key tiles of
-    128); return the mask pointer."""
-    _check_bwd_operands(qh, kh, vah, ops, lse2, _FWD_BLOCK)
-    return _mask_arg(mask, qh, kh.shape[1], heads)
 
 
 def _launch_bwd(kernel: str, like, args: tuple, softcap: float) -> None:
@@ -469,21 +426,22 @@ def _launch_bwd(kernel: str, like, args: tuple, softcap: float) -> None:
         launch(kernel, like, *args)
 
 
-def flash_bwd_kernel(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1,
+def flash_bwd_kernel(qh, kh, vh, out, lse2, dout, mask=None, heads: int = 1,
                      softcap: float = 0.0):
     """Launch csrc/attention_bwd.cu on CUDA tensors: (dq, dk, dv)."""
     check_input("out", out, torch.bfloat16, qh.shape)
-    v, do, nd, ones = ops = backward_operands(vah, dout.to(qh.dtype), out)
-    mask_ptr = _check_dkv_inputs(qh, kh, vah, ops, lse2, mask, heads)
+    dout = dout.to(qh.dtype).contiguous()
+    nd = _neg_delta(dout, out)
+    mask_ptr = _check_bwd_inputs(qh, kh, vh, dout, nd, lse2, mask, heads, _BWD_BLOCK)
     BH, Tq, d = qh.shape
-    q, k, v, do = kernel_width(qh, kh, v, do)
+    q, k, v, do = kernel_width(qh, kh, vh, dout)
     dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=qh.device)
     dk = torch.empty_like(k)
     dv = torch.empty_like(k)
     _launch_bwd("flash_bwd", qh,
-                (q.data_ptr(), k.data_ptr(), v.data_ptr(), ones.data_ptr(), mask_ptr,
-                 do.data_ptr(), nd.data_ptr(), lse2.data_ptr(), dq_acc.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), BH, Tq, kh.shape[1], heads, q.shape[-1]),
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, do.data_ptr(),
+                 nd.data_ptr(), lse2.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), BH, Tq, kh.shape[1], heads, q.shape[-1]),
                 softcap)
     scale = _dk_scale(softcap)
     if scale != 1.0:
@@ -492,157 +450,137 @@ def flash_bwd_kernel(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1,
             head_columns(dv, d))
 
 
-def _launch_dkv(qh, kh, vah, ops, lse2, mask, heads: int, softcap: float):
-    """The dKV pass of csrc/attention_bwd_split.cu on the pieces ``ops`` =
-    (v, dO, -delta, ones): (dk, dv)."""
-    v, do, nd, ones = ops
-    mask_ptr = _check_dkv_inputs(qh, kh, vah, ops, lse2, mask, heads)
+def flash_bwd_dkv_kernel(qh, kh, vh, dout, nd, lse2, mask=None, heads: int = 1,
+                         softcap: float = 0.0):
+    """Launch the dKV pass of csrc/attention_bwd_split.cu on dO and
+    -delta = ``_neg_delta(dout, out)`` (row 7: Tq % 64, Tk % 128): (dk, dv)."""
+    mask_ptr = _check_bwd_inputs(qh, kh, vh, dout, nd, lse2, mask, heads, _BWD_BLOCK)
     BH, Tq, d = qh.shape
-    q, k, v, do = kernel_width(qh, kh, v, do)
+    q, k, v, do = kernel_width(qh, kh, vh, dout)
     dk = torch.empty_like(k)
     dv = torch.empty_like(k)
     _launch_bwd("flash_bwd_dkv", qh,
-                (q.data_ptr(), k.data_ptr(), v.data_ptr(), ones.data_ptr(), mask_ptr,
-                 do.data_ptr(), nd.data_ptr(), lse2.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 BH, Tq, kh.shape[1], heads, q.shape[-1]), softcap)
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, do.data_ptr(),
+                 nd.data_ptr(), lse2.data_ptr(), dk.data_ptr(), dv.data_ptr(), BH, Tq,
+                 kh.shape[1], heads, q.shape[-1]), softcap)
     return head_columns(dk, d), head_columns(dv, d)
 
 
-def _launch_dq(qh, kh, vah, ops, lse2, mask, heads: int, softcap: float):
-    """The dQ pass of csrc/attention_bwd_split.cu on the pieces ``ops`` =
-    (v, dO, -delta, ones): dq."""
-    v, do, nd, ones = ops
-    mask_ptr = _check_dq_inputs(qh, kh, vah, ops, lse2, mask, heads)
+def flash_bwd_dq_kernel(qh, kh, vh, dout, nd, lse2, mask=None, heads: int = 1,
+                        softcap: float = 0.0):
+    """Launch the dQ pass of csrc/attention_bwd_split.cu on dO and -delta
+    (row 8: blocks of 128 queries, key tiles of 128): dq."""
+    mask_ptr = _check_bwd_inputs(qh, kh, vh, dout, nd, lse2, mask, heads, _FWD_BLOCK)
     BH, Tq, d = qh.shape
-    q, k, v, do = kernel_width(qh, kh, v, do)
+    q, k, v, do = kernel_width(qh, kh, vh, dout)
     dq = torch.empty_like(q)
     _launch_bwd("flash_bwd_dq", qh,
-                (q.data_ptr(), k.data_ptr(), v.data_ptr(), ones.data_ptr(), mask_ptr,
-                 do.data_ptr(), nd.data_ptr(), lse2.data_ptr(), dq.data_ptr(), BH, Tq,
-                 kh.shape[1], heads, q.shape[-1]), softcap)
+                (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask_ptr, do.data_ptr(),
+                 nd.data_ptr(), lse2.data_ptr(), dq.data_ptr(), BH, Tq, kh.shape[1], heads,
+                 q.shape[-1]), softcap)
     return head_columns(dq, d)
 
 
-def flash_bwd_dkv_kernel(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
-                         softcap: float = 0.0):
-    """Launch the dKV pass of csrc/attention_bwd_split.cu: (dk, dv)."""
-    BH, Tq, d = qh.shape
-    check_input("doa", doa, torch.bfloat16, (BH, Tq, d + 1))
-    return _launch_dkv(qh, kh, vah, _split_operands(vah, doa), lse2, mask, heads, softcap)
-
-
-def flash_bwd_dq_kernel(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
-                        softcap: float = 0.0):
-    """Launch the dQ pass of csrc/attention_bwd_split.cu: dq."""
-    BH, Tq, d = qh.shape
-    check_input("doa", doa, torch.bfloat16, (BH, Tq, d + 1))
-    return _launch_dq(qh, kh, vah, _split_operands(vah, doa), lse2, mask, heads, softcap)
-
-
-def flash_bwd(qh, kh, vah, out, lse2, dout, mask=None, heads: int = 1,
+def flash_bwd(qh, kh, vh, out, lse2, dout, mask=None, heads: int = 1,
               softcap: float = 0.0):
-    if on_cpu(qh, kh, vah, out, lse2, dout):
-        return flash_bwd_plain(qh, kh, vah, out, lse2, dout, mask, heads, softcap)
-    return flash_bwd_kernel(qh, kh, vah, out, lse2, dout, _as_kernel_mask(mask), heads,
+    if on_cpu(qh, kh, vh, out, lse2, dout):
+        return flash_bwd_plain(qh, kh, vh, out, lse2, dout, mask, heads, softcap)
+    return flash_bwd_kernel(qh, kh, vh, out, lse2, dout, _as_kernel_mask(mask), heads,
                             softcap)
 
 
-def flash_bwd_dkv(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
+def flash_bwd_dkv(qh, kh, vh, dout, nd, lse2, mask=None, heads: int = 1,
                   softcap: float = 0.0):
-    if on_cpu(qh, kh, vah, doa, lse2):
-        return flash_bwd_dkv_plain(qh, kh, vah, doa, lse2, mask, heads, softcap)
-    return flash_bwd_dkv_kernel(qh, kh, vah, doa, lse2, _as_kernel_mask(mask), heads,
+    if on_cpu(qh, kh, vh, dout, nd, lse2):
+        return flash_bwd_dkv_plain(qh, kh, vh, dout, nd, lse2, mask, heads, softcap)
+    return flash_bwd_dkv_kernel(qh, kh, vh, dout, nd, lse2, _as_kernel_mask(mask), heads,
                                 softcap)
 
 
-def flash_bwd_dq(qh, kh, vah, doa, lse2, mask=None, heads: int = 1,
+def flash_bwd_dq(qh, kh, vh, dout, nd, lse2, mask=None, heads: int = 1,
                  softcap: float = 0.0):
-    if on_cpu(qh, kh, vah, doa, lse2):
-        return flash_bwd_dq_plain(qh, kh, vah, doa, lse2, mask, heads, softcap)
-    return flash_bwd_dq_kernel(qh, kh, vah, doa, lse2, _as_kernel_mask(mask), heads,
+    if on_cpu(qh, kh, vh, dout, nd, lse2):
+        return flash_bwd_dq_plain(qh, kh, vh, dout, nd, lse2, mask, heads, softcap)
+    return flash_bwd_dq_kernel(qh, kh, vh, dout, nd, lse2, _as_kernel_mask(mask), heads,
                                softcap)
 
 
-def attention_backward(qh, kh, vah, out, lse2, dout, mask, heads: int, split: bool,
+def attention_backward(qh, kh, vh, out, lse2, dout, mask, heads: int, split: bool,
                        kernels: bool, softcap: float = 0.0):
     """(dq, dk, dv) as ``_bwd_impl`` (:639) computes them: the fused pass, or
-    with ``split`` the dKV and dQ passes on one [dO | -delta]: on CUDA
-    tensors its pieces (``backward_operands``), split once for both kernels."""
-    dout = dout.contiguous()
+    with ``split`` the dKV and dQ passes on one -delta (``_neg_delta``),
+    computed once for both."""
+    dout = dout.to(qh.dtype).contiguous()
     if not split:
         bwd = flash_bwd if kernels else flash_bwd_plain
-        return bwd(qh, kh, vah, out, lse2, dout, mask, heads, softcap)
-    if kernels and not on_cpu(qh, kh, vah, out, lse2, dout):
-        mask = _as_kernel_mask(mask)
-        ops = backward_operands(vah, dout.to(qh.dtype), out)
-        dk, dv = _launch_dkv(qh, kh, vah, ops, lse2, mask, heads, softcap)
-        return _launch_dq(qh, kh, vah, ops, lse2, mask, heads, softcap), dk, dv
-    doa = augment_do(dout.to(qh.dtype), out).contiguous()
-    dk, dv = flash_bwd_dkv_plain(qh, kh, vah, doa, lse2, mask, heads, softcap)
-    return flash_bwd_dq_plain(qh, kh, vah, doa, lse2, mask, heads, softcap), dk, dv
+        return bwd(qh, kh, vh, out, lse2, dout, mask, heads, softcap)
+    nd = _neg_delta(dout, out)
+    if kernels and not on_cpu(qh, kh, vh, out, lse2, dout):
+        mask, dkv, dq = _as_kernel_mask(mask), flash_bwd_dkv_kernel, flash_bwd_dq_kernel
+    else:
+        dkv, dq = flash_bwd_dkv_plain, flash_bwd_dq_plain
+    dk, dv = dkv(qh, kh, vh, dout, nd, lse2, mask, heads, softcap)
+    return dq(qh, kh, vh, dout, nd, lse2, mask, heads, softcap), dk, dv
 
 
 class _FlashAttention(torch.autograd.Function):
     """Counterpart of ``_flash_hm_full_va`` (pallas_attention.py:296-326)."""
 
     @staticmethod
-    def forward(ctx, qh, kh, vah, bound2: float, kernels: bool, softcap: float):
+    def forward(ctx, qh, kh, vh, bound2: float, kernels: bool, softcap: float):
         if bound2 <= SAFE_BOUND2:
             telemetry.bump("attn.fixed")
             fwd = flash_fixed if kernels else flash_fixed_plain
-            out, lse = fwd(qh, kh, vah, bound2, softcap)
+            out, lse = fwd(qh, kh, vh, bound2, softcap)
         else:
             telemetry.bump("attn.online")
             fwd = flash_online if kernels else flash_online_plain
-            out, lse = fwd(qh, kh, vah, None, 1, softcap)
-        ctx.save_for_backward(qh, kh, vah, out, lse)
+            out, lse = fwd(qh, kh, vh, None, 1, softcap)
+        ctx.save_for_backward(qh, kh, vh, out, lse)
         ctx.kernels, ctx.softcap = kernels, softcap
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        qh, kh, vah, out, lse = ctx.saved_tensors
+        qh, kh, vh, out, lse = ctx.saved_tensors
         BH, Tq, d = qh.shape
         split = fused_backward_slab_bytes(BH, Tq, kh.shape[1], d) > _FUSED_DQ_PARTIALS_CAP
-        dq, dk, dv = attention_backward(qh, kh, vah, out, lse, dout, None, 1, split,
-                                        ctx.kernels, ctx.softcap)
-        return dq, dk, F.pad(dv, (0, 1)), None, None, None
+        return (*attention_backward(qh, kh, vh, out, lse, dout, None, 1, split, ctx.kernels,
+                                    ctx.softcap), None, None, None)
 
 
-def flash_attention_headmajor(qh, kh, vah, bound2: float, kernels: bool = True,
+def flash_attention_headmajor(qh, kh, vh, bound2: float, kernels: bool = True,
                               softcap: float = 0.0):
-    """No-padding attention on (BH, T, d) pre-scaled q, k and ones-augmented
-    va (BH, T, d+1). ``bound2`` bounds the base-2 logits: from the qk-norm
-    gains (the caller computes it on the host), or c·log2(e) under a softcap
-    c. Returns out (BH, T, d).
+    """No-padding attention on (BH, T, d) pre-scaled q, k and v. ``bound2``
+    bounds the base-2 logits: from the qk-norm gains (the caller computes it
+    on the host), or c·log2(e) under a softcap c. Returns out (BH, T, d).
 
     Differentiable. ``kernels=False`` takes the plain versions forward and
     backward on any device; CPU tensors take them either way."""
-    return _FlashAttention.apply(qh, kh, vah, float(bound2), kernels, float(softcap))
+    return _FlashAttention.apply(qh, kh, vh, float(bound2), kernels, float(softcap))
 
 
 class _MaskedFlashAttention(torch.autograd.Function):
     """Counterpart of ``_flash_hm`` (pallas_attention.py:722-768): the online
-    forward with a (B, Tk) key mask shared by ``heads`` heads; the backward
-    on the ones-augmented v that the forward reads."""
+    forward with a (B, Tk) key mask shared by ``heads`` heads, and its
+    backward."""
 
     @staticmethod
-    def forward(ctx, qh, kh, vah, mask, heads: int, kernels: bool, softcap: float):
+    def forward(ctx, qh, kh, vh, mask, heads: int, kernels: bool, softcap: float):
         telemetry.bump("attn.masked")
         fwd = flash_online if kernels else flash_online_plain
-        out, lse = fwd(qh, kh, vah, mask, heads, softcap)
-        ctx.save_for_backward(qh, kh, vah, mask, out, lse)
+        out, lse = fwd(qh, kh, vh, mask, heads, softcap)
+        ctx.save_for_backward(qh, kh, vh, mask, out, lse)
         ctx.heads, ctx.kernels, ctx.softcap = heads, kernels, softcap
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        qh, kh, vah, mask, out, lse = ctx.saved_tensors
+        qh, kh, vh, mask, out, lse = ctx.saved_tensors
         BH, Tq, d = qh.shape
         split = masked_backward_slab_bytes(BH, Tq, kh.shape[1], d) > _FUSED_DQ_PARTIALS_CAP
-        dq, dk, dv = attention_backward(qh, kh, vah, out, lse, dout, mask, ctx.heads,
-                                        split, ctx.kernels, ctx.softcap)
-        return dq, dk, F.pad(dv, (0, 1)), None, None, None, None
+        return (*attention_backward(qh, kh, vh, out, lse, dout, mask, ctx.heads, split,
+                                    ctx.kernels, ctx.softcap), None, None, None, None)
 
 
 def _query_block(Tq: int) -> int:
@@ -662,23 +600,21 @@ def key_mask(kv_mask):
     return F.pad(kv_mask.to(torch.int32), (0, (-Tk) % _key_block(Tk)))
 
 
-def masked_attention_headmajor(qh, kh, vah, mask, heads: int, kernels: bool = True,
+def masked_attention_headmajor(qh, kh, vh, mask, heads: int, kernels: bool = True,
                                softcap: float = 0.0):
-    """Masked attention on (BH, Tq, d) pre-scaled q, k (BH, Tk, d) and
-    ones-augmented va (BH, Tk, d+1); ``mask`` the int32 key mask of
-    ``key_mask`` (BH/heads, Tk + pk), shared by ``heads`` heads. Pads q to
-    the query block and k, va to the key block (padded keys: v = 0, ones
-    column 1), runs the online forward with the mask and returns out
-    (BH, Tq, d). Differentiable."""
-    Tq, Tk, d = qh.shape[1], kh.shape[1], qh.shape[2]
+    """Masked attention on (BH, Tq, d) pre-scaled q, k and v (BH, Tk, d);
+    ``mask`` the int32 key mask of ``key_mask`` (BH/heads, Tk + pk), shared
+    by ``heads`` heads. Pads q to the query block and k, v to the key block
+    with zeros (padded keys masked), runs the online forward with the mask
+    and returns out (BH, Tq, d). Differentiable."""
+    Tq, Tk = qh.shape[1], kh.shape[1]
     pq, pk = (-Tq) % _query_block(Tq), (-Tk) % _key_block(Tk)
     if pq:
         qh = F.pad(qh, (0, 0, 0, pq))
     if pk:
         kh = F.pad(kh, (0, 0, 0, pk))
-        vah = torch.cat([F.pad(vah[..., :d], (0, 0, 0, pk)),
-                         F.pad(vah[..., d:], (0, 0, 0, pk), value=1.0)], dim=-1)
-    out = _MaskedFlashAttention.apply(qh, kh, vah, mask, heads, kernels, float(softcap))
+        vh = F.pad(vh, (0, 0, 0, pk))
+    out = _MaskedFlashAttention.apply(qh, kh, vh, mask, heads, kernels, float(softcap))
     return out[:, :Tq] if pq else out
 
 
@@ -720,12 +656,10 @@ def flash_attention(q, k, v, kv_mask=None, scale: float | None = None,
                 kn = kh.float().square().sum(-1).sqrt().max()
                 telemetry.bump("sync.bounds")
                 bound2 = float(qn * kn)
-        out = flash_attention_headmajor(qh, kh, F.pad(vh, (0, 1), value=1.0), bound2,
-                                        kernels, softcap)
+        out = flash_attention_headmajor(qh, kh, vh, bound2, kernels, softcap)
         return out.reshape(B, H, Tq, d).transpose(1, 2)
 
     if kv_mask is None:
         kv_mask = torch.ones((B, Tk), dtype=torch.bool, device=q.device)
-    out = masked_attention_headmajor(qh, kh, F.pad(vh, (0, 1), value=1.0), key_mask(kv_mask),
-                                     H, kernels, softcap)
+    out = masked_attention_headmajor(qh, kh, vh, key_mask(kv_mask), H, kernels, softcap)
     return out.reshape(B, H, Tq, d).transpose(1, 2)

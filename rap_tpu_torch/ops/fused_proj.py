@@ -1,10 +1,12 @@
 """Fused AdaLN + QKV projection + qk-norm, and the attention output projection.
 
 Counterpart of rap_tpu/ops/fused_proj.py. ``adaln_qkv`` emits the
-head-major tensors the attention kernel reads, in the JAX package's public
-layout: q, k (G,H,N,dh) and va (G,H,N,dh+1) for part attention, (S,H,P,N,dh)
-and (S,H,P,N,dh+1) for global attention. q is pre-scaled by gamma_q*log2(e)
-(base-2 softmax), k by gamma_k*sqrt(dh), and va carries the ones column.
+head-major tensors the attention kernel reads: q, k, v (G,H,N,dh) for part
+attention, (S,H,P,N,dh) for global attention. q is pre-scaled by
+gamma_q*log2(e) (base-2 softmax), k by gamma_k*sqrt(dh). rap_tpu's kernel
+emits va = [v | 1], v with a ones column, for its attention kernel's row
+sums; the port's attention kernels need none, so v is v alone, and its
+cotangent dv.
 ``attn_out`` folds those rows back into tokens: res + rows @ W_out + b.
 
 Kernels: csrc/proj.cu (TPU ``_proj_kernel``, fused_proj.py:46) and
@@ -86,8 +88,7 @@ def proj_plain(x, ada, w, gq_eff, gk_eff, P: int, is_global: bool):
     q = rms(y[:, :, 0], gq_eff)
     k = rms(y[:, :, 1], gk_eff)
     v = y[:, :, 2].to(x.dtype)
-    va = torch.cat([v, torch.ones_like(v[..., :1])], dim=-1)
-    return tuple(_to_head_major(a, P, is_global) for a in (q, k, va))
+    return tuple(_to_head_major(a, P, is_global) for a in (q, k, v))
 
 
 def _shape_error(kernel: str, G: int, N: int, D: int, H: int, dh: int, P: int,
@@ -144,20 +145,17 @@ def proj_kernel(x, ada, w, gq_eff, gk_eff, P: int, is_global: bool):
     S = G // P
     lead = (S, H, P, N) if is_global else (G, H, N)
     hln = torch.empty((G * N, D), dtype=x.dtype, device=x.device)
-    q = torch.empty(lead + (dh,), dtype=x.dtype, device=x.device)
-    k = torch.empty_like(q)
-    va = torch.empty(lead + (dh + 1,), dtype=x.dtype, device=x.device)
+    q, k, v = (torch.empty(lead + (dh,), dtype=x.dtype, device=x.device) for _ in range(3))
     launch(
         "proj", x,
         x.data_ptr(), ada.data_ptr(), w.data_ptr(), gq_eff.data_ptr(),
-        gk_eff.data_ptr(), hln.data_ptr(), q.data_ptr(), k.data_ptr(), va.data_ptr(),
+        gk_eff.data_ptr(), hln.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         G, N, D, H, P if is_global else 1,
     )
-    return q, k, va
+    return q, k, v
 
 
-def proj_bwd_plain(x, ada, w, gq_eff, gk_eff, dq, dk, dva, P: int,
-                   is_global: bool):
+def proj_bwd_plain(x, ada, w, gq_eff, gk_eff, dq, dk, dv, P: int, is_global: bool):
     """Plain version of the proj backward kernel: (dx, d(ada) (G, 2D),
     dW (D, 3D), d(gq_eff), d(gk_eff)); dx in x's dtype, the rest fp32."""
     G, N, D = x.shape
@@ -179,7 +177,7 @@ def proj_bwd_plain(x, ada, w, gq_eff, gk_eff, dq, dk, dva, P: int,
 
     dsec_q, dgq = rms_vjp(y[:, :, 0], tokens(dq), gq_eff)
     dsec_k, dgk = rms_vjp(y[:, :, 1], tokens(dk), gk_eff)
-    dy = torch.stack([dsec_q, dsec_k, tokens(dva[..., :dh])], dim=2)
+    dy = torch.stack([dsec_q, dsec_k, tokens(dv)], dim=2)
     dy = dy.reshape(G, N, 3 * D).to(dt).float()
     dw = h.float().reshape(-1, D).transpose(0, 1) @ dy.reshape(-1, 3 * D)
     dhid = dy @ w.to(dt).float().transpose(0, 1)
@@ -210,8 +208,7 @@ def _carve(nbytes: list[int], device) -> tuple[torch.Tensor, list[int]]:
     return ws, [base + o for o in offsets]
 
 
-def proj_bwd_kernel(x, ada, w, gq_eff, gk_eff, dq, dk, dva, P: int,
-                    is_global: bool):
+def proj_bwd_kernel(x, ada, w, gq_eff, gk_eff, dq, dk, dv, P: int, is_global: bool):
     """Launch csrc/proj_bwd.cu on CUDA tensors; returns what
     ``proj_bwd_plain`` returns. Takes the shapes of ``proj_shape_error``."""
     G, N, D = x.shape
@@ -224,10 +221,9 @@ def proj_bwd_kernel(x, ada, w, gq_eff, gk_eff, dq, dk, dva, P: int,
     check_input("gq_eff", gq_eff, torch.float32, (H, dh))
     check_input("gk_eff", gk_eff, torch.float32, (H, dh))
     lead = (G // P, H, P, N) if is_global else (G, H, N)
-    check_input("dq", dq, torch.bfloat16, lead + (dh,))
-    check_input("dk", dk, torch.bfloat16, lead + (dh,))
-    check_input("dva", dva, torch.bfloat16, lead + (dh + 1,))
-    require_aligned("proj backward kernels", x=x, w=w, dq=dq, dk=dk)
+    for name, t in (("dq", dq), ("dk", dk), ("dv", dv)):
+        check_input(name, t, torch.bfloat16, lead + (dh,))
+    require_aligned("proj backward kernels", x=x, w=w, dq=dq, dk=dk, dv=dv)
     T, R = G * N, ln_block_rows(N)
     slots = _BLOCKS_PER_SM * _sm_count(x.device)
     splits = wgrad_splits((D // _TILE) * (3 * D // _TILE), T // 64, slots)
@@ -242,7 +238,7 @@ def proj_bwd_kernel(x, ada, w, gq_eff, gk_eff, dq, dk, dva, P: int,
     launch(
         "proj_bwd", x,
         x.data_ptr(), ada.data_ptr(), w.data_ptr(), gq_eff.data_ptr(),
-        gk_eff.data_ptr(), dq.data_ptr(), dk.data_ptr(), dva.data_ptr(), hln, dy, dhid,
+        gk_eff.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), hln, dy, dhid,
         gpart, lnpart, wpart, dx.data_ptr(), dada.data_ptr(), dw.data_ptr(),
         dgain.data_ptr(), G, N, D, H, P if is_global else 1, R, splits,
     )
@@ -271,15 +267,15 @@ class _AdalnQKV(torch.autograd.Function):
         return proj_plain(x, ada, w, gq_eff, gk_eff, P, is_global)
 
     @staticmethod
-    def backward(ctx, dq, dk, dva):
+    def backward(ctx, dq, dk, dv):
         x, ada, w, gq_eff, gk_eff = ctx.saved_tensors
         if ctx.use_kernel:
             grads = proj_bwd_kernel(
                 x, ada.float().contiguous(), w.to(x.dtype).contiguous(),
                 gq_eff.float().contiguous(), gk_eff.float().contiguous(),
-                dq.contiguous(), dk.contiguous(), dva.contiguous(), *ctx.args)
+                dq.contiguous(), dk.contiguous(), dv.contiguous(), *ctx.args)
         else:
-            grads = proj_bwd_plain(x, ada, w, gq_eff, gk_eff, dq, dk, dva, *ctx.args)
+            grads = proj_bwd_plain(x, ada, w, gq_eff, gk_eff, dq, dk, dv, *ctx.args)
         dx, dada, dw, dgq, dgk = grads
         return (dx, dada.to(ada.dtype), dw.to(w.dtype), dgq.to(gq_eff.dtype),
                 dgk.to(gk_eff.dtype), None, None, None)
@@ -287,7 +283,7 @@ class _AdalnQKV(torch.autograd.Function):
 
 def adaln_qkv(x, ada, w, gamma_q, gamma_k, P: int, is_global: bool,
               kernels: bool = True):
-    """Head-major (q, k, va) from tokens x (G, N, D), AdaLN (G, 2D) = (scale |
+    """Head-major (q, k, v) from tokens x (G, N, D), AdaLN (G, 2D) = (scale |
     shift), fused QKV weight w (D, 3D) and unfolded qk-norm gains (H, dh).
 
     Differentiable. CUDA tensors of a shape ``proj_shape_error`` admits

@@ -73,24 +73,24 @@ def time_root(root: Path, only: str) -> dict:
 
     def inputs(BH, T, c, mask):
         if c > 0.0:
-            qh, kh, vah = cs.softcap_attention_inputs(gen, BH, T, c)
+            qh, kh, vh = cs.softcap_attention_inputs(gen, BH, T, c)
         else:
-            qh, kh, vah = cs.multiview_attention_inputs(gen, BH, T)
+            qh, kh, vh = cs.multiview_attention_inputs(gen, BH, T)
         heads = 1 if mask is None else H
-        out, lse = fa.flash_online(qh, kh, vah, mask, heads, c)
+        out, lse = fa.flash_online(qh, kh, vh, mask, heads, c)
         dout = torch.randn((BH, T, cs.DH), generator=gen, device="cuda").to(torch.bfloat16)
-        return qh, kh, vah, out, lse, dout, heads
+        return qh, kh, vh, out, lse, dout, heads
 
     for name, BH, T, c, mask in (("row 6 dense global", 32, 8192, 0.0, None),
                                  ("row 6 masked part", 128, 4096, 0.0, part_mask),
                                  ("row 6s masked part, c=5", 128, 4096, 5.0, part_mask)):
         if only not in name:
             continue
-        qh, kh, vah, out, lse, dout, heads = inputs(BH, T, c, mask)
-        call = lambda: fa.flash_bwd_kernel(qh, kh, vah, out, lse, dout, mask, heads, c)  # noqa: E731
+        qh, kh, vh, out, lse, dout, heads = inputs(BH, T, c, mask)
+        call = lambda: fa.flash_bwd_kernel(qh, kh, vh, out, lse, dout, mask, heads, c)  # noqa: E731
         rows[name] = cs.cuda_time_ms(call, 10)
         rows[name + ", key-block kernel alone"] = kernel_ms(call, "dkv_kernel")
-        del qh, kh, vah, out, lse, dout, call
+        del qh, kh, vh, out, lse, dout, call
     for tag, BH, T, c, mask in (("masked global", 16, 32768, 0.0, global_mask),
                                 ("masked global, c=5", 16, 32768, 5.0, global_mask),
                                 ("dense global", 32, 8192, 0.0, None)):
@@ -100,9 +100,8 @@ def time_root(root: Path, only: str) -> dict:
         wanted = [n for n in (row7, row8, pair) if only in n and (mask is not None or n == row7)]
         if not wanted:
             continue
-        qh, kh, vah, out, lse, dout, heads = inputs(BH, T, c, mask)
-        doa = fa.augment_do(dout, out).contiguous()
-        args = (qh, kh, vah, doa, lse, mask, heads, c)
+        qh, kh, vh, out, lse, dout, heads = inputs(BH, T, c, mask)
+        args = (qh, kh, vh, dout, fa._neg_delta(dout, out), lse, mask, heads, c)
         dkv = lambda: fa.flash_bwd_dkv_kernel(*args)  # noqa: E731
         dq = lambda: fa.flash_bwd_dq_kernel(*args)  # noqa: E731
         if row7 in wanted:
@@ -113,7 +112,7 @@ def time_root(root: Path, only: str) -> dict:
             rows[row8 + ", dQ kernel alone"] = kernel_ms(dq, "dq_kernel")
         if pair in wanted:
             rows[pair] = cs.cuda_time_ms(lambda: (dkv(), dq()), 5)
-        del qh, kh, vah, out, lse, dout, doa, args, dkv, dq
+        del qh, kh, vh, out, lse, dout, args, dkv, dq
     return {"root": str(root), "card": cs.nvidia_smi(), "ms": rows}
 
 

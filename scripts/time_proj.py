@@ -62,9 +62,9 @@ def time_root(root: Path, only: str) -> dict:
             tag = f"{label} {'global' if is_global else 'part'}"
             lead = (G // P, heads, P, N) if is_global else (G, heads, N)
             dh = width // heads
-            a5, dk, dva = (torch.randn(lead + (e,), generator=gen, device="cuda")
-                           .to(torch.bfloat16) for e in (dh, dh, dh + 1))
-            cot = (a5, dk, dva)
+            a5, dk, dv = (torch.randn(lead + (dh,), generator=gen, device="cuda")
+                          .to(torch.bfloat16) for _ in range(3))
+            cot = (a5, dk, dv)
             for name, call, mm in (
                     (f"row 1 {tag}", lambda: fp.proj_kernel(x, ada, w, gq_eff, gk_eff, P,
                                                             is_global), mm_proj),

@@ -107,9 +107,8 @@ def test_split_twins_match_pallas(case):
     vha = jnp.pad(jv, ((0, 0), (0, 0), (0, 1)), constant_values=1.0)
     ref = jpa._bwd_split_impl(jq, jk, vha, maski, out, lse, jnp.asarray(dout), 0.0, 128,
                               128, True, masked=masked)
-    doa = fa.augment_do(t(dout), t(out))
     tmask = t(mask) if masked else None
-    args = (t(q), t(k), t(vha), doa, t(lse[:, 0]), tmask, H)
+    args = (t(q), t(k), t(v), t(dout), fa._neg_delta(t(dout), t(out)), t(lse[:, 0]), tmask, H)
     dk, dv = fa.flash_bwd_dkv_plain(*args)
     dq = fa.flash_bwd_dq_plain(*args)
     for name, g_, r_ in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
@@ -128,13 +127,12 @@ def test_masked_fused_twin_matches_pallas():
     vha = jnp.pad(jv, ((0, 0), (0, 0), (0, 1)), constant_values=1.0)
     ref = jpa._bwd_fused_impl(jq, jk, vha, maski, out, lse, jnp.asarray(dout), 0.0, 128,
                               128, True, masked=True)
-    got = fa.flash_bwd_plain(t(q), t(k), t(vha), t(out), t(lse[:, 0]), t(dout), t(mask), H)
+    got = fa.flash_bwd_plain(t(q), t(k), t(v), t(out), t(lse[:, 0]), t(dout), t(mask), H)
     for name, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
         _close(g_, r_, what=name)
         assert not g_[H:].any(), name
     # the same residuals through the split twins: one computation, two passes
-    doa = fa.augment_do(t(dout), t(out))
-    args = (t(q), t(k), t(vha), doa, t(lse[:, 0]), t(mask), H)
+    args = (t(q), t(k), t(v), t(dout), fa._neg_delta(t(dout), t(out)), t(lse[:, 0]), t(mask), H)
     _close(fa.flash_bwd_dq_plain(*args), ref[0], what="dq split")
     for name, g_, r_ in zip(("dk", "dv"), fa.flash_bwd_dkv_plain(*args), ref[1:]):
         _close(g_, r_, what=f"{name} split")

@@ -32,34 +32,26 @@ def _close(got, ref):
 
 
 def _operands(d, seed=0):
-    """Pre-scaled q, k (rows of norm ~3, so the logits span ~9 in base 2),
-    va with its ones column, dO, and a key mask that leaves one sequence
-    empty."""
+    """Pre-scaled q, k (rows of norm ~3, so the logits span ~9 in base 2), v,
+    dO, and a key mask that leaves one sequence empty."""
     rng = np.random.default_rng(seed)
     f = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))  # noqa: E731
     q, k = f(BH, T, d) * (3 / d ** 0.5), f(BH, T, d) * (3 / d ** 0.5)
-    va = torch.cat([f(BH, T, d), torch.ones(BH, T, 1)], dim=-1)
+    v = f(BH, T, d)
     mask = torch.from_numpy(rng.random((BH // HEADS, T)) > 0.3)
     mask[1] = False
-    return q, k, va, f(BH, T, d), mask
-
-
-def _padded_va(va):
-    d = va.shape[-1] - 1
-    (v,) = fa.kernel_width(va[..., :d])
-    return torch.cat([v, va[..., d:]], dim=-1)
+    return q, k, v, f(BH, T, d), mask
 
 
 @pytest.mark.parametrize("d", [8, 32, 56, 72, 96, 120])
 def test_forward_twins_through_the_padding(d):
-    q, k, va, _, mask = _operands(d)
-    qp, kp = fa.kernel_width(q, k)
-    assert qp.shape[-1] == kp.shape[-1] == (64 if d <= 64 else 128)
-    vap = _padded_va(va)
-    for run in (lambda q_, k_, va_: fa.flash_fixed_plain(q_, k_, va_, 12.0),
-                lambda q_, k_, va_: fa.flash_online_plain(q_, k_, va_, mask, HEADS)):
-        out, lse = run(q, k, va)
-        out_p, lse_p = run(qp, kp, vap)
+    q, k, v, _, mask = _operands(d)
+    qp, kp, vp = fa.kernel_width(q, k, v)
+    assert qp.shape[-1] == kp.shape[-1] == vp.shape[-1] == (64 if d <= 64 else 128)
+    for run in (lambda q_, k_, v_: fa.flash_fixed_plain(q_, k_, v_, 12.0),
+                lambda q_, k_, v_: fa.flash_online_plain(q_, k_, v_, mask, HEADS)):
+        out, lse = run(q, k, v)
+        out_p, lse_p = run(qp, kp, vp)
         assert not out_p[..., d:].any()  # the padded columns of out are zero
         _close(fa.head_columns(out_p, d), out)
         live = lse < fa.LSE_EMPTY
@@ -69,26 +61,24 @@ def test_forward_twins_through_the_padding(d):
 
 @pytest.mark.parametrize("d", [8, 32, 56, 72, 96, 120, 128])
 def test_backward_twins_through_the_padding(d):
-    q, k, va, dout, mask = _operands(d, seed=1)
-    qp, kp, dop = fa.kernel_width(q, k, dout)
-    vap = _padded_va(va)
-    out, lse = fa.flash_online_plain(q, k, va, mask, HEADS)
+    q, k, v, dout, mask = _operands(d, seed=1)
+    qp, kp, vp, dop = fa.kernel_width(q, k, v, dout)
+    out, lse = fa.flash_online_plain(q, k, v, mask, HEADS)
     (out_p,) = fa.kernel_width(out)
     # the fused backward
-    got = fa.flash_bwd_plain(qp, kp, vap, out_p, lse, dop, mask, HEADS)
-    ref = fa.flash_bwd_plain(q, k, va, out, lse, dout, mask, HEADS)
+    got = fa.flash_bwd_plain(qp, kp, vp, out_p, lse, dop, mask, HEADS)
+    ref = fa.flash_bwd_plain(q, k, v, out, lse, dout, mask, HEADS)
     for g_, r_ in zip(got, ref):
         assert g_.shape[-1] == fa.padded_width(d)
         _close(fa.head_columns(g_, d), r_)
-    # the split passes, on [dO | -delta] with dO padded
-    doa = fa.augment_do(dout, out)
-    doa_p = torch.cat([dop, doa[..., d:]], dim=-1)
-    dk, dv = fa.flash_bwd_dkv_plain(q, k, va, doa, lse, mask, HEADS)
-    dk_p, dv_p = fa.flash_bwd_dkv_plain(qp, kp, vap, doa_p, lse, mask, HEADS)
+    # the split passes, on dO padded and one -delta
+    nd = fa._neg_delta(dout, out)
+    dk, dv = fa.flash_bwd_dkv_plain(q, k, v, dout, nd, lse, mask, HEADS)
+    dk_p, dv_p = fa.flash_bwd_dkv_plain(qp, kp, vp, dop, nd, lse, mask, HEADS)
     _close(fa.head_columns(dk_p, d), dk)
     _close(fa.head_columns(dv_p, d), dv)
-    dq = fa.flash_bwd_dq_plain(q, k, va, doa, lse, mask, HEADS)
-    _close(fa.head_columns(fa.flash_bwd_dq_plain(qp, kp, vap, doa_p, lse, mask, HEADS), d), dq)
+    dq = fa.flash_bwd_dq_plain(q, k, v, dout, nd, lse, mask, HEADS)
+    _close(fa.head_columns(fa.flash_bwd_dq_plain(qp, kp, vp, dop, nd, lse, mask, HEADS), d), dq)
 
 
 def test_kernels_take_narrow_heads_and_refuse_others(monkeypatch):
@@ -101,20 +91,19 @@ def test_kernels_take_narrow_heads_and_refuse_others(monkeypatch):
     bf = dict(dtype=torch.bfloat16)
     for d in (32, 60, 96, 128):
         q = torch.zeros(BH, 128, d, **bf)
-        va = torch.zeros(BH, 128, d + 1, **bf)
         if d in (32, 96):
-            out, lse = fa.flash_fixed_kernel(q, q, va, 1.0)
+            out, lse = fa.flash_fixed_kernel(q, q, q, 1.0)
             assert out.shape == q.shape and out.is_contiguous()
         else:
             with pytest.raises(ValueError, match="head width below 128 that is a multiple of 8"):
-                fa.flash_fixed_kernel(q, q, va, 1.0)
+                fa.flash_fixed_kernel(q, q, q, 1.0)
     assert launched == [("flash_fixed", 64), ("flash_fixed", 128)]
 
 
 @pytest.mark.parametrize("d", [72, 96, 120])
 def test_backward_launchers_refuse_wide_heads(monkeypatch, d):
     """Every backward launcher (the fused pass, the split dKV and dQ passes,
-    and attention_backward's split branch, which splits the operands once)
+    and attention_backward's split branch, which computes -delta once)
     passes heads of 64 < d <= 128 on to a launch at the kernels' 128-wide
     instantiation (the launch's last integer), d = 128 as well; it refuses
     d = 136 (wider than the kernels) and d + 4 (not a multiple of 8) before
@@ -126,14 +115,12 @@ def test_backward_launchers_refuse_wide_heads(monkeypatch, d):
 
     def calls(w):
         q = torch.zeros(BH, 128, w, **bf)
-        va = torch.zeros(BH, 128, w + 1, **bf)
-        lse = torch.zeros(BH, 128)
-        doa = torch.zeros(BH, 128, w + 1, **bf)
-        return (lambda: fa.flash_bwd_kernel(q, q, va, q, lse, q),
-                lambda: fa.flash_bwd_dkv_kernel(q, q, va, doa, lse),
-                lambda: fa.flash_bwd_dq_kernel(q, q, va, doa, lse),
-                lambda: fa.attention_backward(q, q, va, q, lse, q, None, 1, True, True),
-                lambda: fa.flash_online_kernel(q, q, va))
+        nd, lse = torch.zeros(BH, 128), torch.zeros(BH, 128)
+        return (lambda: fa.flash_bwd_kernel(q, q, q, q, lse, q),
+                lambda: fa.flash_bwd_dkv_kernel(q, q, q, q, nd, lse),
+                lambda: fa.flash_bwd_dq_kernel(q, q, q, q, nd, lse),
+                lambda: fa.attention_backward(q, q, q, q, lse, q, None, 1, True, True),
+                lambda: fa.flash_online_kernel(q, q, q))
 
     for w in (d, 128):
         for call in calls(w):

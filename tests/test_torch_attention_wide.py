@@ -3,7 +3,7 @@
 The port's attention kernels run such heads at their 128-wide
 instantiations (csrc/attention.cu, csrc/attention_bwd_dkv128.cuh,
 csrc/attention_bwd_dq128.cuh), on q, k, V and dO zero-padded to 128 by the
-launchers (``kernel_width``, ``backward_operands``, ``head_columns``). On
+launchers (``kernel_width``, ``head_columns``). On
 the CPU the plain twins stand in for the kernels. Same numpy-seeded inputs
 through both packages, fp32, rap_tpu's Pallas kernels in interpret mode:
 
@@ -12,7 +12,7 @@ through both packages, fp32, rap_tpu's Pallas kernels in interpret mode:
   without one (the no-padding path below d = 128, the masked path at 128,
   as rap_tpu dispatches), at softcap 0 and 5: 2e-5 of the largest element;
 - the launchers' operand preparation: q, k, V and dO padded to the kernels'
-  width and split as the kernels read them, through the fused and the split
+  width and -delta (``_neg_delta``), through the fused and the split
   backward twins, the first d columns against rap_tpu's ``_bwd_fused_impl``
   and ``_bwd_split_impl`` on the unpadded heads (masked, softcap 0 and 5):
   2e-5;
@@ -89,15 +89,6 @@ def test_flash_attention_at_wide_heads_matches_jax(d, masked, softcap, fresh_jax
             assert not g_[1].any(), name  # the fully masked batch row
 
 
-def _padded_pieces(qh, kh, vah, doa):
-    """What the backward launchers hand their kernels, put back together as
-    the twins read it: q, k padded to the kernels' width, va = [V | ones] and
-    [dO | -delta] with V and dO padded (``kernel_width``, ``_split_operands``)."""
-    v, do, nd, ones = fa._split_operands(vah, doa)
-    q, k, v, do = fa.kernel_width(qh, kh, v, do)
-    return (q, k, torch.cat([v, ones[..., None]], -1), torch.cat([do, nd[..., None]], -1))
-
-
 @pytest.mark.parametrize("softcap", [0.0, 5.0])
 @pytest.mark.parametrize("d", WIDTHS)
 def test_padded_backward_twins_match_pallas(d, softcap):
@@ -114,14 +105,16 @@ def test_padded_backward_twins_match_pallas(d, softcap):
     bwd_args = (jq, jk, vha, maski, out, lse, jnp.asarray(dout), softcap, 128, 128, True)
     fused = jpa._bwd_fused_impl(*bwd_args, masked=True)
     split = jpa._bwd_split_impl(*bwd_args, masked=True)
-    doa = fa.augment_do(t(dout), t(out))
-    qp, kp, vap, doap = _padded_pieces(t(q), t(k), t(vha), doa)
-    assert qp.shape[-1] == vap.shape[-1] - 1 == fa.padded_width(d) == 128
+    # what the backward launchers hand their kernels: q, k, V and dO padded
+    # to the kernels' width, and -delta
+    nd = fa._neg_delta(t(dout), t(out))
+    qp, kp, vp, dop = fa.kernel_width(t(q), t(k), t(v), t(dout))
+    assert qp.shape[-1] == vp.shape[-1] == fa.padded_width(d) == 128
     lse2, tm = t(lse[:, 0]), t(mask)
     (outp,) = fa.kernel_width(t(out))
-    got_fused = fa.flash_bwd_plain(qp, kp, vap, outp, lse2, doap[..., :-1], tm, H, softcap)
-    dk, dv = fa.flash_bwd_dkv_plain(qp, kp, vap, doap, lse2, tm, H, softcap)
-    dq = fa.flash_bwd_dq_plain(qp, kp, vap, doap, lse2, tm, H, softcap)
+    got_fused = fa.flash_bwd_plain(qp, kp, vp, outp, lse2, dop, tm, H, softcap)
+    dk, dv = fa.flash_bwd_dkv_plain(qp, kp, vp, dop, nd, lse2, tm, H, softcap)
+    dq = fa.flash_bwd_dq_plain(qp, kp, vp, dop, nd, lse2, tm, H, softcap)
     for name, g_, rf, rs in zip(("dq", "dk", "dv"), (dq, dk, dv), fused, split):
         assert not g_[..., d:].any(), name  # the padded columns stay zero
         _close(fa.head_columns(g_, d), rs, what=f"split {name}")

@@ -60,11 +60,11 @@ def test_proj_attention_out_kernels(gen, is_global):
     for g_, r_ in zip(got, fused_proj.proj_plain(x, ada, w, gq, gk, P, is_global)):
         _close(g_, r_)
     B, T = (S, P * N) if is_global else (G, N)
-    qh, kh, vah = (a.reshape(B * H, T, -1) for a in got)
+    qh, kh, vh = (a.reshape(B * H, T, -1) for a in got)
     for kernel, plain, extra in ((fa.flash_fixed_kernel, fa.flash_fixed_plain, (20.0,)),
                                  (fa.flash_online_kernel, fa.flash_online_plain, ())):
-        o_k, l_k = kernel(qh, kh, vah, *extra)
-        o_p, l_p = plain(qh, kh, vah, *extra)
+        o_k, l_k = kernel(qh, kh, vh, *extra)
+        o_p, l_p = plain(qh, kh, vh, *extra)
         _close(o_k, o_p)
         assert float((l_k - l_p).abs().max()) < 2e-2
     w_out = _randn(gen, D, D, scale=D ** -0.5)
@@ -78,12 +78,11 @@ def test_proj_attention_out_kernels(gen, is_global):
 def test_online_kernel_masked_rows(gen):
     BH, heads, T = 8, 2, 256
     q, k = (_randn(gen, BH, T, DH, scale=0.3) for _ in range(2))
-    va = torch.cat([_randn(gen, BH, T, DH), torch.ones(BH, T, 1, device="cuda",
-                                                       dtype=torch.bfloat16)], -1)
+    v = _randn(gen, BH, T, DH)
     mask = (torch.rand((BH // heads, T), generator=gen, device="cuda") > 0.5).to(torch.int32)
     mask[2] = 0
-    o_k, l_k = fa.flash_online_kernel(q, k, va, mask, heads)
-    o_p, l_p = fa.flash_online_plain(q, k, va, mask.bool(), heads)
+    o_k, l_k = fa.flash_online_kernel(q, k, v, mask, heads)
+    o_p, l_p = fa.flash_online_plain(q, k, v, mask.bool(), heads)
     _close(o_k, o_p)
     assert (o_k[4:6] == 0).all() and (l_k[4:6] == fa.LSE_EMPTY).all()
 
@@ -103,14 +102,13 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
         fused_ff.geglu_ff(x.float(), *(torch.zeros(1, device="cuda"),) * 6, impl="pallas")
     with pytest.raises(ValueError, match="multiples of 128"):
         q = torch.zeros(8, 100, DH, device="cuda", dtype=torch.bfloat16)
-        fa.flash_fixed(q, q, torch.zeros(8, 100, DH + 1, device="cuda", dtype=torch.bfloat16),
-                       1.0)
-    va = torch.zeros(8, 128, DH + 1, device="cuda", dtype=torch.bfloat16)
+        fa.flash_fixed(q, q, q, 1.0)
+    v = torch.zeros(8, 128, DH, device="cuda", dtype=torch.bfloat16)
     q = torch.zeros(8 * 128 * DH + 1, device="cuda", dtype=torch.bfloat16)[1:].view(8, 128, DH)
     with pytest.raises(ValueError, match="16-byte-aligned"):
-        fa.flash_fixed(q, q, va, 1.0)
+        fa.flash_fixed(q, q, v, 1.0)
     with pytest.raises(ValueError, match="16-byte-aligned"):
-        fa.flash_online(q, q, va)
+        fa.flash_online(q, q, v)
 
 
 def _dit_forward_matches_plain(gen, cfg):
@@ -264,25 +262,24 @@ def test_backward_kernels_at_wide_heads(gen, d, masked, c):
     q, k = _randn(gen, BH, T, d, scale=0.4), _randn(gen, BH, T, d, scale=0.4)
     if c > 0.0:
         q = q * (3.0 / c)
-    va = torch.cat([_randn(gen, BH, T, d), torch.ones(BH, T, 1, device="cuda",
-                                                      dtype=torch.bfloat16)], -1)
+    v = _randn(gen, BH, T, d)
     mask = _edge_mask(gen, BH // heads, T, "random") if masked else None
-    out, lse = fa.flash_online_kernel(q, k, va, mask, heads, c)
+    out, lse = fa.flash_online_kernel(q, k, v, mask, heads, c)
     dout = _randn(gen, BH, T, d)
     sfx = "_softcap" if c > 0.0 else ""
     reset_launches()
-    got = fa.flash_bwd_kernel(q, k, va, out, lse, dout, mask, heads, c)
-    doa = fa.augment_do(dout, out).contiguous()
-    args = (q, k, va, doa, lse, mask, heads, c)
+    got = fa.flash_bwd_kernel(q, k, v, out, lse, dout, mask, heads, c)
+    nd = fa._neg_delta(dout, out)
+    args = (q, k, v, dout, nd, lse, mask, heads, c)
     dk, dv = fa.flash_bwd_dkv_kernel(*args)
     dq = fa.flash_bwd_dq_kernel(*args)
     assert launch_counts() == _counts(**{f"flash_bwd{sfx}": 1, f"flash_bwd_dkv{sfx}": 1,
                                          f"flash_bwd_dq{sfx}": 1})
     pmask = None if mask is None else mask.bool()
-    for g_, r_ in zip(got, fa.flash_bwd_plain(q, k, va, out, lse, dout, pmask, heads, c)):
+    for g_, r_ in zip(got, fa.flash_bwd_plain(q, k, v, out, lse, dout, pmask, heads, c)):
         assert g_.shape == q.shape
         _close(g_, r_)
-    pargs = (q, k, va, doa, lse, pmask, heads, c)
+    pargs = (q, k, v, dout, nd, lse, pmask, heads, c)
     for g_, r_ in zip((dk, dv), fa.flash_bwd_dkv_plain(*pargs)):
         _close(g_, r_)
     _close(dq, fa.flash_bwd_dq_plain(*pargs))
@@ -359,22 +356,21 @@ def test_forward_kernel_edges(gen, variant, edge):
     c = 5.0 if variant.endswith("softcap") else 0.0
     heads = 1 if BH == 1 else 2
     if c > 0.0:
-        q, k, va = _softcap_inputs(gen, BH, max(Tq, Tk), c)
-        q, k, va = q[:, :Tq].contiguous(), k[:, :Tk].contiguous(), va[:, :Tk].contiguous()
+        q, k, v = _softcap_inputs(gen, BH, max(Tq, Tk), c)
+        q, k, v = q[:, :Tq].contiguous(), k[:, :Tk].contiguous(), v[:, :Tk].contiguous()
     else:
         q, k = _randn(gen, BH, Tq, DH, scale=0.4), _randn(gen, BH, Tk, DH, scale=0.4)
-        va = torch.cat([_randn(gen, BH, Tk, DH), torch.ones(BH, Tk, 1, device="cuda",
-                                                            dtype=torch.bfloat16)], -1)
+        v = _randn(gen, BH, Tk, DH)
     reset_launches()
     if variant.startswith("fixed"):
         b2 = fa._cap2(c) if c > 0.0 else float((q.float() @ k.float().transpose(1, 2)).max())
-        got = fa.flash_fixed_kernel(q, k, va, b2, c)
-        ref = fa.flash_fixed_plain(q, k, va, b2, c)
+        got = fa.flash_fixed_kernel(q, k, v, b2, c)
+        ref = fa.flash_fixed_plain(q, k, v, b2, c)
         mask = None
     else:
         mask = _edge_mask(gen, BH // heads, Tk, kind) if "masked" in variant else None
-        got = fa.flash_online_kernel(q, k, va, mask, heads, c)
-        ref = fa.flash_online_plain(q, k, va, None if mask is None else mask.bool(), heads, c)
+        got = fa.flash_online_kernel(q, k, v, mask, heads, c)
+        ref = fa.flash_online_plain(q, k, v, None if mask is None else mask.bool(), heads, c)
     name = ("flash_fixed" if variant.startswith("fixed") else "flash_online") + (
         "_softcap" if c > 0.0 else "")
     assert launch_counts() == _counts(**{name: 1})
@@ -398,18 +394,17 @@ def test_forward_kernels_at_wide_heads(gen, variant, d):
     q, k = _randn(gen, BH, T, d, scale=0.4), _randn(gen, BH, T, d, scale=0.4)
     if c > 0.0:
         q = q * (3.0 / c)
-    va = torch.cat([_randn(gen, BH, T, d), torch.ones(BH, T, 1, device="cuda",
-                                                      dtype=torch.bfloat16)], -1)
+    v = _randn(gen, BH, T, d)
     reset_launches()
     mask = None
     if variant.startswith("fixed"):
         b2 = fa._cap2(c) if c > 0.0 else float((q.float() @ k.float().transpose(1, 2)).max())
-        got = fa.flash_fixed_kernel(q, k, va, b2, c)
-        ref = fa.flash_fixed_plain(q, k, va, b2, c)
+        got = fa.flash_fixed_kernel(q, k, v, b2, c)
+        ref = fa.flash_fixed_plain(q, k, v, b2, c)
     else:
         mask = _edge_mask(gen, BH // heads, T, "random") if "masked" in variant else None
-        got = fa.flash_online_kernel(q, k, va, mask, heads, c)
-        ref = fa.flash_online_plain(q, k, va, None if mask is None else mask.bool(), heads, c)
+        got = fa.flash_online_kernel(q, k, v, mask, heads, c)
+        ref = fa.flash_online_plain(q, k, v, None if mask is None else mask.bool(), heads, c)
     name = ("flash_fixed" if variant.startswith("fixed") else "flash_online") + (
         "_softcap" if c > 0.0 else "")
     assert launch_counts() == _counts(**{name: 1})
@@ -430,17 +425,16 @@ def test_forward_kernels_at_wide_heads(gen, variant, d):
 def test_flash_bwd_kernel(gen, variant):
     BH, T = 8, 256
     q, k = (_randn(gen, BH, T, DH, scale=0.6) for _ in range(2))
-    va = torch.cat([_randn(gen, BH, T, DH), torch.ones(BH, T, 1, device="cuda",
-                                                       dtype=torch.bfloat16)], -1)
+    v = _randn(gen, BH, T, DH)
     if variant == "fixed":
-        out, lse = fa.flash_fixed_kernel(q, k, va, 40.0)
+        out, lse = fa.flash_fixed_kernel(q, k, v, 40.0)
     else:
-        out, lse = fa.flash_online_kernel(q, k, va)
+        out, lse = fa.flash_online_kernel(q, k, v)
     dout = _randn(gen, BH, T, DH)
     reset_launches()
-    got = fa.flash_bwd_kernel(q, k, va, out, lse, dout)
+    got = fa.flash_bwd_kernel(q, k, v, out, lse, dout)
     assert launch_counts()["flash_bwd"] == 1
-    for g_, r_ in zip(got, fa.flash_bwd_plain(q, k, va, out, lse, dout)):
+    for g_, r_ in zip(got, fa.flash_bwd_plain(q, k, v, out, lse, dout)):
         _close(g_, r_)
 
 
@@ -466,8 +460,8 @@ def test_proj_bwd_kernel(gen, width, heads, n, is_global):
                                    1 + _randn(gen, heads, dh, dtype=torch.float32, scale=0.1))
     lead = (S, heads, P, n) if is_global else (G, heads, n)
     dq, dk = _randn(gen, *lead, dh), _randn(gen, *lead, dh)
-    dva = _randn(gen, *lead, dh + 1)
-    args = (x, ada, w, gq, gk, dq, dk, dva, P, is_global)
+    dv = _randn(gen, *lead, dh)
+    args = (x, ada, w, gq, gk, dq, dk, dv, P, is_global)
     reset_launches()
     got = fused_proj.proj_bwd_kernel(*args)
     assert launch_counts() == _counts(proj_bwd=1)
@@ -614,9 +608,7 @@ def test_ff_kernels_at_every_width(gen, T, D, FH):
 
 def _bwd_inputs(gen, BH, T):
     q, k = (_randn(gen, BH, T, DH, scale=0.6) for _ in range(2))
-    va = torch.cat([_randn(gen, BH, T, DH), torch.ones(BH, T, 1, device="cuda",
-                                                       dtype=torch.bfloat16)], -1)
-    return q, k, va.contiguous()
+    return q, k, _randn(gen, BH, T, DH)
 
 
 def _key_mask(gen, B, T):
@@ -631,11 +623,11 @@ def _key_mask(gen, B, T):
 @pytest.mark.parametrize("masked", [True, False], ids=["masked", "unmasked"])
 def test_split_backward_kernels(gen, masked):
     heads, B, T = 2, 4, 512
-    q, k, va = _bwd_inputs(gen, B * heads, T)
+    q, k, v = _bwd_inputs(gen, B * heads, T)
     mask = _key_mask(gen, B, T) if masked else None
-    out, lse = fa.flash_online_kernel(q, k, va, mask, heads)
-    doa = fa.augment_do(_randn(gen, B * heads, T, DH), out).contiguous()
-    args = (q, k, va, doa, lse, mask, heads)
+    out, lse = fa.flash_online_kernel(q, k, v, mask, heads)
+    dout = _randn(gen, B * heads, T, DH)
+    args = (q, k, v, dout, fa._neg_delta(dout, out), lse, mask, heads)
     reset_launches()
     dk, dv = fa.flash_bwd_dkv_kernel(*args)
     dq = fa.flash_bwd_dq_kernel(*args)
@@ -656,14 +648,14 @@ def test_split_backward_kernels(gen, masked):
 
 def test_masked_fused_backward_kernel(gen):
     heads, B, T = 2, 4, 512
-    q, k, va = _bwd_inputs(gen, B * heads, T)
+    q, k, v = _bwd_inputs(gen, B * heads, T)
     mask = _key_mask(gen, B, T)
-    out, lse = fa.flash_online_kernel(q, k, va, mask, heads)
+    out, lse = fa.flash_online_kernel(q, k, v, mask, heads)
     dout = _randn(gen, B * heads, T, DH)
     reset_launches()
-    got = fa.flash_bwd_kernel(q, k, va, out, lse, dout, mask, heads)
+    got = fa.flash_bwd_kernel(q, k, v, out, lse, dout, mask, heads)
     assert launch_counts()["flash_bwd"] == 1
-    for g_, r_ in zip(got, fa.flash_bwd_plain(q, k, va, out, lse, dout, mask, heads)):
+    for g_, r_ in zip(got, fa.flash_bwd_plain(q, k, v, out, lse, dout, mask, heads)):
         _close(g_, r_)
     empty = slice((B - 1) * heads, B * heads)
     assert all(not g[empty].any() for g in got)
@@ -679,19 +671,18 @@ def test_kernels_launch_on_their_tensors_device():
     heads, B, T = 2, 2, 256
     q, k = ((torch.randn((B * heads, T, DH), generator=gen) * 0.6).to(dev, torch.bfloat16)
             for _ in range(2))
-    va = torch.cat([torch.randn((B * heads, T, DH), generator=gen),
-                    torch.ones(B * heads, T, 1)], -1).to(dev, torch.bfloat16)
+    v = torch.randn((B * heads, T, DH), generator=gen).to(dev, torch.bfloat16)
     mask = (torch.rand((B, T), generator=gen) > 0.3).to(dev, torch.int32)
     dout = torch.randn((B * heads, T, DH), generator=gen).to(dev, torch.bfloat16)
     with torch.cuda.device(0):
-        out, lse = fa.flash_online_kernel(q, k, va, mask, heads)
-        doa = fa.augment_do(dout, out).contiguous()
-        dq = fa.flash_bwd_dq_kernel(q, k, va, doa, lse, mask, heads)
-        fused = fa.flash_bwd_kernel(q, k, va, out, lse, dout, mask, heads)
+        out, lse = fa.flash_online_kernel(q, k, v, mask, heads)
+        nd = fa._neg_delta(dout, out)
+        dq = fa.flash_bwd_dq_kernel(q, k, v, dout, nd, lse, mask, heads)
+        fused = fa.flash_bwd_kernel(q, k, v, out, lse, dout, mask, heads)
         torch.cuda.synchronize(dev)
     assert out.device == dq.device == dev
-    _close(out, fa.flash_online_plain(q, k, va, mask, heads)[0])
-    _close(dq, fa.flash_bwd_dq_plain(q, k, va, doa, lse, mask, heads))
+    _close(out, fa.flash_online_plain(q, k, v, mask, heads)[0])
+    _close(dq, fa.flash_bwd_dq_plain(q, k, v, dout, nd, lse, mask, heads))
     _close(fused[0], dq)
 
 
@@ -705,9 +696,7 @@ def _softcap_inputs(gen, BH, T, c):
         x = torch.randn((BH, T, DH), generator=gen, device="cuda")
         return (x / x.norm(dim=-1, keepdim=True) * norm).to(torch.bfloat16)
 
-    va = torch.cat([_randn(gen, BH, T, DH), torch.ones(BH, T, 1, device="cuda",
-                                                       dtype=torch.bfloat16)], -1)
-    return rows(3.0 / c), rows(24.0), va.contiguous()
+    return rows(3.0 / c), rows(24.0), _randn(gen, BH, T, DH)
 
 
 @pytest.mark.parametrize("c", [5.0, 50.0])
@@ -715,17 +704,17 @@ def test_softcap_forward_kernels(gen, c):
     """c = 5: the fixed-bound variant (bound 5 log2 e); c = 50: online, with
     and without a key mask."""
     heads, B, T = 2, 4, 512
-    q, k, va = _softcap_inputs(gen, B * heads, T, c)
+    q, k, v = _softcap_inputs(gen, B * heads, T, c)
     b2 = fa._cap2(c)
     reset_launches()
-    o_k, l_k = fa.flash_fixed_kernel(q, k, va, b2, c)
-    o_p, l_p = fa.flash_fixed_plain(q, k, va, b2, c)
+    o_k, l_k = fa.flash_fixed_kernel(q, k, v, b2, c)
+    o_p, l_p = fa.flash_fixed_plain(q, k, v, b2, c)
     _close(o_k, o_p)
     assert float((l_k - l_p).abs().max()) < 2e-2
     mask = _key_mask(gen, B, T)
     for m in (None, mask):
-        o_k, l_k = fa.flash_online_kernel(q, k, va, m, heads, c)
-        o_p, _ = fa.flash_online_plain(q, k, va, m, heads, c)
+        o_k, l_k = fa.flash_online_kernel(q, k, v, m, heads, c)
+        o_p, _ = fa.flash_online_plain(q, k, v, m, heads, c)
         _close(o_k, o_p)
     assert launch_counts() == _counts(flash_fixed_softcap=1, flash_online_softcap=2)
     assert (o_k[(B - 1) * heads:] == 0).all()
@@ -737,19 +726,18 @@ def test_softcap_backward_kernels(gen, c):
     softcap twin; the split passes bitwise repeatable; the fused dQ against
     the split one."""
     heads, B, T = 2, 4, 512
-    q, k, va = _softcap_inputs(gen, B * heads, T, c)
+    q, k, v = _softcap_inputs(gen, B * heads, T, c)
     mask = _key_mask(gen, B, T)
-    out, lse = fa.flash_online_kernel(q, k, va, mask, heads, c)
+    out, lse = fa.flash_online_kernel(q, k, v, mask, heads, c)
     dout = _randn(gen, B * heads, T, DH)
-    doa = fa.augment_do(dout, out).contiguous()
-    args = (q, k, va, doa, lse, mask, heads)
+    args = (q, k, v, dout, fa._neg_delta(dout, out), lse, mask, heads)
     reset_launches()
-    fused = fa.flash_bwd_kernel(q, k, va, out, lse, dout, mask, heads, c)
+    fused = fa.flash_bwd_kernel(q, k, v, out, lse, dout, mask, heads, c)
     dk, dv = fa.flash_bwd_dkv_kernel(*args, c)
     dq = fa.flash_bwd_dq_kernel(*args, c)
     assert launch_counts() == _counts(flash_bwd_softcap=1, flash_bwd_dkv_softcap=1,
                                       flash_bwd_dq_softcap=1)
-    for g_, r_ in zip(fused, fa.flash_bwd_plain(q, k, va, out, lse, dout, mask, heads, c)):
+    for g_, r_ in zip(fused, fa.flash_bwd_plain(q, k, v, out, lse, dout, mask, heads, c)):
         _close(g_, r_)
     rk, rv = fa.flash_bwd_dkv_plain(*args, c)
     for g_, r_ in ((dq, fa.flash_bwd_dq_plain(*args, c)), (dk, rk), (dv, rv)):
@@ -813,22 +801,21 @@ def test_key_block_backward_kernels(gen, c, masked):
     bitwise repeatable; dead and masked keys get exactly zero dK, dV."""
     BH, Tq, Tk = _KB_BH, _KB_TQ, _KB_TK
     if c > 0.0:
-        q, k, va = _softcap_inputs(gen, BH, Tk, c)
+        q, k, v = _softcap_inputs(gen, BH, Tk, c)
     else:
-        q, k, va = _bwd_inputs(gen, BH, Tk)
+        q, k, v = _bwd_inputs(gen, BH, Tk)
     q = q[:, :Tq].contiguous()
     mask = _edge_key_mask(gen) if masked else None
-    out, lse = fa.flash_online_plain(q, k, va, mask, 1, c)  # the forward takes Tq % 128
+    out, lse = fa.flash_online_plain(q, k, v, mask, 1, c)  # the forward takes Tq % 128
     lse[:, 70:130] = fa.LSE_EMPTY
     dout = _randn(gen, BH, Tq, DH)
-    doa = fa.augment_do(dout, out).contiguous()
-    args = (q, k, va, doa, lse, mask, 1, c)
+    args = (q, k, v, dout, fa._neg_delta(dout, out), lse, mask, 1, c)
     reset_launches()
-    fused = fa.flash_bwd_kernel(q, k, va, out, lse, dout, mask, 1, c)
+    fused = fa.flash_bwd_kernel(q, k, v, out, lse, dout, mask, 1, c)
     dk, dv = fa.flash_bwd_dkv_kernel(*args)
     sfx = "_softcap" if c > 0.0 else ""
     assert launch_counts() == _counts(**{f"flash_bwd{sfx}": 1, f"flash_bwd_dkv{sfx}": 1})
-    for g_, r_ in zip(fused, fa.flash_bwd_plain(q, k, va, out, lse, dout, mask, 1, c)):
+    for g_, r_ in zip(fused, fa.flash_bwd_plain(q, k, v, out, lse, dout, mask, 1, c)):
         _close(g_, r_)
     rk, rv = fa.flash_bwd_dkv_plain(*args)
     _close(dk, rk)
@@ -846,20 +833,21 @@ def test_key_block_backward_kernels(gen, c, masked):
 def test_key_block_backward_refuses_what_it_does_not_take(gen):
     """Tk not a multiple of 128, Tq not a multiple of 64, an unaligned dO:
     the wrappers raise before any launch."""
-    q, k, va = _bwd_inputs(gen, 2, 256)
-    out, lse = fa.flash_online_kernel(q, k, va)
+    q, k, v = _bwd_inputs(gen, 2, 256)
+    out, lse = fa.flash_online_kernel(q, k, v)
     dout = _randn(gen, 2, 256, DH)
-    doa = fa.augment_do(dout, out).contiguous()
+    nd = fa._neg_delta(dout, out)
     reset_launches()
     with pytest.raises(ValueError, match="Tk % 128"):
-        fa.flash_bwd_dkv_kernel(q, k[:, :192].contiguous(), va[:, :192].contiguous(), doa, lse)
+        fa.flash_bwd_dkv_kernel(q, k[:, :192].contiguous(), v[:, :192].contiguous(), dout, nd,
+                                lse)
     with pytest.raises(ValueError, match="multiples of 64"):
-        fa.flash_bwd_kernel(q[:, :96].contiguous(), k, va, out[:, :96].contiguous(),
+        fa.flash_bwd_kernel(q[:, :96].contiguous(), k, v, out[:, :96].contiguous(),
                             lse[:, :96].contiguous(), dout[:, :96].contiguous())
     odd = torch.zeros(dout.numel() + 1, device="cuda", dtype=torch.bfloat16)[1:]
     odd = odd.view(dout.shape).copy_(dout)
     with pytest.raises(ValueError, match="16-byte-aligned"):
-        fa.flash_bwd_kernel(q, k, va, out, lse, odd)
+        fa.flash_bwd_kernel(q, k, v, out, lse, odd)
     assert launch_counts() == _counts()
 
 
@@ -882,18 +870,17 @@ def test_dq_pass_edges(gen, edge, c):
     _, BH, Tq, Tk, kind = edge
     heads = 1 if BH == 1 else 2
     if c > 0.0:
-        q, k, va = _softcap_inputs(gen, BH, max(Tq, Tk), c)
-        q, k, va = q[:, :Tq].contiguous(), k[:, :Tk].contiguous(), va[:, :Tk].contiguous()
+        q, k, v = _softcap_inputs(gen, BH, max(Tq, Tk), c)
+        q, k, v = q[:, :Tq].contiguous(), k[:, :Tk].contiguous(), v[:, :Tk].contiguous()
     else:
         q, k = _randn(gen, BH, Tq, DH, scale=0.4), _randn(gen, BH, Tk, DH, scale=0.4)
-        va = torch.cat([_randn(gen, BH, Tk, DH), torch.ones(BH, Tk, 1, device="cuda",
-                                                            dtype=torch.bfloat16)], -1)
+        v = _randn(gen, BH, Tk, DH)
     dout = _randn(gen, BH, Tq, DH)
     mask = _edge_mask(gen, BH // heads, Tk, kind)
     name = "flash_bwd_dq_softcap" if c > 0.0 else "flash_bwd_dq"
     for m in (mask, None) if kind == "random" else (mask,):
-        out, lse = fa.flash_online_kernel(q, k, va, m, heads, c)
-        args = (q, k, va, fa.augment_do(dout, out).contiguous(), lse, m, heads, c)
+        out, lse = fa.flash_online_kernel(q, k, v, m, heads, c)
+        args = (q, k, v, dout, fa._neg_delta(dout, out), lse, m, heads, c)
         reset_launches()
         dq = fa.flash_bwd_dq_kernel(*args)
         assert launch_counts() == _counts(**{name: 1})
@@ -1257,7 +1244,7 @@ def test_serving_syncs_are_the_counted_ones(gen):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     warned = [w for w in caught if "called a synchronizing" in str(w.message)]
-    assert syncs == {"svd": 0, "bounds": 0}
+    assert syncs == {"svd": 0, "bounds": 0, "eval": 0}
     assert [(w.filename, w.lineno) for w in warned] == []
 
 

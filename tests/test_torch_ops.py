@@ -62,15 +62,21 @@ def _qkv_both(inp, is_global):
     return jq, tq
 
 
+def _check_qkv(jq, tq, lead, dh):
+    """The port's (q, k, v) against rap_tpu's (q, k, va): va = [v | 1] carries
+    a ones column that the port's v does not (the documented difference of
+    layout), so v is compared with va's first dh columns."""
+    jva = np.asarray(jq[2])
+    np.testing.assert_array_equal(jva[..., dh], 1.0)
+    for name, a, b in zip(("q", "k", "v"), (jq[0], jq[1], jva[..., :dh]), tq):
+        assert tuple(b.shape) == tuple(a.shape) == lead + (dh,), name
+        _close(b.numpy(), a)
+
+
 @pytest.mark.parametrize("is_global", [False, True], ids=["part", "global"])
 def test_adaln_qkv_matches_pallas(is_global):
     jq, tq = _qkv_both(_inputs(), is_global)
-    lead = (S, H, P, N) if is_global else (G, H, N)
-    for name, a, b in zip(("q", "k", "va"), jq, tq):
-        assert tuple(b.shape) == tuple(a.shape), name
-        assert tuple(b.shape[:-1]) == lead, name
-        _close(b.numpy(), a)
-    np.testing.assert_array_equal(tq[2][..., DH].numpy(), 1.0)
+    _check_qkv(jq, tq, (S, H, P, N) if is_global else (G, H, N), DH)
 
 
 @pytest.mark.parametrize("is_global", [False, True], ids=["part", "global"])
@@ -117,13 +123,7 @@ def test_adaln_qkv_matches_pallas_other_head_widths(is_global, width, heads):
     csrc/proj.cu takes since every width rap_tpu admits is its shape rule."""
     inp = _inputs_at(width, heads, 3)
     jq, tq = _qkv_both(inp, is_global)
-    dh = width // heads
-    lead = (S, heads, P, N) if is_global else (G, heads, N)
-    for name, a, b in zip(("q", "k", "va"), jq, tq):
-        assert tuple(b.shape) == tuple(a.shape), name
-        assert tuple(b.shape[:-1]) == lead, name
-        _close(b.numpy(), a)
-    np.testing.assert_array_equal(tq[2][..., dh].numpy(), 1.0)
+    _check_qkv(jq, tq, (S, heads, P, N) if is_global else (G, heads, N), width // heads)
 
 
 @pytest.mark.parametrize("width,heads", _OTHER_HEADS, ids=["dh32", "dh96"])
@@ -175,7 +175,7 @@ def test_fixed_bound_lse_matches_pallas():
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(va),
         jnp.full((1,), bound, jnp.float32), 0.0, 128, 128, True,
     )
-    got_o, got_l = fa.flash_fixed(t(q), t(k), t(va), bound)
+    got_o, got_l = fa.flash_fixed(t(q), t(k), t(v), bound)
     _close(got_o.numpy(), ref_o)
     np.testing.assert_allclose(got_l.numpy(), np.asarray(ref_l)[:, 0], atol=1e-4)
 
@@ -189,7 +189,6 @@ def test_online_masked_matches_pallas():
     q = (rng.standard_normal((BH, T, DH)) * 0.5).astype(np.float32)
     k = (rng.standard_normal((BH, T, DH)) * 0.5).astype(np.float32)
     v = rng.standard_normal((BH, T, DH)).astype(np.float32)
-    va = np.concatenate([v, np.ones((BH, T, 1), np.float32)], -1)
     mask = rng.random((B, T)) > 0.4
     mask[1] = False
     mask[2, :128] = False
@@ -197,7 +196,7 @@ def test_online_masked_matches_pallas():
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
         jnp.asarray(mask.astype(np.int32))[:, None, :], 0.0, 128, 128, True,
     )
-    got_o, got_l = fa.flash_online(t(q), t(k), t(va), t(mask), heads=heads)
+    got_o, got_l = fa.flash_online(t(q), t(k), t(v), t(mask), heads=heads)
     _close(got_o.numpy(), ref_o)
     ref_l = np.asarray(ref_l)[:, 0]
     np.testing.assert_allclose(got_l.numpy(), ref_l, rtol=1e-5, atol=1e-4)
@@ -252,10 +251,9 @@ def test_cpu_wrappers_launch_nothing():
     """On CPU tensors the wrappers take the plain versions: no kernel count."""
     reset_launches()
     inp = _inputs()
-    q, k, va = fused_proj.adaln_qkv(t(inp["x"]), t(inp["ada"]), t(inp["w"]),
-                                    t(inp["gq"]), t(inp["gk"]), P=P, is_global=False)
-    o = fa.flash_attention_headmajor(q.reshape(G * H, N, DH), k.reshape(G * H, N, DH),
-                                     va.reshape(G * H, N, DH + 1), 13.0)
+    q, k, v = fused_proj.adaln_qkv(t(inp["x"]), t(inp["ada"]), t(inp["w"]),
+                                   t(inp["gq"]), t(inp["gk"]), P=P, is_global=False)
+    o = fa.flash_attention_headmajor(*(a.reshape(G * H, N, DH) for a in (q, k, v)), 13.0)
     fused_proj.attn_out(o.reshape(q.shape), t(inp["x"]), t(inp["w_out"]),
                         t(inp["b_out"]), P=P, is_global=False)
     assert launch_counts() == dict.fromkeys(launch_counts(), 0)
@@ -276,7 +274,7 @@ def test_kernel_inputs_are_checked():
                                gq, gq, P, False)
     qh = torch.zeros(4, 100, DH, dtype=torch.bfloat16)  # 100 keys: not a block multiple
     with pytest.raises(ValueError, match="multiples of 128"):
-        fa.flash_fixed_kernel(qh, qh, torch.zeros(4, 100, DH + 1, dtype=torch.bfloat16), 1.0)
+        fa.flash_fixed_kernel(qh, qh, qh, 1.0)
     bf = dict(dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="token count that is a multiple of 128"):
         fused_ff.ff_kernel(torch.zeros(64, D, **bf), torch.ones(D), torch.zeros(D),
@@ -398,7 +396,7 @@ def test_proj_backward_shape_rule_is_the_forwards(monkeypatch, width):
                     args = (torch.empty(G, N, width, **bf), torch.empty(G, 2 * width),
                             torch.empty(width, 3 * width, **bf), torch.empty(H, dh),
                             torch.empty(H, dh), torch.empty(lead + (dh,), **bf),
-                            torch.empty(lead + (dh,), **bf), torch.empty(lead + (dh + 1,), **bf))
+                            torch.empty(lead + (dh,), **bf), torch.empty(lead + (dh,), **bf))
                     reason = fused_proj.proj_shape_error(G, N, width, H, dh, P, is_global)
                     launched.clear()
                     if reason is None:
@@ -436,8 +434,7 @@ def test_dispatch_follows_the_shape_rule(monkeypatch, is_global, n, kernel):
     jq = jfp.adaln_qkv(jnp.asarray(x), jnp.asarray(ada), jnp.asarray(w), jnp.asarray(gq),
                        jnp.asarray(gk), P=P, is_global=is_global)  # CPU: xla_reference
     tq = fused_proj.adaln_qkv(t(x), t(ada), t(w), t(gq), t(gk), P=P, is_global=is_global)
-    for a, b in zip(jq, tq):
-        _close(b.numpy(), a)
+    _check_qkv(jq, tq, (S, H, P, n) if is_global else (G, H, n), DH)
     a5 = np.asarray(jq[0])
     ref = jfp.attn_out(jnp.asarray(a5), jnp.asarray(x), jnp.asarray(w_out),
                        jnp.asarray(b_out), P=P, is_global=is_global)
@@ -558,7 +555,7 @@ def test_wgrad_splits_fill_the_card(tiles, nslab):
 def _bf16_attention_inputs(BH, Tq, Tk):
     bf = dict(dtype=torch.bfloat16)
     return (torch.zeros(BH, Tq, DH, **bf), torch.zeros(BH, Tk, DH, **bf),
-            torch.zeros(BH, Tk, DH + 1, **bf))
+            torch.zeros(BH, Tk, DH, **bf))
 
 
 @pytest.mark.parametrize("variant", ["fixed", "online", "online_masked", "fixed_softcap",
@@ -569,14 +566,14 @@ def test_forward_kernels_refuse_non_128_lengths(monkeypatch, variant, Tq, Tk):
     of 128: each forward entry refuses other lengths before any launch."""
     launched = []
     monkeypatch.setattr(fa, "launch", lambda *a: launched.append(a))
-    qh, kh, vah = _bf16_attention_inputs(2, Tq, Tk)
+    qh, kh, vh = _bf16_attention_inputs(2, Tq, Tk)
     softcap = 5.0 if variant.endswith("softcap") else 0.0
     with pytest.raises(ValueError, match="multiples of 128"):
         if variant.startswith("fixed"):
-            fa.flash_fixed_kernel(qh, kh, vah, 1.0, softcap)
+            fa.flash_fixed_kernel(qh, kh, vh, 1.0, softcap)
         else:
             mask = torch.ones(2, Tk, dtype=torch.int32) if variant == "online_masked" else None
-            fa.flash_online_kernel(qh, kh, vah, mask, 1, softcap)
+            fa.flash_online_kernel(qh, kh, vh, mask, 1, softcap)
     assert launched == []
 
 
@@ -586,13 +583,13 @@ def test_forward_kernels_refuse_unaligned_inputs(monkeypatch, variant):
     storage is refused before any launch."""
     launched = []
     monkeypatch.setattr(fa, "launch", lambda *a: launched.append(a))
-    qh, kh, vah = _bf16_attention_inputs(2, 128, 128)
+    qh, kh, vh = _bf16_attention_inputs(2, 128, 128)
     shifted = torch.zeros(qh.numel() + 1, dtype=torch.bfloat16)[1:].view(qh.shape)
     with pytest.raises(ValueError, match="16-byte-aligned"):
         if variant == "fixed":
-            fa.flash_fixed_kernel(shifted, kh, vah, 1.0)
+            fa.flash_fixed_kernel(shifted, kh, vh, 1.0)
         else:
-            fa.flash_online_kernel(qh, shifted, vah)
+            fa.flash_online_kernel(qh, shifted, vh)
     assert launched == []
 
 
@@ -605,20 +602,21 @@ def test_dq_pass_keeps_its_own_block(monkeypatch, T):
     any launch."""
     launched = []
     monkeypatch.setattr(fa, "launch", lambda kernel, *a: launched.append(kernel))
-    qh, kh, vah = _bf16_attention_inputs(2, T, T)
-    doa = torch.zeros(2, T, DH + 1, dtype=torch.bfloat16)
-    lse2 = torch.zeros(2, T)
-    fa.flash_bwd_dq_kernel(qh, kh, vah, doa, lse2)
-    fa.flash_bwd_dq_kernel(qh, kh, vah, doa, lse2, torch.ones(1, T, dtype=torch.int32), 2,
+    qh, kh, vh = _bf16_attention_inputs(2, T, T)
+    dout = torch.zeros(2, T, DH, dtype=torch.bfloat16)
+    nd, lse2 = torch.zeros(2, T), torch.zeros(2, T)
+    fa.flash_bwd_dq_kernel(qh, kh, vh, dout, nd, lse2)
+    fa.flash_bwd_dq_kernel(qh, kh, vh, dout, nd, lse2, torch.ones(1, T, dtype=torch.int32), 2,
                            5.0)
     assert launched == ["flash_bwd_dq", "flash_bwd_dq_softcap"]
     S = T - 64
     with pytest.raises(ValueError, match="multiples of 128"):
-        fa.flash_bwd_dq_kernel(qh[:, :S].contiguous(), kh, vah, doa[:, :S].contiguous(),
-                               lse2[:, :S].contiguous())
+        fa.flash_bwd_dq_kernel(qh[:, :S].contiguous(), kh, vh, dout[:, :S].contiguous(),
+                               nd[:, :S].contiguous(), lse2[:, :S].contiguous())
     with pytest.raises(ValueError, match="multiples of 128"):
-        fa.flash_bwd_dq_kernel(qh, kh[:, :S].contiguous(), vah[:, :S].contiguous(), doa, lse2)
+        fa.flash_bwd_dq_kernel(qh, kh[:, :S].contiguous(), vh[:, :S].contiguous(), dout, nd,
+                               lse2)
     shifted = torch.zeros(qh.numel() + 1, dtype=torch.bfloat16)[1:].view(qh.shape)
     with pytest.raises(ValueError, match="16-byte-aligned"):
-        fa.flash_bwd_dq_kernel(shifted, kh, vah, doa, lse2)
+        fa.flash_bwd_dq_kernel(shifted, kh, vh, dout, nd, lse2)
     assert launched == ["flash_bwd_dq", "flash_bwd_dq_softcap"]

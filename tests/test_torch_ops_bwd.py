@@ -8,6 +8,11 @@ tensors. Same inputs and cotangents, made with numpy from a seed. Tiny
 shapes (D=128, H=2, dh=64, N=128), fp32: tolerance 2e-5 of the largest
 gradient element, fp32 sums in another order.
 
+rap_tpu's attention takes va = [v | 1] and gives its ones column a zero
+cotangent; the port's takes v: its dv is compared with rap_tpu's dva
+without that column, and the projection's dv reaches rap_tpu as dva with a
+zero column.
+
 Each twin is also held against torch.autograd of the port's own plain
 forward: at fp32 within 2e-5, and once in bf16 within 3e-2 of the largest
 element (the twins round p, ds, dy and dproj to bf16 where the TPU kernels
@@ -66,25 +71,38 @@ def _attention_inputs(gain, seed=0, BH=4, T=256):
     # rows of norm gain*log2(e) and gain*sqrt(dh), as the proj kernel emits
     q = q / np.linalg.norm(q, axis=-1, keepdims=True) * gain * math.log2(math.e)
     k = k / np.linalg.norm(k, axis=-1, keepdims=True) * gain * math.sqrt(DH)
-    va = np.concatenate([f(BH, T, DH), np.ones((BH, T, 1), np.float32)], -1)
     bound2 = math.log2(math.e) * math.sqrt(DH) * gain * gain
-    return q, k, va, bound2, f(BH, T, DH)
+    return q, k, f(BH, T, DH), bound2, f(BH, T, DH)
+
+
+def _with_column(a, value):
+    """a with one more column of ``value``: rap_tpu's va = [v | 1], or its
+    cotangent [dv | 0]."""
+    return np.concatenate([a, np.full(a.shape[:-1] + (1,), value, np.float32)], -1)
+
+
+def _attention_vjp_pair(q, k, v, bound2, dout):
+    """(rap_tpu's grads, the port's) of no-padding attention: rap_tpu's
+    dva = [dv | 0] checked and cut to dv."""
+    _, vjp = jax.vjp(lambda a, b, c: jpa.flash_attention_headmajor(
+        a, b, c, jnp.float32(bound2), interpret=True),
+        *map(jnp.asarray, (q, k, _with_column(v, 1.0))))
+    dq, dk, dva = vjp(jnp.asarray(dout))
+    assert float(np.abs(np.asarray(dva)[..., DH]).max()) == 0.0  # ones column: zero cotangent
+    got = _grads(lambda a, b, c: fa.flash_attention_headmajor(a, b, c, bound2),
+                 (q, k, v), dout)
+    return (dq, dk, np.asarray(dva)[..., :DH]), got
 
 
 @pytest.mark.parametrize("gain", [1.0, 3.0], ids=["fixed_bound", "online"])
 def test_attention_backward_matches_pallas(gain):
     """Behind the fixed-bound forward (bound2 ~ 11.5) and the online one
     (bound2 ~ 104 > SAFE_BOUND2): the shared backward reads either lse2."""
-    q, k, va, bound2, dout = _attention_inputs(gain)
+    q, k, v, bound2, dout = _attention_inputs(gain)
     assert (bound2 > fa.SAFE_BOUND2) == (gain > 1.0)
-    _, vjp = jax.vjp(lambda a, b, c: jpa.flash_attention_headmajor(
-        a, b, c, jnp.float32(bound2), interpret=True), *map(jnp.asarray, (q, k, va)))
-    ref = vjp(jnp.asarray(dout))
-    got = _grads(lambda a, b, c: fa.flash_attention_headmajor(a, b, c, bound2),
-                 (q, k, va), dout)
-    for name, g_, r_ in zip(("dq", "dk", "dva"), got, ref):
+    ref, got = _attention_vjp_pair(q, k, v, bound2, dout)
+    for name, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
         _close(g_, r_, what=name)
-    assert float(got[2][..., DH].abs().max()) == 0.0  # ones column: zero cotangent
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -92,13 +110,13 @@ def test_attention_backward_matches_pallas(gain):
 def test_attention_twin_matches_autograd(gain, dtype):
     """flash_bwd_plain against autograd of the plain softmax attention (the
     base-2 logits q.k times ln2 in natural units)."""
-    q, k, va, bound2, dout = _attention_inputs(gain, seed=1)
+    q, k, v, bound2, dout = _attention_inputs(gain, seed=1)
     fwd = fa.flash_fixed_plain if bound2 <= fa.SAFE_BOUND2 else fa.flash_online_plain
-    tq, tk, tva, tdo = (t(a).to(dtype) for a in (q, k, va, dout))
-    out, lse = fwd(tq, tk, tva, bound2) if fwd is fa.flash_fixed_plain else fwd(tq, tk, tva)
-    got = fa.flash_bwd_plain(tq, tk, tva, out, lse, tdo)
+    tq, tk, tv, tdo = (t(a).to(dtype) for a in (q, k, v, dout))
+    out, lse = fwd(tq, tk, tv, bound2) if fwd is fa.flash_fixed_plain else fwd(tq, tk, tv)
+    got = fa.flash_bwd_plain(tq, tk, tv, out, lse, tdo)
     ref = _grads(lambda a, b, c: torch.softmax(a @ b.transpose(-1, -2) * math.log(2.0), -1) @ c,
-                 (tq.float().numpy(), tk.float().numpy(), tva[..., :DH].float().numpy()),
+                 (tq.float().numpy(), tk.float().numpy(), tv.float().numpy()),
                  tdo.float().numpy())
     rtol = RTOL if dtype == torch.float32 else RTOL_BF16
     for name, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
@@ -121,15 +139,11 @@ def test_attention_backward_raises_beyond_the_dq_slab(monkeypatch):
     monkeypatch.setattr(fa, "_FUSED_DQ_PARTIALS_CAP", 0)
     monkeypatch.setattr(jpa, "_FUSED_DQ_PARTIALS_CAP", 0)
     jax.clear_caches()
-    q, k, va, bound2, dout = _attention_inputs(3.0, seed=3)
-    _, vjp = jax.vjp(lambda a, b, c: jpa.flash_attention_headmajor(
-        a, b, c, jnp.float32(bound2), interpret=True), *map(jnp.asarray, (q, k, va)))
-    ref = vjp(jnp.asarray(dout))
+    q, k, v, bound2, dout = _attention_inputs(3.0, seed=3)
+    ref, got = _attention_vjp_pair(q, k, v, bound2, dout)
     jax.clear_caches()
-    got = _grads(lambda a, b, c: fa.flash_attention_headmajor(a, b, c, bound2),
-                 (q, k, va), dout)
     assert calls == ["flash_bwd_dkv_plain", "flash_bwd_dq_plain"]
-    for name, g_, r_ in zip(("dq", "dk", "dva"), got, ref):
+    for name, g_, r_ in zip(("dq", "dk", "dv"), got, ref):
         _close(g_, r_, what=name)
 
 
@@ -145,11 +159,10 @@ def _proj_inputs(seed=0, width=D, heads=H):
 
 
 def _proj_cotangents(is_global, seed=5, heads=H, dh=DH):
+    """(dq, dk, dv) of the port's (q, k, v)."""
     f = _rng_f32(seed)
     lead = (S, heads, P, N) if is_global else (G, heads, N)
-    dva = f(*lead, dh + 1)
-    dva[..., dh] = 0.0  # what the attention backward gives the ones column
-    return f(*lead, dh), f(*lead, dh), dva
+    return f(*lead, dh), f(*lead, dh), f(*lead, dh)
 
 
 # (D, H): the model's width and heads (dh = 64), two heads a GEMM tile of
@@ -168,7 +181,8 @@ def test_proj_backward_matches_pallas(is_global, width, heads):
     cots = _proj_cotangents(is_global, heads=heads, dh=width // heads)
     _, vjp = jax.vjp(lambda *a: jfp.adaln_qkv(*a, P=P, is_global=is_global, impl="pallas",
                                               interpret=True), *map(jnp.asarray, inputs))
-    ref = vjp(tuple(map(jnp.asarray, cots)))
+    # rap_tpu's va = [v | 1]: its ones column gets a zero cotangent from attention
+    ref = vjp(tuple(map(jnp.asarray, (*cots[:2], _with_column(cots[2], 0.0)))))
     got = _grads(lambda *a: fused_proj.adaln_qkv(*a, P=P, is_global=is_global), inputs,
                  cots)
     for name, g_, r_ in zip(("dx", "dada", "dw", "dgamma_q", "dgamma_k"), got, ref):

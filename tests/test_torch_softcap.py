@@ -86,10 +86,10 @@ def _headmajor_inputs(T, seed, softcap=CAP):
 def test_fixed_twin_matches_pallas():
     T = 256
     q, k, v, _ = _headmajor_inputs(T, seed=1)
-    vha = np.pad(v, ((0, 0), (0, 0), (0, 1)), constant_values=1.0)
+    vha = np.pad(v, ((0, 0), (0, 0), (0, 1)), constant_values=1.0)  # rap_tpu's va = [v | 1]
     bound = np.full((1,), CAP * fa.LOG2E, np.float32)
     out, lse = jpa._fwd_full_impl(*map(jnp.asarray, (q, k, vha, bound)), CAP, 128, 128, True)
-    got_o, got_l = fa.flash_fixed_plain(t(q), t(k), t(vha), float(bound[0]), CAP)
+    got_o, got_l = fa.flash_fixed_plain(t(q), t(k), t(v), float(bound[0]), CAP)
     _close(got_o, out, what="out")
     _close(got_l, np.asarray(lse)[:, 0], what="lse2")
 
@@ -100,8 +100,7 @@ def test_online_twin_with_mask_matches_pallas():
     mask = _key_mask(T)
     maski = jnp.asarray(mask.astype(np.int32))[:, None, :]
     out, lse = jpa._fwd_impl(*map(jnp.asarray, (q, k, v)), maski, CAP, 128, 128, True)
-    vha = np.pad(v, ((0, 0), (0, 0), (0, 1)), constant_values=1.0)
-    got_o, got_l = fa.flash_online_plain(t(q), t(k), t(vha), t(mask), H, CAP)
+    got_o, got_l = fa.flash_online_plain(t(q), t(k), t(v), t(mask), H, CAP)
     _close(got_o, out, what="out")
     lse = np.asarray(lse)[:, 0]
     live = slice(0, H)
@@ -118,7 +117,7 @@ def _bwd_case(masked, seed):
     out, lse = jpa._fwd_impl(jq, jk, jv, maski, CAP, 128, 128, True)
     vha = jnp.pad(jv, ((0, 0), (0, 0), (0, 1)), constant_values=1.0)
     jargs = (jq, jk, vha, maski, out, lse, jnp.asarray(dout), CAP, 128, 128, True)
-    targs = (t(q), t(k), t(vha), t(out), t(lse[:, 0]), t(dout), t(mask) if masked else None)
+    targs = (t(q), t(k), t(v), t(out), t(lse[:, 0]), t(dout), t(mask) if masked else None)
     return jargs, targs
 
 
@@ -137,8 +136,8 @@ def test_fused_backward_twin_matches_pallas(masked):
 def test_split_backward_twins_match_pallas(masked):
     jargs, targs = _bwd_case(masked, seed=4)
     ref = jpa._bwd_split_impl(*jargs, masked=masked)
-    q, k, vha, out, lse, dout, mask = targs
-    args = (q, k, vha, fa.augment_do(dout, out), lse, mask, H)
+    q, k, v, out, lse, dout, mask = targs
+    args = (q, k, v, dout, fa._neg_delta(dout, out), lse, mask, H)
     dk, dv = fa.flash_bwd_dkv_plain(*args, CAP)
     dq = fa.flash_bwd_dq_plain(*args, CAP)
     for name, g_, r_ in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
